@@ -243,7 +243,10 @@ class Stage1Trainer:
         tap = torch.zeros((self.capacity, 2), device=self.device, requires_grad=True)
         loss, radii, self.overflow = self._loss(params, tap, self.step, novel, bg, cond, size)
         loss.backward()
-        grads = {k: torch.nan_to_num(p.grad) for k, p in params.items()}
+        # A parameter (or the tap) that no loss term reached has no .grad:
+        # its gradient is zero, as jax.grad returns it.
+        grad = lambda t: torch.zeros_like(t) if t.grad is None else torch.nan_to_num(t.grad)  # noqa: E731
+        grads = {k: grad(p) for k, p in params.items()}
 
         lrs = {k: self.lr_schedules[k] for k in ("f_dc", "f_rest", "opacity", "scaling", "rotation")}
         lrs["xyz"] = self.lr_schedules["xyz"](self.step)
@@ -253,7 +256,7 @@ class Stage1Trainer:
                      <= opt.get("density_end_iter", 3000))
         if in_window:
             # CUDA reports dL/dmean2D in half-image units.
-            self.aux = accumulate_stats(self.aux, torch.nan_to_num(tap.grad) * (size / 2.0), radii)
+            self.aux = accumulate_stats(self.aux, grad(tap) * (size / 2.0), radii)
             if self.step % opt.get("densification_interval", 100) == 0:
                 split_noise = self.draw("split", (2, self.capacity, 3), "normal").to(self.device)
                 self.params, self.adam, self.aux, dropped = self._densify(

@@ -146,6 +146,21 @@ def test_train_steps_follow_jax_trainer(tmp_path):
     assert (tmp_path / "j.ply").read_bytes() == (tmp_path / "t.ply").read_bytes()
 
 
+def test_rgb_alpha_training_approaches_target():
+    """Without guidance, 40 steps on the known view pull the render toward
+    the reference (the JAX suite's overfit check, on the port)."""
+    rgb, mask = _target()
+    opt = _opt()
+    opt.update(iters=40, num_pts=256, warmup_rgb_loss=False, density_start_iter=10,
+               density_end_iter=30, densification_interval=10, opacity_reset_interval=10000)
+    tt = TTrainer(opt, ref_rgb=rgb, ref_mask=mask, capacity=512, device="cpu")
+    err0 = float(torch.mean((tt.render_view(tt.fixed_cam).image - tt.ref_rgb) ** 2))
+    losses = [float(tt.train_step()) for _ in range(40)]
+    err1 = float(torch.mean((tt.render_view(tt.fixed_cam).image - tt.ref_rgb) ** 2))
+    assert losses[-1] < 0.5 * losses[0], (losses[0], losses[-1])
+    assert err1 < 0.5 * err0, (err0, err1)
+
+
 def test_ladder_and_render_view():
     opt = _opt()
     opt["novel_resolutions"] = [32, 64, 128]
