@@ -40,9 +40,11 @@ def _np(x):
 
 
 def flax_random_params(module, *init_args, seed=0):
-    """Random flax parameters of ``module`` without compiling its init:
+    """Random flax parameters of ``module`` in its init's tree, as numpy:
     kernels ~ N(0, 1/fan_in), norm scales ~ 1 + N(0, 0.1^2), biases ~
-    N(0, 0.1^2), as numpy (shapes from jax.eval_shape)."""
+    N(0, 0.1^2). The tree comes from ``jax.eval_shape`` of the flax init
+    (nothing to compile); unlike the init's values (scales 1, biases 0),
+    these also test that norm and bias parameters are carried across."""
     rng = np.random.default_rng(seed)
 
     def draw(path, leaf):
