@@ -8,7 +8,7 @@
 // 40 f32 operations, a division and an expf on the CUDA cores, then a sum
 // of 10 gradient terms over the tile's pixels for every gaussian. It is
 // bound by operations and by that per-gaussian reduction across the block,
-// not by memory: a tile reads 40 bytes and writes 64 bytes per duplicate.
+// not by memory: a tile reads and writes 40 bytes per live duplicate.
 //
 // Design: one block of 256 threads per tile, each thread owning PPT pixels
 // (4 at tile 32, 1 at tile 16). Each thread walks its pixels back to front
@@ -19,11 +19,11 @@
 // (skipped when no lane of the warp has a contributing pair), each warp's
 // partial goes to shared memory, and after the chunk the first `chunk`
 // threads add the 8 partials in warp order, chain them to mean, conic and
-// log-opacity, and store the duplicate's 16 gradient rows. A duplicate
+// log-opacity, and store the duplicate's 10 gradient rows. A duplicate
 // slot belongs to exactly one tile, so no atomics are needed and the
-// result is deterministic. Chunks at or past the tile's largest n_contrib
-// get zero rows; slots outside every tile's range are zeroed by the
-// wrapper.
+// result is deterministic. The kernel writes nothing else: chunks at or
+// past the tile's largest n_contrib, rows 10-15 and slots outside every
+// tile's range keep the zeros the wrapper allocates.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,7 +36,6 @@ constexpr int kMaxChunk = 128;
 constexpr float kLogAlphaSkip = -5.541263545158426f;  // log(1/255)
 constexpr float kAlphaMax = 0.99f;
 constexpr int kOutCh = 8;
-constexpr int kFeatRows = 16;
 constexpr int kTerms = 10;  // s0..s5 (quadratic monomials), d rgb, d depth
 
 template <int PPT>
@@ -94,15 +93,10 @@ composite_bwd_kernel(const float* __restrict__ feat, int64_t k_total,
   __syncthreads();
   const int max_nc = s_max_nc;
 
-  for (int k = nc - 1; k >= 0; --k) {
+  // Chunks at or past max_nc are dead: no pixel reaches them.
+  const int k_live = min(nc, (max_nc + chunk - 1) / chunk);
+  for (int k = k_live - 1; k >= 0; --k) {
     const int64_t base = (int64_t)(cs + k) * chunk;
-    if (k * chunk >= max_nc) {  // dead chunk: no pixel reaches it
-      for (int idx = threadIdx.x; idx < kFeatRows * chunk; idx += kThreads) {
-        const int r = idx / chunk;
-        dfeat[r * k_total + base + (idx - r * chunk)] = 0.0f;
-      }
-      continue;
-    }
     __syncthreads();  // the previous chunk's epilogue is done with smem
     if (threadIdx.x < chunk) {
       const int64_t col = base + threadIdx.x;
@@ -202,8 +196,6 @@ composite_bwd_kernel(const float* __restrict__ feat, int64_t k_total,
       dfeat[5 * k_total + col] = s[0];
 #pragma unroll
       for (int c = 0; c < 4; ++c) dfeat[(6 + c) * k_total + col] = s[6 + c];
-#pragma unroll
-      for (int r = 10; r < kFeatRows; ++r) dfeat[r * k_total + col] = 0.0f;
     }
   }
 }

@@ -269,6 +269,8 @@ def composite_backward(dup_feat, chunk_starts, n_chunks, fwd_out, g_out, *,
     _check_inputs(dup_feat, chunk_starts, n_chunks, num_tiles, chunk, tile)
     _check_tiles("fwd_out", fwd_out, dup_feat.device, num_tiles, tile * tile)
     _check_tiles("g_out", g_out, dup_feat.device, num_tiles, tile * tile)
+    # The kernel writes rows 0-9 of live chunks only; these zeros are the
+    # rest (dead chunks, rows 10-15, slots outside every tile's range).
     d_feat = torch.zeros((FEAT_ROWS, dup_feat.shape[1]), dtype=torch.float32,
                          device=dup_feat.device)
     if num_tiles == 0:

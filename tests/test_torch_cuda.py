@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import K2_ATOL, K2_RTOL, grad_rows_agree
 from dreamgaussian_tpu_torch.ops import rasterize_cuda as tcu
 from dreamgaussian_tpu_torch.ops.binning import bin_gaussians
 from dreamgaussian_tpu_torch.ops.project import project_gaussians
@@ -70,8 +71,9 @@ def test_kernels_match_plain_versions(cuda_device, tile):
                     generator=torch.Generator(cuda_device).manual_seed(0))
     d_k = tcu.composite_backward(dup, bins.chunk_starts, bins.n_chunks, ref, g, **geo)
     d_r = tcu.composite_backward_ref(dup, bins.chunk_starts, bins.n_chunks, ref, g, **geo)
-    # Sums over the tile's pixels in another order: 1e-4 of the largest.
-    assert float((d_k - d_r).abs().max()) <= 1e-4 * float(d_r.abs().max())
+    # chip_smoke.py's K2 gate: elementwise in each gradient row, the
+    # absolute part scaled to that row's own largest |grad|.
+    assert grad_rows_agree(d_k, d_r, K2_RTOL, K2_ATOL)
 
 
 @pytest.mark.cuda
@@ -93,8 +95,10 @@ def test_render_on_card_matches_cpu(cuda_device):
         outs.append(out.image.detach().cpu())
         grads.append([t.grad.cpu() for t in (*args, tap)])
     assert float((outs[0] - outs[1]).abs().max()) <= 1e-3
+    # Per-gaussian gradients chain the per-duplicate ones through the
+    # projection: elementwise, as the CPU render test holds the port to JAX.
     for g_cpu, g_card in zip(*grads):
-        assert float((g_cpu - g_card).abs().max()) <= 1e-3 * float(g_cpu.abs().max()) + 1e-6
+        torch.testing.assert_close(g_card, g_cpu, rtol=1e-3, atol=1e-4 * float(g_cpu.abs().max()))
 
 
 @pytest.mark.cuda

@@ -195,6 +195,52 @@ def test_cuda_parity_golden_small_front():
                                atol=1e-3 * (np.abs(ref2d).max() + 1e-6), rtol=1e-2)
 
 
+def test_pair_work_counts_match_pixel_walk():
+    """chip_smoke.py's bound counts the pairs each kernel must evaluate;
+    they equal a front-to-back walk of every pixel, one pair at a time."""
+    from chip_smoke import pair_work
+
+    size, tile = 64, 16
+    p, _ = _jax_bins(size, tile, seed=1)
+    args = [_np(x) for x in (p.mean2d, p.depth, p.radius, p.conic, p.color, p.opacity)]
+    bins = tbin.bin_gaussians(*args[:3], size, size, chunk=CHUNK, tile=tile, conic=args[3],
+                              log_opacity=torch.log(args[5]))
+    dup = tras.build_feature_cols(args[0], args[1], args[3], args[4], args[5])
+    dup = dup.index_select(1, bins.dup_map).contiguous()
+    geo = dict(grid_x=size // tile, num_tiles=(size // tile) ** 2, chunk=CHUNK, tile=tile)
+    out = tcu.composite_forward_ref(dup, bins.chunk_starts, bins.n_chunks, **geo)
+
+    contrib = k1 = k2 = k1_slots = k2_slots = 0
+    x, y = (v.numpy() for v in tcu._pixel_coords(tile, "cpu"))
+    for t in range(geo["num_tiles"]):
+        start, n = int(bins.chunk_starts[t]) * CHUNK, int(bins.n_chunks[t]) * CHUNK
+        f = dup[:tcu.REAL_FEAT_ROWS, start:start + n].numpy()
+        f = f[:, f[5] > tcu.Q_SENTINEL / 2]            # the real (unpadded) list
+        cy, cx = divmod(t, geo["grid_x"])
+        mx, my = f[0] - (cx * tile + (tile - 1) / 2), f[1] - (cy * tile + (tile - 1) / 2)
+        walked = np.full(tile * tile, f.shape[1])
+        last = np.zeros(tile * tile, np.int64)
+        trans = np.ones(tile * tile, np.float32)
+        running = np.ones(tile * tile, bool)
+        for g in range(f.shape[1]):
+            dx, dy = x - mx[g], y - my[g]
+            powero = -0.5 * (f[2, g] * dx * dx + f[4, g] * dy * dy) - f[3, g] * dx * dy + f[5, g]
+            hit = running & (powero <= f[5, g]) & (powero >= tcu.LOG_ALPHA_SKIP)
+            one_m = 1.0 - np.minimum(np.exp(powero), tcu.ALPHA_MAX)
+            stops = hit & (trans * one_m < tcu.TERM_EPS)
+            adds = hit & ~stops
+            walked[stops] = g + 1
+            running &= ~stops
+            trans = np.where(adds, trans * one_m, trans)
+            last[adds] = g + 1
+            contrib += int(adds.sum())
+        k1, k2 = k1 + int(walked.sum()), k2 + int(last.sum())
+        k1_slots, k2_slots = k1_slots + int(walked.max()), k2_slots + int(last.max())
+    np.testing.assert_array_equal(out[:, 5].long().numpy().sum(), k2)
+    assert pair_work(dup, bins, out, **geo) == (contrib, k1 - contrib, k2 - contrib,
+                                                k1_slots, k2_slots)
+
+
 def test_wrappers_take_plain_version_on_cpu():
     p, jb = _jax_bins(64, 16, seed=1)
     feat = jras.build_feature_cols(p.mean2d, p.depth, p.conic, p.color, p.opacity)
