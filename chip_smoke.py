@@ -11,7 +11,17 @@
    every step launched K1 and K2; saves the PLY and loads it back;
 3. holds K1 and K2 against their plain PyTorch versions on the card at
    the main path's 512^2 shape, and times kernel and plain version;
-4. prints the ``kernels`` JSON line, the card's name and power limit, and
+4. exports a textured mesh at ``configs/image.yaml``'s sizes (16384
+   gaussians that fill a solid shape, field 128^3, remesh 0.015, decimate
+   to 100,000 faces, texture 1024^2, 26 bake views at 512^2) through
+   ``export_textured_mesh`` with the trainer's ``render_view`` as the
+   bake's renderer, once as OBJ and the write alone as GLB; reads both
+   back and checks them; prints the seconds of each stage, the peak memory
+   and the mesh's sizes; checks that the export launched K3 26 times and K1
+   at least 26 times;
+5. holds K3 against its plain version on the exported mesh under one of the
+   26 bake cameras (ids equal on every pixel, z to 1e-6) and times both;
+6. prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
 Needs a CUDA card; exits non-zero without one, and on any failed check.
@@ -72,6 +82,24 @@ SKIP_FLOPS_PER_PAIR = 12
 # exceeds it (the printed share per row shows the margin).
 K2_RTOL = 1e-4
 K2_ATOL = 1e-5
+# K3's bound counts, for each (triangle, tile) slot, the pixels of the tile
+# whose centre lies in the triangle's bounding box: a box test needs no
+# arithmetic on the pixel, and inside the box the three edge functions (15
+# operations) and the inside test (3: two min or max and a compare) must be
+# evaluated to decide coverage. A covering pair adds the three barycentric
+# products, the z sum and the depth compare (3 + 5 + 2).
+K3_FLOPS_PER_BOX_PAIR = 18
+K3_FLOPS_PER_COVER_PAIR = 10
+# The view of the 26 bake cameras that K3 is held at: elevation -45, azimuth 45.
+K3_BAKE_VIEW = 9
+# Least share of the 1024^2 albedo that the 26 views must cover before the
+# inpaint. The charts' bounding boxes fill about 0.7 of the texture by the
+# packer's design, a chart fills part of its box, and texels that face no
+# camera within the viewcos limit stay for the inpaint; the seeded cloud
+# gives 0.23.
+MIN_COVERED_SHARE = 0.15
+EXPORT_SIZES = {"mc_resolution": 128, "decimate_target": 100_000, "remesh_size": 0.015,
+                "texture_size": 1024, "bake_resolution": 512}
 GRAD_ROWS = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c", "log_opacity",
              "rgb_r", "rgb_g", "rgb_b", "depth")
 # Steps driven on the main path: eight at each rung of the ladder, those
@@ -193,11 +221,21 @@ def run_slice(seed: int) -> dict:
             "breakdown": breakdown}
 
 
+def device_ms_by_name(prof) -> dict:
+    """Device activity of a profile (kernels, copies, fills) in ms by name."""
+    from torch.autograd import DeviceType
+
+    by_name: dict = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return by_name
+
+
 def profiled_step(trainer):
     """One train step under torch.profiler: (loss, wall ms, breakdown) with
     device busy time by kernel name (CUDA activity)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -206,10 +244,7 @@ def profiled_step(trainer):
         loss = float(trainer.train_step())
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
-    by_name = {}   # device activity only (kernels, copies, fills)
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    by_name = device_ms_by_name(prof)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     host = sorted(((ev.key, ev.self_cpu_time_total / 1e3, ev.count)
@@ -401,6 +436,266 @@ def check_kernels(seed: int) -> list:
     return rows
 
 
+def surface_cloud(seed: int, n: int = 16384):
+    """A cloud with a surface at density 1, from the seed: ``n`` gaussians
+    filling a solid bumpy blob of radius about 0.6 (it fits the bake
+    cameras' frame), with scales that overlap (a few times the point
+    spacing's third) and opacities of 0.6 to 0.95; colours vary smoothly
+    with position. Returns the numpy parameter dict of the PLY layout."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(size=(n, 3))
+    phi, cos_t = 2 * np.pi * u[:, 1], 2 * u[:, 2] - 1
+    sin_t = np.sqrt(1 - cos_t ** 2)
+    d = np.stack([sin_t * np.cos(phi), cos_t, sin_t * np.sin(phi)], 1)
+    bumps = 1.0 + 0.15 * np.sin(3 * phi) * sin_t ** 2 + 0.1 * np.cos(4 * np.arccos(cos_t))
+    xyz = d * (0.58 * np.cbrt(u[:, 0]) * bumps)[:, None] * np.array([1.0, 0.85, 0.9])
+    rgb = 0.5 + 0.45 * np.sin(4.0 * xyz + np.array([0.0, 1.0, 2.0]))
+    opacity = rng.uniform(0.6, 0.95, size=(n, 1))
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return {
+        "xyz": f32(xyz),
+        "f_dc": f32((rgb - 0.5) / 0.28209479177387814)[:, None, :],
+        "f_rest": np.zeros((n, 0, 3), np.float32),
+        "opacity": f32(np.log(opacity / (1 - opacity))),
+        "scaling": f32(np.log(rng.uniform(0.035, 0.055, size=(n, 3)))),
+        "rotation": f32(rng.normal(size=(n, 4))),
+    }
+
+
+def run_export(seed: int, card: str) -> dict:
+    """Export a textured mesh from a seeded cloud through the trainer and
+    ``export_textured_mesh`` at full sizes; returns the mesh, the stage
+    seconds and the kernels' launch counts of the export."""
+    import numpy as np
+    import torch
+
+    from dreamgaussian_tpu_torch.meshing.export import export_textured_mesh
+    from dreamgaussian_tpu_torch.meshing.mesh import Mesh
+    from dreamgaussian_tpu_torch.ops import mesh_raster_cuda, rasterize_cuda
+    from dreamgaussian_tpu_torch.scene import GaussianAux, save_ply
+    from dreamgaussian_tpu_torch.train import Stage1Trainer
+    from dreamgaussian_tpu_torch.utils.config import Config
+    from dreamgaussian_tpu_torch.weights import cloud_from_numpy
+
+    cloud = surface_cloud(seed)
+    n = cloud["xyz"].shape[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        # The cloud enters the trainer as a user's would: as a PLY it loads.
+        ply = os.path.join(tmp, "cloud.ply")
+        params, alive = cloud_from_numpy(cloud, np.ones(n, bool), device="cuda")
+        zeros = torch.zeros(n, device="cuda")
+        save_ply(ply, params, GaussianAux(alive=alive, max_radii2d=zeros, grad_accum=zeros,
+                                          denom=zeros))
+        opt = Config({**IMAGE_OPTIONS, "load": ply})
+        trainer = Stage1Trainer(opt, capacity=opt["capacity"], seed=seed, device="cuda")
+        if trainer.capacity != n or int(trainer.aux.alive.sum()) != n:
+            raise RuntimeError("the trainer did not take the whole cloud")
+
+        for counts in (rasterize_cuda.LAUNCHES, mesh_raster_cuda.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stats: dict = {}
+        obj = os.path.join(tmp, "mesh.obj")
+        t0 = time.perf_counter()
+        mesh = export_textured_mesh(
+            trainer.params, trainer.aux.alive,
+            lambda cam: trainer.render_view(cam).image, obj,
+            fovy=trainer.fovy, radius=trainer.radius,
+            density_thresh=opt["density_thresh"], uv_cache_path=obj,
+            device="cuda", stats=stats, **EXPORT_SIZES,
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**rasterize_cuda.LAUNCHES, **mesh_raster_cuda.LAUNCHES}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+        t0 = time.perf_counter()
+        glb = os.path.join(tmp, "mesh.glb")
+        mesh.write(glb)
+        glb_s = time.perf_counter() - t0
+        sizes = {os.path.basename(f): os.path.getsize(os.path.join(tmp, f))
+                 for f in sorted(os.listdir(tmp))}
+        back_obj = Mesh.load(obj, resize=False)
+        back_glb = Mesh.load(glb, resize=False)
+
+    uv = mesh.vt[mesh.ft]                                          # [F, 3, 2]
+    e1, e2 = uv[:, 1] - uv[:, 0], uv[:, 2] - uv[:, 0]
+    atlas = float(0.5 * np.abs(e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]).sum())
+    stage_names = ("field_s", "isosurface_s", "clean_remesh_decimate_s", "uv_s", "bake_s",
+                   "inpaint_s", "write_s")
+    stages = {k: round(stats[k], 3) for k in stage_names}
+    print(f"[export] {wall:.1f} s in all; stages {json.dumps(stages)}; GLB write "
+          f"{glb_s:.2f} s; bake share of the export {stats['bake_s'] / wall:.3f}; "
+          f"peak memory {peak_gib:.2f} GiB; card '{card}'")
+    print(f"[export] field max {stats['occ_max']:.1f}, isosurface {stats['isosurface_faces']} "
+          f"faces -> mesh {stats['vertices']} vertices, {stats['faces']} faces, "
+          f"{stats['uv_vertices']} uv vertices; albedo covered before the inpaint "
+          f"{stats['covered_share']:.3f} of the texture (floor {MIN_COVERED_SHARE}); sum of the "
+          f"uv triangles' areas {atlas:.3f} of the unit square; files {json.dumps(sizes)}; "
+          f"launches {launches}")
+
+    nf = len(mesh.f)
+    if not 0 < nf <= EXPORT_SIZES["decimate_target"]:
+        raise RuntimeError(f"the mesh has {nf} faces")
+    if mesh.ft.min() < 0 or mesh.ft.max() >= len(mesh.vt) or mesh.f.max() >= len(mesh.v):
+        raise RuntimeError("a face index is out of range")
+    if mesh.vt.min() < 0.0 or mesh.vt.max() > 1.0:
+        raise RuntimeError("a uv coordinate lies outside [0, 1]")
+    size = EXPORT_SIZES["texture_size"]
+    if mesh.albedo.shape != (size, size, 3) or not np.isfinite(mesh.albedo).all():
+        raise RuntimeError("the albedo is not a finite texture of the asked size")
+    if stats["covered_share"] < MIN_COVERED_SHARE:
+        raise RuntimeError(f"the bake covered {stats['covered_share']:.3f} of the albedo")
+    if launches["ztest"] != 26 or launches["composite_fwd"] < 26:
+        raise RuntimeError(f"the export did not go through the kernels: {launches}")
+    # OBJ prints six decimals and stores v flipped; GLB keeps float32 bits.
+    flipped = np.stack([mesh.vt[:, 0], 1.0 - mesh.vt[:, 1]], 1)
+    for name, back, vt, atol in (("OBJ", back_obj, flipped, 1e-6), ("GLB", back_glb, mesh.vt, 0.0)):
+        if not (np.array_equal(back.f, mesh.f)
+                and np.abs(back.v - mesh.v).max() <= atol
+                and np.abs(back.vt - vt).max() <= atol
+                and np.abs(back.albedo - np.clip(mesh.albedo, 0, 1)).max() <= 1 / 255):
+            raise RuntimeError(f"the {name} did not read back as written")
+    print(f"[export] OBJ and GLB read back: v, f, vt equal (OBJ to 1e-6), albedo within 1/255")
+    profiled_bake(mesh, trainer)
+    return {"mesh": mesh, "stats": stats, "launches": launches, "wall_s": wall,
+            "peak_gib": peak_gib}
+
+
+def profiled_bake(mesh, trainer) -> None:
+    """The 26-view bake once more under torch.profiler (no inpaint): wall
+    time against device busy time, with the kernels' shares."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dreamgaussian_tpu_torch.meshing.export import bake_texture
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        bake_texture(mesh, lambda cam: trainer.render_view(cam).image, fovy=trainer.fovy,
+                     radius=trainer.radius, texture_size=EXPORT_SIZES["texture_size"],
+                     render_resolution=EXPORT_SIZES["bake_resolution"],
+                     min_resolution=min(256, EXPORT_SIZES["texture_size"] // 4),
+                     inpaint=False, device="cuda")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+    by_name = device_ms_by_name(prof)
+    busy = sum(by_name.values())
+    launched = sum(ev.count for ev in prof.key_averages() if ev.key == "cudaLaunchKernel")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print("[profile] " + json.dumps({
+        "bake_wall_ms_under_profiler": ms, "device_busy_ms": busy,
+        "idle_share_under_profiler": 1.0 - busy / ms if ms > 0 else None,
+        "ztest_ms": sum(v for k, v in by_name.items() if "ztest" in k),
+        "composite_fwd_ms": sum(v for k, v in by_name.items() if "composite_fwd" in k),
+        "kernels_launched": launched,
+        "top": [(k[:60], round(v, 3)) for k, v in top],
+    }))
+
+
+def ztest_pair_work(dup_feat, bins, *, grid_x, num_tiles, chunk, tile):
+    """Work this run's data gives K3: (real slots, (pixel, triangle) pairs
+    with the pixel centre inside the triangle's bounding box and the tile,
+    covering pairs by the plain version's inside test)."""
+    import torch
+
+    from dreamgaussian_tpu_torch.ops import mesh_raster_cuda as mr
+
+    dev = dup_feat.device
+    n_slots = int(bins.n_chunks.sum()) * chunk
+    f = dup_feat[:, :n_slots]
+    real = f[9] > 0.0
+    tile_of = torch.repeat_interleave(torch.arange(num_tiles, device=dev), bins.n_chunks.long() * chunk,
+                                      output_size=n_slots)
+    ty = tile_of // grid_x
+    tx = tile_of - ty * grid_x
+
+    def span(lo, hi, origin):
+        # integer pixel centres in [lo, hi], clipped to the tile's [origin, origin + tile - 1]
+        first = torch.maximum(torch.ceil(lo), (origin * tile).float())
+        last = torch.minimum(torch.floor(hi), (origin * tile + tile - 1).float())
+        return torch.clamp_min(last - first + 1.0, 0.0)
+
+    xs, ys = f[0:6:2], f[1:6:2]
+    box = span(xs.amin(0), xs.amax(0), tx) * span(ys.amin(0), ys.amax(0), ty)
+    box_pairs = int(torch.where(real, box, torch.zeros_like(box)).sum())
+    px, py = mr._pixel_centres(num_tiles, grid_x, tile, dev)
+    cover = 0
+    for j in range(int(bins.n_chunks.max())):
+        valid, _, _ = mr._chunk_coverage(dup_feat, bins.chunk_starts, bins.n_chunks, j, chunk, px, py)
+        cover += int(valid.sum())
+    return int(real.sum()), box_pairs, cover
+
+
+def check_ztest(mesh, fovy: float, radius: float) -> dict:
+    """K3 against its plain version at the bake's shape: the exported mesh
+    under one of the 26 bake cameras at 512^2, tile 32, chunk 128."""
+    import numpy as np
+    import torch
+
+    from dreamgaussian_tpu_torch.meshing.export import BAKE_HORS, BAKE_VERS
+    from dreamgaussian_tpu_torch.ops import mesh_raster_cuda as mr
+    from dreamgaussian_tpu_torch.ops.binning import bin_rects
+    from dreamgaussian_tpu_torch.ops.mesh_raster import triangle_features
+    from dreamgaussian_tpu_torch.utils.camera import Camera, orbit_camera
+
+    dev = torch.device("cuda")
+    size, tile, chunk = EXPORT_SIZES["bake_resolution"], 32, 128
+    grid_x, num_tiles = size // tile, (size // tile) ** 2
+    cam = Camera.from_pose(orbit_camera(BAKE_VERS[K3_BAKE_VIEW], BAKE_HORS[K3_BAKE_VIEW], radius),
+                           size, size, fovy, fovy)
+    v = torch.as_tensor(mesh.v, dtype=torch.float32, device=dev)
+    v_h = torch.cat([v, torch.ones((v.shape[0], 1), device=dev)], dim=1)
+    v_clip = v_h @ torch.as_tensor(cam.arrays()["full_proj"], device=dev).T
+    faces = torch.as_tensor(np.asarray(mesh.f), dtype=torch.int64, device=dev)
+    feat_cols, xmin, ymin, xmax, ymax, ok = triangle_features(v_clip, faces, size, size, tile)
+    bins = bin_rects(xmin, ymin, xmax, ymax, ok, grid_x=grid_x, num_tiles=num_tiles, chunk=chunk)
+    dup_feat = feat_cols.index_select(1, bins.dup_map).contiguous()
+    geo = dict(grid_x=grid_x, num_tiles=num_tiles, chunk=chunk, tile=tile)
+    cs, nc = bins.chunk_starts, bins.n_chunks
+
+    before = mr.LAUNCHES["ztest"]
+    ids, z = mr.ztest(dup_feat, cs, nc, **geo)
+    r_ids, r_z = mr.ztest_ref(dup_feat, cs, nc, **geo)
+    torch.cuda.synchronize()
+    if mr.LAUNCHES["ztest"] != before + 1:
+        raise RuntimeError("the K3 wrapper did not count its launch")
+    differing = int((ids != r_ids).sum())
+    z_err = float((z - r_z).abs().max())
+    covered = float((r_ids > 0).float().mean())
+    print(f"[kernels] K3 at {size}^2 on {faces.shape[0]} faces (bake view {K3_BAKE_VIEW}): "
+          f"{int(bins.num_dups)} duplicates, {int(nc.sum())} chunks (longest tile "
+          f"{int(nc.max())}), pixels covered {covered:.3f}, pixels with another id "
+          f"{differing}, max abs z err {z_err:.3e}")
+    if differing != 0 or not z_err <= 1e-6 or covered < 0.05:
+        raise RuntimeError("K3 disagrees with its plain version")
+
+    ms = cuda_ms(lambda: mr.ztest(dup_feat, cs, nc, **geo), 20)
+    plain = cuda_ms(lambda: mr.ztest_ref(dup_feat, cs, nc, **geo), 3, 1)
+    slots, box_pairs, cover_pairs = ztest_pair_work(dup_feat, bins, **geo)
+    byts = slots * 40 + 8 * num_tiles + num_tiles * tile * tile * 8
+    flops = box_pairs * K3_FLOPS_PER_BOX_PAIR + cover_pairs * K3_FLOPS_PER_COVER_PAIR
+    t_bytes = byts / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    all_pairs = slots * tile * tile
+    print(f"[kernels] K3 work: {slots} real slots, {box_pairs} (pixel, triangle) pairs inside "
+          f"a bounding box of {all_pairs} in the tiles' lists, {cover_pairs} covering; "
+          f"{byts} bytes, {flops} operations")
+    print(f"[kernels] ztest: {ms:.4f} ms, plain {plain:.3f} ms, bound "
+          f"{max(t_bytes, t_ops):.5f} ms ({'bytes' if t_bytes >= t_ops else 'operations'})")
+    return {
+        "name": "ztest", "route": "cuda", "source": "dreamgaussian_tpu_torch/csrc/ztest.cu",
+        "replaces": "dreamgaussian_tpu/ops/mesh_raster_pallas.py:48", "launches": None,
+        "max_abs_err": z_err, "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -419,8 +714,12 @@ def main() -> int:
     print(f"[toolchain] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} nvcc '{nvcc}' card '{card}'")
     t0 = time.perf_counter()
-    cuda_build.build(["composite_fwd", "composite_bwd"], verbose=True)
+    cuda_build.build(["composite_fwd", "composite_bwd", "ztest"], verbose=True)
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s")
+    from dreamgaussian_tpu_torch import native
+
+    t0 = time.perf_counter()
+    print(f"[build] mesh tools {native.build().name} ready in {time.perf_counter() - t0:.1f} s")
 
     result = run_slice(args.seed)
     by_step = {row["step"]: row["ms"] for row in result["steps"]}
@@ -440,6 +739,12 @@ def main() -> int:
     kernels = check_kernels(args.seed)
     for row in kernels:
         row["launches"] = result["launches"][row["name"]]
+
+    export = run_export(args.seed, card)
+    k3 = check_ztest(export["mesh"], math.radians(IMAGE_OPTIONS["fovy"]), IMAGE_OPTIONS["radius"])
+    k3["launches"] = export["launches"]["ztest"]
+    kernels[0]["launches_export"] = export["launches"]["composite_fwd"]
+    kernels.append(k3)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,186 @@
+"""ctypes loader for the port's host-side mesh tools (``csrc/mesh_tools.cpp``).
+
+Port of ``dreamgaussian_tpu/native/__init__.py`` with its own copy of the
+source. The shared library is compiled at first use into ``build/native/``
+at the root of the checkout, under a name that carries the hash of the
+source and the flags, so an edited source is rebuilt. The host compiler is
+``g++``; where there is none, the same file goes through ``nvcc``, which
+drives its own host compiler. The flags name no machine-specific
+instruction set (no ``-march=native``). A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+SRC = Path(__file__).resolve().parent / "csrc" / "mesh_tools.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "native"
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+_LOCK = threading.Lock()
+_LIB = None
+
+
+def _compile_command(out: Path) -> list[str]:
+    gxx = shutil.which("g++")
+    if gxx:
+        return [gxx, *CXX_FLAGS, str(SRC), "-o", str(out)]
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(nvcc):
+        return [nvcc, "-x", "c++", "-O3", "-std=c++17", "-shared", "-Xcompiler",
+                "-fPIC", str(SRC), "-o", str(out)]
+    raise RuntimeError("neither g++ nor nvcc found: cannot build the mesh tools")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SRC.read_bytes() + " ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"libmesh_tools-{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the mesh tools if their library is missing; returns its path."""
+    so = library_path()
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(_compile_command(tmp), capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {SRC.name} failed:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+    return so
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            dp = ctypes.POINTER(ctypes.c_double)
+            ip = ctypes.POINTER(ctypes.c_int32)
+            lib.clean_mesh.argtypes = [
+                dp, ctypes.c_int, ip, ctypes.c_int,
+                ctypes.c_double, ctypes.c_double, dp, ip, ip, ip,
+            ]
+            lib.decimate_mesh.argtypes = [
+                dp, ctypes.c_int, ip, ctypes.c_int, ctypes.c_int,
+                dp, ip, ip, ip,
+            ]
+            lib.laplacian_smooth.argtypes = [
+                dp, ctypes.c_int, ip, ctypes.c_int,
+                ctypes.c_int, ctypes.c_double,
+            ]
+            lib.isotropic_remesh.argtypes = [
+                dp, ctypes.c_int, ip, ctypes.c_int,
+                ctypes.c_double, ctypes.c_int,
+                dp, ctypes.c_int32, ip, ip, ctypes.c_int32, ip,
+            ]
+            for fn in (lib.clean_mesh, lib.decimate_mesh, lib.laplacian_smooth,
+                       lib.isotropic_remesh):
+                fn.restype = ctypes.c_int
+            _LIB = lib
+    return _LIB
+
+
+def _as_c(verts: np.ndarray, faces: np.ndarray):
+    """Contiguous float64 [V, 3] vertices and int32 [F, 3] faces; the native
+    code indexes without checks, so the faces are checked here."""
+    v = np.ascontiguousarray(verts, dtype=np.float64)
+    f = np.ascontiguousarray(faces, dtype=np.int32)
+    if v.ndim != 2 or v.shape[1] != 3 or f.ndim != 2 or f.shape[1] != 3:
+        raise ValueError(f"expected [V, 3] vertices and [F, 3] faces, got {v.shape} and {f.shape}")
+    if f.size and (f.min() < 0 or f.max() >= len(v)):
+        raise ValueError("a face index lies outside the vertex array")
+    return v, f
+
+
+def _dptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
+def _iptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _check(ret: int, name: str) -> None:
+    if ret != 0:
+        raise RuntimeError(f"{name} failed with code {ret}")
+
+
+def clean_mesh(
+    verts: np.ndarray,
+    faces: np.ndarray,
+    weld_eps: float = 1e-6,
+    min_comp_frac: float = 0.1,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Weld near-duplicate vertices, drop degenerate faces, unreferenced
+    vertices, and connected components smaller than ``min_comp_frac`` of
+    the largest."""
+    v, f = _as_c(verts, faces)
+    out_v = np.empty_like(v)
+    out_f = np.empty_like(f)
+    nv = np.zeros(1, np.int32)
+    nf = np.zeros(1, np.int32)
+    _check(_lib().clean_mesh(
+        _dptr(v), len(v), _iptr(f), len(f), weld_eps, min_comp_frac,
+        _dptr(out_v), _iptr(nv), _iptr(out_f), _iptr(nf),
+    ), "clean_mesh")
+    return out_v[: nv[0]].copy(), out_f[: nf[0]].copy()
+
+
+def decimate_mesh(
+    verts: np.ndarray, faces: np.ndarray, target_faces: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Quadric edge-collapse to about ``target_faces`` faces."""
+    v, f = _as_c(verts, faces)
+    out_v = np.empty_like(v)
+    out_f = np.empty_like(f)
+    nv = np.zeros(1, np.int32)
+    nf = np.zeros(1, np.int32)
+    _check(_lib().decimate_mesh(
+        _dptr(v), len(v), _iptr(f), len(f), int(target_faces),
+        _dptr(out_v), _iptr(nv), _iptr(out_f), _iptr(nf),
+    ), "decimate_mesh")
+    return out_v[: nv[0]].copy(), out_f[: nf[0]].copy()
+
+
+def isotropic_remesh(
+    verts: np.ndarray, faces: np.ndarray, target_len: float,
+    n_iter: int = 5,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Botsch-Kobbelt isotropic explicit remeshing toward a uniform
+    target edge length."""
+    v, f = _as_c(verts, faces)
+    # Capacity: expected face count at the target length (equilateral
+    # tiling of the surface area) with generous headroom.
+    p0, p1, p2 = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
+    area = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0), axis=1).sum()
+    est_f = int(area / (np.sqrt(3) / 4.0 * target_len ** 2 + 1e-18))
+    cap_f = max(len(f), est_f) * 3 + 1024
+    cap_v = cap_f // 2 + 1024
+    out_v = np.empty((cap_v, 3), np.float64)
+    out_f = np.empty((cap_f, 3), np.int32)
+    nv = np.zeros(1, np.int32)
+    nf = np.zeros(1, np.int32)
+    _check(_lib().isotropic_remesh(
+        _dptr(v), len(v), _iptr(f), len(f), float(target_len), int(n_iter),
+        _dptr(out_v), cap_v, _iptr(nv), _iptr(out_f), cap_f, _iptr(nf),
+    ), "isotropic_remesh")
+    return out_v[: nv[0]].copy(), out_f[: nf[0]].copy()
+
+
+def laplacian_smooth(
+    verts: np.ndarray, faces: np.ndarray, n_iter: int = 2, lam: float = 0.5
+) -> np.ndarray:
+    """Uniform Laplacian smoothing; returns the moved vertices."""
+    v, f = _as_c(verts, faces)
+    _check(_lib().laplacian_smooth(
+        _dptr(v), len(v), _iptr(f), len(f), int(n_iter), float(lam),
+    ), "laplacian_smooth")
+    return v

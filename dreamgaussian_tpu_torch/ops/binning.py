@@ -1,4 +1,4 @@
-"""Tile binning for the Gaussian rasterizer (plain torch ops).
+"""Tile binning for the Gaussian and triangle rasterizers (plain torch ops).
 
 Port of ``dreamgaussian_tpu/ops/binning.py`` in the CUDA reference's
 design, without the static slot classes that XLA's fixed shapes needed:
@@ -17,6 +17,10 @@ design, without the static slot classes that XLA's fixed shapes needed:
 One host read per render, of the rect-cell total, sizes the pair arrays
 (as the CUDA reference reads its duplicate count). Binning is exact:
 nothing is dropped, so ``overflow`` is always 0.
+
+``bin_rects`` bins any elements with integer tile rects in index order
+(the mesh rasterizer's triangles) through the same expansion, sort and
+layout.
 """
 
 from __future__ import annotations
@@ -125,18 +129,7 @@ def bin_gaussians(
     rank[order] = torch.arange(n, dtype=torch.int64, device=dev)
 
     xmin, ymin, xmax, ymax = tile_rect(mean2d, radius, width, height, tile)
-    rect_w = (xmax - xmin).to(torch.int64)
-    cells = torch.where(valid_g, rect_w * (ymax - ymin).to(torch.int64),
-                        torch.zeros_like(rect_w))
-    total = int(cells.sum())                      # the one host read
-
-    gid = torch.repeat_interleave(torch.arange(n, device=dev), cells,
-                                  output_size=total)
-    first = torch.cumsum(cells, 0) - cells
-    local = torch.arange(total, device=dev) - first[gid]
-    w_g = torch.clamp_min(rect_w[gid], 1)
-    ty = ymin[gid].to(torch.int64) + local // w_g
-    tx = xmin[gid].to(torch.int64) + local % w_g
+    gid, tx, ty = _expand_rects(xmin, ymin, xmax, ymax, valid_g)
     tile_id = ty * grid_x + tx
 
     if conic is not None and log_opacity is not None:
@@ -149,7 +142,35 @@ def bin_gaussians(
                                  c[:, 0], c[:, 1], c[:, 2], q_budget)
         tile_id = torch.where(keep, tile_id, torch.full_like(tile_id, num_tiles))
 
-    key = tile_id * n + rank[gid]
+    return _aligned_lists(tile_id, gid, rank[gid], n, num_tiles, chunk)
+
+
+def _expand_rects(xmin, ymin, xmax, ymax, valid):
+    """One (element, tile) pair per cell of each valid element's rect
+    [min, max): (element index [P], tile x [P], tile y [P]), int64. Reads
+    the pair total back to the host, the one read of a binning call."""
+    dev = xmin.device
+    n = xmin.shape[0]
+    rect_w = (xmax - xmin).to(torch.int64)
+    cells = torch.where(valid, rect_w * (ymax - ymin).to(torch.int64),
+                        torch.zeros_like(rect_w))
+    total = int(cells.sum())                      # the one host read
+    gid = torch.repeat_interleave(torch.arange(n, device=dev), cells,
+                                  output_size=total)
+    first = torch.cumsum(cells, 0) - cells
+    local = torch.arange(total, device=dev) - first[gid]
+    w_g = torch.clamp_min(rect_w[gid], 1)
+    ty = ymin[gid].to(torch.int64) + local // w_g
+    tx = xmin[gid].to(torch.int64) + local % w_g
+    return gid, tx, ty
+
+
+def _aligned_lists(tile_id, gid, rank, n: int, num_tiles: int, chunk: int) -> BinnedTiles:
+    """Sort pairs by (tile, rank) and lay the per-tile lists out chunk
+    aligned. ``tile_id == num_tiles`` marks a culled pair; ``rank`` < n."""
+    dev = tile_id.device
+    total = tile_id.shape[0]
+    key = tile_id * n + rank
     skey, perm = torch.sort(key)
     s_tile = skey // n
     s_gid = gid[perm]
@@ -176,3 +197,15 @@ def bin_gaussians(
         num_dups=counts.sum(),
         overflow=torch.zeros((), dtype=torch.int32, device=dev),
     )
+
+
+@torch.no_grad()
+def bin_rects(xmin, ymin, xmax, ymax, valid, *, grid_x: int, num_tiles: int,
+              chunk: int = 128) -> BinnedTiles:
+    """Bin elements by their integer tile rects [min, max) into chunk-aligned
+    per-tile lists in element-index order (the mesh rasterizer's triangle
+    binning). ``valid`` [F] bool drops elements. Nothing is truncated: an
+    element reaches every tile of its rect.
+    """
+    gid, tx, ty = _expand_rects(xmin, ymin, xmax, ymax, valid)
+    return _aligned_lists(ty * grid_x + tx, gid, gid, xmin.shape[0], num_tiles, chunk)

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from . import sh as sh_ops
+from .clamp import clamp_tie
 from .quat import build_covariance6
 
 
@@ -70,8 +71,8 @@ def project_gaussians(
     limx = 1.3 * tanfovx
     limy = 1.3 * tanfovy
     tz = depth
-    txtz = torch.clamp(pv_x / tz, -limx, limx)
-    tytz = torch.clamp(pv_y / tz, -limy, limy)
+    txtz = clamp_tie(pv_x / tz, -limx, limx)
+    tytz = clamp_tie(pv_y / tz, -limy, limy)
     tx = txtz * tz
     ty = tytz * tz
 
@@ -113,8 +114,8 @@ def project_gaussians(
         radius = torch.where(valid, radius_f, torch.zeros_like(radius_f)).to(torch.int32)
 
     dirs = xyz - campos[None, :]
-    dirs = dirs / torch.clamp_min(torch.linalg.norm(dirs, dim=-1, keepdim=True), 1e-12)
-    color = torch.clamp_min(sh_ops.eval_sh(sh_degree, shs, dirs) + 0.5, 0.0)
+    dirs = dirs / clamp_tie(torch.linalg.norm(dirs, dim=-1, keepdim=True), 1e-12)
+    color = clamp_tie(sh_ops.eval_sh(sh_degree, shs, dirs) + 0.5, 0.0)
 
     return ProjectedGaussians(
         mean2d=mean2d, depth=depth, conic=conic, color=color,

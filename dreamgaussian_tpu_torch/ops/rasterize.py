@@ -19,6 +19,7 @@ import torch
 
 from .. import resolve_device
 from .binning import TILE, bin_gaussians
+from .clamp import clamp_tie
 from .project import project_gaussians
 from .rasterize_cuda import (
     FEAT_ROWS,
@@ -156,6 +157,6 @@ def render_gaussians(
         width, height, bg, tile=tile,
     )
     return GaussianRender(
-        image=torch.clamp(image, 0.0, 1.0), depth=dep, alpha=alpha,
+        image=clamp_tie(image, 0.0, 1.0), depth=dep, alpha=alpha,
         radii=proj.radius, overflow=overflow,
     )

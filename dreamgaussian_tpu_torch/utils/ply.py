@@ -1,9 +1,10 @@
-"""Self-contained PLY reader/writer for the GS-standard gaussian layout.
+"""Self-contained PLY reader/writer for gaussian clouds and triangle meshes.
 
 The port's copy of the binary path of ``dreamgaussian_tpu/utils/ply.py``:
-a single ``vertex`` element of float32 properties
-x,y,z,nx,ny,nz,f_dc_*,f_rest_*,opacity,scale_*,rot_*. Output is
-byte-identical to the JAX package's writer.
+for gaussians a single ``vertex`` element of float32 properties
+x,y,z,nx,ny,nz,f_dc_*,f_rest_*,opacity,scale_*,rot_*; for meshes a
+``vertex`` element and a ``face`` element of triangle index lists. Output
+is byte-identical to the JAX package's writer.
 """
 
 from __future__ import annotations
@@ -42,8 +43,9 @@ def write_ply(path: str, elements: Mapping[str, np.ndarray]) -> None:
 
 
 def read_ply(path: str) -> dict[str, np.ndarray]:
-    """Read a binary little-endian PLY of scalar properties ->
-    {element name: structured numpy array}."""
+    """Read a binary little-endian PLY -> {element name: structured numpy
+    array}. An element that is one list property of fixed arity (triangle
+    faces) comes back as an int32 [F, K] array under ``<element>_indices``."""
     with open(path, "rb") as f:
         data = f.read()
     header_end = data.find(b"end_header")
@@ -62,14 +64,28 @@ def read_ply(path: str) -> dict[str, np.ndarray]:
             elements.append((parts[1], int(parts[2]), []))
         elif parts[0] == "property":
             if parts[1] == "list":
-                raise ValueError("list properties are not supported here")
-            elements[-1][2].append((parts[2], _PLY_DTYPES[parts[1]]))
+                elements[-1][2].append((parts[4], ("list", _PLY_DTYPES[parts[2]],
+                                                   _PLY_DTYPES[parts[3]])))
+            else:
+                elements[-1][2].append((parts[2], _PLY_DTYPES[parts[1]]))
     if fmt != "binary_little_endian":
         raise ValueError(f"unsupported PLY format: {fmt}")
     body = data[header_end:]
     out: dict[str, np.ndarray] = {}
     offset = 0
     for name, count, props in elements:
+        if any(isinstance(t, tuple) for _, t in props):
+            if len(props) != 1:
+                raise ValueError("an element mixing list and scalar properties is not supported")
+            _, (_, cnt_t, idx_t) = props[0]
+            arity = int(np.frombuffer(body, "<" + cnt_t, 1, offset)[0]) if count else 3
+            row = np.dtype([("n", "<" + cnt_t), ("idx", "<" + idx_t, (arity,))])
+            rows = np.frombuffer(body, dtype=row, count=count, offset=offset)
+            if not (rows["n"] == arity).all():
+                raise ValueError("face lists of mixed arity are not supported")
+            out[name + "_indices"] = rows["idx"].astype(np.int32)
+            offset += row.itemsize * count
+            continue
         dtype = np.dtype([(p, "<" + t) for p, t in props])
         out[name] = np.frombuffer(body, dtype=dtype, count=count, offset=offset).copy()
         offset += dtype.itemsize * count
@@ -84,3 +100,25 @@ def structured_from_columns(columns: Mapping[str, np.ndarray]) -> np.ndarray:
     for name, col in columns.items():
         arr[name] = np.asarray(col, dtype=np.float32).reshape(n)
     return arr
+
+
+def write_ply_with_faces(path: str, vertices: np.ndarray, faces: np.ndarray) -> None:
+    """Write a binary mesh PLY: structured vertex element + triangle faces
+    (``property list uchar int vertex_indices``)."""
+    faces = np.ascontiguousarray(faces, dtype="<i4")
+    with open(path, "wb") as f:
+        header = ["ply", "format binary_little_endian 1.0",
+                  f"element vertex {len(vertices)}"]
+        for prop in vertices.dtype.names:
+            header.append(f"property {_INV_DTYPES[vertices.dtype[prop].str[1:]]} {prop}")
+        header += [
+            f"element face {len(faces)}",
+            "property list uchar int vertex_indices",
+            "end_header",
+        ]
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        f.write(vertices.astype(vertices.dtype.newbyteorder("<")).tobytes())
+        rows = np.empty(len(faces), dtype=[("n", "u1"), ("idx", "<i4", (3,))])
+        rows["n"] = 3
+        rows["idx"] = faces
+        f.write(rows.tobytes())

@@ -4,7 +4,8 @@ Takes nested dicts of numpy arrays (as ``jax.device_get`` returns them)
 and returns the port's tensors, so both packages can run on identical
 weights. Imports neither JAX nor flax.
 
-- gaussians: the ``params`` dict and the ``GaussianAux`` fields;
+- gaussians: the ``params`` dict with the ``GaussianAux`` fields, or with
+  the ``alive`` mask alone;
 - flax modules: conv kernels HWIO -> OIHW, ``Dense`` kernels [in, out] ->
   ``Linear`` [out, in], GroupNorm/LayerNorm ``scale`` -> ``weight``; the
   flax module path becomes the torch parameter name (GroupNorm32 wraps
@@ -39,6 +40,14 @@ def gaussians_from_numpy(params: Mapping, aux, device="cpu") -> tuple[dict, Gaus
         denom=_tensor(fields["denom"], device).float(),
     )
     return new_params, new_aux
+
+
+def cloud_from_numpy(params: Mapping, alive, device="cpu") -> tuple[dict, torch.Tensor]:
+    """JAX padded ``params`` and ``alive`` mask as numpy -> the port's
+    tensors, for the entry points that take a cloud without its statistics
+    (the mesh export)."""
+    return ({k: _tensor(v, device).float() for k, v in params.items()},
+            _tensor(alive, device).bool())
 
 
 def flax_state_dict(tree: Mapping, device="cpu") -> dict[str, torch.Tensor]:

@@ -105,3 +105,60 @@ def test_project_values_and_grads(sh_degree):
         ref = np.asarray(jgr)
         np.testing.assert_allclose(tg.grad.numpy(), ref, rtol=1e-4,
                                    atol=1e-5 * np.abs(ref).max(), err_msg=name)
+
+
+def _zero_colour_sh():
+    """A float32 SH DC coefficient c with fl(C0 * c) + 0.5 == 0 exactly, so
+    the colour sits on its floor of 0."""
+    c0 = np.float32(0.28209479177387814)
+    c = np.float32(-0.5) / c0
+    for _ in range(64):
+        if c0 * c + np.float32(0.5) == 0:
+            return c
+        c = np.nextafter(c, np.float32(0.0 if c0 * c < np.float32(-0.5) else -10.0))
+    raise AssertionError("no float32 coefficient gives a colour of exactly 0")
+
+
+def test_gradient_at_clamp_ties_matches_jax():
+    """Values exactly on a bound: jnp.clip / jnp.maximum pass half of the
+    gradient there and the port's clamp does the same. Gaussian 0 has
+    pv_x / tz exactly on the frustum clamp +1.3*tanfovx (identity view);
+    gaussian 1 has a colour of exactly 0."""
+    view = np.eye(4, dtype=np.float32)
+    tan = np.float32(0.5)
+    proj = np.zeros((4, 4), np.float32)
+    proj[0, 0] = proj[1, 1] = 1.0 / tan
+    proj[3, 2] = 1.0
+    proj[2, 2], proj[2, 3] = 100 / 99.99, -1.0 / 99.99
+    lim = np.float32(1.3) * tan
+    xyz = np.array([[lim, 0.1, 1.0], [0.2, -0.1, 2.0], [-0.3, 0.2, 1.5]], np.float32)
+    scale = np.full((3, 3), 0.05, np.float32) * np.array([[1.0, 2.0, 0.5]], np.float32)
+    quat = np.array([[1, 0.2, 0.1, 0.3], [0.5, 0.5, 0.1, 0.2], [1, 0, 0, 0]], np.float32)
+    shs = np.full((3, 1, 3), 0.4, np.float32)
+    shs[1] = _zero_colour_sh()
+    op = np.full(3, 0.5, np.float32)
+    campos, tanfov = np.zeros(3, np.float32), np.array([tan, tan], np.float32)
+    rng = np.random.default_rng(0)
+    w_conic = rng.normal(size=(3, 3)).astype(np.float32)
+    w_color = rng.normal(size=(3, 3)).astype(np.float32)
+
+    def jloss(xyz, shs):
+        p = jproj.project_gaussians(xyz, scale, quat, op, shs, view, proj, campos, tanfov, 64, 64)
+        return jnp.sum(p.conic * w_conic) + jnp.sum(p.color * w_color), p
+
+    (_, jp), (jg_xyz, jg_shs) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(xyz, shs)
+    assert float(xyz[0, 0] / xyz[0, 2]) == float(lim) and not np.asarray(jp.color)[1].any()
+    t_xyz, t_shs = _t(xyz, True), _t(shs, True)
+    tp = tproj.project_gaussians(t_xyz, _t(scale), _t(quat), _t(op), t_shs, _t(view), _t(proj),
+                                 _t(campos), _t(tanfov), 64, 64)
+    assert not tp.color[1].any()
+    (torch.sum(tp.conic * _t(w_conic)) + torch.sum(tp.color * _t(w_color))).backward()
+    assert np.abs(np.asarray(jg_shs)[1]).min() > 0       # half, not zero
+    np.testing.assert_allclose(t_shs.grad.numpy(), np.asarray(jg_shs), rtol=1e-5)
+    ref = np.asarray(jg_xyz)
+    np.testing.assert_allclose(t_xyz.grad.numpy(), ref, rtol=1e-4, atol=1e-5 * np.abs(ref).max())
+    # The tie is live: off the bound the gradient of the same gaussian differs.
+    off = xyz.copy()
+    off[0, 0] *= np.float32(0.999)
+    g_off = np.asarray(jax.grad(lambda x: jloss(x, shs)[0])(off))
+    assert np.abs(g_off[0] - ref[0]).max() > 1e-3 * np.abs(ref[0]).max()

@@ -270,3 +270,103 @@ def test_empty_scene_renders_background():
     (out.image.sum() + out.alpha.sum()).backward()
     for t in (xyz, scale, quat, op, shs):
         assert t.grad is None or (torch.isfinite(t.grad).all() and not t.grad.any())
+
+
+def _zero_colour_sh():
+    """A float32 SH DC coefficient c with fl(C0 * c) + 0.5 == 0 exactly."""
+    c0 = np.float32(0.28209479177387814)
+    c = np.float32(-0.5) / c0
+    for _ in range(64):
+        if c0 * c + np.float32(0.5) == 0:
+            return c
+        c = np.nextafter(c, np.float32(0.0 if c0 * c < np.float32(-0.5) else -10.0))
+    raise AssertionError("no float32 coefficient gives a colour of exactly 0")
+
+
+def test_image_clamp_tie_gradient_matches_jax():
+    """Gaussians whose colour is exactly 0 over a black background: every
+    pixel is exactly 0.0 and sits on the image clamp's lower bound, where
+    jnp.clip passes half of the gradient, and the colour's own floor passes
+    half again. The port's gradients equal JAX's there too."""
+    size, tile = 32, 32
+    xyz, scale, quat, op, shs = _scene(40, seed=11, log_scale=(-2.5, -1.5))
+    shs = np.full_like(shs, _zero_colour_sh())
+    cam = _camera(size)
+    w = np.random.default_rng(12).normal(size=(size, size, 3)).astype(np.float32)
+    bg = np.zeros(3, np.float32)
+
+    def jloss(shs, op):
+        out = jras.render_gaussians(xyz, scale, quat, op, shs, cam["view"], cam["full_proj"],
+                                    cam["campos"], cam["tanfov"], size, size, jnp.asarray(bg),
+                                    max_tiles=256, chunk=CHUNK, tile=tile)
+        return jnp.sum(out.image * w), out
+
+    (_, jout), (jg_shs, jg_op) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(shs, op)
+    assert not np.asarray(jout.image).any() and float(np.asarray(jout.alpha).max()) > 0.3
+    t_shs, t_op = _np(shs).requires_grad_(True), _np(op).requires_grad_(True)
+    tout = tras.render_gaussians(
+        _np(xyz), _np(scale), _np(quat), t_op, t_shs,
+        *(_np(cam[k]) for k in ("view", "full_proj", "campos", "tanfov")),
+        size, size, _np(bg), tile=tile, device="cpu")
+    assert not tout.image.any()
+    torch.sum(tout.image * _np(w)).backward()
+    ref = np.asarray(jg_shs)
+    assert np.abs(ref).max() > 0
+    np.testing.assert_allclose(t_shs.grad.numpy(), ref, rtol=1e-3, atol=1e-4 * np.abs(ref).max())
+    # Colours of 0 give the opacity no gradient on either side.
+    np.testing.assert_allclose(t_op.grad.numpy(), np.asarray(jg_op), rtol=1e-3, atol=1e-7)
+
+
+def test_overflowing_exp_outside_the_contributors():
+    """A non-PSD conic whose exp(powero) overflows on pairs that are skipped
+    (power > 0 at every pixel, so the gaussian contributes nothing). The
+    Pallas backward writes inf * 0 = NaN into that pair's rows, and its
+    transposed write carries the NaN to the position and opacity rows of the
+    chunk's other pairs; the port's K2 and its plain version write 0 for
+    the pair and leave the others alone. Held here: after the trainers'
+    nan_to_num the non-PSD gaussian's gradient is 0 in both packages; the
+    colour rows agree as they are; and every gradient of the port equals
+    JAX's on the scene without that gaussian."""
+    size, tile, n, bad = 64, 32, 30, 7
+    rng = np.random.default_rng(13)
+    mean2d = rng.uniform(4, 60, size=(n, 2)).astype(np.float32)
+    depth = rng.uniform(1, 3, size=n).astype(np.float32)
+    s = rng.uniform(0.02, 0.1, size=n).astype(np.float32)
+    conic = np.stack([s, 0.2 * s, 1.5 * s], 1).astype(np.float32)
+    conic[bad] = [-1.0, 0.0, -1.0]            # power = +0.5 |d|^2: exp overflows
+    mean2d[bad] = [10.3, 12.7]                # off every pixel centre
+    color = rng.uniform(size=(n, 3)).astype(np.float32)
+    op = rng.uniform(0.2, 0.9, size=n).astype(np.float32)
+    radius = np.full(n, 40, np.int32)
+    culled = radius.copy()
+    culled[bad] = 0
+    bg = np.array([0.1, 0.2, 0.3], np.float32)
+    w = rng.normal(size=(size, size, 3)).astype(np.float32)
+
+    def jgrads(radius):
+        def loss(mean2d, conic, color, op):
+            img, _, alpha, overflow = jras.rasterize_projected(
+                mean2d, depth, conic, color, op, radius, size, size, jnp.asarray(bg),
+                max_tiles=256, chunk=CHUNK, tile=tile)
+            return jnp.sum(img * w) + jnp.sum(alpha), overflow
+
+        (_, overflow), g = jax.value_and_grad(loss, argnums=(0, 1, 2, 3), has_aux=True)(
+            mean2d, conic, color, op)
+        assert int(overflow) == 0
+        return [np.asarray(x) for x in g]
+
+    raw, clean = jgrads(radius), jgrads(culled)
+    targs = [_np(a).requires_grad_(True) for a in (mean2d, conic, color, op)]
+    img, _, alpha, _ = tras.rasterize_projected(targs[0], _np(depth), targs[1], targs[2],
+                                                targs[3], _np(radius), size, size, _np(bg),
+                                                tile=tile)
+    (torch.sum(img * _np(w)) + torch.sum(alpha)).backward()
+    assert np.isnan(raw[0][bad]).all() and np.isnan(raw[1][bad]).all()   # JAX: NaN rows
+    assert all(np.isfinite(g).all() for g in clean)
+    for name, t, j_raw, j_clean in zip(("mean2d", "conic", "color", "opacity"), targs, raw, clean):
+        assert torch.isfinite(t.grad).all(), name                         # the port: no NaN
+        assert not t.grad[bad].any() and not np.nan_to_num(j_raw)[bad].any(), name
+        np.testing.assert_allclose(t.grad.numpy(), j_clean, rtol=1e-3,
+                                   atol=1e-4 * np.abs(j_clean).max(), err_msg=name)
+    np.testing.assert_allclose(targs[2].grad.numpy(), raw[2], rtol=1e-3,
+                               atol=1e-4 * np.abs(raw[2]).max())

@@ -74,3 +74,30 @@ def test_save_ply_bytes_identical_and_load(tmp_path, sh_degree):
     for k in params:
         np.testing.assert_array_equal(lp[k].numpy(), np.asarray(jp[k]))
     np.testing.assert_array_equal(la.alive.numpy(), np.asarray(ja.alive))
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    """Every module of the port, and chip_smoke.py, imports in a process
+    where JAX, flax, the JAX package, cv2, PIL and yaml cannot be imported."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = """
+import importlib, importlib.abc, pkgutil, sys
+BLOCKED = {"jax", "jaxlib", "flax", "dreamgaussian_tpu", "cv2", "PIL", "yaml"}
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked in this test: " + name)
+sys.meta_path.insert(0, Block())
+import dreamgaussian_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names + ["chip_smoke"]:
+    importlib.import_module(name)
+assert not BLOCKED & {m.split(".")[0] for m in sys.modules}
+print(len(names))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 30
