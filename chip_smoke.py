@@ -9,8 +9,10 @@
    options at capacity 16384: steps 1-3 at the 128 rung, step 200 (256,
    densify) and step 300 (512, densify), checking finite losses and that
    every step launched K1 and K2; saves the PLY and loads it back;
-3. holds K1 and K2 against their plain PyTorch versions on the card at
-   the main path's 512^2 shape, and times kernel and plain version;
+3. holds K1 and K2 against their plain PyTorch versions on the card and
+   times kernel and plain version: on a synthetic scene that covers a
+   512^2 frame, and on the trainer's own cloud after the ladder under the
+   known view (256^2) and one novel camera at 128^2, 256^2 and 512^2;
 4. exports a textured mesh at ``configs/image.yaml``'s sizes (16384
    gaussians that fill a solid shape, field 128^3, remesh 0.015, decimate
    to 100,000 faces, texture 1024^2, 26 bake views at 512^2) through
@@ -102,6 +104,9 @@ EXPORT_SIZES = {"mc_resolution": 128, "decimate_target": 100_000, "remesh_size":
                 "texture_size": 1024, "bake_resolution": 512}
 GRAD_ROWS = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c", "log_opacity",
              "rgb_r", "rgb_g", "rgb_b", "depth")
+# The novel camera (elevation offset, azimuth in degrees) under which K1 and
+# K2 are held and timed on the trainer's cloud.
+NOVEL_VIEW = (-15.0, 60.0)
 # Steps driven on the main path: eight at each rung of the ladder, those
 # at 256^2 and 512^2 starting with a densify step (density_start 100,
 # interval 100); one more 512^2 step runs under torch.profiler. The step
@@ -218,7 +223,7 @@ def run_slice(seed: int) -> dict:
     if not bool(torch.isfinite(render.image).all()) or tuple(render.image.shape) != (256, 256, 3):
         raise RuntimeError("render_view of the trained cloud is not a finite 256^2 image")
     return {"steps": rows, "launches": launches, "peak_gib": peak_gib,
-            "breakdown": breakdown}
+            "breakdown": breakdown, "trainer": trainer}
 
 
 def device_ms_by_name(prof) -> dict:
@@ -261,15 +266,37 @@ def profiled_step(trainer):
     return loss, ms, breakdown
 
 
-def main_path_scene(seed: int, n: int = 16384, size: int = 512):
-    """A scene covering a 512^2 frame, made from the seed, binned as the
-    main path bins it: (dup_feat, chunk_starts, n_chunks, grid_x, T)."""
-    import numpy as np
+def bin_cloud(xyz, scale, quat, opacity, shs, cam, size: int, alive=None,
+              tile: int = 32, chunk: int = 128):
+    """Project a cloud (activated parameters, on the card) through ``cam`` at
+    ``size``^2 and bin it as ``render_gaussians`` does: (dup_feat, bins, geo)
+    with geo the kernels' grid_x / num_tiles / chunk / tile."""
     import torch
 
     from dreamgaussian_tpu_torch.ops.binning import bin_gaussians
     from dreamgaussian_tpu_torch.ops.project import project_gaussians
     from dreamgaussian_tpu_torch.ops.rasterize import build_feature_cols
+
+    a = {k: torch.as_tensor(v, dtype=torch.float32, device=xyz.device)
+         for k, v in cam.arrays().items()}
+    proj = project_gaussians(xyz, scale, quat, opacity, shs, a["view"], a["full_proj"],
+                             a["campos"], a["tanfov"], size, size, alive=alive)
+    bins = bin_gaussians(proj.mean2d, proj.depth, proj.radius, size, size,
+                         chunk=chunk, tile=tile, conic=proj.conic,
+                         log_opacity=torch.log(proj.opacity))
+    feat = build_feature_cols(proj.mean2d, proj.depth, proj.conic, proj.color,
+                              proj.opacity)
+    dup_feat = feat.index_select(1, bins.dup_map).contiguous()
+    geo = dict(grid_x=size // tile, num_tiles=(size // tile) ** 2, chunk=chunk, tile=tile)
+    return dup_feat, bins, geo
+
+
+def main_path_scene(seed: int, n: int = 16384, size: int = 512):
+    """A scene covering a 512^2 frame, made from the seed, binned as the
+    main path bins it: (dup_feat, bins, geo)."""
+    import numpy as np
+    import torch
+
     from dreamgaussian_tpu_torch.utils.camera import Camera, orbit_camera
 
     rng = np.random.default_rng(seed)
@@ -286,17 +313,31 @@ def main_path_scene(seed: int, n: int = 16384, size: int = 512):
     shs = t(rng.normal(size=(n, 1, 3)) * 0.5)
     cam = Camera.from_pose(orbit_camera(0.0, 0.0, 2.0), size, size,
                            math.radians(49.1), math.radians(49.1))
-    a = {k: t(v) for k, v in cam.arrays().items()}
-    proj = project_gaussians(t(xyz), scale, quat, opacity, shs, a["view"],
-                             a["full_proj"], a["campos"], a["tanfov"], size, size)
-    tile, chunk = 32, 128
-    bins = bin_gaussians(proj.mean2d, proj.depth, proj.radius, size, size,
-                         chunk=chunk, tile=tile, conic=proj.conic,
-                         log_opacity=torch.log(proj.opacity))
-    feat = build_feature_cols(proj.mean2d, proj.depth, proj.conic, proj.color,
-                              proj.opacity)
-    dup_feat = feat.index_select(1, bins.dup_map).contiguous()
-    return dup_feat, bins, size // tile, (size // tile) ** 2
+    return bin_cloud(t(xyz), scale, quat, opacity, shs, cam, size)
+
+
+def trainer_shapes(trainer) -> list:
+    """The trainer's cloud as its step renders it: under the known view at
+    ``ref_size``^2 and under one novel camera at each rung of the ladder.
+    Returns [(label, dup_feat, bins, geo)]."""
+    import torch
+
+    from dreamgaussian_tpu_torch.utils.camera import Camera, orbit_camera
+
+    p = trainer.params
+    cloud = (p["xyz"], torch.exp(p["scaling"]), p["rotation"],
+             torch.sigmoid(p["opacity"][:, 0]), torch.cat([p["f_dc"], p["f_rest"]], dim=1))
+    with torch.no_grad():
+        shapes = [(f"known view {trainer.ref_size}^2",
+                   *bin_cloud(*cloud, trainer.fixed_cam, trainer.ref_size,
+                              alive=trainer.aux.alive))]
+        for size in (128, 256, 512):
+            cam = Camera.from_pose(orbit_camera(trainer.elevation + NOVEL_VIEW[0], NOVEL_VIEW[1],
+                                                trainer.radius),
+                                   size, size, trainer.fovy, trainer.fovx)
+            shapes.append((f"novel view {size}^2",
+                           *bin_cloud(*cloud, cam, size, alive=trainer.aux.alive)))
+    return shapes
 
 
 def pair_work(dup_feat, bins, fwd_out, *, grid_x, num_tiles, chunk, tile):
@@ -358,17 +399,15 @@ def grad_rows_agree(d_k, d_r, rtol: float, atol: float) -> bool:
     return ok
 
 
-def check_kernels(seed: int) -> list:
-    """K1 and K2 against their plain versions at the 512^2 main-path shape."""
+def check_shape(label: str, dup_feat, bins, geo: dict, seed: int, plain_reps: int) -> dict:
+    """K1 and K2 against their plain versions on one binned scene, with
+    their times and bounds; raises where a kernel fails its gate."""
     import torch
 
     from dreamgaussian_tpu_torch.ops import rasterize_cuda as rc
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dup_feat, bins, grid_x, num_tiles = main_path_scene(seed)
-    geo = dict(grid_x=grid_x, num_tiles=num_tiles, chunk=128, tile=32)
     cs, nc = bins.chunk_starts, bins.n_chunks
+    num_tiles, tile = geo["num_tiles"], geo["tile"]
 
     out = rc.composite_forward(dup_feat, cs, nc, **geo)
     ref = rc.composite_forward_ref(dup_feat, cs, nc, **geo)
@@ -376,14 +415,14 @@ def check_kernels(seed: int) -> list:
     fwd_err = float((out[:, :5] - ref[:, :5]).abs().max())
     nc_mismatch = float((out[:, 5] != ref[:, 5]).float().mean())
     pix_covered = float((ref[:, 5] > 0).float().mean())
-    print(f"[kernels] K1 at 512^2: {int(bins.num_dups)} duplicates, "
-          f"{int(nc.sum())} chunks, pixels covered {pix_covered:.3f}, "
-          f"max abs err {fwd_err:.3e}, n_contrib mismatch share {nc_mismatch:.2e}")
+    print(f"[kernels] {label}: {int(bins.num_dups)} duplicates, {int(nc.sum())} chunks "
+          f"(longest tile {int(nc.max())}), pixels covered {pix_covered:.3f}; K1 max abs err "
+          f"{fwd_err:.3e}, n_contrib mismatch share {nc_mismatch:.2e}")
     # f32 with another association of the transmittance product (cumprod
     # against the sequential walk): outputs agree to 1e-3, and a pixel's
     # stop may move by one pair only at the 1e-4 threshold.
     if not fwd_err <= 1e-3 or nc_mismatch > 1e-3:
-        raise RuntimeError("K1 disagrees with its plain version")
+        raise RuntimeError(f"K1 disagrees with its plain version ({label})")
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     g_out = torch.randn(out.shape, device="cuda", generator=g)
@@ -391,48 +430,76 @@ def check_kernels(seed: int) -> list:
     d_r = rc.composite_backward_ref(dup_feat, cs, nc, ref, g_out, **geo)
     torch.cuda.synchronize()
     bwd_err = float((d_k - d_r).abs().max())
-    print(f"[kernels] K2 at 512^2: max abs err {bwd_err:.3e}; tolerance per element "
+    print(f"[kernels] {label}: K2 max abs err {bwd_err:.3e}; tolerance per element "
           f"{K2_RTOL:g} |grad| + {K2_ATOL:g} max |grad| of its row")
-    # Sums over a tile's pixels in another order, T rebuilt by division
+    # Sums over a tile's pixels in another order, T rebuilt by a reciprocal
     # step by step against a suffix product.
     if not grad_rows_agree(d_k, d_r, K2_RTOL, K2_ATOL):
-        raise RuntimeError("K2 disagrees with its plain version")
+        raise RuntimeError(f"K2 disagrees with its plain version ({label})")
 
     fwd_ms = cuda_ms(lambda: rc.composite_forward(dup_feat, cs, nc, **geo), 20)
-    fwd_plain = cuda_ms(lambda: rc.composite_forward_ref(dup_feat, cs, nc, **geo), 3, 1)
+    fwd_plain = cuda_ms(lambda: rc.composite_forward_ref(dup_feat, cs, nc, **geo),
+                        plain_reps, min(1, plain_reps - 1))
     bwd_ms = cuda_ms(lambda: rc.composite_backward(dup_feat, cs, nc, ref, g_out, **geo), 20)
     bwd_plain = cuda_ms(
-        lambda: rc.composite_backward_ref(dup_feat, cs, nc, ref, g_out, **geo), 3, 1)
+        lambda: rc.composite_backward_ref(dup_feat, cs, nc, ref, g_out, **geo),
+        plain_reps, min(1, plain_reps - 1))
 
-    # Bounds from this run's data: the pairs each kernel must evaluate and
+    # Bounds from this scene's data: the pairs each kernel must evaluate and
     # the 10 feature rows (40 B) of each slot a tile must read, once.
     contrib, k1_skip, k2_skip, k1_slots, k2_slots = pair_work(dup_feat, bins, ref, **geo)
-    print(f"[kernels] pairs: {contrib} contributing; evaluated and skipped "
+    print(f"[kernels] {label}: pairs {contrib} contributing; evaluated and skipped "
           f"{k1_skip} by K1, {k2_skip} by K2; feature slots read {k1_slots} by K1, "
           f"{k2_slots} by K2")
-    tiles_bytes = num_tiles * rc.OUT_CH * 1024 * 4
+    tiles_bytes = num_tiles * rc.OUT_CH * tile * tile * 4
     k1_bytes = k1_slots * 40 + 8 * num_tiles + tiles_bytes
     k2_bytes = k2_slots * 40 + 8 * num_tiles + 2 * tiles_bytes + dup_feat.numel() * 4
-    rows = []
-    for name, src, line, ms, plain, byts, flops in (
-        ("composite_fwd", "dreamgaussian_tpu_torch/csrc/composite_fwd.cu",
-         "dreamgaussian_tpu/ops/rasterize_pallas.py:211", fwd_ms, fwd_plain,
-         k1_bytes, contrib * K1_FLOPS_PER_PAIR + k1_skip * SKIP_FLOPS_PER_PAIR),
-        ("composite_bwd", "dreamgaussian_tpu_torch/csrc/composite_bwd.cu",
-         "dreamgaussian_tpu/ops/rasterize_pallas.py:323", bwd_ms, bwd_plain,
-         k2_bytes, contrib * K2_FLOPS_PER_PAIR + k2_skip * SKIP_FLOPS_PER_PAIR),
+    result = {"label": label, "duplicates": int(bins.num_dups), "chunks": int(nc.sum()),
+              "longest_tile_chunks": int(nc.max()), "tiles": num_tiles}
+    for name, ms, plain, err, byts, flops in (
+        ("composite_fwd", fwd_ms, fwd_plain, fwd_err, k1_bytes,
+         contrib * K1_FLOPS_PER_PAIR + k1_skip * SKIP_FLOPS_PER_PAIR),
+        ("composite_bwd", bwd_ms, bwd_plain, bwd_err, k2_bytes,
+         contrib * K2_FLOPS_PER_PAIR + k2_skip * SKIP_FLOPS_PER_PAIR),
     ):
         t_bytes = byts / PEAK_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        # The grid that the library gave the kernel's last launch (the timed
+        # ones above, at this shape).
+        blocks = rc.LAST_GRID[name]
+        if tile == 32 and blocks <= num_tiles:
+            raise RuntimeError(f"{name} launched {blocks} blocks for {num_tiles} tiles")
+        result[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                        "max_abs_err": err, "blocks": blocks}
+        print(f"[kernels] {label}: {name} {blocks} blocks, {ms:.4f} ms, plain {plain:.3f} ms, "
+              f"bound {bound:.4f} ms ({result[name]['bound_by']}), share of the bound "
+              f"{bound / ms:.3f}")
+    return result
+
+
+def check_kernels(seed: int, trainer) -> list:
+    """K1 and K2 against their plain versions: on the synthetic 512^2 scene
+    (the kernels' rows of the ``kernels`` line) and on the trainer's cloud at
+    the shapes its step renders (the rows' ``shapes`` lists)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    synthetic = check_shape("synthetic 512^2", *main_path_scene(seed), seed, plain_reps=3)
+    shapes = [check_shape(*shape, seed, plain_reps=1) for shape in trainer_shapes(trainer)]
+    rows = []
+    for name, line in (("composite_fwd", "dreamgaussian_tpu/ops/rasterize_pallas.py:211"),
+                       ("composite_bwd", "dreamgaussian_tpu/ops/rasterize_pallas.py:323")):
+        own = {k: v for k, v in synthetic[name].items() if k != "blocks"}
         rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": line,
-            "launches": None, "max_abs_err": fwd_err if name == "composite_fwd" else bwd_err,
-            "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "name": name, "route": "cuda",
+            "source": f"dreamgaussian_tpu_torch/csrc/{name}.cu", "replaces": line,
+            "launches": None, **own, "library_ms": None, "blocks": synthetic[name]["blocks"],
+            "shapes": [{**{k: v for k, v in sh.items() if not k.startswith("composite_")},
+                        **sh[name]} for sh in shapes],
         })
-        print(f"[kernels] {name}: {ms:.4f} ms, plain {plain:.3f} ms, bound "
-              f"{max(t_bytes, t_ops):.4f} ms ({rows[-1]['bound_by']})")
     return rows
 
 
@@ -736,7 +803,7 @@ def main() -> int:
           f"{1.0 - busy / rungs[512]['median_ms']:.3f}; peak "
           f"{result['peak_gib']:.2f} GiB; card '{card}'")
 
-    kernels = check_kernels(args.seed)
+    kernels = check_kernels(args.seed, result.pop("trainer"))
     for row in kernels:
         row["launches"] = result["launches"][row["name"]]
 

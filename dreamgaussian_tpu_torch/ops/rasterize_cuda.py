@@ -47,17 +47,20 @@ MAX_CHUNK = 128            # shared-memory staging size of the kernels
 
 # Kernel launches, counted by the wrappers where they launch.
 LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0}
+# Blocks of each kernel's last launch: the grid the library gave the launch.
+LAST_GRID = {"composite_fwd": 0, "composite_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     # feat, k_total, chunk_starts, n_chunks, out, num_tiles, grid_x,
-    # chunk, tile, stream
-    "composite_fwd": [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _P],
+    # chunk, tile, stream, blocks_launched
+    "composite_fwd": [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _P,
+                      ctypes.POINTER(_I)],
     # feat, k_total, chunk_starts, n_chunks, fwd_out, g_out, d_feat,
-    # num_tiles, grid_x, chunk, tile, stream
+    # num_tiles, grid_x, chunk, tile, stream, blocks_launched
     "composite_bwd": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _I, _P],
+                      _I, _P, ctypes.POINTER(_I)],
 }
 
 
@@ -232,6 +235,11 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
+def _launched(name: str, blocks: ctypes.c_int) -> None:
+    LAUNCHES[name] += 1
+    LAST_GRID[name] = blocks.value
+
+
 def composite_forward(dup_feat, chunk_starts, n_chunks, *, grid_x, num_tiles,
                       chunk, tile=TILE):
     """K1: front-to-back compositing of every tile -> [T, OUT_CH, PIX]."""
@@ -246,13 +254,14 @@ def composite_forward(dup_feat, chunk_starts, n_chunks, *, grid_x, num_tiles,
     if num_tiles == 0:
         return out
     lib = cuda_build.load("composite_fwd", _ARGTYPES["composite_fwd"])
+    blocks = ctypes.c_int(0)
     rc = lib.composite_fwd(
         dup_feat.data_ptr(), dup_feat.shape[1], chunk_starts.data_ptr(),
         n_chunks.data_ptr(), out.data_ptr(), num_tiles, grid_x, chunk, tile,
-        torch.cuda.current_stream(dup_feat.device).cuda_stream,
+        torch.cuda.current_stream(dup_feat.device).cuda_stream, ctypes.byref(blocks),
     )
     _raise_on(rc, "composite_fwd")
-    LAUNCHES["composite_fwd"] += 1
+    _launched("composite_fwd", blocks)
     return out
 
 
@@ -276,12 +285,13 @@ def composite_backward(dup_feat, chunk_starts, n_chunks, fwd_out, g_out, *,
     if num_tiles == 0:
         return d_feat
     lib = cuda_build.load("composite_bwd", _ARGTYPES["composite_bwd"])
+    blocks = ctypes.c_int(0)
     rc = lib.composite_bwd(
         dup_feat.data_ptr(), dup_feat.shape[1], chunk_starts.data_ptr(),
         n_chunks.data_ptr(), fwd_out.data_ptr(), g_out.data_ptr(),
         d_feat.data_ptr(), num_tiles, grid_x, chunk, tile,
-        torch.cuda.current_stream(dup_feat.device).cuda_stream,
+        torch.cuda.current_stream(dup_feat.device).cuda_stream, ctypes.byref(blocks),
     )
     _raise_on(rc, "composite_bwd")
-    LAUNCHES["composite_bwd"] += 1
+    _launched("composite_bwd", blocks)
     return d_feat

@@ -7,6 +7,8 @@ on a machine without them:
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py
 """
 
+import ctypes
+import functools
 import math
 
 import numpy as np
@@ -16,12 +18,14 @@ import torch
 from chip_smoke import K2_ATOL, K2_RTOL, grad_rows_agree
 from dreamgaussian_tpu_torch.ops import mesh_raster as tmr
 from dreamgaussian_tpu_torch.ops import mesh_raster_cuda as tzc
+from dreamgaussian_tpu_torch.ops import cuda_build
 from dreamgaussian_tpu_torch.ops import rasterize_cuda as tcu
 from dreamgaussian_tpu_torch.ops.binning import bin_rects
 from dreamgaussian_tpu_torch.ops.binning import bin_gaussians
 from dreamgaussian_tpu_torch.ops.project import project_gaussians
 from dreamgaussian_tpu_torch.ops.rasterize import build_feature_cols, render_gaussians
 from dreamgaussian_tpu_torch.utils.camera import Camera, orbit_camera
+from torch_composite_cases import CASES, composite_case
 
 CHUNK = 128
 
@@ -53,30 +57,168 @@ def _camera(size, device):
     return [torch.from_numpy(cam[k]).to(device) for k in ("view", "full_proj", "campos", "tanfov")]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("tile", [16, 32])
-def test_kernels_match_plain_versions(cuda_device, tile):
-    size = 128
-    xyz, scale, quat, op, shs = _scene(3000, 6, cuda_device)
-    p = project_gaussians(xyz, scale, quat, op, shs, *_camera(size, cuda_device), size, size)
+def _binned(n, seed, size, tile, device):
+    """A seeded cloud projected and binned: (dup_feat, chunk_starts, n_chunks, geo)."""
+    xyz, scale, quat, op, shs = _scene(n, seed, device)
+    p = project_gaussians(xyz, scale, quat, op, shs, *_camera(size, device), size, size)
     bins = bin_gaussians(p.mean2d, p.depth, p.radius, size, size, chunk=CHUNK, tile=tile,
                          conic=p.conic, log_opacity=torch.log(p.opacity))
     dup = build_feature_cols(p.mean2d, p.depth, p.conic, p.color, p.opacity)
     dup = dup.index_select(1, bins.dup_map).contiguous()
     geo = dict(grid_x=size // tile, num_tiles=(size // tile) ** 2, chunk=CHUNK, tile=tile)
-    out = tcu.composite_forward(dup, bins.chunk_starts, bins.n_chunks, **geo)
-    ref = tcu.composite_forward_ref(dup, bins.chunk_starts, bins.n_chunks, **geo)
+    return dup, bins.chunk_starts, bins.n_chunks, geo
+
+
+def _hold_kernels(dup, cs, nc, geo, device):
+    """K1 and K2 against their plain versions with chip_smoke.py's gates;
+    K2 twice, for equal bits. Returns the plain forward output."""
+    before = dict(tcu.LAUNCHES)
+    out = tcu.composite_forward(dup, cs, nc, **geo)
+    ref = tcu.composite_forward_ref(dup, cs, nc, **geo)
     # Another association of the transmittance product: a pixel's stop can
     # move by one pair only at the 1e-4 threshold.
     assert float((out[:, 5] != ref[:, 5]).float().mean()) <= 1e-3
     assert float((out[:, :5] - ref[:, :5]).abs().max()) <= 1e-3
-    g = torch.randn(out.shape, device=cuda_device,
-                    generator=torch.Generator(cuda_device).manual_seed(0))
-    d_k = tcu.composite_backward(dup, bins.chunk_starts, bins.n_chunks, ref, g, **geo)
-    d_r = tcu.composite_backward_ref(dup, bins.chunk_starts, bins.n_chunks, ref, g, **geo)
+    assert not bool(out[:, 6:].any())
+    g = torch.randn(out.shape, device=device, generator=torch.Generator(device).manual_seed(0))
+    d_k = tcu.composite_backward(dup, cs, nc, ref, g, **geo)
+    again = tcu.composite_backward(dup, cs, nc, ref, g, **geo)
+    d_r = tcu.composite_backward_ref(dup, cs, nc, ref, g, **geo)
+    torch.cuda.synchronize()
+    assert {k: tcu.LAUNCHES[k] - before[k] for k in before} == {"composite_fwd": 1, "composite_bwd": 2}
     # chip_smoke.py's K2 gate: elementwise in each gradient row, the
     # absolute part scaled to that row's own largest |grad|.
     assert grad_rows_agree(d_k, d_r, K2_RTOL, K2_ATOL)
+    # Every sum of K2 has a fixed order: two launches give equal bits.
+    assert torch.equal(d_k, again)
+    return ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32])
+def test_kernels_match_plain_versions(cuda_device, tile):
+    _hold_kernels(*_binned(3000, 6, 128, tile, cuda_device), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [128, 1024])
+def test_kernels_on_small_and_large_frames(cuda_device, size):
+    """16 tiles (fewer blocks than the card has SMs, even at four per tile)
+    and 1,024 tiles (4,096 blocks), at the trainer's tile 32."""
+    dup, cs, nc, geo = _binned(6000, 11, size, 32, cuda_device)
+    assert geo["num_tiles"] == (16 if size == 128 else 1024)
+    tcu.LAST_GRID.update(composite_fwd=0, composite_bwd=0)
+    _hold_kernels(dup, cs, nc, geo, cuda_device)
+    # The grids that the libraries gave their launches: four blocks per tile.
+    assert tcu.LAST_GRID == {"composite_fwd": 4 * geo["num_tiles"], "composite_bwd": 4 * geo["num_tiles"]}
+
+
+@pytest.mark.cuda
+def test_tile_16_launches_one_block_per_tile(cuda_device):
+    dup, cs, nc, geo = _binned(3000, 6, 128, 16, cuda_device)
+    tcu.LAST_GRID.update(composite_fwd=0, composite_bwd=0)
+    _hold_kernels(dup, cs, nc, geo, cuda_device)
+    assert tcu.LAST_GRID == {"composite_fwd": 64, "composite_bwd": 64}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("case", CASES)
+def test_kernels_on_hand_built_tiles(cuda_device, case, tile):
+    """A quadrant that stops in the first chunk while the others walk all
+    six (more chunks than the kernels have staging buffers); empty tiles
+    beside full ones; a list of six chunks walked to its end."""
+    c = composite_case(case, tile)
+    dup, cs, nc = (torch.from_numpy(c[k]).to(cuda_device) for k in ("feat", "chunk_starts", "n_chunks"))
+    ref = _hold_kernels(dup, cs, nc, c["geo"], cuda_device)
+    n_contrib = ref[:, 5]
+    if case == "quadrant_stops_early":
+        quad, half = n_contrib.reshape(tile, tile), tile // 2
+        assert float(quad[:half, :half].max()) <= CHUNK
+        assert float(ref[0, 4].reshape(tile, tile)[:half, :half].max()) < 1e-2
+        assert float(quad[half:, half:].max()) > 5 * CHUNK
+    elif case == "empty_beside_full":
+        assert not bool(n_contrib[[0, 2]].any()) and float(n_contrib[1].max()) > 2 * CHUNK
+        out = tcu.composite_forward(dup, cs, nc, **c["geo"])
+        assert bool((out[[0, 2], 4] == 1.0).all()) and not bool(out[[0, 2], :4].any())
+    else:
+        assert float(n_contrib.max()) > 5 * CHUNK
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["cloud", *CASES])
+def test_sift_changes_no_bit(cuda_device, scene, monkeypatch):
+    """A warp walks only the gaussians that its sift lets through. The sift
+    may let through too many, never too few: built without it
+    (COMPOSITE_SIFT=0) both kernels give the same bits."""
+    if scene == "cloud":
+        dup, cs, nc, geo = _binned(6000, 12, 256, 32, cuda_device)
+    else:
+        c = composite_case(scene, 32)
+        dup, cs, nc = (torch.from_numpy(c[k]).to(cuda_device) for k in ("feat", "chunk_starts", "n_chunks"))
+        geo = c["geo"]
+    out = tcu.composite_forward(dup, cs, nc, **geo)
+    g = torch.randn(out.shape, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(1))
+    d = tcu.composite_backward(dup, cs, nc, out, g, **geo)
+    # From here on the wrappers load the libraries built without the sift.
+    monkeypatch.setattr(cuda_build, "load",
+                        functools.partial(cuda_build.load, extra=("-DCOMPOSITE_SIFT=0",)))
+    assert torch.equal(out, tcu.composite_forward(dup, cs, nc, **geo))
+    assert torch.equal(d, tcu.composite_backward(dup, cs, nc, out, g, **geo))
+    assert bool(d.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["composite_fwd", "composite_bwd"])
+def test_refused_launch_raises_and_does_not_fall_back(cuda_device, name, monkeypatch):
+    """A launch that the library or the card refuses raises from the
+    wrapper; the plain version is not taken in its place, no launch is
+    counted, and the card goes on working."""
+    dup, cs, nc, geo = _binned(500, 3, 64, 32, cuda_device)
+    ref = tcu.composite_forward_ref(dup, cs, nc, **geo)
+    lib = cuda_build.load(name, tcu._ARGTYPES[name])
+    blocks = ctypes.c_int(-1)
+    # The library's own refusal: a chunk larger than its staging buffers
+    # (the wrapper checks this before it calls; here the call goes straight in).
+    stream = torch.cuda.current_stream().cuda_stream
+    args = [dup.data_ptr(), dup.shape[1], cs.data_ptr(), nc.data_ptr()]
+    args += [ref.data_ptr()] if name == "composite_fwd" else [ref.data_ptr(), ref.data_ptr(), dup.data_ptr()]
+    assert getattr(lib, name)(*args, geo["num_tiles"], geo["grid_x"], 4 * CHUNK, 32, stream,
+                              ctypes.byref(blocks)) != 0
+    assert blocks.value == -1
+
+    # The card's refusal, through the wrapper and the real library: the call
+    # is passed on with a tile count whose grid (four blocks per tile, 2^31)
+    # is one more than a launch may have, so the launch itself fails before
+    # any block runs.
+    tiles_at = 5 if name == "composite_fwd" else 7
+    codes = []
+
+    class TooManyTiles:
+        def __getattr__(self, entry):
+            def call(*a):
+                codes.append(getattr(lib, entry)(*a[:tiles_at], 2 ** 29, *a[tiles_at + 1:]))
+                return codes[-1]
+            return call
+
+    def never(*a, **k):
+        raise AssertionError("the wrapper fell back to the plain version")
+
+    monkeypatch.setattr(cuda_build, "load", lambda *a, **k: TooManyTiles())
+    monkeypatch.setattr(tcu, "composite_forward_ref", never)
+    monkeypatch.setattr(tcu, "composite_backward_ref", never)
+    before = dict(tcu.LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        if name == "composite_fwd":
+            tcu.composite_forward(dup, cs, nc, **geo)
+        else:
+            tcu.composite_backward(dup, cs, nc, ref, torch.ones_like(ref), **geo)
+    assert tcu.LAUNCHES == before and len(codes) == 1 and codes[0] != 0
+    # The refusal is not left behind for the next CUDA call to find.
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    out = tcu.composite_forward(dup, cs, nc, **geo)
+    assert float((out[:, :5] - ref[:, :5]).abs().max()) <= 1e-3
 
 
 @pytest.mark.cuda

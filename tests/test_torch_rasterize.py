@@ -22,6 +22,7 @@ from dreamgaussian_tpu.utils.camera import Camera, orbit_camera
 from dreamgaussian_tpu_torch.ops import binning as tbin
 from dreamgaussian_tpu_torch.ops import rasterize as tras
 from dreamgaussian_tpu_torch.ops import rasterize_cuda as tcu
+from torch_composite_cases import CASES, composite_case
 
 CHUNK = 128
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "cuda_parity")
@@ -115,6 +116,54 @@ def test_composite_plain_versions_match_pallas(tile):
     # suffix product instead of exp(sum log): relative 1e-5 of the largest.
     scale = np.abs(j_d[:, covered]).max()
     np.testing.assert_allclose(t_d[:, covered], j_d[:, covered], rtol=1e-4, atol=2e-6 * scale)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_composite_cases_match_pallas(case):
+    """The hand-built cases that the card tests give the CUDA kernels (a
+    quadrant that stops in the first chunk beside quadrants that walk six,
+    empty tiles beside full ones, a list of six chunks), here through the
+    port's plain K1 and K2 against the Pallas kernels, at tile 32."""
+    c = composite_case(case, 32)
+    geo, cs, nc = c["geo"], c["chunk_starts"], c["n_chunks"]
+    dup = jnp.asarray(c["feat"])
+    j_out = np.asarray(jpal.composite_forward(dup, jnp.asarray(cs), jnp.asarray(nc), **geo))
+    t_out = tcu.composite_forward_ref(_np(c["feat"]), _np(cs), _np(nc), **geo)
+    n_contrib = t_out[:, 5].numpy()
+    if case == "quadrant_stops_early":
+        quad = n_contrib.reshape(32, 32)
+        assert quad[:16, :16].max() <= CHUNK and t_out[0, 4].reshape(32, 32)[:16, :16].max() < 1e-2
+        assert min(quad[:16, 16:].max(), quad[16:, :16].max(), quad[16:, 16:].max()) > 5 * CHUNK
+    elif case == "empty_beside_full":
+        assert not n_contrib[[0, 2]].any() and n_contrib[1].max() > 2 * CHUNK
+    else:
+        assert n_contrib.max() > 5 * CHUNK
+    # As test_composite_plain_versions_match_pallas: n_contrib equal, the
+    # rest float32 with another association of the transmittance product.
+    np.testing.assert_array_equal(n_contrib, j_out[:, 5])
+    np.testing.assert_allclose(t_out.numpy(), j_out, rtol=1e-5, atol=2e-5)
+
+    g_out = np.random.default_rng(3).normal(size=j_out.shape).astype(np.float32)
+    j_d = np.asarray(jpal.composite_backward(dup, jnp.asarray(cs), jnp.asarray(nc), j_out,
+                                             jnp.asarray(g_out), **geo))
+    t_d = tcu.composite_backward_ref(_np(c["feat"]), _np(cs), _np(nc), _np(j_out), _np(g_out),
+                                     **geo).numpy()
+    covered = np.zeros(j_d.shape[1], bool)
+    for s, n in zip(cs, nc):
+        covered[s * CHUNK:(s + n) * CHUNK] = True
+    assert not t_d[:, ~covered].any()
+    # Sums over the tile's pixels in another order, T rebuilt from a suffix
+    # product instead of exp(sum log). Each gradient row is held to its own
+    # scale (the conic rows carry squared offsets): relative 1e-4 plus 1e-5
+    # of the row's largest. Under the opaque lattice 1 - alpha is 0.01, which
+    # magnifies the rounding of alpha a hundredfold in every T rebuilt
+    # through such a pair, differently in the two schemes: ten times the
+    # tolerance there.
+    loose = 10.0 if case == "quadrant_stops_early" else 1.0
+    for row, (t_row, j_row) in enumerate(zip(t_d[:10, covered], j_d[:10, covered])):
+        np.testing.assert_allclose(t_row, j_row, rtol=1e-4 * loose,
+                                   atol=1e-5 * loose * np.abs(j_row).max(), err_msg=f"row {row}")
+    assert not t_d[10:].any()
 
 
 def _render_pair(args, cam, size, tile, weights):

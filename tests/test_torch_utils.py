@@ -101,3 +101,42 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 30
+
+
+# -- the kernels' build: flags per source, all of them in the library's name --
+
+
+def test_cuda_build_flags_per_source():
+    """K3 is built without multiply-add contraction (its gate is equality with
+    its plain version); K1 and K2 are not; a caller's flags come last."""
+    from dreamgaussian_tpu_torch.ops import cuda_build
+
+    assert "--fmad=false" in cuda_build.flags_for("ztest")
+    for name in ("composite_fwd", "composite_bwd"):
+        assert "--fmad=false" not in cuda_build.flags_for(name)
+        assert (cuda_build.CSRC_DIR / f"{name}.cu").exists()
+    flags = cuda_build.flags_for("composite_bwd", ("-DCOMPOSITE_SIFT=0",))
+    assert flags[-1] == "-DCOMPOSITE_SIFT=0" and flags[:len(cuda_build.NVCC_FLAGS)] == cuda_build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in flags
+
+
+def test_cuda_build_library_name_follows_source_headers_and_flags(tmp_path, monkeypatch):
+    """The library's name carries the hash of the source, of the headers
+    beside it and of the flags: a change of any of them is a rebuild."""
+    from dreamgaussian_tpu_torch.ops import cuda_build
+
+    real = (cuda_build.library_path("composite_fwd"), cuda_build.library_path("composite_bwd"))
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    (tmp_path / "k.cuh").write_text("// one\n")
+    first = cuda_build.library_path("k")
+    assert first == cuda_build.library_path("k")
+    assert first.parent == cuda_build.BUILD_DIR and first.name.startswith("k-")
+    assert cuda_build.library_path("k", ("-DX=1",)) != first
+    (tmp_path / "k.cuh").write_text("// two\n")
+    second = cuda_build.library_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n// edited\n')
+    assert cuda_build.library_path("k") not in (first, second)
+    # The port's own sources: the shared header is part of both compositors' names.
+    assert real[0] != real[1]
