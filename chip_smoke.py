@@ -21,8 +21,11 @@
    back and checks them; prints the seconds of each stage, the peak memory
    and the mesh's sizes; checks that the export launched K3 26 times and K1
    at least 26 times;
-5. holds K3 against its plain version on the exported mesh under one of the
-   26 bake cameras (ids equal on every pixel, z to 1e-6) and times both;
+5. holds K3 against its plain version on the exported mesh under each of
+   the 26 bake cameras (ids and z equal on every pixel), with the launched
+   grid, time and bound per view; at view 9 also times the plain version,
+   the build without the sift (in turns with the shipped one) and the
+   launch with every list empty;
 6. prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
@@ -32,6 +35,7 @@ Needs a CUDA card; exits non-zero without one, and on any failed check.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import math
 import os
@@ -92,7 +96,7 @@ K2_ATOL = 1e-5
 # products, the z sum and the depth compare (3 + 5 + 2).
 K3_FLOPS_PER_BOX_PAIR = 18
 K3_FLOPS_PER_COVER_PAIR = 10
-# The view of the 26 bake cameras that K3 is held at: elevation -45, azimuth 45.
+# The bake view whose K3 numbers make the kernel's row: elevation -45, azimuth 45.
 K3_BAKE_VIEW = 9
 # Least share of the 1024^2 albedo that the 26 views must cover before the
 # inpaint. The charts' bounding boxes fill about 0.7 of the texture by the
@@ -151,6 +155,29 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time per call of ``fn``: ``reps`` calls captured into one CUDA
+    graph and replayed, so that no host work sits between the launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(reps):
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -699,14 +726,14 @@ def ztest_pair_work(dup_feat, bins, *, grid_x, num_tiles, chunk, tile):
     return int(real.sum()), box_pairs, cover
 
 
-def check_ztest(mesh, fovy: float, radius: float) -> dict:
-    """K3 against its plain version at the bake's shape: the exported mesh
-    under one of the 26 bake cameras at 512^2, tile 32, chunk 128."""
+def bake_view_inputs(mesh, fovy: float, radius: float, view: int):
+    """The exported mesh under bake camera ``view`` at the bake's shape
+    (512^2, tile 32, chunk 128), binned as ``rasterize`` bins it:
+    (dup_feat, bins, geo)."""
     import numpy as np
     import torch
 
     from dreamgaussian_tpu_torch.meshing.export import BAKE_HORS, BAKE_VERS
-    from dreamgaussian_tpu_torch.ops import mesh_raster_cuda as mr
     from dreamgaussian_tpu_torch.ops.binning import bin_rects
     from dreamgaussian_tpu_torch.ops.mesh_raster import triangle_features
     from dreamgaussian_tpu_torch.utils.camera import Camera, orbit_camera
@@ -714,7 +741,7 @@ def check_ztest(mesh, fovy: float, radius: float) -> dict:
     dev = torch.device("cuda")
     size, tile, chunk = EXPORT_SIZES["bake_resolution"], 32, 128
     grid_x, num_tiles = size // tile, (size // tile) ** 2
-    cam = Camera.from_pose(orbit_camera(BAKE_VERS[K3_BAKE_VIEW], BAKE_HORS[K3_BAKE_VIEW], radius),
+    cam = Camera.from_pose(orbit_camera(BAKE_VERS[view], BAKE_HORS[view], radius),
                            size, size, fovy, fovy)
     v = torch.as_tensor(mesh.v, dtype=torch.float32, device=dev)
     v_h = torch.cat([v, torch.ones((v.shape[0], 1), device=dev)], dim=1)
@@ -723,43 +750,117 @@ def check_ztest(mesh, fovy: float, radius: float) -> dict:
     feat_cols, xmin, ymin, xmax, ymax, ok = triangle_features(v_clip, faces, size, size, tile)
     bins = bin_rects(xmin, ymin, xmax, ymax, ok, grid_x=grid_x, num_tiles=num_tiles, chunk=chunk)
     dup_feat = feat_cols.index_select(1, bins.dup_map).contiguous()
-    geo = dict(grid_x=grid_x, num_tiles=num_tiles, chunk=chunk, tile=tile)
-    cs, nc = bins.chunk_starts, bins.n_chunks
+    return dup_feat, bins, dict(grid_x=grid_x, num_tiles=num_tiles, chunk=chunk, tile=tile)
 
-    before = mr.LAUNCHES["ztest"]
-    ids, z = mr.ztest(dup_feat, cs, nc, **geo)
-    r_ids, r_z = mr.ztest_ref(dup_feat, cs, nc, **geo)
-    torch.cuda.synchronize()
-    if mr.LAUNCHES["ztest"] != before + 1:
-        raise RuntimeError("the K3 wrapper did not count its launch")
-    differing = int((ids != r_ids).sum())
-    z_err = float((z - r_z).abs().max())
-    covered = float((r_ids > 0).float().mean())
-    print(f"[kernels] K3 at {size}^2 on {faces.shape[0]} faces (bake view {K3_BAKE_VIEW}): "
-          f"{int(bins.num_dups)} duplicates, {int(nc.sum())} chunks (longest tile "
-          f"{int(nc.max())}), pixels covered {covered:.3f}, pixels with another id "
-          f"{differing}, max abs z err {z_err:.3e}")
-    if differing != 0 or not z_err <= 1e-6 or covered < 0.05:
-        raise RuntimeError("K3 disagrees with its plain version")
 
-    ms = cuda_ms(lambda: mr.ztest(dup_feat, cs, nc, **geo), 20)
-    plain = cuda_ms(lambda: mr.ztest_ref(dup_feat, cs, nc, **geo), 3, 1)
+def ztest_bound_ms(dup_feat, bins, geo: dict) -> tuple:
+    """K3's bound from this view's data: (ms, "bytes" or "operations",
+    bytes, operations, real slots, box pairs, covering pairs)."""
     slots, box_pairs, cover_pairs = ztest_pair_work(dup_feat, bins, **geo)
+    num_tiles, tile = geo["num_tiles"], geo["tile"]
     byts = slots * 40 + 8 * num_tiles + num_tiles * tile * tile * 8
     flops = box_pairs * K3_FLOPS_PER_BOX_PAIR + cover_pairs * K3_FLOPS_PER_COVER_PAIR
     t_bytes = byts / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
-    all_pairs = slots * tile * tile
-    print(f"[kernels] K3 work: {slots} real slots, {box_pairs} (pixel, triangle) pairs inside "
-          f"a bounding box of {all_pairs} in the tiles' lists, {cover_pairs} covering; "
-          f"{byts} bytes, {flops} operations")
-    print(f"[kernels] ztest: {ms:.4f} ms, plain {plain:.3f} ms, bound "
-          f"{max(t_bytes, t_ops):.5f} ms ({'bytes' if t_bytes >= t_ops else 'operations'})")
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", byts, flops,
+            slots, box_pairs, cover_pairs)
+
+
+def ztest_built_with(extra: tuple):
+    """K3 through its wrapper, with the library built with ``extra`` flags
+    (a timing variant) in the shipped one's place."""
+    import functools
+
+    from dreamgaussian_tpu_torch.ops import cuda_build
+    from dreamgaussian_tpu_torch.ops import mesh_raster_cuda as mr
+
+    load = functools.partial(cuda_build.load, extra=extra)
+
+    def run(*args, **geo):
+        shipped = cuda_build.load
+        cuda_build.load = load
+        try:
+            return mr.ztest(*args, **geo)
+        finally:
+            cuda_build.load = shipped
+    return run
+
+
+def check_ztest(mesh, fovy: float, radius: float) -> dict:
+    """K3 against its plain version at the bake's shape under each of the 26
+    bake cameras: ids and z equal on every pixel, the launched grid, time
+    and bound per view. At view 9 also the plain version's time, the build
+    without the sift against the shipped one (in turns: a, b, b, a) and the
+    empty-list floor (the same launch with every list empty). K3's times are
+    device times (``graph_ms``): back to back through the wrapper a launch
+    this short is timed by the host's work between launches."""
+    import torch
+
+    from dreamgaussian_tpu_torch.meshing.export import BAKE_VERS
+    from dreamgaussian_tpu_torch.ops import mesh_raster_cuda as mr
+
+    views = []
+    for view in range(len(BAKE_VERS)):
+        dup_feat, bins, geo = bake_view_inputs(mesh, fovy, radius, view)
+        cs, nc = bins.chunk_starts, bins.n_chunks
+        before = mr.LAUNCHES["ztest"]
+        mr.LAST_GRID["ztest"] = 0
+        ids, z = mr.ztest(dup_feat, cs, nc, **geo)
+        blocks = mr.LAST_GRID["ztest"]
+        r_ids, r_z = mr.ztest_ref(dup_feat, cs, nc, **geo)
+        torch.cuda.synchronize()
+        if mr.LAUNCHES["ztest"] != before + 1:
+            raise RuntimeError("the K3 wrapper did not count its launch")
+        differing = int((ids != r_ids).sum())
+        z_differing = int((z != r_z).sum())
+        covered = float((r_ids > 0).float().mean())
+        ms = graph_ms(lambda: mr.ztest(dup_feat, cs, nc, **geo))
+        bound, bound_by, byts, flops, slots, box_pairs, cover_pairs = ztest_bound_ms(
+            dup_feat, bins, geo)
+        print(f"[kernels] K3 view {view}: {int(bins.num_dups)} duplicates, {int(nc.sum())} "
+              f"chunks (longest tile {int(nc.max())}), grid {blocks} blocks, pixels covered "
+              f"{covered:.3f}, pixels with another id {differing}, with another z "
+              f"{z_differing}; {ms:.4f} ms, bound {bound:.5f} ms ({bound_by}), share of the "
+              f"bound {bound / ms:.4f}")
+        if differing or z_differing or blocks <= 0:
+            raise RuntimeError(f"K3 disagrees with its plain version at bake view {view}")
+        views.append({"view": view, "duplicates": int(bins.num_dups), "chunks": int(nc.sum()),
+                      "longest_tile_chunks": int(nc.max()), "blocks": blocks, "ms": ms,
+                      "bound_ms": bound, "share": bound / ms})
+        if view != K3_BAKE_VIEW:
+            continue
+        if covered < 0.05:
+            raise RuntimeError(f"bake view {view} covers {covered:.3f} of the frame")
+        row = {"ms": ms, "bound_ms": bound, "bound_by": bound_by, "blocks": blocks}
+        row["plain_ms"] = cuda_ms(lambda: mr.ztest_ref(dup_feat, cs, nc, **geo), 3, 1)
+        no_sift = ztest_built_with(("-DZTEST_SIFT=0",))
+        if not all(torch.equal(a, b) for a, b in zip(no_sift(dup_feat, cs, nc, **geo), (ids, z))):
+            raise RuntimeError("K3 built without the sift gives other bits")
+        turns = []
+        for fn in (mr.ztest, no_sift, no_sift, mr.ztest):
+            turns.append(graph_ms(lambda: fn(dup_feat, cs, nc, **geo)))
+        row["shipped_ms_turns"] = [turns[0], turns[3]]
+        row["no_sift_ms_turns"] = [turns[1], turns[2]]
+        empty = torch.zeros_like(nc)
+        e_ids, e_z = mr.ztest(dup_feat, cs, empty, **geo)
+        if bool(e_ids.any()) or bool(e_z.any()):
+            raise RuntimeError("K3 with empty lists wrote a winner")
+        row["empty_ms"] = graph_ms(lambda: mr.ztest(dup_feat, cs, empty, **geo))
+        # Back to back through the wrapper, host work between the launches
+        # included: what the bake's loop pays per call.
+        row["wrapper_ms"] = cuda_ms(lambda: mr.ztest(dup_feat, cs, nc, **geo), 20)
+        print(f"[kernels] K3 work at view {view}: {slots} real slots, {box_pairs} (pixel, "
+              f"triangle) pairs inside a bounding box of {slots * geo['tile'] ** 2} in the "
+              f"tiles' lists, {cover_pairs} covering; {byts} bytes, {flops} operations")
+        print(f"[kernels] ztest at view {view}: {ms:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+              f"bound {bound:.5f} ms ({bound_by}); in turns shipped / without the sift / "
+              f"without / shipped {turns[0]:.4f} / {turns[1]:.4f} / {turns[2]:.4f} / "
+              f"{turns[3]:.4f} ms; empty lists {row['empty_ms']:.4f} ms; through the wrapper "
+              f"back to back {row['wrapper_ms']:.4f} ms; LAST_GRID {json.dumps(mr.LAST_GRID)}")
     return {
         "name": "ztest", "route": "cuda", "source": "dreamgaussian_tpu_torch/csrc/ztest.cu",
         "replaces": "dreamgaussian_tpu/ops/mesh_raster_pallas.py:48", "launches": None,
-        "max_abs_err": z_err, "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+        "max_abs_err": 0.0, **row, "library_ms": None, "views": views,
     }
 
 
@@ -781,7 +882,13 @@ def main() -> int:
     print(f"[toolchain] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} nvcc '{nvcc}' card '{card}'")
     t0 = time.perf_counter()
-    cuda_build.build(["composite_fwd", "composite_bwd", "ztest"], verbose=True)
+    # One nvcc per library, all at once: the kernels, and K3 without the
+    # sift, which check_ztest times against the shipped build.
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(cuda_build.build, ["composite_fwd", "composite_bwd", "ztest"], True),
+                  pool.submit(cuda_build.build, ["ztest"], True, ("-DZTEST_SIFT=0",))]
+        for b in builds:
+            b.result()
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s")
     from dreamgaussian_tpu_torch import native
 

@@ -22,8 +22,10 @@ needs; two planes of their own types serve the card better.)
 Rules, in both versions: edge functions at the pixel centre, either
 winding, ``area != 0``; a centre exactly on an edge is inside; ``1/area``
 then multiply; ``z = b0*z0 + b1*z1 + b2*z2`` left to right. Within a chunk
-of a tile's list equal z goes to the larger id; across chunks only a
-strictly smaller z replaces the winner.
+of a tile's list equal z goes to the larger id (and a NaN z of a covering
+triangle makes the chunk's minimum NaN, so the pixel takes nothing from
+that chunk); across chunks only a strictly smaller z replaces the winner.
+None of this depends on the order of the ids within a chunk.
 """
 
 from __future__ import annotations
@@ -41,12 +43,15 @@ MAX_CHUNK = 128            # shared-memory staging size of the kernel
 
 # Kernel launches, counted by the wrapper where it launches.
 LAUNCHES = {"ztest": 0}
+# Blocks of the kernel's last launch: the grid the library gave the launch.
+LAST_GRID = {"ztest": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# feat, k_total, chunk_starts, n_chunks, out_id, out_z, num_tiles, grid_x,
-# chunk, tile, stream
-_ARGTYPES = [_P, ctypes.c_longlong, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+# feat, k_total, chunk_starts, n_chunks, out_id, out_z, part, done,
+# num_tiles, grid_x, chunk, tile, stream, blocks_launched
+_ARGTYPES = [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+             ctypes.POINTER(_I)]
 
 
 def _pixel_centres(num_tiles, grid_x, tile, device):
@@ -138,13 +143,21 @@ def ztest(dup_feat, chunk_starts, n_chunks, *, grid_x, num_tiles, chunk, tile):
     if num_tiles == 0:
         return out_id, out_z
     lib = cuda_build.load("ztest", _ARGTYPES)
+    # A quadrant whose list the kernel cuts into segments keeps each
+    # segment's winners in `part` and counts the segments done in `done`.
+    quads = num_tiles * (tile // 16) ** 2
+    part = torch.empty((quads * lib.ztest_max_segments() * 256, 2), dtype=torch.float32,
+                       device=dup_feat.device)
+    done = torch.zeros(quads, dtype=torch.int32, device=dup_feat.device)
+    blocks = ctypes.c_int(0)
     rc = lib.ztest(
         dup_feat.data_ptr(), dup_feat.shape[1], chunk_starts.data_ptr(),
-        n_chunks.data_ptr(), out_id.data_ptr(), out_z.data_ptr(), num_tiles,
-        grid_x, chunk, tile,
-        torch.cuda.current_stream(dup_feat.device).cuda_stream,
+        n_chunks.data_ptr(), out_id.data_ptr(), out_z.data_ptr(), part.data_ptr(),
+        done.data_ptr(), num_tiles, grid_x, chunk, tile,
+        torch.cuda.current_stream(dup_feat.device).cuda_stream, ctypes.byref(blocks),
     )
     if rc != 0:
         raise RuntimeError(f"ztest kernel launch failed with CUDA error {rc}")
     LAUNCHES["ztest"] += 1
+    LAST_GRID["ztest"] = blocks.value
     return out_id, out_z

@@ -19,18 +19,20 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from . import resolve_device
 from .scene.gaussians import GaussianAux
 
 
-def _tensor(a, device) -> torch.Tensor:
+def _tensor(a, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def gaussians_from_numpy(params: Mapping, aux, device="cpu") -> tuple[dict, GaussianAux]:
+def gaussians_from_numpy(params: Mapping, aux, device="cuda") -> tuple[dict, GaussianAux]:
     """JAX ``(params, GaussianAux)`` as numpy -> the port's tensors."""
+    device = resolve_device(device)
     new_params = {k: _tensor(v, device).float() for k, v in params.items()}
     fields = aux._asdict() if hasattr(aux, "_asdict") else dict(aux)
     new_aux = GaussianAux(
@@ -42,17 +44,19 @@ def gaussians_from_numpy(params: Mapping, aux, device="cpu") -> tuple[dict, Gaus
     return new_params, new_aux
 
 
-def cloud_from_numpy(params: Mapping, alive, device="cpu") -> tuple[dict, torch.Tensor]:
+def cloud_from_numpy(params: Mapping, alive, device="cuda") -> tuple[dict, torch.Tensor]:
     """JAX padded ``params`` and ``alive`` mask as numpy -> the port's
     tensors, for the entry points that take a cloud without its statistics
     (the mesh export)."""
+    device = resolve_device(device)
     return ({k: _tensor(v, device).float() for k, v in params.items()},
             _tensor(alive, device).bool())
 
 
-def flax_state_dict(tree: Mapping, device="cpu") -> dict[str, torch.Tensor]:
+def flax_state_dict(tree: Mapping, device="cuda") -> dict[str, torch.Tensor]:
     """A flax parameter tree ({"params": {...}} or its inside) -> a torch
     state dict keyed by module path."""
+    device = resolve_device(device)
     if set(tree) == {"params"}:
         tree = tree["params"]
     out: dict[str, torch.Tensor] = {}

@@ -52,29 +52,6 @@ def blob_cloud(seed: int, n: int = 5000):
             t(rng.uniform(0.05, 0.6, size=n)), t(rng.normal(size=(n, 1, 3)) * 0.5))
 
 
-def graph_ms(fn, reps: int = 20) -> float:
-    """Device time per call of ``fn``: ``reps`` calls captured into one CUDA
-    graph and replayed, so that no host work sits between the launches."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            for _ in range(reps):
-                fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def variant_fns(extra: tuple):
     """(forward, backward): the port's wrappers, loading the libraries built
     with ``extra`` flags."""
@@ -177,8 +154,8 @@ def main() -> int:
                 chip_smoke.cuda_ms(lambda: backward(dup_feat, cs, nc, ref, g_out, **geo), 20))
         for name, t in times.items():
             forward, backward = fns[name]
-            g1 = graph_ms(lambda: forward(dup_feat, cs, nc, **geo))
-            g2 = graph_ms(lambda: backward(dup_feat, cs, nc, ref, g_out, **geo))
+            g1 = chip_smoke.graph_ms(lambda: forward(dup_feat, cs, nc, **geo))
+            g2 = chip_smoke.graph_ms(lambda: backward(dup_feat, cs, nc, ref, g_out, **geo))
             table.append({"scene": label, "variant": name, "k1_ms": t["k1"], "k2_ms": t["k2"],
                           "k1_graph_ms": g1, "k2_graph_ms": g2})
             print(f"[time] {label} / {name}: K1 {t['k1'][0]:.4f} {t['k1'][1]:.4f} ms, "

@@ -26,6 +26,8 @@ from dreamgaussian_tpu_torch.ops.project import project_gaussians
 from dreamgaussian_tpu_torch.ops.rasterize import build_feature_cols, render_gaussians
 from dreamgaussian_tpu_torch.utils.camera import Camera, orbit_camera
 from torch_composite_cases import CASES, composite_case
+from torch_ztest_cases import CARD_CASES as ZTEST_CASES
+from torch_ztest_cases import ztest_case
 
 CHUNK = 128
 
@@ -287,11 +289,173 @@ def _clip_vertices(v, size, device):
     return torch.from_numpy((v_h @ cam["full_proj"].T).astype(np.float32)).to(device)
 
 
+def _ztest_grid(geo):
+    """The grid K3's design launches: persistent blocks, six to an SM (what
+    its registers and shared memory let an SM hold), or one per segment slot
+    (every quadrant of a tile cut into at most ztest_max_segments() runs of
+    its list) where those are fewer."""
+    lib = cuda_build.load("ztest", tzc._ARGTYPES)
+    slots = geo["num_tiles"] * (geo["tile"] // 16) ** 2 * lib.ztest_max_segments()
+    return min(slots, 6 * torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def _hold_ztest(dup, cs, nc, geo, min_covered=0.2):
+    """K3 against its plain version: one counted launch of the designed
+    grid, ids and z equal on every pixel. Returns the kernel's output."""
+    before = tzc.LAUNCHES["ztest"]
+    tzc.LAST_GRID["ztest"] = 0
+    ids, z = tzc.ztest(dup, cs, nc, **geo)
+    r_ids, r_z = tzc.ztest_ref(dup, cs, nc, **geo)
+    torch.cuda.synchronize()
+    assert tzc.LAUNCHES["ztest"] == before + 1
+    assert tzc.LAST_GRID["ztest"] == _ztest_grid(geo)
+    assert float((r_ids > 0).float().mean()) > min_covered
+    assert torch.equal(ids, r_ids) and torch.equal(z, r_z)
+    return ids, z
+
+
+def _ztest_case_on(case, tile, device):
+    feat, cs, nc, geo = ztest_case(case, tile)
+    return (*(torch.from_numpy(a).to(device) for a in (feat, cs, nc)), geo)
+
+
+def _sphere_ztest_inputs(n_lat, n_lon, size, tile, device):
+    """A bumpy sphere's triangles binned at size^2: (dup, chunk_starts, n_chunks, geo)."""
+    v, f = _bumpy_sphere(n_lat, n_lon, seed=3)
+    feat, xmin, ymin, xmax, ymax, ok = tmr.triangle_features(
+        _clip_vertices(v, size, device), torch.from_numpy(f).to(device), size, size, tile)
+    geo = dict(grid_x=size // tile, num_tiles=(size // tile) ** 2, chunk=CHUNK, tile=tile)
+    bins = bin_rects(xmin, ymin, xmax, ymax, ok, grid_x=geo["grid_x"],
+                     num_tiles=geo["num_tiles"], chunk=CHUNK)
+    return feat.index_select(1, bins.dup_map).contiguous(), bins.chunk_starts, bins.n_chunks, geo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("case", ZTEST_CASES)
+def test_ztest_kernel_on_hand_built_lists(cuda_device, case, tile):
+    """Ids that do not ascend in slot order (ties within and across
+    chunks), and vertices a few ulps to either side of pixel centres with
+    slivers that cover pixel centres outside their bounding boxes: the
+    kernel's ids and z equal the plain version's on every pixel."""
+    dup, cs, nc, geo = _ztest_case_on(case, tile, cuda_device)
+    ids, _ = _hold_ztest(dup, cs, nc, geo, min_covered=0.05)
+    if case == "ties_unordered":
+        assert set(ids.unique().tolist()) == {0, 7, 9}
+
+
+@pytest.mark.cuda
+def test_ztest_kernel_on_a_dense_mesh(cuda_device):
+    """240,000 faces at 512^2, tile 32 (1,024 quadrants): the longest
+    tile's list has at least 8 chunks."""
+    dup, cs, nc, geo = _sphere_ztest_inputs(300, 400, 512, 32, cuda_device)
+    assert int(nc.max()) >= 8
+    _hold_ztest(dup, cs, nc, geo)
+    assert tzc.LAST_GRID["ztest"] == 6 * torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["sphere", *ZTEST_CASES])
+def test_ztest_sift_changes_no_bit(cuda_device, scene, monkeypatch):
+    """A warp walks only the triangles that its sift lets through. The sift
+    may let through too many, never too few: built without it
+    (ZTEST_SIFT=0) the kernel gives the same bits."""
+    if scene == "sphere":
+        dup, cs, nc, geo = _sphere_ztest_inputs(120, 160, 256, 32, cuda_device)
+    else:
+        dup, cs, nc, geo = _ztest_case_on(scene, 32, cuda_device)
+    ids, z = tzc.ztest(dup, cs, nc, **geo)
+    # From here on the wrapper loads the library built without the sift.
+    monkeypatch.setattr(cuda_build, "load",
+                        functools.partial(cuda_build.load, extra=("-DZTEST_SIFT=0",)))
+    again_ids, again_z = tzc.ztest(dup, cs, nc, **geo)
+    assert torch.equal(ids, again_ids) and torch.equal(z, again_z)
+    assert bool(ids.any())
+
+
+def _cudart():
+    """The CUDA runtime that PyTorch loaded, for what torch does not expose."""
+    try:
+        return ctypes.CDLL("libcudart.so.12")
+    except OSError:
+        import glob
+        import os
+        import sys
+        found = [p for d in sys.path for p in glob.glob(os.path.join(d, "nvidia/cuda_runtime/lib/libcudart.so*"))]
+        return ctypes.CDLL(found[0])
+
+
+@pytest.mark.cuda
+def test_ztest_refused_launch_raises_and_does_not_fall_back(cuda_device, monkeypatch):
+    """A launch that the library or the card refuses raises from the
+    wrapper; the plain version is not taken in its place, no launch is
+    counted, the grid is not recorded, and the card goes on working."""
+    dup, cs, nc, geo = _ztest_case_on("near_ulp", 32, cuda_device)
+    lib = cuda_build.load("ztest", tzc._ARGTYPES)
+    out_id = torch.empty((1, 1024), dtype=torch.int32, device=cuda_device)
+    out_z = torch.empty((1, 1024), device=cuda_device)
+    part = torch.empty((4 * lib.ztest_max_segments() * 256, 2), device=cuda_device)
+    done = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    blocks = ctypes.c_int(-1)
+    stream = torch.cuda.current_stream().cuda_stream
+    # The library's own refusal: a chunk larger than its staging buffers.
+    assert lib.ztest(dup.data_ptr(), dup.shape[1], cs.data_ptr(), nc.data_ptr(), out_id.data_ptr(),
+                     out_z.data_ptr(), part.data_ptr(), done.data_ptr(), 1, 1, 4 * CHUNK, 32, stream,
+                     ctypes.byref(blocks)) != 0
+    assert blocks.value == -1
+
+    # The card's refusal, through the wrapper and the real library. The
+    # grid is at most six blocks per SM, so no tile count takes it past the
+    # card's limit; instead the launch is passed on to the legacy default
+    # stream while a blocking stream is being captured in global mode, which
+    # the card refuses (cudaErrorStreamCaptureImplicit) before any block
+    # runs. The wrapper's own allocations run on a side stream, warmed first.
+    codes = []
+
+    class OnTheLegacyStream:
+        def __getattr__(self, entry):
+            if entry != "ztest":
+                return getattr(lib, entry)
+
+            def call(*a):
+                codes.append(lib.ztest(*a[:12], None, *a[13:]))
+                return codes[-1]
+            return call
+
+    def never(*a, **k):
+        raise AssertionError("the wrapper fell back to the plain version")
+
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        tzc.ztest(dup, cs, nc, **geo)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(cuda_build, "load", lambda *a, **k: OnTheLegacyStream())
+    monkeypatch.setattr(tzc, "ztest_ref", never)
+    before, grid_before = dict(tzc.LAUNCHES), dict(tzc.LAST_GRID)
+    rt = _cudart()
+    capturing, graph = ctypes.c_void_p(), ctypes.c_void_p()
+    assert rt.cudaStreamCreate(ctypes.byref(capturing)) == 0
+    assert rt.cudaStreamBeginCapture(capturing, 0) == 0          # cudaStreamCaptureModeGlobal
+    try:
+        with torch.cuda.stream(side), pytest.raises(RuntimeError, match="launch failed"):
+            tzc.ztest(dup, cs, nc, **geo)
+    finally:
+        ended = rt.cudaStreamEndCapture(capturing, ctypes.byref(graph))
+        rt.cudaGetLastError()      # the capture's own error, not the launch's
+        rt.cudaStreamDestroy(capturing)
+    assert ended != 0 and codes and codes[0] != 0 and len(codes) == 1
+    assert tzc.LAUNCHES == before and tzc.LAST_GRID == grid_before
+    # The refusal is not left behind for the next CUDA call to find.
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    _hold_ztest(dup, cs, nc, geo)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile", [16, 32])
 def test_ztest_kernel_matches_plain_version(cuda_device, tile):
-    """K3 on a mesh of small triangles: ids equal on every pixel, z to 1e-6
-    (the kernel keeps the plain version's operation order, without fused
+    """K3 on a mesh of small triangles: ids and z equal on every pixel (the
+    kernel keeps the plain version's operation order, without fused
     multiply-add)."""
     size = 128
     v, f = _bumpy_sphere(40, 60, seed=3)
@@ -302,13 +466,8 @@ def test_ztest_kernel_matches_plain_version(cuda_device, tile):
     bins = bin_rects(xmin, ymin, xmax, ymax, ok, grid_x=geo["grid_x"],
                      num_tiles=geo["num_tiles"], chunk=CHUNK)
     dup = feat.index_select(1, bins.dup_map).contiguous()
-    before = tzc.LAUNCHES["ztest"]
-    ids, z = tzc.ztest(dup, bins.chunk_starts, bins.n_chunks, **geo)
-    assert tzc.LAUNCHES["ztest"] == before + 1
-    r_ids, r_z = tzc.ztest_ref(dup, bins.chunk_starts, bins.n_chunks, **geo)
-    assert int(bins.n_chunks.max()) >= 2 and float((r_ids > 0).float().mean()) > 0.2
-    assert torch.equal(ids, r_ids)
-    assert float((z - r_z).abs().max()) <= 1e-6
+    _hold_ztest(dup, bins.chunk_starts, bins.n_chunks, geo)
+    assert int(bins.n_chunks.max()) >= 2
 
 
 @pytest.mark.cuda

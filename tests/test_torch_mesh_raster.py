@@ -17,6 +17,8 @@ from dreamgaussian_tpu.utils.camera import Camera, orbit_camera
 from dreamgaussian_tpu_torch.ops import binning as tbin
 from dreamgaussian_tpu_torch.ops import mesh_raster as tmr
 from dreamgaussian_tpu_torch.ops import mesh_raster_cuda as tzc
+from torch_ztest_cases import CASES as ZTEST_CASES
+from torch_ztest_cases import ztest_case
 
 
 def _np(x):
@@ -120,6 +122,41 @@ def test_ztest_equal_z_ties(gap, winner):
     np.testing.assert_allclose(t_z, j_z, rtol=0, atol=1e-6)
     hit = t_id[t_id > 0]
     assert hit.size > 20 and (hit == winner).all()
+
+
+def sliver_wins_outside_its_box(feat, ids, tile):
+    """Pixels outside a sliver's bounding box that the sliver wins (the
+    rounded edge functions of pixel centres on its diagonal's extension)."""
+    img = ids.reshape(tile, tile)
+    n = 0
+    for col in feat[:, -2:].T if feat.shape[1] else []:
+        xs, ys = col[0:6:2], col[1:6:2]
+        yy, xx = np.nonzero(img == int(col[9]))
+        n += int(((xx < xs.min()) | (yy < ys.min())).sum())
+    return n
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("case", ZTEST_CASES)
+def test_ztest_hand_built_cases_match_pallas(case, tile):
+    """Ids that do not ascend in slot order (the larger id of a chunk in its
+    earlier slot; a larger id at equal z in a later chunk, which must not
+    win), and vertices a few ulps to either side of pixel centres with two
+    slivers that cover pixel centres outside their bounding boxes: ids
+    equal on every pixel, z to 1e-6."""
+    feat, cs, nc, geo = ztest_case(case, tile)
+    j_id, j_z, t_id, t_z = _both_ztests(feat, cs, nc, **geo)
+    np.testing.assert_array_equal(t_id, j_id)
+    np.testing.assert_allclose(t_z, j_z, rtol=0, atol=1e-6)
+    if case == "ties_unordered":
+        assert nc[0] == 2 and set(np.unique(t_id)) == {0, 7, 9}
+        assert (t_id == 7).sum() > 20
+    else:
+        n = len(np.flatnonzero(feat[9]))
+        assert (t_id > 0).mean() > 0.9
+        assert len(np.unique(t_id)) > n // 2
+        # The slivers are the list's last two real slots.
+        assert sliver_wins_outside_its_box(feat[:, n - 2:n], t_id, tile) > tile // 4
 
 
 def test_ztest_wrapper_takes_plain_version_on_cpu():

@@ -65,7 +65,7 @@ def _jax_cloud():
 
 
 def _torch_cloud():
-    return tweights.cloud_from_numpy(*_cloud())
+    return tweights.cloud_from_numpy(*_cloud(), device="cpu")
 
 
 def _render(cam):

@@ -108,7 +108,8 @@ def _trained_state(seed=4, cap=256, n=200):
 
 
 def _to_port(params, adam, aux):
-    tp, ta = weights.gaussians_from_numpy(jax.device_get(params), jax.device_get(aux))
+    tp, ta = weights.gaussians_from_numpy(jax.device_get(params), jax.device_get(aux),
+                                      device="cpu")
     ts = to.AdamState(mu={k: _np(v) for k, v in adam.mu.items()},
                       nu={k: _np(v) for k, v in adam.nu.items()}, count=int(adam.count))
     return tp, ts, ta

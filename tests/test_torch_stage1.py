@@ -115,7 +115,7 @@ def test_train_steps_follow_jax_trainer(tmp_path):
     for k, v in jt.params.items():
         np.testing.assert_allclose(tt.params[k].numpy(), np.asarray(v), rtol=2e-5, atol=1e-6)
     tt.params, tt.aux = weights.gaussians_from_numpy(jax.device_get(jt.params),
-                                                      jax.device_get(jt.aux))
+                                                      jax.device_get(jt.aux), device="cpu")
     tt.adam = adam_init(tt.params)
 
     for step in range(1, STEPS + 1):
@@ -140,7 +140,7 @@ def test_train_steps_follow_jax_trainer(tmp_path):
 
     # PLY bytes: the port writes the JAX trainer's state byte for byte.
     tt.params, tt.aux = weights.gaussians_from_numpy(jax.device_get(jt.params),
-                                                      jax.device_get(jt.aux))
+                                                      jax.device_get(jt.aux), device="cpu")
     jt.save_ply(str(tmp_path / "j.ply"))
     tt.save_ply(str(tmp_path / "t.ply"))
     assert (tmp_path / "j.ply").read_bytes() == (tmp_path / "t.ply").read_bytes()

@@ -140,3 +140,42 @@ def test_cuda_build_library_name_follows_source_headers_and_flags(tmp_path, monk
     assert cuda_build.library_path("k") not in (first, second)
     # The port's own sources: the shared header is part of both compositors' names.
     assert real[0] != real[1]
+
+
+# -- weights.py: the port's device policy --
+
+
+def _carry_over(name, device=None):
+    from dreamgaussian_tpu_torch import weights
+
+    params = {"xyz": np.zeros((4, 3), np.float32)}
+    aux = {k: np.zeros(4, np.float32) for k in ("alive", "max_radii2d", "grad_accum", "denom")}
+    kw = {} if device is None else {"device": device}
+    if name == "gaussians_from_numpy":
+        return weights.gaussians_from_numpy(params, aux, **kw)[0]["xyz"]
+    if name == "cloud_from_numpy":
+        return weights.cloud_from_numpy(params, np.ones(4, bool), **kw)[0]["xyz"]
+    return weights.flax_state_dict({"params": {"conv": {"bias": np.zeros(3, np.float32)}}},
+                                   **kw)["conv.bias"]
+
+
+@pytest.mark.parametrize("name", ["gaussians_from_numpy", "cloud_from_numpy", "flax_state_dict"])
+def test_weights_carry_over_to_the_card_by_default(name, monkeypatch):
+    """Without a device the JAX package's arrays go to the card, through
+    resolve_device, which raises where no card is present; the CPU is taken
+    only when the caller asks for it."""
+    from dreamgaussian_tpu_torch import resolve_device, weights
+
+    asked = []
+
+    def spy(device="cuda"):
+        asked.append(str(device))
+        return resolve_device(device)
+
+    monkeypatch.setattr(weights, "resolve_device", spy)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _carry_over(name)
+    assert asked == ["cuda"]
+    assert _carry_over(name, "cpu").device.type == "cpu"
+    assert asked == ["cuda", "cpu"]
