@@ -26,7 +26,26 @@
    grid, time and bound per view; at view 9 also times the plain version,
    the build without the sift (in turns with the shipped one) and the
    launch with every list empty;
-6. prints the ``kernels`` JSON line, the card's name and power limit, and
+6. refines the exported mesh's texture with ``Stage2Trainer`` at
+   ``configs/image.yaml``'s stage-2 keys (novel views 512^2, refine 50
+   DDIM steps) on the stage-1 phase's Zero123 guidance with its VAE
+   decoder: eight steps with 10, 7 and 3 UNet calls, two under
+   torch.profiler (lines ``[stage2]``, ``[profile] stage2``), checking
+   finite losses, 3 K3 launches and the expected UNet calls per step, a
+   changed texture and the refined OBJ read back;
+7. holds K3 against its plain version at the stage-2 shapes, reached
+   through ``render_mesh``: the known view at 256^2 and a novel view at
+   every SSAA choice (128^2, 384^2, 640^2, 896^2), with grid, graph time
+   and bound (lines ``[kernels] K3 stage 2``);
+8. runs ``cli.main.run`` and ``cli.main2.run`` on the card with the fake
+   guidance on a disc RGBA PNG (30 stage-1 steps, the export at a 256^2
+   texture, 3 stage-2 steps) and reads the PLY and both meshes back
+   (lines ``[cli]``, with each CLI's kernel launches, counted from 0 at its
+   start); then holds every K1, K2 and K3 call the CLIs made against the
+   plain version on the same inputs (the fake guidance's 64^2 target
+   render among them), with K3's grid, graph time and bound at each render
+   size (lines ``[kernels] ... in the CLI's``);
+9. prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
 Needs a CUDA card; exits non-zero without one, and on any failed check.
@@ -36,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -250,16 +270,17 @@ def run_slice(seed: int) -> dict:
     if not bool(torch.isfinite(render.image).all()) or tuple(render.image.shape) != (256, 256, 3):
         raise RuntimeError("render_view of the trained cloud is not a finite 256^2 image")
     return {"steps": rows, "launches": launches, "peak_gib": peak_gib,
-            "breakdown": breakdown, "trainer": trainer}
+            "breakdown": breakdown, "trainer": trainer, "guidance": guidance}
 
 
 def device_ms_by_name(prof) -> dict:
-    """Device activity of a profile (kernels, copies, fills) in ms by name."""
+    """Device activity of a profile (kernels, copies, fills) in ms by name;
+    the device-side copies of ``record_function`` ranges are not activity."""
     from torch.autograd import DeviceType
 
     by_name: dict = {}
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
     return by_name
 
@@ -407,19 +428,22 @@ def pair_work(dup_feat, bins, fwd_out, *, grid_x, num_tiles, chunk, tile):
             int(k1_walk.amax(1).sum()), int(n_contrib.amax(1).sum()))
 
 
-def grad_rows_agree(d_k, d_r, rtol: float, atol: float) -> bool:
+def grad_rows_agree(d_k, d_r, rtol: float, atol: float, verbose: bool = True) -> bool:
     """K2's gradient rows against the plain version's, elementwise with a
-    tolerance scaled to each row's own magnitude; prints each row's error
-    beside its median and largest |grad|. Rows 10-15 must be zero."""
+    tolerance scaled to each row's own magnitude; ``verbose`` prints each
+    row's error beside its median and largest |grad|. Rows 10-15 must be
+    zero."""
     ok = not bool(d_k[len(GRAD_ROWS):].any())
     for i, name in enumerate(GRAD_ROWS):
         mag = d_r[i].abs()
         err = (d_k[i] - d_r[i]).abs()
         tol = rtol * mag + atol * float(mag.max())
+        ok = ok and bool((err <= tol).all())
+        if not verbose:
+            continue
         nonzero = mag[mag > 0]
         median = float(nonzero.median()) if nonzero.numel() else 0.0
         used = float((err / tol.clamp_min(1e-30)).max())
-        ok = ok and bool((err <= tol).all())
         print(f"[kernels] K2 row {name}: max abs err {float(err.max()):.3e}, median "
               f"|grad| {median:.3e}, max |grad| {float(mag.max()):.3e}, share of "
               f"tolerance used {used:.3f}")
@@ -864,6 +888,444 @@ def check_ztest(mesh, fovy: float, radius: float) -> dict:
     }
 
 
+# Stage-2 steps driven on the full-width mesh (iters_refine 50, refine_steps
+# 50): steps 1-4 start the DDIM tail at step 40 (10 UNet calls), step 25 at
+# 43 (7), steps 47-49 at 47 (3). Steps 4 and 49 run under torch.profiler.
+STAGE2_OPTIONS = {"novel_resolution": 512, "refine_steps": 50, "phase_timing": True}
+STAGE2_STEPS = (1, 2, 3, 4, 25, 47, 48, 49)
+STAGE2_PROFILED = (4, 49)
+# The stage-2 z-test shapes: the known view at ref_size (and the target
+# render, 256^2 as well: SSAA 0.5 of 512) and the novel view at each SSAA choice.
+STAGE2_NOVEL_VIEW = (-15.0, 60.0)
+# The CLIs' run: a few tens of stage-1 steps on the fake guidance, the
+# export at the smoke run's sizes but a 256^2 texture and bake, 3 stage-2 steps.
+CLI_OVERRIDES = {"iters": 30, "iters_refine": 3, "fake_guidance": True, "density_thresh": 0.2,
+                 "mc_resolution": 128, "decimate_target": 100_000, "texture_size": 256,
+                 "bake_resolution": 256}
+
+
+def labelled(fn, name: str):
+    """``fn`` inside a ``torch.profiler`` range called ``name``."""
+    from torch.profiler import record_function
+
+    def run(*args, **kw):
+        with record_function(name):
+            return fn(*args, **kw)
+    return run
+
+
+def range_device_ms(prof, names) -> dict:
+    """Device time of the kernels launched inside each named range, in ms."""
+    from torch.autograd import DeviceType
+
+    out = {n: 0.0 for n in names}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name in out:
+            out[ev.name] += ev.device_time_total / 1e3
+    return out
+
+
+def kernel_groups(by_name: dict) -> dict:
+    """Device ms of a profile's kernels in the groups the stage-2 step is
+    read by (a kernel in no group counts as other)."""
+    groups = {"ztest (K3)": ("ztest",), "resize (upsample)": ("upsample",),
+              "texture scatter (index_add)": ("indexfunclargeindex", "indexfuncsmallindex"),
+              "gathers": ("gather", "index_elementwise"),
+              "layout transposes": ("nchwtonhwc", "nhwctonchw", "tensortransform"),
+              "conv/gemm": ("conv", "gemm", "xmma", "cutlass", "cudnn", "sm90"),
+              "group norm": ("moments", "norm"), "elementwise and casts": ("elementwise",)}
+    out = {g: 0.0 for g in groups}
+    out["other"] = 0.0
+    for name, ms in by_name.items():
+        low = name.lower()
+        group = next((g for g, keys in groups.items() if any(k in low for k in keys)), "other")
+        out[group] += ms
+    return {k: round(v, 3) for k, v in out.items()}
+
+
+def run_stage2(seed: int, card: str, mesh, guidance) -> dict:
+    """Stage2Trainer at configs/image.yaml's stage-2 keys on the exported
+    mesh with the stage-1 phase's full-width Zero123 guidance (UNet, VAE
+    encoder and decoder): the steps of STAGE2_STEPS, two of them profiled,
+    then the refined mesh written as OBJ and read back."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dreamgaussian_tpu_torch.guidance.sds import refine_init_step
+    from dreamgaussian_tpu_torch.meshing.mesh import Mesh
+    from dreamgaussian_tpu_torch.ops import mesh_raster_cuda, rasterize_cuda
+    from dreamgaussian_tpu_torch.train import Stage2Trainer
+    from dreamgaussian_tpu_torch.train.stage2 import SSAA_CHOICES
+    from dreamgaussian_tpu_torch.utils.config import Config
+
+    opt = Config({**IMAGE_OPTIONS, **STAGE2_OPTIONS})
+    rgb, mask = disc_rgba(opt["ref_size"], seed)
+    unet_calls = [0]
+    hook = guidance.unet.register_forward_hook(lambda *_: unet_calls.__setitem__(0, unet_calls[0] + 1))
+    guidance.unet.forward = labelled(guidance.unet.forward, "unet")
+    guidance.vae.encode = labelled(guidance.vae.encode, "vae_encode")
+    guidance.vae.decode = labelled(guidance.vae.decode, "vae_decode")
+    entry = (opt["lambda_zero123"], guidance.refine_fn(steps=opt["refine_steps"]))
+    trainer = Stage2Trainer(opt, copy.deepcopy(mesh), ref_rgb=rgb, ref_mask=mask,
+                            refine_fns=(entry,), refine_image_size=guidance.image_size,
+                            seed=seed, device="cuda")
+    trainer._targets = labelled(trainer._targets, "target_phase")
+    # The renderer's stages as ranges too (their forward kernels only: the
+    # backward runs on autograd's thread, outside any range).
+    from dreamgaussian_tpu_torch.render import mesh_renderer
+    stages = ("rasterize", "sample_texture_mip", "antialias", "scale_img")
+    shipped = {name: getattr(mesh_renderer, name) for name in stages}
+    for name in stages:
+        setattr(mesh_renderer, name, labelled(shipped[name], name))
+    raw0 = trainer.params["raw_albedo"].clone()
+    for counts in (rasterize_cuda.LAUNCHES, mesh_raster_cuda.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, profiles = [], []
+    for step in STAGE2_STEPS:
+        trainer.step = step - 1
+        before = mesh_raster_cuda.LAUNCHES["ztest"]
+        unet_calls[0] = 0
+        # The SSAA factor the step draws first from its generator.
+        ssaa = SSAA_CHOICES[int(copy.deepcopy(trainer.rng).integers(0, len(SSAA_CHOICES)))]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if step in STAGE2_PROFILED:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                loss = float(trainer.train_step())
+                torch.cuda.synchronize()
+        else:
+            loss = float(trainer.train_step())
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        target_s, grad_s = trainer.phase_times[-1]
+        k3 = mesh_raster_cuda.LAUNCHES["ztest"] - before
+        strength = np.float32(min(1.0, step / opt["iters_refine"]) * 0.15 + 0.8)
+        expected_calls = opt["refine_steps"] - refine_init_step(opt["refine_steps"], strength)
+        row = {"step": step, "ssaa": ssaa, "unet_calls": unet_calls[0],
+               "target_ms": target_s * 1e3, "grad_ms": grad_s * 1e3, "ms": ms, "loss": loss,
+               "k3_launches": k3}
+        print(f"[stage2] step {step}: SSAA {row['ssaa']}, UNet calls {unet_calls[0]}, target "
+              f"phase {row['target_ms']:.1f} ms, grad phase {row['grad_ms']:.1f} ms, step "
+              f"{ms:.1f} ms, loss {loss:.6f}, K3 launches {k3}")
+        if not math.isfinite(loss):
+            raise RuntimeError(f"non-finite stage-2 loss at step {step}")
+        if k3 != 3:
+            raise RuntimeError(f"stage-2 step {step} launched K3 {k3} times, not 3")
+        if unet_calls[0] != expected_calls:
+            raise RuntimeError(f"stage-2 step {step} ran the UNet {unet_calls[0]} times, "
+                               f"not {expected_calls}")
+        rows.append(row)
+        if step in STAGE2_PROFILED:
+            by_name = device_ms_by_name(prof)
+            busy = sum(by_name.values())
+            ranges = range_device_ms(prof, ("unet", "vae_encode", "vae_decode", "target_phase")
+                                     + stages)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+            launched = sum(ev.count for ev in prof.key_averages() if ev.key == "cudaLaunchKernel")
+            report = {"step": step, "wall_ms_under_profiler": ms, "device_busy_ms": busy,
+                      "idle_share_under_profiler": 1.0 - busy / ms,
+                      "target_phase_device_ms": ranges["target_phase"],
+                      "grad_phase_device_ms": busy - ranges["target_phase"],
+                      "unet_ms": ranges["unet"], "vae_encode_ms": ranges["vae_encode"],
+                      "vae_decode_ms": ranges["vae_decode"],
+                      "render_forward_ms": {k: ranges[k] for k in stages},
+                      "groups": kernel_groups(by_name),
+                      "kernels_launched": launched,
+                      "top": [(k[:60], round(v, 3)) for k, v in top]}
+            print(f"[profile] stage2 {json.dumps(report)}")
+            kernels = sorted(((k[:100], round(v, 4)) for k, v in by_name.items()),
+                             key=lambda kv: -kv[1])
+            print(f"[profile] stage2 step {step} kernels {json.dumps(kernels)}")
+            profiles.append(report)
+    hook.remove()
+    for name in stages:
+        setattr(mesh_renderer, name, shipped[name])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(mesh_raster_cuda.LAUNCHES)
+    changed = float((trainer.params["raw_albedo"] - raw0).abs().max())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "refined.obj")
+        out = trainer.export_mesh(path)
+        back = Mesh.load(path, resize=False)
+    if not (np.array_equal(back.f, out.f) and np.abs(back.v - out.v).max() <= 1e-6
+            and np.abs(back.albedo - np.clip(out.albedo, 0, 1)).max() <= 1 / 255):
+        raise RuntimeError("the refined OBJ did not read back as written")
+    if not changed > 0:
+        raise RuntimeError("stage 2 did not change the texture")
+    medians = {k: statistics.median(r[k] for r in rows[1:]) for k in ("target_ms", "grad_ms", "ms")}
+    print(f"[stage2] {len(rows)} steps on the exported mesh ({len(out.v)} vertices, "
+          f"{len(out.f)} faces, texture {out.albedo.shape[0]}^2); medians without the first "
+          f"step {json.dumps({k: round(v, 1) for k, v in medians.items()})}; largest texture "
+          f"logit change {changed:.4f}; K3 launches {launches['ztest']}; peak memory "
+          f"{peak_gib:.2f} GiB; refined OBJ read back; card '{card}'")
+    return {"steps": rows, "profiles": profiles, "peak_gib": peak_gib,
+            "launches": launches["ztest"], "trainer": trainer}
+
+
+def stage2_ztest_inputs(trainer) -> list:
+    """The z-test inputs of the stage-2 renders at each shape, taken from
+    ``render_mesh`` itself: the known view at ref_size^2 and one novel view
+    at every SSAA choice. Returns [(label, dup_feat, bins, geo)]."""
+    import types
+
+    import torch
+
+    from dreamgaussian_tpu_torch.ops import mesh_raster
+    from dreamgaussian_tpu_torch.train.stage2 import SSAA_CHOICES
+    from dreamgaussian_tpu_torch.utils.camera import Camera, orbit_camera
+
+    seen = []
+    shipped = mesh_raster.ztest
+
+    def capture(dup_feat, chunk_starts, n_chunks, **geo):
+        seen.append((dup_feat, types.SimpleNamespace(chunk_starts=chunk_starts,
+                                                     n_chunks=n_chunks), geo))
+        return shipped(dup_feat, chunk_starts, n_chunks, **geo)
+
+    size = trainer.render_resolution
+    novel = Camera.from_pose(orbit_camera(trainer.elevation + STAGE2_NOVEL_VIEW[0],
+                                          STAGE2_NOVEL_VIEW[1], trainer.radius),
+                             size, size, trainer.fovy, trainer.fovy)
+    shapes = [("known view", trainer.fixed_cam, trainer.ref_size, 1.0)]
+    shapes += [(f"novel view SSAA {s}", novel, size, s) for s in SSAA_CHOICES]
+    mesh_raster.ztest = capture
+    try:
+        out = []
+        for label, cam, sz, ssaa in shapes:
+            with torch.no_grad():
+                trainer._render(cam, sz, ssaa)
+            dup_feat, bins, geo = seen[-1]
+            side = int(round(math.sqrt(geo["num_tiles"]))) * geo["tile"]
+            out.append((f"{label} {side}^2", dup_feat, bins, geo))
+    finally:
+        mesh_raster.ztest = shipped
+    return out
+
+
+def check_ztest_stage2(trainer) -> list:
+    """K3 against its plain version at the five stage-2 shapes: ids and z
+    equal on every pixel, the grid, device ms from a CUDA graph, the bound."""
+    import torch
+
+    from dreamgaussian_tpu_torch.ops import mesh_raster_cuda as mr
+
+    rows = []
+    for label, dup_feat, bins, geo in stage2_ztest_inputs(trainer):
+        cs, nc = bins.chunk_starts, bins.n_chunks
+        mr.LAST_GRID["ztest"] = 0
+        ids, z = mr.ztest(dup_feat, cs, nc, **geo)
+        blocks = mr.LAST_GRID["ztest"]
+        r_ids, r_z = mr.ztest_ref(dup_feat, cs, nc, **geo)
+        torch.cuda.synchronize()
+        differing, z_differing = int((ids != r_ids).sum()), int((z != r_z).sum())
+        covered = float((r_ids > 0).float().mean())
+        ms = graph_ms(lambda: mr.ztest(dup_feat, cs, nc, **geo))
+        bound, bound_by, byts, flops, slots, box_pairs, cover_pairs = ztest_bound_ms(
+            dup_feat, bins, geo)
+        quads = geo["num_tiles"] * (geo["tile"] // 16) ** 2
+        print(f"[kernels] K3 stage 2 {label}: {geo['num_tiles']} tiles, {quads} quadrants, "
+              f"{int(nc.sum())} chunks (longest tile {int(nc.max())}), {slots} real slots, "
+              f"grid {blocks} blocks, pixels covered {covered:.3f}, pixels with another id "
+              f"{differing}, with another z {z_differing}; {ms:.4f} ms, bound {bound:.5f} ms "
+              f"({bound_by}), share of the bound {bound / ms:.4f}")
+        if differing or z_differing or blocks <= 0:
+            raise RuntimeError(f"K3 disagrees with its plain version at stage-2 shape {label}")
+        rows.append({"label": label, "tiles": geo["num_tiles"], "chunks": int(nc.sum()),
+                     "longest_tile_chunks": int(nc.max()), "blocks": blocks, "ms": ms,
+                     "bound_ms": bound, "bound_by": bound_by, "share": bound / ms})
+    return rows
+
+
+def write_disc_png(path: str, size: int, seed: int) -> None:
+    """The disc reference as an RGBA PNG (alpha from the mask)."""
+    import numpy as np
+
+    from dreamgaussian_tpu_torch.utils.png import write_png
+
+    rgb, mask = disc_rgba(size, seed)
+    rgba = np.concatenate([rgb, mask[..., None]], -1)
+    write_png(path, np.round(np.clip(rgba, 0, 1) * 255).astype(np.uint8))
+
+
+@contextlib.contextmanager
+def tapped(module, name: str, calls: list, last_grid: dict, key: str):
+    """``module.<name>``, a kernel's wrapper as its caller imported it,
+    keeps each call's arguments, result and launched grid in ``calls``
+    (references: the main path's tensors, held after it has run)."""
+    shipped = getattr(module, name)
+
+    def run(*args, **geo):
+        out = shipped(*args, **geo)
+        calls.append({"args": args, "geo": geo, "out": out, "blocks": last_grid[key]})
+        return out
+    setattr(module, name, run)
+    try:
+        yield
+    finally:
+        setattr(module, name, shipped)
+
+
+def render_side(geo: dict) -> int:
+    return int(round(math.sqrt(geo["num_tiles"]))) * geo["tile"]
+
+
+def hold_composite_calls(phase: str, fwd: list, bwd: list) -> dict:
+    """K1 and K2 at every call a CLI made, against their plain versions on
+    the same inputs, with check_shape's gates; one row per kernel and
+    render size: calls and the largest error."""
+    import torch
+
+    from dreamgaussian_tpu_torch.ops import rasterize_cuda as rc
+
+    rows: dict = {"composite_fwd": {}, "composite_bwd": {}}
+    for name, calls in (("composite_fwd", fwd), ("composite_bwd", bwd)):
+        for c in calls:
+            side = render_side(c["geo"])
+            args, out = [a.detach() for a in c["args"]], c["out"].detach()
+            with torch.no_grad():
+                if name == "composite_fwd":
+                    ref = rc.composite_forward_ref(*args, **c["geo"])
+                    err = float((out[:, :5] - ref[:, :5]).abs().max())
+                    ok = err <= 1e-3 and float((out[:, 5] != ref[:, 5]).float().mean()) <= 1e-3
+                else:
+                    ref = rc.composite_backward_ref(*args, **c["geo"])
+                    err = float((out - ref).abs().max())
+                    ok = grad_rows_agree(out, ref, K2_RTOL, K2_ATOL, verbose=False)
+            if not ok:
+                raise RuntimeError(f"{name} disagrees with its plain version at a {side}^2 "
+                                   f"call of the CLI's {phase}")
+            row = rows[name].setdefault(side, {"phase": phase, "label": f"{side}^2", "calls": 0,
+                                               "max_abs_err": 0.0, "blocks": c["blocks"]})
+            row["calls"] += 1
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+    return {k: list(v.values()) for k, v in rows.items()}
+
+
+def hold_ztest_calls(phase: str, calls: list) -> list:
+    """K3 at every call a CLI made, against its plain version: ids and z
+    equal at every pixel. One row per render size: calls, and at its first
+    call the grid, device ms from a CUDA graph and the bound."""
+    import types
+
+    import torch
+
+    from dreamgaussian_tpu_torch.ops import mesh_raster_cuda as mr
+
+    rows: dict = {}
+    for c in calls:
+        (dup_feat, cs, nc), geo, (ids, z) = c["args"], c["geo"], c["out"]
+        r_ids, r_z = mr.ztest_ref(dup_feat, cs, nc, **geo)
+        side = render_side(geo)
+        if not (torch.equal(ids, r_ids) and torch.equal(z, r_z)):
+            raise RuntimeError(f"K3 disagrees with its plain version at a {side}^2 call of the "
+                               f"CLI's {phase}")
+        if side in rows:
+            rows[side]["calls"] += 1
+            continue
+        ms = graph_ms(lambda: mr.ztest(dup_feat, cs, nc, **geo))
+        bins = types.SimpleNamespace(chunk_starts=cs, n_chunks=nc)
+        bound, bound_by, *_ = ztest_bound_ms(dup_feat, bins, geo)
+        rows[side] = {"phase": phase, "label": f"{side}^2", "calls": 1, "max_abs_err": 0.0,
+                      "tiles": geo["num_tiles"],
+                      "chunks": int(nc.sum()), "longest_tile_chunks": int(nc.max()),
+                      "blocks": c["blocks"], "ms": ms, "bound_ms": bound, "bound_by": bound_by,
+                      "share": bound / ms}
+    return list(rows.values())
+
+
+def run_cli(seed: int, card: str) -> dict:
+    """``cli.main.run`` then ``cli.main2.run`` on the card with the fake
+    guidance on a disc RGBA PNG; reads every output back. Every kernel call
+    the CLIs make is kept and, after both have run, held against its plain
+    version; returns the launch counts of the two runs and the rows of the
+    shapes the CLIs gave each kernel."""
+    import numpy as np
+    import torch
+
+    from dreamgaussian_tpu_torch.cli import main as cli1
+    from dreamgaussian_tpu_torch.cli import main2 as cli2
+    from dreamgaussian_tpu_torch.meshing.mesh import Mesh
+    from dreamgaussian_tpu_torch.ops import mesh_raster, mesh_raster_cuda, rasterize, rasterize_cuda
+    from dreamgaussian_tpu_torch.scene import load_ply
+    from dreamgaussian_tpu_torch.utils.config import Config
+
+    walls, calls, launches = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "disc.png")
+        write_disc_png(png, 512, seed)
+        opt = Config({**IMAGE_OPTIONS, **CLI_OVERRIDES, "input": png, "save_path": "smoke",
+                      "outdir": tmp, "seed": seed, "device": "cuda"})
+        for name, cli in (("main", cli1), ("main2", cli2)):
+            fwd, bwd, zt = [], [], []
+            for counts in (rasterize_cuda.LAUNCHES, mesh_raster_cuda.LAUNCHES):
+                for k in counts:
+                    counts[k] = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with (tapped(rasterize, "composite_forward", fwd, rasterize_cuda.LAST_GRID,
+                         "composite_fwd"),
+                  tapped(rasterize, "composite_backward", bwd, rasterize_cuda.LAST_GRID,
+                         "composite_bwd"),
+                  tapped(mesh_raster, "ztest", zt, mesh_raster_cuda.LAST_GRID, "ztest")):
+                cli.run(opt)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t
+            launches[name] = {**rasterize_cuda.LAUNCHES, **mesh_raster_cuda.LAUNCHES}
+            calls[name] = (fwd, bwd, zt)
+            print(f"[cli] {name}: launches {json.dumps(launches[name])}")
+            if [len(fwd), len(bwd), len(zt)] != [launches[name][k] for k in
+                                                  ("composite_fwd", "composite_bwd", "ztest")]:
+                raise RuntimeError(f"the CLI's {name} launched a kernel outside its caller")
+        params, aux, _ = load_ply(os.path.join(tmp, "smoke_model.ply"), capacity=opt["capacity"],
+                                  device="cuda")
+        n = int(aux.alive.sum())
+        meshes = {f: Mesh.load(os.path.join(tmp, f), resize=False)
+                  for f in ("smoke_mesh.obj", "smoke.obj")}
+        files = sorted(os.listdir(tmp))
+    if n == 0 or not all(bool(torch.isfinite(v[:n]).all()) for v in params.values()):
+        raise RuntimeError("the CLI's PLY did not read back as a finite cloud")
+    for f, m in meshes.items():
+        if (len(m.f) == 0 or not np.isfinite(m.v).all() or m.albedo is None
+                or m.albedo.shape != (CLI_OVERRIDES["texture_size"],) * 2 + (3,)):
+            raise RuntimeError(f"the CLI's {f} did not read back as a textured mesh")
+    if not np.array_equal(meshes["smoke.obj"].f, meshes["smoke_mesh.obj"].f):
+        raise RuntimeError("stage 2 changed the stage-1 mesh's faces")
+    # main: the stage-1 steps (K1, K2) and the export's 26 bake views (K1,
+    # K3); main2: three renders (K3) per stage-2 step.
+    k3_main2 = 3 * CLI_OVERRIDES["iters_refine"]
+    if (min(launches["main"].values()) < 1 or launches["main"]["ztest"] != 26
+            or launches["main2"]["ztest"] != k3_main2):
+        raise RuntimeError(f"the CLIs did not go through the kernels: {launches}")
+    print(f"[cli] main {walls['main']:.1f} s, main2 {walls['main2']:.1f} s; {n} gaussians in "
+          f"the PLY; stage-1 mesh {len(meshes['smoke_mesh.obj'].f)} faces; files "
+          f"{json.dumps(files)}; card '{card}'")
+
+    shapes: dict = {"composite_fwd": [], "composite_bwd": [], "ztest": []}
+    for name, (fwd, bwd, zt) in calls.items():
+        for k, rows in hold_composite_calls(name, fwd, bwd).items():
+            shapes[k] += rows
+        shapes["ztest"] += hold_ztest_calls(name, zt)
+    for k, rows in shapes.items():
+        for row in rows:
+            extra = (f", grid {row['blocks']} blocks, {row['chunks']} chunks (longest tile "
+                     f"{row['longest_tile_chunks']}), {row['ms']:.4f} ms, bound "
+                     f"{row['bound_ms']:.5f} ms ({row['bound_by']}), share of the bound "
+                     f"{row['share']:.4f}" if k == "ztest" else f", grid {row['blocks']} blocks")
+            print(f"[kernels] {k} in the CLI's {row['phase']} at {row['label']}: {row['calls']} "
+                  f"calls held against the plain version, max abs err "
+                  f"{row['max_abs_err']:.3e}{extra}")
+    total = {k: sum(v[k] for v in launches.values()) for k in launches["main"]}
+    return {"wall_s": walls, "gaussians": n, "faces": len(meshes["smoke.obj"].f),
+            "launches": total, "shapes": shapes}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -918,7 +1380,16 @@ def main() -> int:
     k3 = check_ztest(export["mesh"], math.radians(IMAGE_OPTIONS["fovy"]), IMAGE_OPTIONS["radius"])
     k3["launches"] = export["launches"]["ztest"]
     kernels[0]["launches_export"] = export["launches"]["composite_fwd"]
+
+    stage2 = run_stage2(args.seed, card, export["mesh"], result.pop("guidance"))
+    k3["launches_stage2"] = stage2["launches"]
+    k3["launches_stage2_step"] = stage2["steps"][-1]["k3_launches"]
+    k3["stage2_shapes"] = check_ztest_stage2(stage2.pop("trainer"))
     kernels.append(k3)
+    cli = run_cli(args.seed, card)
+    for row in kernels:
+        row["launches_cli"] = cli["launches"][row["name"]]
+        row["cli_shapes"] = cli["shapes"][row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,131 @@
+"""Stage-1 CLI: image -> 3D gaussians -> textured mesh.
+
+Port of ``dreamgaussian_tpu/cli/main.py``:
+
+    python -m dreamgaussian_tpu_torch.cli.main --config configs/image.yaml \\
+        input=x.png save_path=name [device=cpu] [key=value ...]
+
+takes the same YAML keys and dotlist overrides and writes
+``<outdir>/<save_path>_model.ply`` and, unless ``save_mesh=False``,
+``<outdir>/<save_path>_mesh.<mesh_format>``. The config key ``device``
+(default ``cuda``) picks the card or the CPU.
+
+Guidance: Zero123 on an input image, from ``fake_guidance=True`` (a tiny
+random denoiser); with neither a checkpoint nor the fake it warns and
+trains on the image alone. What is not ported raises NotImplementedError
+naming the missing piece: ``zero123_ckpt`` (the checkpoint loader), the
+text priors (SD, MVDream, ImageDream), a ``mesh`` device spec (sharding),
+``resume`` and ``checkpoint_every`` (trainer checkpoints).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from .. import resolve_device
+
+
+def check_ported(opt) -> None:
+    """Raise for the options whose code is not ported yet."""
+    if opt.get("zero123_ckpt", None):
+        raise NotImplementedError(
+            "zero123_ckpt: loading a Zero123 checkpoint (guidance/loader.py) is not "
+            "ported yet; use fake_guidance=True")
+    if (opt.get("sd_ckpt", None) or opt.get("mvdream", False) or opt.get("imagedream", False)
+            or (opt.get("lambda_sd", 0) > 0 and opt.get("prompt", None))):
+        raise NotImplementedError(
+            "the SD, MVDream and ImageDream priors (sd_ckpt, prompt with lambda_sd, "
+            "mvdream, imagedream) are not ported yet")
+    if opt.get("resume", False) or opt.get("checkpoint_every", 0) > 0:
+        raise NotImplementedError(
+            "resume / checkpoint_every: stage-1 checkpoints (utils/checkpoint.py) are "
+            "not ported yet")
+
+
+def zero123_guidance(opt, ref_rgb, device):
+    """The fake Zero123 guidance for the reference view, or None (with a
+    warning) when there is neither a checkpoint nor the fake."""
+    if not (opt.get("lambda_zero123", 0) > 0 and ref_rgb is not None):
+        return None
+    if not opt.get("fake_guidance", False):
+        print("[WARN] lambda_zero123 > 0 but no zero123_ckpt given and "
+              "fake_guidance=False; skipping zero123 guidance")
+        return None
+    from ..guidance.fake import fake_zero123_guidance
+
+    return fake_zero123_guidance(stable=opt.get("stable_zero123", False),
+                                 default_elevation=opt.get("elevation", 0), device=device)
+
+
+def build_guidances(opt, ref_rgb, device="cuda") -> tuple:
+    """(weight, guidance fn) entries for the stage-1 trainer."""
+    check_ported(opt)
+    g = zero123_guidance(opt, ref_rgb, device)
+    return () if g is None else ((opt.lambda_zero123, g.guidance_fn()),)
+
+
+def load_reference(opt):
+    """(rgb composited on white, mask) of ``opt.input`` at ref_size, or
+    (None, None) without an input."""
+    if not opt.get("input", None):
+        return None, None
+    from .process import load_rgba
+
+    rgba = load_rgba(opt.input, size=opt.get("ref_size", 256))
+    return rgba[..., :3] * rgba[..., 3:] + (1 - rgba[..., 3:]), rgba[..., 3]
+
+
+def run(opt) -> dict:
+    from ..train import Stage1Trainer
+
+    device = resolve_device(opt.get("device", "cuda"))
+    if opt.get("mesh", None) not in (None, "", 0, False):
+        raise NotImplementedError(
+            f"mesh={opt.mesh!r}: device meshes (data/tile sharding) are not ported yet")
+    ref_rgb, ref_mask = load_reference(opt)
+    guidance_fns = build_guidances(opt, ref_rgb, device)
+    trainer = Stage1Trainer(opt, ref_rgb=ref_rgb, ref_mask=ref_mask,
+                            guidance_fns=guidance_fns, capacity=opt.get("capacity", 16384),
+                            seed=opt.get("seed", 0), device=device)
+    stats = trainer.train(opt.get("iters", 500))
+    print(f"[INFO] stage 1 done: {stats}")
+
+    outdir = opt.get("outdir", "logs")
+    os.makedirs(outdir, exist_ok=True)
+    ply_path = os.path.join(outdir, f"{opt.save_path}_model.ply")
+    n = trainer.save_ply(ply_path)
+    print(f"[INFO] saved {n} gaussians to {ply_path}")
+
+    if opt.get("save_mesh", True):
+        from ..meshing.export import export_textured_mesh
+
+        mesh_path = os.path.join(outdir, f"{opt.save_path}_mesh.{opt.get('mesh_format', 'obj')}")
+        export_textured_mesh(
+            trainer.params, trainer.aux.alive, lambda cam: trainer.render_view(cam).image,
+            mesh_path, fovy=trainer.fovy, radius=trainer.radius,
+            density_thresh=opt.get("density_thresh", 1.0),
+            texture_size=opt.get("texture_size", 1024),
+            bake_resolution=opt.get("bake_resolution", 512),
+            mc_resolution=opt.get("mc_resolution", 128),
+            decimate_target=opt.get("decimate_target", 100_000),
+            uv_cache_path=mesh_path, device=device,
+        )
+        print(f"[INFO] saved textured mesh to {mesh_path}")
+        stats["mesh_path"] = mesh_path
+    stats["ply_path"] = ply_path
+    return stats
+
+
+def main(argv=None) -> None:
+    from ..utils.config import load_with_cli
+
+    ap = argparse.ArgumentParser(description="dreamgaussian_tpu_torch stage 1 (gaussians)")
+    ap.add_argument("--config", required=True)
+    args, extras = ap.parse_known_args(argv)
+    run(load_with_cli(args.config, extras))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,0 +1,66 @@
+"""Fake Zero123 guidance: a tiny random-weight denoiser in place of the
+real prior, for runs without weights (``fake_guidance=True`` in the CLIs)
+and for tests.
+
+Port of the Zero123 part of ``dreamgaussian_tpu/guidance/fake.py``: the
+"VAE" average-pools the image to an 8x8 latent (its first channel
+repeated as the fourth) and decodes by nearest upsampling of the first
+three latent channels; the UNet is ``TinyUNet``. It runs every code path
+of SDS and refine and carries no semantic prior. The weights and
+embeddings are drawn from a seeded ``torch.Generator`` on the device as
+``realarch`` draws them (the JAX package draws its own from a JAX key).
+The SD, MVDream and ImageDream fakes wait for their priors.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import resolve_device
+from .realarch import init_on_device
+from .sds import Zero123Guidance
+from .unet import TinyUNet
+
+
+class PoolVAE(nn.Module):
+    """encode: NHWC images -> [B, L, L, 4] block means (channels 0, 1, 2, 0);
+    decode: NHWC latents -> [B, S, S, 3], nearest upsampling of channels 0-2."""
+
+    def __init__(self, latent_size: int, image_size: int):
+        super().__init__()
+        self.latent_size = latent_size
+        self.image_size = image_size
+
+    def encode(self, imgs):
+        b, h, w, c = imgs.shape
+        f = h // self.latent_size
+        lat = imgs.reshape(b, self.latent_size, f, self.latent_size, f, c).mean((2, 4))
+        return torch.cat([lat, lat[..., :1]], dim=-1)
+
+    def decode(self, z):
+        x = F.interpolate(z[..., :3].permute(0, 3, 1, 2), size=(self.image_size,) * 2,
+                          mode="nearest-exact")
+        return x.permute(0, 2, 3, 1)
+
+
+def fake_zero123_guidance(image_size: int = 64, seed: int = 0, stable: bool = False,
+                          default_elevation: float = 0.0,
+                          device: str | torch.device = "cuda") -> Zero123Guidance:
+    """Zero123 guidance with ``TinyUNet`` (8-channel input, context 32) and
+    the pooling VAE at an 8x8 latent: clip_emb [1, 24], vae_latent [1, 8, 8,
+    4], cam_proj [28, 32]."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.device("meta"):
+        unet = TinyUNet(in_channels=8, channels=16, context_dim=32, out_channels=4)
+    unet = init_on_device(unet, dev, gen)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    return Zero123Guidance(
+        unet, PoolVAE(latent_size=8, image_size=image_size),
+        clip_emb=randn(1, 24) * 0.1,
+        vae_latent=randn(1, 8, 8, 4) * 0.1,
+        cam_proj=(randn(28, 32) * 0.05, torch.zeros(32, device=dev)),
+        image_size=image_size, stable=stable, default_elevation=default_elevation,
+    )

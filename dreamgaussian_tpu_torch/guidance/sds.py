@@ -1,4 +1,4 @@
-"""Zero123 score distillation sampling in torch.
+"""Zero123 score distillation sampling and img2img refine in torch.
 
 Port of the Zero123 part of ``dreamgaussian_tpu/guidance/sds.py``
 (reference zero123_utils.py): CFG 5, camera-conditioned tokens through a
@@ -11,6 +11,11 @@ differentiable w.r.t. the images. ``draw(name, shape, dist)`` supplies the
 random numbers (the SDS noise as "sds_noise", NHWC latent shape), so tests
 can feed both packages the same samples. The UNet runs under no_grad; the
 gradient reaches the images through the VAE encode of the render.
+
+Refine-fn contract (consumed by train/stage2.py):
+``fn(images, cond, strength, draw) -> refined images [B,S,S,3] in [0,1]``
+without gradient: encode, noise to the DDIM step that ``strength`` picks
+("refine_noise"), denoise to t = 0 with CFG, decode.
 """
 
 from __future__ import annotations
@@ -47,10 +52,39 @@ def anneal_t(step_ratio: float, num_train: int, t_min: int, t_max: int) -> int:
     return int(np.clip(t, t_min, t_max))
 
 
-def zero123_cam_embed(vers, hors, radii):
-    """[B,4] camera conditioning of zero123-xl (zero123_utils.py:66-73)."""
+def zero123_cam_embed(vers, hors, radii, default_elevation: float = 0.0,
+                      stable: bool = False):
+    """[B,4] camera conditioning (zero123_utils.py:66-73). stable-zero123
+    puts the polar angle of the reference view where zero123-xl has the
+    radius."""
     d2r = math.pi / 180.0
-    return torch.stack([d2r * vers, torch.sin(d2r * hors), torch.cos(d2r * hors), radii], -1)
+    last = torch.full_like(vers, d2r * (90.0 + default_elevation)) if stable else radii
+    return torch.stack([d2r * vers, torch.sin(d2r * hors), torch.cos(d2r * hors), last], -1)
+
+
+def refine_init_step(steps: int, strength) -> int:
+    """First DDIM step of an img2img run: clip(floor(steps * strength), 0,
+    steps - 1) in float32, as the JAX package traces it (at 50 steps, the
+    float32 strengths 0.86 and 0.92 give 43 and 46)."""
+    start = np.floor(np.float32(steps) * np.float32(strength))
+    return int(np.clip(start, 0, steps - 1))
+
+
+def ddim_img2img(sch: DDIMScheduler, steps: int, latents, strength, noise, denoise):
+    """img2img DDIM tail: noise ``latents`` to the timestep of step
+    ``refine_init_step(steps, strength)``, then denoise through steps
+    init_step .. steps-1 with t = (steps - 1 - i) * spacing.
+    ``denoise(latents, t) -> eps_hat``."""
+    spacing = sch.num_train_timesteps // steps
+    init_step = refine_init_step(steps, strength)
+    t0 = (steps - 1 - init_step) * spacing
+    b = latents.shape[0]
+    latents = sch.add_noise(latents, noise, torch.full((b,), t0, dtype=torch.int64,
+                                                       device=latents.device))
+    for i in range(init_step, steps):
+        t = (steps - 1 - i) * spacing
+        latents = sch.step_with_spacing(denoise(latents, t), t, latents, spacing)
+    return latents
 
 
 class Zero123Guidance:
@@ -58,14 +92,16 @@ class Zero123Guidance:
 
     ``clip_emb``: [1, 768] CLIP image embedding of the reference view.
     ``vae_latent``: [1, h, w, 4] UNSCALED posterior mean of the reference
-    view. ``cam_proj``: (w [772, 768], b [768]) linear projection. The
-    timestep is annealed with the step ratio, CFG scale 5; the random
-    timestep and stable-zero123's conditioning wait for a later slice.
+    view. ``cam_proj``: (w [772, 768], b [768]) linear projection. ``vae``
+    has ``encode`` and (for refine) ``decode``. The timestep is annealed
+    with the step ratio, CFG scale 5; the random timestep waits for a
+    later slice.
     """
 
     guidance_scale = 5.0
 
-    def __init__(self, unet, vae, clip_emb, vae_latent, cam_proj, image_size: int = 256):
+    def __init__(self, unet, vae, clip_emb, vae_latent, cam_proj, image_size: int = 256,
+                 stable: bool = False, default_elevation: float = 0.0):
         self.unet = unet
         self.vae = vae
         self.scheduler = DDIMScheduler(device=clip_emb.device)
@@ -76,12 +112,15 @@ class Zero123Guidance:
         self.clip_emb = clip_emb
         self.vae_latent = vae_latent
         self.cam_proj = cam_proj
+        self.stable = stable
+        self.default_elevation = default_elevation
 
     def num_parameters(self) -> int:
         return sum(p.numel() for m in (self.unet, self.vae) for p in m.parameters())
 
     def _cond_tokens(self, vers, hors, radii, b):
-        cam = zero123_cam_embed(vers, hors, radii)[:, None, :]          # [B,1,4]
+        cam = zero123_cam_embed(vers, hors, radii, self.default_elevation,
+                                self.stable)[:, None, :]                 # [B,1,4]
         clip = self.clip_emb[None].expand(b, 1, self.clip_emb.shape[-1])
         w, bias = self.cam_proj
         return torch.cat([clip, cam], -1) @ w + bias                     # [B,1,768]
@@ -113,3 +152,31 @@ class Zero123Guidance:
             return sds_grad_loss(latents, grad, divide_by_batch=True) * b
 
         return fn
+
+    def refine_fn(self, steps: int = 50, guidance_scale: float = 5.0):
+        """img2img refine (see the module's refine-fn contract); cond needs
+        vers/hors/radii."""
+        sch = self.scheduler
+
+        @torch.no_grad()
+        def fn(images, cond, strength, draw):
+            dev = images.device
+            b = images.shape[0]
+            latents = self.vae.encode(_resize(images, self.image_size) * 2.0 - 1.0)
+            cc = self._cond_tokens(cond["vers"], cond["hors"], cond["radii"], b)
+            ctx = torch.cat([cc, torch.zeros_like(cc)])
+            vae_emb = self.vae_latent.expand((b,) + tuple(self.vae_latent.shape[1:]))
+            vae_in = torch.cat([vae_emb, torch.zeros_like(vae_emb)])
+
+            def denoise(lat, t):
+                t_in = torch.full((2 * b,), t, dtype=torch.int64, device=dev)
+                eps = self.unet(torch.cat([torch.cat([lat] * 2), vae_in], dim=-1), t_in, ctx)
+                eps_cond, eps_uncond = eps.chunk(2)
+                return eps_uncond + guidance_scale * (eps_cond - eps_uncond)
+
+            noise = draw("refine_noise", tuple(latents.shape), "normal").to(dev)
+            latents = ddim_img2img(sch, steps, latents, strength, noise, denoise)
+            return torch.clamp(self.vae.decode(latents) * 0.5 + 0.5, 0.0, 1.0)
+
+        return fn
+

@@ -11,7 +11,8 @@ Numerics kept from the JAX package: GroupNorm with float32 statistics and
 GEGLU with the exact (erf) GELU; ``flip_sin_to_cos`` timestep embedding;
 attention scores and softmax in float32. Only the Zero123 variant (conv
 projections, a fixed head count) is ported; the SD 2.1 / MVDream /
-ImageDream variants wait for the slice of the other priors.
+ImageDream variants wait for the slice of the other priors. ``TinyUNet``
+is the small denoiser of the runs without weights (``guidance/fake.py``).
 """
 
 from __future__ import annotations
@@ -289,3 +290,28 @@ class UNet(nn.Module):
                 h = self._block(f"up_{i}_upsample")(h)
         h = self.conv_out(F.silu(self.conv_norm_out(h)))
         return h.permute(0, 2, 3, 1).float()
+
+
+class TinyUNet(nn.Module):
+    """Small UNet-shaped denoiser for tests and the fake guidance: NHWC in
+    and out, the flax module's auto-named children (``Dense_0``, ``Conv_0``,
+    ``GroupNorm_0``, ``Dense_1``, ``Conv_1``, ``Conv_2``)."""
+
+    def __init__(self, in_channels: int = 4, channels: int = 16, context_dim: int = 32,
+                 out_channels: int = 4):
+        super().__init__()
+        self.channels = channels
+        self.Dense_0 = nn.Linear(channels, channels)
+        self.Conv_0 = nn.Conv2d(in_channels, channels, 3, padding=1)
+        self.GroupNorm_0 = nn.GroupNorm(4, channels, eps=1e-6)
+        self.Dense_1 = nn.Linear(context_dim, channels)
+        self.Conv_1 = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.Conv_2 = nn.Conv2d(channels, out_channels, 3, padding=1)
+
+    def forward(self, sample, timesteps, context):
+        temb = self.Dense_0(timestep_embedding(timesteps, self.channels))
+        h = self.Conv_0(sample.permute(0, 3, 1, 2).float()) + temb[:, :, None, None]
+        h = F.silu(self.GroupNorm_0(h)) + self.Dense_1(context.mean(1))[:, :, None, None]
+        h = F.silu(self.Conv_1(h))
+        h = F.interpolate(h, scale_factor=2, mode="nearest")
+        return self.Conv_2(h).permute(0, 2, 3, 1)

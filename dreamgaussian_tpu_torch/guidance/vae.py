@@ -1,10 +1,12 @@
-"""AutoencoderKL (SD VAE) encoder in torch.
+"""AutoencoderKL (SD VAE) in torch.
 
-Port of the encoder half of ``dreamgaussian_tpu/guidance/vae.py``:
-``encode`` takes NHWC images in [-1, 1] and returns the posterior mean
-times ``scaling_factor`` (the deterministic choice SDS uses), NHWC. It
-sits in the SDS gradient graph, so it is differentiable. The decoder
-waits for stage 2. Submodules carry the flax names (``encoder.down_0_res_0``).
+Port of ``dreamgaussian_tpu/guidance/vae.py``: ``encode`` takes NHWC
+images in [-1, 1] and returns the posterior mean times ``scaling_factor``
+(the deterministic choice SDS uses), NHWC; it sits in the SDS gradient
+graph, so it is differentiable. ``decode`` divides by ``scaling_factor``
+and returns NHWC images in [-1, 1] (stage 2's refine, under no_grad).
+Submodules carry the flax names (``encoder.down_0_res_0``,
+``decoder.up_0_res_0``, ``decoder.post_quant_conv``).
 """
 
 from __future__ import annotations
@@ -97,15 +99,55 @@ class Encoder(nn.Module):
         return self.quant_conv(h).float()
 
 
+class Decoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        rev = list(reversed(cfg.block_out_channels))
+        self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
+        self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
+        self.mid_res_0 = VAEResnet(rev[0], rev[0])
+        self.mid_attn = VAEAttention(rev[0])
+        self.mid_res_1 = VAEResnet(rev[0], rev[0])
+        self.n_levels = len(rev)
+        self.n_res = cfg.layers_per_block + 1
+        h_ch = rev[0]
+        for i, ch in enumerate(rev):
+            for j in range(self.n_res):
+                self.add_module(f"up_{i}_res_{j}", VAEResnet(h_ch, ch))
+                h_ch = ch
+            if i < self.n_levels - 1:
+                self.add_module(f"up_{i}_upsample", nn.Conv2d(ch, ch, 3, padding=1))
+        self.conv_norm_out = GroupNorm32(h_ch, eps=1e-6)
+        self.conv_out = nn.Conv2d(h_ch, cfg.in_channels, 3, padding=1)
+
+    def forward(self, z):
+        """NCHW latents -> NCHW float32 images [B, 3, 8h, 8w]."""
+        z = self.post_quant_conv(z.to(self.post_quant_conv.weight.dtype))
+        h = self.mid_res_1(self.mid_attn(self.mid_res_0(self.conv_in(z))))
+        for i in range(self.n_levels):
+            for j in range(self.n_res):
+                h = getattr(self, f"up_{i}_res_{j}")(h)
+            if i < self.n_levels - 1:
+                h = F.interpolate(h, scale_factor=2, mode="nearest")
+                h = getattr(self, f"up_{i}_upsample")(h)
+        return self.conv_out(F.silu(self.conv_norm_out(h))).float()
+
+
 class AutoencoderKL(nn.Module):
-    """encode(imgs NHWC in [-1,1]) -> scaled posterior-mean latents NHWC."""
+    """encode(imgs NHWC in [-1,1]) -> scaled posterior-mean latents NHWC;
+    decode(latents NHWC) -> imgs NHWC in [-1,1]."""
 
     def __init__(self, config: VAEConfig = VAEConfig()):
         super().__init__()
         self.config = config
         self.encoder = Encoder(config)
+        self.decoder = Decoder(config)
 
     def encode(self, x):
         moments = self.encoder(x.permute(0, 3, 1, 2))
         mean = moments[:, : self.config.latent_channels]
         return (mean * self.config.scaling_factor).permute(0, 2, 3, 1)
+
+    def decode(self, z):
+        x = self.decoder((z / self.config.scaling_factor).permute(0, 3, 1, 2))
+        return x.permute(0, 2, 3, 1)

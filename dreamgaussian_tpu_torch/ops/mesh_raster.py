@@ -12,8 +12,11 @@ Port of the rasterize/interpolate half of
    attribute through autograd; occlusion boundaries carry no gradient.
 
 Perspective-correct interpolation uses clip-space w; depth uses
-screen-affine NDC z like OpenGL. Texture sampling, the mip chain and
-antialiasing belong to stage 2 and are not ported yet.
+screen-affine NDC z like OpenGL. Stage 2 adds texture sampling (bilinear,
+nearest, and trilinear over a mip chain), silhouette antialiasing and the
+SSAA resize. Texel taps are row gathers (``index_select``) whose backward
+is autograd's ``index_add_`` scatter; the JAX package's per-channel
+scatter is a TPU layout workaround for the same sums.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from .binning import bin_rects
 from .clamp import clamp_tie
@@ -197,3 +201,203 @@ def interpolate_with_derivs(attrs: torch.Tensor, faces: torch.Tensor, rast: Rast
     ddx = (a * rast.bary_dx[..., None]).sum(dim=-2)
     ddy = (a * rast.bary_dy[..., None]).sum(dim=-2)
     return torch.where(m, out, zero), torch.where(m, ddx, zero), torch.where(m, ddy, zero)
+
+
+def _tap(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """[S, C] texels at integer ids [H, W] -> [H, W, C]; the backward
+    scatter-adds into the [S, C] table."""
+    return _take_rows(flat, idx.long())
+
+
+def _bilinear(flat, x, y, lw, lh, offset=0):
+    """Bilinear taps of a [lh, lw] level stored row-major in ``flat`` from
+    ``offset`` at texel coordinates (x, y); ``lw``/``lh``/``offset`` are ints
+    or integer tensors shaped like x."""
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+    x1 = torch.minimum(x0 + 1, torch.as_tensor(lw - 1, device=x.device))
+    y1 = torch.minimum(y0 + 1, torch.as_tensor(lh - 1, device=x.device))
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    t00 = _tap(flat, offset + y0 * lw + x0)
+    t01 = _tap(flat, offset + y0 * lw + x1)
+    t10 = _tap(flat, offset + y1 * lw + x0)
+    t11 = _tap(flat, offset + y1 * lw + x1)
+    return (t00 * (1 - fx) * (1 - fy) + t01 * fx * (1 - fy)
+            + t10 * (1 - fx) * fy + t11 * fx * fy)
+
+
+def build_mip_chain(tex: torch.Tensor, min_size: int = 4) -> list:
+    """2x2 average-pooled mip pyramid [full, half, ...] down to ``min_size``;
+    differentiable (gradients average-splat back up)."""
+    chain = [tex]
+    while min(chain[-1].shape[0], chain[-1].shape[1]) > min_size:
+        t = chain[-1]
+        h2, w2 = t.shape[0] // 2, t.shape[1] // 2
+        chain.append(t[: h2 * 2, : w2 * 2].reshape(h2, 2, w2, 2, -1).mean((1, 3)))
+    return chain
+
+
+def sample_texture_mip(chain: list, uv: torch.Tensor, uv_dx: torch.Tensor,
+                       uv_dy: torch.Tensor) -> torch.Tensor:
+    """Trilinear (linear-mipmap-linear) texture lookup.
+
+    chain: ``build_mip_chain`` output; uv [H,W,2] in [0,1]; uv_dx/uv_dy its
+    screen-space derivatives. Per-pixel LOD = log2 of the largest footprint
+    in texels, clipped to the chain; the result blends the bilinear samples
+    of levels floor(LOD) and floor(LOD) + 1. The chain is one flat [S, C]
+    atlas with per-level offsets and sizes, so each pixel gathers 8 texels
+    whatever the chain's depth. The blend is continuous in LOD: at an
+    integer LOD both sides of the floor give level LOD's sample.
+    """
+    th, tw = chain[0].shape[0], chain[0].shape[1]
+    n_levels = len(chain)
+    c = chain[0].shape[-1]
+    dev = uv.device
+    sizes = torch.tensor([tw, th], dtype=torch.float32, device=dev)
+    rho = torch.maximum(torch.linalg.vector_norm(uv_dx * sizes, dim=-1),
+                        torch.linalg.vector_norm(uv_dy * sizes, dim=-1))
+    lod = clamp_tie(torch.log2(clamp_tie(rho, 1e-12)), 0.0, n_levels - 1.0)
+
+    flat = torch.cat([t.reshape(-1, c) for t in chain], dim=0)
+    offs, off = [], 0
+    for t in chain:
+        offs.append(off)
+        off += t.shape[0] * t.shape[1]
+    as_table = lambda vals: torch.tensor(vals, dtype=torch.int64, device=dev)  # noqa: E731
+    offs = as_table(offs)
+    ths = as_table([t.shape[0] for t in chain])
+    tws = as_table([t.shape[1] for t in chain])
+
+    l0 = torch.floor(lod).long()
+    l1 = torch.clamp(l0 + 1, max=n_levels - 1)
+    frac = (lod - l0.float())[..., None]
+    u = clamp_tie(uv[..., 0], 0.0, 1.0)
+    v = clamp_tie(uv[..., 1], 0.0, 1.0)
+
+    def sample_level(lidx):
+        lw, lh = tws[lidx], ths[lidx]
+        return _bilinear(flat, u * (lw - 1).float(), v * (lh - 1).float(), lw, lh,
+                         offs[lidx])
+
+    return sample_level(l0) * (1 - frac) + sample_level(l1) * frac
+
+
+def sample_texture(tex: torch.Tensor, uv: torch.Tensor, mode: str = "bilinear") -> torch.Tensor:
+    """Differentiable texture lookup. tex [th, tw, C], uv [H, W, 2] in
+    [0, 1] (u -> width axis, v -> height axis)."""
+    th, tw = tex.shape[0], tex.shape[1]
+    x = clamp_tie(uv[..., 0], 0.0, 1.0) * (tw - 1)
+    y = clamp_tie(uv[..., 1], 0.0, 1.0) * (th - 1)
+    flat = tex.reshape(th * tw, -1)
+    if mode == "nearest":
+        return _tap(flat, torch.round(y).long() * tw + torch.round(x).long())
+    return _bilinear(flat, x, y, tw, th)
+
+
+def _aa_axis(color, tri_id, zbuf, mask, xy, faces, horizontal: bool, z_eps: float):
+    """Additive antialias adjustment from one pass of adjacent pixel pairs
+    (horizontal: (y,x)-(y,x+1), else (y,x)-(y+1,x)); see ``antialias``."""
+    h, w = tri_id.shape
+    nf = faces.shape[0]
+    if horizontal:
+        sl_a = (slice(None), slice(0, w - 1))
+        sl_b = (slice(None), slice(1, None))
+    else:
+        sl_a = (slice(0, h - 1), slice(None))
+        sl_b = (slice(1, None), slice(None))
+
+    id_a, id_b = tri_id[sl_a], tri_id[sl_b]
+    m_a, m_b = mask[sl_a], mask[sl_b]
+    inf = torch.full_like(zbuf[sl_a], float("inf"))
+    z_a = torch.where(m_a, zbuf[sl_a], inf)
+    z_b = torch.where(m_b, zbuf[sl_b], inf)
+
+    # Silhouette proxy: ids differ and (background on one side or a depth
+    # discontinuity); interior shared edges have continuous depth.
+    pair = (id_a != id_b) & ((~m_a) | (~m_b) | ((z_a - z_b).abs() > z_eps))
+    win_a = z_a <= z_b                        # the closer side owns the edge
+    wid = torch.where(win_a, id_a, id_b)
+    fidx = torch.clamp(wid.long() - 1, 0, nf - 1)
+    p = _take_rows(xy, faces[fidx])           # [h', w', 3, 2], differentiable
+
+    # Pixel centres of the winner (t=0) and the loser (t=1).
+    ys, xs = torch.meshgrid(
+        torch.arange(id_a.shape[0], dtype=torch.float32, device=xy.device),
+        torch.arange(id_a.shape[1], dtype=torch.float32, device=xy.device),
+        indexing="ij")
+    off = win_a.logical_not().float()
+    if horizontal:
+        qwx, qwy, qlx, qly = xs + off, ys, xs + (1.0 - off), ys
+    else:
+        qwx, qwy, qlx, qly = xs, ys + off, xs, ys + (1.0 - off)
+
+    def edges(qx, qy):
+        # e_i inside-positive through the area's sign; pairs (1,2), (2,0),
+        # (0,1) as the barycentrics' e0, e1, e2.
+        e = torch.stack([
+            (p[..., i2, 0] - p[..., i1, 0]) * (qy - p[..., i1, 1])
+            - (p[..., i2, 1] - p[..., i1, 1]) * (qx - p[..., i1, 0])
+            for i1, i2 in ((1, 2), (2, 0), (0, 1))], dim=-1)
+        area = e.sum(-1, keepdim=True)
+        return e * torch.where(area >= 0, 1.0, -1.0)
+
+    # Each edge is owned by one pair orientation: mostly-vertical edges
+    # (|dy| >= |dx|) by horizontal pairs, the others by vertical pairs.
+    dxy = (p[..., (2, 0, 1), :] - p[..., (1, 2, 0), :]).abs()
+    owned = dxy[..., 1] >= dxy[..., 0] if horizontal else dxy[..., 0] > dxy[..., 1]
+
+    e_w = edges(qwx, qwy)
+    e_l = edges(qlx, qly)
+    # Crossing of each exiting edge along winner -> loser; the first exit wins.
+    crossing = (e_w >= 0) & (e_l < 0) & owned
+    t_i = e_w / clamp_tie(e_w - e_l, 1e-12)
+    t = torch.where(crossing, t_i, torch.full_like(t_i, 2.0)).amin(-1)
+    has = crossing.any(-1) & pair
+    # t = 1/2 is the fixed point (no blend either way): pairs that are not
+    # silhouettes or have no crossing land exactly there.
+    t = clamp_tie(torch.where(has, t, torch.full_like(t, 0.5)), 0.0, 1.0)
+
+    c_a, c_b = color[sl_a], color[sl_b]
+    wa = win_a[..., None]
+    c_w = torch.where(wa, c_a, c_b)
+    c_l = torch.where(wa, c_b, c_a)
+    w_l = clamp_tie(t - 0.5, 0.0)[..., None]   # the winner spills past the middle
+    w_w = clamp_tie(0.5 - t, 0.0)[..., None]   # the winner retreats
+    adj_w = w_w * (c_l - c_w)
+    adj_l = w_l * (c_w - c_l)
+    adj_a = torch.where(wa, adj_w, adj_l)
+    adj_b = torch.where(wa, adj_l, adj_w)
+    if horizontal:
+        return F.pad(adj_a, (0, 0, 0, 1)) + F.pad(adj_b, (0, 0, 1, 0))
+    return F.pad(adj_a, (0, 0, 0, 0, 0, 1)) + F.pad(adj_b, (0, 0, 0, 0, 1, 0))
+
+
+def antialias(color: torch.Tensor, rast: RastOut, v_clip: torch.Tensor, faces: torch.Tensor,
+              width: int, height: int, z_eps: float = 1e-3) -> torch.Tensor:
+    """Analytic silhouette-edge antialiasing (nvdiffrast ``antialias``).
+
+    For every horizontally or vertically adjacent pixel pair whose triangle
+    ids differ at a silhouette, the closer triangle's exiting edge is
+    intersected with the segment between the two pixel centres; the
+    crossing parameter t (0 at the winner's centre, 1 at the loser's) gives
+    the blend: t > 1/2 blends the winner's colour into the loser pixel with
+    weight t - 1/2, t < 1/2 the loser's colour into the winner pixel with
+    weight 1/2 - t. The selection (ids, winner, crossings) carries no
+    gradient; t and the colours do, so gradients reach the occluding
+    geometry through its silhouettes.
+    """
+    xy, _, _ = _screen_coords(v_clip, width, height)
+    faces = faces.long()
+    args = (color, rast.tri_id, rast.zbuf, rast.mask, xy, faces)
+    return (color + _aa_axis(*args, horizontal=True, z_eps=z_eps)
+            + _aa_axis(*args, horizontal=False, z_eps=z_eps))
+
+
+def scale_img(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Bilinear resize [..., H, W, C] -> [..., h, w, C] with a triangle
+    filter that widens when shrinking (``jax.image.resize(..., "bilinear")``)."""
+    lead, (hi, wi, c) = img.shape[:-3], img.shape[-3:]
+    x = img.reshape(-1, hi, wi, c).permute(0, 3, 1, 2)
+    out = F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False, antialias=True)
+    return out.permute(0, 2, 3, 1).reshape(*lead, h, w, c)

@@ -73,6 +73,13 @@ class TorchDraw:
             return torch.randn(shape, generator=self.gen, device=self.device)
         raise ValueError(f"unknown distribution {dist!r} for draw {name!r}")
 
+    def get_state(self) -> np.ndarray:
+        """The generator's state as uint8, for a checkpoint."""
+        return self.gen.get_state().numpy()
+
+    def set_state(self, state: np.ndarray) -> None:
+        self.gen.set_state(torch.from_numpy(np.asarray(state, np.uint8)))
+
 
 def _render_one(params, cam, bg, width, height, sh_degree, alive, tap=None):
     return render_gaussians(

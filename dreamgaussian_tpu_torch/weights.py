@@ -88,8 +88,28 @@ def load_unet(unet: torch.nn.Module, flax_params: Mapping) -> torch.nn.Module:
     return unet
 
 
-def load_vae_encoder(vae: torch.nn.Module, flax_params: Mapping) -> torch.nn.Module:
-    """Load the encoder half of a flax AutoencoderKL tree (strict)."""
-    sd = flax_state_dict(flax_params, next(vae.parameters()).device)
-    vae.load_state_dict({k: v for k, v in sd.items() if k.startswith("encoder.")})
+def load_vae(vae: torch.nn.Module, flax_params: Mapping) -> torch.nn.Module:
+    """Load a flax AutoencoderKL tree, encoder and decoder (strict)."""
+    vae.load_state_dict(flax_state_dict(flax_params, next(vae.parameters()).device))
     return vae
+
+
+def load_vae_encoder(vae: torch.nn.Module, flax_params: Mapping) -> torch.nn.Module:
+    """Load the encoder half of a flax AutoencoderKL tree into ``vae.encoder``
+    (strict); the decoder keeps its weights."""
+    sd = flax_state_dict(flax_params, next(vae.parameters()).device)
+    vae.encoder.load_state_dict({k[len("encoder."):]: v for k, v in sd.items()
+                                 if k.startswith("encoder.")})
+    return vae
+
+
+def load_tiny_unet(unet: torch.nn.Module, flax_params: Mapping) -> torch.nn.Module:
+    """Load a flax ``TinyUNet`` tree (strict). Its modules are flax's
+    auto-named children (``Conv_0``, ``GroupNorm_0``, ...), each converted on
+    its own: a top-level ``GroupNorm_0`` is a module of its own here, not
+    GroupNorm32's inner level."""
+    tree = flax_params["params"] if set(flax_params) == {"params"} else flax_params
+    dev = next(unet.parameters()).device
+    unet.load_state_dict({f"{name}.{k}": v for name, sub in tree.items()
+                          for k, v in flax_state_dict(sub, dev).items()})
+    return unet

@@ -25,6 +25,7 @@ from dreamgaussian_tpu_torch.ops.binning import bin_gaussians
 from dreamgaussian_tpu_torch.ops.project import project_gaussians
 from dreamgaussian_tpu_torch.ops.rasterize import build_feature_cols, render_gaussians
 from dreamgaussian_tpu_torch.utils.camera import Camera, orbit_camera
+from torch_cli_cases import disc_png, image_options
 from torch_composite_cases import CASES, composite_case
 from torch_ztest_cases import CARD_CASES as ZTEST_CASES
 from torch_ztest_cases import ztest_case
@@ -539,3 +540,106 @@ def test_ztest_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         tzc.ztest(feat, cs, nc, **{**geo, "tile": 8})
     with pytest.raises(ValueError):
         tzc.ztest(feat, cs, nc, **{**geo, "chunk": 256})
+
+
+def _uv_sphere_mesh(n_lat=40, n_lon=60, tex=256):
+    """The bumpy sphere as a textured mesh: spherical uv per vertex and a
+    smooth colour pattern, for the stage-2 renderer."""
+    from dreamgaussian_tpu_torch.meshing.mesh import Mesh
+
+    v, f = _bumpy_sphere(n_lat, n_lon, seed=6)
+    d = v / np.linalg.norm(v, axis=1, keepdims=True)
+    vt = np.stack([0.5 + np.arctan2(d[:, 2], d[:, 0]) / (2 * np.pi),
+                   np.arccos(np.clip(d[:, 1], -1, 1)) / np.pi], 1).astype(np.float32)
+    yy, xx = np.mgrid[0:1:tex * 1j, 0:1:tex * 1j]
+    albedo = np.stack([0.5 + 0.4 * np.sin(2 * np.pi * (3 * xx + k) + 5 * yy * k)
+                       for k in range(3)], -1).astype(np.float32)
+    m = Mesh(v=v, f=f.astype(np.int32), vt=vt, ft=f.astype(np.int32), albedo=albedo)
+    m.auto_normal()
+    return m
+
+
+STAGE2_SHAPES = [(256, 1.0)] + [(512, s) for s in (0.25, 0.75, 1.25, 1.75)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,ssaa", STAGE2_SHAPES)
+def test_render_mesh_on_card_matches_cpu(cuda_device, size, ssaa):
+    """render_mesh on the card (K3) against the CPU (plain version) at the
+    five stage-2 z-test shapes: 256^2 and 512^2 at every SSAA choice
+    (128^2 to 896^2). Outputs within 1e-4 on all but 0.1% of the values
+    (an antialiased silhouette pair may flip on a contracted edge
+    product), the raw_albedo gradient within 1e-3 in relative norm
+    (the card's index_add_ sums in another order)."""
+    from dreamgaussian_tpu_torch.render import MeshRendererState, render_mesh
+
+    m = _uv_sphere_mesh()
+    cam = Camera.from_pose(orbit_camera(-15.0, 60.0, 2.0), size, size, 0.857, 0.857)
+    w2c = cam.view[:3, :3].copy()
+    w2c[1:3] *= -1
+    outs, grads = [], []
+    for dev in ("cpu", cuda_device):
+        st = MeshRendererState.from_mesh(m, dev)
+        raw = st.raw_albedo.clone().requires_grad_(True)
+        arr = {k: torch.from_numpy(cam.arrays()[k]).to(dev) for k in ("view", "full_proj")}
+        before = tzc.LAUNCHES["ztest"]
+        out = render_mesh(st._replace(raw_albedo=raw), arr, torch.from_numpy(w2c.T.copy()).to(dev),
+                          size, size, ssaa=ssaa)
+        assert tzc.LAUNCHES["ztest"] - before == (0 if dev == "cpu" else 1)
+        g = torch.Generator().manual_seed(size + int(ssaa * 4))
+        out["image"].mul(torch.randn(out["image"].shape, generator=g).to(dev)).sum().backward()
+        outs.append({k: v.detach().cpu() for k, v in out.items()})
+        grads.append(raw.grad.cpu())
+    assert float(outs[0]["alpha"].mean()) > 0.05
+    for k in outs[0]:
+        bad = (outs[1][k] - outs[0][k]).abs() > 1e-4
+        assert float(bad.float().mean()) <= 1e-3, (k, int(bad.sum()))
+    rel = float((grads[1] - grads[0]).norm() / grads[0].norm())
+    assert rel <= 1e-3, rel
+
+
+@pytest.mark.cuda
+def test_stage2_step_on_card_launches_k3_three_times(cuda_device):
+    """One Stage2Trainer step on the card with the known view and the fake
+    Zero123 refine: the target render, the known view and the novel view
+    go through K3; the loss is finite and the texture moves."""
+    from dreamgaussian_tpu_torch.guidance.fake import fake_zero123_guidance
+    from dreamgaussian_tpu_torch.train import Stage2Trainer
+    from dreamgaussian_tpu_torch.utils.config import Config
+
+    g = fake_zero123_guidance(image_size=64)
+    opt = Config(dict(iters_refine=10, ref_size=64, novel_resolution=128, texture_lr=0.2))
+    ref = np.full((64, 64, 3), 0.3, np.float32)
+    tr = Stage2Trainer(opt, _uv_sphere_mesh(), ref_rgb=ref, ref_mask=np.ones((64, 64), np.float32),
+                       refine_fns=((1.0, g.refine_fn(steps=50)),), refine_image_size=64)
+    raw0 = tr.params["raw_albedo"].clone()
+    before = tzc.LAUNCHES["ztest"]
+    loss = float(tr.train_step())
+    assert tzc.LAUNCHES["ztest"] - before == 3
+    assert math.isfinite(loss) and loss > 0
+    assert float((tr.params["raw_albedo"] - raw0).abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_clis_default_to_the_card(cuda_device, tmp_path):
+    """Both CLIs at the golden run's sizes without a device key: they run on
+    the card (K1 and K3 launched), writing the PLY and both meshes."""
+    from dreamgaussian_tpu_torch.cli import main as cli1
+    from dreamgaussian_tpu_torch.cli import main2 as cli2
+    from dreamgaussian_tpu_torch.meshing.mesh import Mesh
+    from dreamgaussian_tpu_torch.utils.config import Config
+
+    png = disc_png(tmp_path / "disc.png")
+    opt = Config({**image_options(), "input": png, "save_path": "g", "outdir": str(tmp_path),
+                  "iters": 16, "ref_size": 32, "num_pts": 256, "capacity": 512,
+                  "novel_resolutions": [32, 32, 32], "fake_guidance": True, "texture_size": 64,
+                  "bake_resolution": 32, "mc_resolution": 32, "decimate_target": 2000,
+                  "iters_refine": 3, "novel_resolution": 64, "refine_steps": 3,
+                  "density_thresh": 0.2})
+    k1, k3 = tcu.LAUNCHES["composite_fwd"], tzc.LAUNCHES["ztest"]
+    cli1.run(opt)
+    cli2.run(opt)
+    assert tcu.LAUNCHES["composite_fwd"] > k1 and tzc.LAUNCHES["ztest"] >= k3 + 26 + 3 * 3
+    assert (tmp_path / "g_model.ply").exists()
+    for name in ("g_mesh.obj", "g.obj"):
+        assert len(Mesh.load(str(tmp_path / name), resize=False).f) > 0
