@@ -37,15 +37,28 @@
    through ``render_mesh``: the known view at 256^2 and a novel view at
    every SSAA choice (128^2, 384^2, 640^2, 896^2), with grid, graph time
    and bound (lines ``[kernels] K3 stage 2``);
-8. runs ``cli.main.run`` and ``cli.main2.run`` on the card with the fake
-   guidance on a disc RGBA PNG (30 stage-1 steps, the export at a 256^2
-   texture, 3 stage-2 steps) and reads the PLY and both meshes back
-   (lines ``[cli]``, with each CLI's kernel launches, counted from 0 at its
-   start); then holds every K1, K2 and K3 call the CLIs made against the
-   plain version on the same inputs (the fake guidance's 64^2 target
-   render among them), with K3's grid, graph time and bound at each render
-   size (lines ``[kernels] ... in the CLI's``);
-9. prints the ``kernels`` JSON line, the card's name and power limit, and
+8. runs ``python -m dreamgaussian_tpu_torch.cli.main --config
+   configs/image.yaml`` and then ``cli.main2`` through their ``main(argv)``
+   on the card with the fake guidance on a disc RGBA PNG (30 stage-1
+   steps, the export at a 256^2 texture, 3 stage-2 steps) and reads the PLY
+   and both meshes back (lines ``[cli]``, with each run's kernel launches,
+   counted from 0 at its start); then holds every K1, K2 and K3 call the
+   CLIs made against the plain version on the same inputs (the fake
+   guidance's 64^2 target render among them), with K3's grid, graph time
+   and bound at each render size (lines ``[kernels] ... in the CLI's``);
+9. the weights day: writes a full-width Zero123 snapshot (the UNet, the
+   KL-VAE, CLIP ViT-L/14 and the camera projection, about 1.25 B values)
+   as fp16 safetensors, loads it with ``load_zero123`` (every UNet and VAE
+   parameter equal to its snapshot tensor cast to bf16, no key left over;
+   the CLIP tower on the card against the CPU), then runs the documented
+   commands on it: stage 1 to its first checkpoint, stage 1 resumed from
+   it (the restored state equal to the saved one, both random states
+   included) with the export at ``configs/image.yaml``'s sizes, stage 2,
+   and ``configs/image_sai.yaml`` (stable-zero123) for a few steps; reads
+   the outputs back and holds every K1, K2 and K3 call of these runs
+   against the plain version (lines ``[weights]``, ``[cli]`` and
+   ``[kernels] ... in the weights-day``);
+10. prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
 Needs a CUDA card; exits non-zero without one, and on any failed check.
@@ -65,26 +78,16 @@ import sys
 import tempfile
 import time
 
-# configs/image.yaml's options, as a dict: the card machine has no PyYAML.
-IMAGE_OPTIONS = {
-    "input": None, "prompt": None, "negative_prompt": None, "mesh": None,
-    "elevation": 0, "ref_size": 256, "density_thresh": 1, "outdir": "logs",
-    "mesh_format": "obj", "save_path": "???", "mvdream": False,
-    "imagedream": False, "stable_zero123": False, "lambda_sd": 0,
-    "lambda_zero123": 1, "warmup_rgb_loss": True, "batch_size": 1,
-    "iters": 500, "anneal_timestep": True, "iters_refine": 50, "radius": 2,
-    "fovy": 49.1, "min_ver": -30, "max_ver": 30, "load": None,
-    "train_geo": False, "invert_bg_prob": 0.5, "gui": False, "H": 800,
-    "W": 800, "num_pts": 5000, "sh_degree": 0, "position_lr_init": 0.001,
-    "position_lr_final": 0.00002, "position_lr_delay_mult": 0.02,
-    "position_lr_max_steps": 500, "feature_lr": 0.01, "opacity_lr": 0.05,
-    "scaling_lr": 0.005, "rotation_lr": 0.005, "percent_dense": 0.01,
-    "density_start_iter": 100, "density_end_iter": 3000,
-    "densification_interval": 100, "opacity_reset_interval": 700,
-    "densify_grad_threshold": 0.01, "geom_lr": 0.0001, "texture_lr": 0.2,
-    "capacity": 16384, "fake_guidance": False, "sd_ckpt": None,
-    "zero123_ckpt": None, "texture_size": 1024, "seed": 0,
-}
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+
+
+def image_options() -> dict:
+    """configs/image.yaml's options, read by the port's config reader (the
+    card's machine has no PyYAML, and the reader needs none)."""
+    from dreamgaussian_tpu_torch.utils.config import load
+
+    return dict(load(os.path.join(CONFIGS, "image.yaml")))
+
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32
 # FLOP/s outside the tensor cores.
@@ -213,7 +216,7 @@ def run_slice(seed: int) -> dict:
     from dreamgaussian_tpu_torch.train import Stage1Trainer
     from dreamgaussian_tpu_torch.utils.config import Config
 
-    opt = Config(IMAGE_OPTIONS)
+    opt = Config(image_options())
     rgb, mask = disc_rgba(opt["ref_size"], seed)
     t0 = time.perf_counter()
     guidance = random_zero123_guidance(image_size=256, seed=seed, device="cuda")
@@ -606,7 +609,7 @@ def run_export(seed: int, card: str) -> dict:
         zeros = torch.zeros(n, device="cuda")
         save_ply(ply, params, GaussianAux(alive=alive, max_radii2d=zeros, grad_accum=zeros,
                                           denom=zeros))
-        opt = Config({**IMAGE_OPTIONS, "load": ply})
+        opt = Config({**image_options(), "load": ply})
         trainer = Stage1Trainer(opt, capacity=opt["capacity"], seed=seed, device="cuda")
         if trainer.capacity != n or int(trainer.aux.alive.sum()) != n:
             raise RuntimeError("the trainer did not take the whole cloud")
@@ -960,7 +963,7 @@ def run_stage2(seed: int, card: str, mesh, guidance) -> dict:
     from dreamgaussian_tpu_torch.train.stage2 import SSAA_CHOICES
     from dreamgaussian_tpu_torch.utils.config import Config
 
-    opt = Config({**IMAGE_OPTIONS, **STAGE2_OPTIONS})
+    opt = Config({**image_options(), **STAGE2_OPTIONS})
     rgb, mask = disc_rgba(opt["ref_size"], seed)
     unet_calls = [0]
     hook = guidance.unet.register_forward_hook(lambda *_: unet_calls.__setitem__(0, unet_calls[0] + 1))
@@ -1240,97 +1243,394 @@ def hold_ztest_calls(phase: str, calls: list) -> list:
     return list(rows.values())
 
 
-def run_cli(seed: int, card: str) -> dict:
-    """``cli.main.run`` then ``cli.main2.run`` on the card with the fake
-    guidance on a disc RGBA PNG; reads every output back. Every kernel call
-    the CLIs make is kept and, after both have run, held against its plain
-    version; returns the launch counts of the two runs and the rows of the
-    shapes the CLIs gave each kernel."""
-    import numpy as np
+def drive_cli(label: str, cli, argv: list, runs: dict) -> dict:
+    """``cli.main(argv)`` with every kernel count set to 0 just before it and
+    read just after, and every kernel call kept (``tapped``); records the
+    run's calls, launches and seconds in ``runs[label]`` and returns the
+    CLI's stats."""
     import torch
 
-    from dreamgaussian_tpu_torch.cli import main as cli1
-    from dreamgaussian_tpu_torch.cli import main2 as cli2
-    from dreamgaussian_tpu_torch.meshing.mesh import Mesh
     from dreamgaussian_tpu_torch.ops import mesh_raster, mesh_raster_cuda, rasterize, rasterize_cuda
-    from dreamgaussian_tpu_torch.scene import load_ply
-    from dreamgaussian_tpu_torch.utils.config import Config
 
-    walls, calls, launches = {}, {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        png = os.path.join(tmp, "disc.png")
-        write_disc_png(png, 512, seed)
-        opt = Config({**IMAGE_OPTIONS, **CLI_OVERRIDES, "input": png, "save_path": "smoke",
-                      "outdir": tmp, "seed": seed, "device": "cuda"})
-        for name, cli in (("main", cli1), ("main2", cli2)):
-            fwd, bwd, zt = [], [], []
-            for counts in (rasterize_cuda.LAUNCHES, mesh_raster_cuda.LAUNCHES):
-                for k in counts:
-                    counts[k] = 0
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            with (tapped(rasterize, "composite_forward", fwd, rasterize_cuda.LAST_GRID,
-                         "composite_fwd"),
-                  tapped(rasterize, "composite_backward", bwd, rasterize_cuda.LAST_GRID,
-                         "composite_bwd"),
-                  tapped(mesh_raster, "ztest", zt, mesh_raster_cuda.LAST_GRID, "ztest")):
-                cli.run(opt)
-            torch.cuda.synchronize()
-            walls[name] = time.perf_counter() - t
-            launches[name] = {**rasterize_cuda.LAUNCHES, **mesh_raster_cuda.LAUNCHES}
-            calls[name] = (fwd, bwd, zt)
-            print(f"[cli] {name}: launches {json.dumps(launches[name])}")
-            if [len(fwd), len(bwd), len(zt)] != [launches[name][k] for k in
-                                                  ("composite_fwd", "composite_bwd", "ztest")]:
-                raise RuntimeError(f"the CLI's {name} launched a kernel outside its caller")
-        params, aux, _ = load_ply(os.path.join(tmp, "smoke_model.ply"), capacity=opt["capacity"],
-                                  device="cuda")
-        n = int(aux.alive.sum())
-        meshes = {f: Mesh.load(os.path.join(tmp, f), resize=False)
-                  for f in ("smoke_mesh.obj", "smoke.obj")}
-        files = sorted(os.listdir(tmp))
-    if n == 0 or not all(bool(torch.isfinite(v[:n]).all()) for v in params.values()):
-        raise RuntimeError("the CLI's PLY did not read back as a finite cloud")
-    for f, m in meshes.items():
-        if (len(m.f) == 0 or not np.isfinite(m.v).all() or m.albedo is None
-                or m.albedo.shape != (CLI_OVERRIDES["texture_size"],) * 2 + (3,)):
-            raise RuntimeError(f"the CLI's {f} did not read back as a textured mesh")
-    if not np.array_equal(meshes["smoke.obj"].f, meshes["smoke_mesh.obj"].f):
-        raise RuntimeError("stage 2 changed the stage-1 mesh's faces")
-    # main: the stage-1 steps (K1, K2) and the export's 26 bake views (K1,
-    # K3); main2: three renders (K3) per stage-2 step.
-    k3_main2 = 3 * CLI_OVERRIDES["iters_refine"]
-    if (min(launches["main"].values()) < 1 or launches["main"]["ztest"] != 26
-            or launches["main2"]["ztest"] != k3_main2):
-        raise RuntimeError(f"the CLIs did not go through the kernels: {launches}")
-    print(f"[cli] main {walls['main']:.1f} s, main2 {walls['main2']:.1f} s; {n} gaussians in "
-          f"the PLY; stage-1 mesh {len(meshes['smoke_mesh.obj'].f)} faces; files "
-          f"{json.dumps(files)}; card '{card}'")
+    fwd, bwd, zt = [], [], []
+    for counts in (rasterize_cuda.LAUNCHES, mesh_raster_cuda.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with (tapped(rasterize, "composite_forward", fwd, rasterize_cuda.LAST_GRID, "composite_fwd"),
+          tapped(rasterize, "composite_backward", bwd, rasterize_cuda.LAST_GRID, "composite_bwd"),
+          tapped(mesh_raster, "ztest", zt, mesh_raster_cuda.LAST_GRID, "ztest")):
+        stats = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {**rasterize_cuda.LAUNCHES, **mesh_raster_cuda.LAUNCHES}
+    if [len(fwd), len(bwd), len(zt)] != [launches[k] for k in
+                                          ("composite_fwd", "composite_bwd", "ztest")]:
+        raise RuntimeError(f"the CLI run {label} launched a kernel outside its caller")
+    runs[label] = {"calls": (fwd, bwd, zt), "launches": launches, "wall_s": wall}
+    print(f"[cli] {label}: {wall:.1f} s, launches {json.dumps(launches)}")
+    return stats
 
+
+def hold_cli_calls(runs: dict, tag: str) -> dict:
+    """Every K1, K2 and K3 call of the CLI runs in ``runs`` held against its
+    plain version (``hold_composite_calls``, ``hold_ztest_calls``); prints a
+    line per kernel and render size and returns the rows per kernel."""
     shapes: dict = {"composite_fwd": [], "composite_bwd": [], "ztest": []}
-    for name, (fwd, bwd, zt) in calls.items():
-        for k, rows in hold_composite_calls(name, fwd, bwd).items():
+    for label, run in runs.items():
+        fwd, bwd, zt = run["calls"]
+        for k, rows in hold_composite_calls(label, fwd, bwd).items():
             shapes[k] += rows
-        shapes["ztest"] += hold_ztest_calls(name, zt)
+        shapes["ztest"] += hold_ztest_calls(label, zt)
     for k, rows in shapes.items():
         for row in rows:
             extra = (f", grid {row['blocks']} blocks, {row['chunks']} chunks (longest tile "
                      f"{row['longest_tile_chunks']}), {row['ms']:.4f} ms, bound "
                      f"{row['bound_ms']:.5f} ms ({row['bound_by']}), share of the bound "
                      f"{row['share']:.4f}" if k == "ztest" else f", grid {row['blocks']} blocks")
-            print(f"[kernels] {k} in the CLI's {row['phase']} at {row['label']}: {row['calls']} "
+            print(f"[kernels] {k} in the {tag} {row['phase']} at {row['label']}: {row['calls']} "
                   f"calls held against the plain version, max abs err "
                   f"{row['max_abs_err']:.3e}{extra}")
+    return shapes
+
+
+def read_outputs(outdir: str, save_path: str, texture_size: int, capacity: int) -> tuple:
+    """The stage-1 PLY and both meshes of a CLI pair read back and checked:
+    (gaussians, stage-1 mesh faces)."""
+    import numpy as np
+    import torch
+
+    from dreamgaussian_tpu_torch.meshing.mesh import Mesh
+    from dreamgaussian_tpu_torch.scene import load_ply
+
+    params, aux, _ = load_ply(os.path.join(outdir, f"{save_path}_model.ply"), capacity=capacity,
+                              device="cuda")
+    n = int(aux.alive.sum())
+    if n == 0 or not all(bool(torch.isfinite(v[:n]).all()) for v in params.values()):
+        raise RuntimeError(f"the CLI's {save_path} PLY did not read back as a finite cloud")
+    meshes = {f: Mesh.load(os.path.join(outdir, f), resize=False)
+              for f in (f"{save_path}_mesh.obj", f"{save_path}.obj")}
+    for f, m in meshes.items():
+        if (len(m.f) == 0 or not np.isfinite(m.v).all() or m.albedo is None
+                or m.albedo.shape != (texture_size,) * 2 + (3,)):
+            raise RuntimeError(f"the CLI's {f} did not read back as a textured mesh")
+    stage1, refined = meshes.values()
+    if not np.array_equal(refined.f, stage1.f):
+        raise RuntimeError("stage 2 changed the stage-1 mesh's faces")
+    return n, len(stage1.f)
+
+
+def run_cli(seed: int, card: str) -> dict:
+    """``python -m dreamgaussian_tpu_torch.cli.main --config configs/image.yaml``
+    and then ``cli.main2`` (through their ``main(argv)``) on the card with the
+    fake guidance on a disc RGBA PNG; reads every output back. Every kernel
+    call the CLIs make is kept and, after both have run, held against its
+    plain version; returns the launch counts of the two runs and the rows of
+    the shapes the CLIs gave each kernel."""
+    from dreamgaussian_tpu_torch.cli import main as cli1
+    from dreamgaussian_tpu_torch.cli import main2 as cli2
+
+    runs: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "disc.png")
+        write_disc_png(png, 512, seed)
+        argv = ["--config", os.path.join(CONFIGS, "image.yaml"), f"input={png}",
+                "save_path=smoke", f"outdir={tmp}", f"seed={seed}",
+                *(f"{k}={v}" for k, v in CLI_OVERRIDES.items())]
+        drive_cli("main", cli1, argv, runs)
+        drive_cli("main2", cli2, argv, runs)
+        n, faces = read_outputs(tmp, "smoke", CLI_OVERRIDES["texture_size"],
+                                image_options()["capacity"])
+        files = sorted(os.listdir(tmp))
+    launches = {k: v["launches"] for k, v in runs.items()}
+    # main: the stage-1 steps (K1, K2) and the export's 26 bake views (K1,
+    # K3); main2: three renders (K3) per stage-2 step.
+    k3_main2 = 3 * CLI_OVERRIDES["iters_refine"]
+    if (min(launches["main"].values()) < 1 or launches["main"]["ztest"] != 26
+            or launches["main2"]["ztest"] != k3_main2):
+        raise RuntimeError(f"the CLIs did not go through the kernels: {launches}")
+    walls = {k: v["wall_s"] for k, v in runs.items()}
+    print(f"[cli] main {walls['main']:.1f} s, main2 {walls['main2']:.1f} s; {n} gaussians in "
+          f"the PLY; stage-1 mesh {faces} faces; files {json.dumps(files)}; card '{card}'")
+    shapes = hold_cli_calls(runs, "CLI's")
     total = {k: sum(v[k] for v in launches.values()) for k in launches["main"]}
-    return {"wall_s": walls, "gaussians": n, "faces": len(meshes["smoke.obj"].f),
-            "launches": total, "shapes": shapes}
+    return {"wall_s": walls, "gaussians": n, "faces": faces, "launches": total,
+            "shapes": shapes}
+
+
+# The weights-day run: a full-width Zero123 snapshot (ZERO123_CONFIG's UNet,
+# the KL-VAE, the CLIP ViT-L/14 vision tower and the 772 -> 768 camera
+# projection: about 1.25 B values) written as fp16 safetensors and loaded
+# strictly; then the documented commands on it: stage 1 stopped at its first
+# checkpoint (step 8, after the densify at step 4), resumed to step 12 with
+# the export at configs/image.yaml's sizes, stage 2 for two steps, and
+# configs/image_sai.yaml (stable-zero123) for four steps without the export.
+WEIGHTS_STOP, WEIGHTS_ITERS, WEIGHTS_REFINE, SAI_ITERS = 8, 12, 2, 4
+WEIGHTS_ARGS = ["density_start_iter=4", "densification_interval=4"]
+# CLIP image_embeds on the card against the CPU on the same weights and image:
+# float32 on both (the patch embedding is a matmul: no TF32 convolution), 24
+# blocks summed in other orders; largest |difference| over the largest
+# |embedding|. Sound float32 runs differ by about 1.2e-6 of it; a TF32 matmul
+# or convolution would miss by about 1e-3.
+CLIP_REL_TOL = 1e-5
+
+
+# load_zero123 alone in a process of its own, started when chip_smoke.py is
+# still small: a child's peak RSS (getrusage) starts at its parent's RSS when
+# it is started, so the measurement cannot be started from the weights day. It
+# imports torch, then waits for its arguments on stdin (snapshot, reference
+# PNG, ref_size, one a line); it starts CUDA, cuBLAS and cuDNN (a convolution
+# and a matmul in both dtypes), loads, and prints its peak RSS before and after
+# the load as one JSON line.
+LOAD_ALONE = """
+import json, resource, sys, time
+import torch
+from dreamgaussian_tpu_torch.cli.main import load_reference
+from dreamgaussian_tpu_torch.guidance import loader
+from dreamgaussian_tpu_torch.utils.config import Config
+snap, png, ref_size = sys.stdin.read().splitlines()[:3]
+for dt in (torch.float32, torch.bfloat16):
+    x = torch.ones(1, 4, 8, 8, device="cuda", dtype=dt)
+    torch.nn.functional.conv2d(x, x[:, :, :3, :3].expand(4, 4, 3, 3))
+    x.reshape(16, 16) @ x.reshape(16, 16)
+rgb, _ = load_reference(Config(input=png, ref_size=int(ref_size)))
+torch.cuda.synchronize()
+before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+t = time.perf_counter()
+g = loader.load_zero123(snap, ref_image=rgb, device="cuda")
+torch.cuda.synchronize()
+print(json.dumps({"load_s": time.perf_counter() - t, "peak_before": before,
+                  "peak_after": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+                  "unet_fp32": 4 * sum(p.numel() for p in g.unet.parameters())}))
+"""
+
+
+@contextlib.contextmanager
+def load_alone_process():
+    """``LOAD_ALONE`` started now, and stopped on leaving."""
+    proc = subprocess.Popen([sys.executable, "-c", LOAD_ALONE], stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        yield proc
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def load_host_peak(proc: subprocess.Popen, snap: str, png: str) -> dict:
+    """``LOAD_ALONE``'s reading; fails if the load raised its peak RSS by as
+    much as a float32 copy of the UNet."""
+    out, _ = proc.communicate(f"{snap}\n{png}\n{image_options()['ref_size']}\n", timeout=600)
+    if proc.returncode:
+        raise RuntimeError(f"load_zero123 in a process of its own exited {proc.returncode}")
+    r = json.loads(out.strip().splitlines()[-1])
+    r["rise"] = r["peak_after"] - r["peak_before"]
+    if r["rise"] >= r["unet_fp32"]:
+        raise RuntimeError(f"load_zero123 raised the host's peak RSS by {r['rise']} bytes, "
+                           f"as much as a float32 copy of the UNet ({r['unet_fp32']} bytes)")
+    return r
+
+
+def trainer_state(trainer) -> dict:
+    """A host copy of everything a stage-1 checkpoint holds."""
+    state = {f"{group}_{k}": v.detach().cpu().clone()
+             for group, tensors in (("p", trainer.params), ("mu", trainer.adam.mu),
+                                    ("nu", trainer.adam.nu), ("aux", trainer.aux._asdict()))
+             for k, v in tensors.items()}
+    state.update(step=trainer.step, adam_count=int(trainer.adam.count),
+                 np_rng=json.dumps(trainer.rng.bit_generator.state),
+                 draw=bytes(trainer.draw.get_state()))
+    return state
+
+
+@contextlib.contextmanager
+def kept_checkpoints(saved: list, restored: list, losses: list):
+    """Stage1Trainer with each checkpoint's state kept as it is saved and as
+    it is restored, and each step's loss kept."""
+    from dreamgaussian_tpu_torch.train import Stage1Trainer
+
+    shipped = {n: getattr(Stage1Trainer, n) for n in ("save_checkpoint", "load_checkpoint",
+                                                      "train_step")}
+
+    def save(self, path):
+        out = shipped["save_checkpoint"](self, path)
+        saved.append(trainer_state(self))
+        return out
+
+    def load(self, path):
+        shipped["load_checkpoint"](self, path)
+        restored.append(trainer_state(self))
+
+    def step(self):
+        loss = shipped["train_step"](self)
+        losses.append(float(loss))
+        return loss
+
+    Stage1Trainer.save_checkpoint, Stage1Trainer.load_checkpoint = save, load
+    Stage1Trainer.train_step = step
+    try:
+        yield
+    finally:
+        for n, fn in shipped.items():
+            setattr(Stage1Trainer, n, fn)
+
+
+def check_snapshot_load(snap: str, png: str, card: str, load_alone: subprocess.Popen) -> dict:
+    """``load_zero123`` of the full-width snapshot on the card: seconds,
+    peak device memory and, in ``load_alone`` (``LOAD_ALONE``), the rise of
+    the host's peak RSS over the load (held below one float32 copy of the UNet: the file is
+    mapped and copied tensor by tensor); every UNet and VAE parameter equal to its
+    snapshot tensor cast to bf16 with no key left over; the camera
+    projection; the CLIP tower on the card against the CPU."""
+    import torch
+
+    from dreamgaussian_tpu_torch.cli.main import load_reference
+    from dreamgaussian_tpu_torch.guidance import convert, loader
+    from dreamgaussian_tpu_torch.guidance.clip import clip_pixel_values, load_clip_vision
+    from dreamgaussian_tpu_torch.utils.config import Config
+
+    rgb, _ = load_reference(Config(input=png, ref_size=image_options()["ref_size"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    g = loader.load_zero123(snap, ref_image=rgb, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    host = load_host_peak(load_alone, snap, png)
+    n_params = 0
+    for module, sub, rename in ((g.unet, "unet", convert.unet_key),
+                                (g.vae, "vae", convert.vae_key)):
+        sd = convert.load_torch_state_dict(snap, sub)
+        params = dict(module.named_parameters())
+        if sorted(rename(k) for k in sd) != sorted(params):
+            raise RuntimeError(f"the {sub} snapshot's keys and the module's parameters differ")
+        for k, v in sd.items():
+            p = params[rename(k)]
+            if p.dtype != torch.bfloat16 or not torch.equal(p, v.to("cuda").to(torch.bfloat16)):
+                raise RuntimeError(f"{sub} parameter {rename(k)} is not its snapshot tensor {k}")
+            n_params += p.numel()
+    w, b = convert.camera_projection(convert.load_torch_state_dict(snap, "clip_camera_projection"))
+    if not (torch.equal(g.cam_proj[0].cpu(), w.float()) and torch.equal(g.cam_proj[1].cpu(),
+                                                                       b.float())):
+        raise RuntimeError("the camera projection is not the snapshot's")
+    enc = os.path.join(snap, "image_encoder")
+    pixels = clip_pixel_values(rgb, 224, "cpu")
+    with torch.no_grad():
+        on_cpu = load_clip_vision(enc, "cpu")(pixels)
+        on_card = load_clip_vision(enc, "cuda")(pixels.cuda()).cpu()
+    scale = float(on_cpu.abs().max())
+    clip_err = float((on_card - on_cpu).abs().max())
+    guide_err = float((g.clip_emb.cpu() - on_cpu).abs().max())
+    if not (clip_err <= CLIP_REL_TOL * scale and guide_err <= CLIP_REL_TOL * scale):
+        raise RuntimeError(f"CLIP image_embeds on the card miss the CPU's: {clip_err:.3e} "
+                           f"(guidance {guide_err:.3e}) against {CLIP_REL_TOL} x {scale:.3e}")
+    print(f"[weights] load_zero123 {load_s:.1f} s, peak device memory {peak_gib:.2f} GiB, "
+          f"alone in a process of its own {host['load_s']:.1f} s and its host peak RSS "
+          f"{host['peak_before'] / 2**30:.2f} -> {host['peak_after'] / 2**30:.2f} GiB, "
+          f"a rise of {host['rise'] / 2**30:.2f} GiB (gate: under the UNet's float32 "
+          f"{host['unet_fp32'] / 2**30:.2f} GiB); "
+          f"{n_params} UNet and VAE weights equal to "
+          f"the snapshot's cast to bf16, no key left over; CLIP image_embeds card against CPU "
+          f"max abs err {clip_err:.3e} (guidance's {guide_err:.3e}, largest |embed| "
+          f"{scale:.3e}, gate {CLIP_REL_TOL} of it); card '{card}'")
+    return {"load_s": load_s, "load_peak_gib": peak_gib, "load_host_rise_gib": host["rise"] / 2**30}
+
+
+def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
+    """The full-width snapshot written, loaded and driven through both CLIs
+    (see WEIGHTS_STOP); every kernel call of the CLI runs held against its
+    plain version."""
+    import torch
+
+    from dreamgaussian_tpu_torch.cli import main as cli1
+    from dreamgaussian_tpu_torch.cli import main2 as cli2
+    from dreamgaussian_tpu_torch.guidance import synthetic
+    from dreamgaussian_tpu_torch.guidance.unet import ZERO123_CONFIG
+    from dreamgaussian_tpu_torch.guidance.vae import VAEConfig
+
+    runs: dict = {}
+    saved, restored, losses = [], [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "zero123-snapshot")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sizes = synthetic.write_zero123_snapshot(snap, ZERO123_CONFIG, VAEConfig(),
+                                                 synthetic.CLIP_VIT_L14, dtype=torch.float16,
+                                                 seed=seed, device="cuda")
+        write_s = time.perf_counter() - t
+        n_bytes = sum(nb for nb, _ in sizes.values())
+        n_values = sum(nv for _, nv in sizes.values())
+        print(f"[weights] full-width snapshot written in {write_s:.1f} s: {n_values} values, "
+              f"{n_bytes} bytes of fp16 safetensors ({json.dumps(sizes)}); card '{card}'")
+        png = os.path.join(tmp, "disc.png")
+        write_disc_png(png, 512, seed)
+        load = check_snapshot_load(snap, png, card, load_alone)
+
+        ckpt = os.path.join(tmp, "ckpt")
+        argv = ["--config", os.path.join(CONFIGS, "image.yaml"), f"input={png}",
+                "save_path=weights", f"outdir={tmp}", f"seed={seed}", f"zero123_ckpt={snap}",
+                f"checkpoint_dir={ckpt}", f"checkpoint_every={WEIGHTS_STOP}", *WEIGHTS_ARGS]
+        with kept_checkpoints(saved, restored, losses):
+            first = drive_cli("stage 1 to its checkpoint", cli1,
+                              argv + [f"iters={WEIGHTS_STOP}", "save_mesh=False"], runs)
+            resumed = drive_cli("stage 1 resumed, export", cli1,
+                                argv + [f"iters={WEIGHTS_ITERS}", "resume=True"], runs)
+            refined = drive_cli("stage 2", cli2,
+                                argv + [f"iters={WEIGHTS_ITERS}", f"iters_refine={WEIGHTS_REFINE}"],
+                                runs)
+            sai = drive_cli("image_sai stage 1", cli1,
+                            ["--config", os.path.join(CONFIGS, "image_sai.yaml"), f"input={png}",
+                             "save_path=sai", f"outdir={tmp}", f"seed={seed}",
+                             f"zero123_ckpt={snap}", f"iters={SAI_ITERS}", "save_mesh=False"],
+                            runs)
+        n, faces = read_outputs(tmp, "weights", image_options()["texture_size"],
+                                image_options()["capacity"])
+    if (first["step"], resumed["step"], sai["step"]) != (WEIGHTS_STOP, WEIGHTS_ITERS, SAI_ITERS):
+        raise RuntimeError(f"stage-1 runs ended at steps {first['step']}, {resumed['step']}, "
+                           f"{sai['step']}")
+    if len(saved) != 1 or len(restored) != 1 or restored[0]["step"] != WEIGHTS_STOP:
+        raise RuntimeError(f"expected one checkpoint at step {WEIGHTS_STOP} saved and restored, "
+                           f"got {len(saved)} saved, {len(restored)} restored")
+    differ = [k for k, v in saved[0].items() if not (
+        torch.equal(v, restored[0][k]) if isinstance(v, torch.Tensor) else v == restored[0][k])]
+    if differ:
+        raise RuntimeError(f"the resumed trainer's state differs from the saved one in {differ}")
+    n_steps = WEIGHTS_STOP + (WEIGHTS_ITERS - WEIGHTS_STOP) + SAI_ITERS
+    if len(losses) != n_steps or not all(math.isfinite(x) for x in losses + [refined["loss"]]):
+        raise RuntimeError(f"stage-1 losses {losses}, stage-2 loss {refined['loss']}")
+    launches = {k: v["launches"] for k, v in runs.items()}
+    k1k2 = ("composite_fwd", "composite_bwd")
+    if (any(launches[k][name] < 1 for k in launches if "stage 1" in k for name in k1k2)
+            or launches["stage 1 resumed, export"]["ztest"] != 26
+            or launches["stage 2"]["ztest"] != 3 * WEIGHTS_REFINE):
+        raise RuntimeError(f"the weights-day runs did not go through the kernels: {launches}")
+    walls = {k: v["wall_s"] for k, v in runs.items()}
+    print(f"[weights] checkpoint at step {WEIGHTS_STOP} restored bit for bit "
+          f"({len(saved[0])} entries, both random states); resumed to step {WEIGHTS_ITERS}; "
+          f"{n} gaussians in the PLY, stage-1 mesh {faces} faces; losses finite; CLI seconds "
+          f"{json.dumps({k: round(v, 1) for k, v in walls.items()})}; card '{card}'")
+    shapes = hold_cli_calls(runs, "weights-day")
+    total = {k: sum(v[k] for v in launches.values()) for k in launches[next(iter(launches))]}
+    print(f"[weights] launches {json.dumps(total)}; snapshot {write_s:.1f} s to write, "
+          f"{load['load_s']:.1f} s to load, load peak {load['load_peak_gib']:.2f} GiB on the "
+          f"card, {load['load_host_rise_gib']:.2f} GiB host RSS rise; "
+          f"card '{card}'")
+    return {"launches": total, "shapes": shapes}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    with load_alone_process() as load_alone:
+        return smoke(args, load_alone)
 
+
+def smoke(args, load_alone: subprocess.Popen) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1377,7 +1677,8 @@ def main() -> int:
         row["launches"] = result["launches"][row["name"]]
 
     export = run_export(args.seed, card)
-    k3 = check_ztest(export["mesh"], math.radians(IMAGE_OPTIONS["fovy"]), IMAGE_OPTIONS["radius"])
+    opts = image_options()
+    k3 = check_ztest(export["mesh"], math.radians(opts["fovy"]), opts["radius"])
     k3["launches"] = export["launches"]["ztest"]
     kernels[0]["launches_export"] = export["launches"]["composite_fwd"]
 
@@ -1390,6 +1691,10 @@ def main() -> int:
     for row in kernels:
         row["launches_cli"] = cli["launches"][row["name"]]
         row["cli_shapes"] = cli["shapes"][row["name"]]
+    weights_day = run_weights_day(args.seed, card, load_alone)
+    for row in kernels:
+        row["launches_weights_day"] = weights_day["launches"][row["name"]]
+        row["weights_day_shapes"] = weights_day["shapes"][row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

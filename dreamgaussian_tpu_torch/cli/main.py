@@ -3,19 +3,23 @@
 Port of ``dreamgaussian_tpu/cli/main.py``:
 
     python -m dreamgaussian_tpu_torch.cli.main --config configs/image.yaml \\
-        input=x.png save_path=name [device=cpu] [key=value ...]
+        input=x.png save_path=name zero123_ckpt=<local diffusers snapshot> \\
+        [checkpoint_dir=ckpt checkpoint_every=100 [resume=True]] [device=cpu] [key=value ...]
 
-takes the same YAML keys and dotlist overrides and writes
-``<outdir>/<save_path>_model.ply`` and, unless ``save_mesh=False``,
+takes the same YAML keys and dotlist overrides (read without PyYAML) and
+writes ``<outdir>/<save_path>_model.ply`` and, unless ``save_mesh=False``,
 ``<outdir>/<save_path>_mesh.<mesh_format>``. The config key ``device``
 (default ``cuda``) picks the card or the CPU.
 
-Guidance: Zero123 on an input image, from ``fake_guidance=True`` (a tiny
-random denoiser); with neither a checkpoint nor the fake it warns and
-trains on the image alone. What is not ported raises NotImplementedError
-naming the missing piece: ``zero123_ckpt`` (the checkpoint loader), the
-text priors (SD, MVDream, ImageDream), a ``mesh`` device spec (sharding),
-``resume`` and ``checkpoint_every`` (trainer checkpoints).
+Guidance: Zero123 on an input image, from a Zero123-XL or Stable-Zero123
+diffusers snapshot (``zero123_ckpt``, ``stable_zero123``) or from
+``fake_guidance=True`` (a tiny random denoiser); with neither it warns and
+trains on the image alone. Checkpoints: with ``checkpoint_dir`` and
+``checkpoint_every`` the full train state is saved every that many steps;
+``resume=True`` continues from ``checkpoint_dir`` when it exists (else
+trains from step 0) up to ``iters`` steps in all. What is not ported
+raises NotImplementedError naming the missing piece: the text priors (SD,
+MVDream, ImageDream) and a ``mesh`` device spec (sharding).
 """
 
 from __future__ import annotations
@@ -28,27 +32,26 @@ from .. import resolve_device
 
 
 def check_ported(opt) -> None:
-    """Raise for the options whose code is not ported yet."""
-    if opt.get("zero123_ckpt", None):
-        raise NotImplementedError(
-            "zero123_ckpt: loading a Zero123 checkpoint (guidance/loader.py) is not "
-            "ported yet; use fake_guidance=True")
+    """Raise for the options whose code is not ported yet (the text priors;
+    ``run`` raises for a ``mesh`` device spec)."""
     if (opt.get("sd_ckpt", None) or opt.get("mvdream", False) or opt.get("imagedream", False)
             or (opt.get("lambda_sd", 0) > 0 and opt.get("prompt", None))):
         raise NotImplementedError(
             "the SD, MVDream and ImageDream priors (sd_ckpt, prompt with lambda_sd, "
             "mvdream, imagedream) are not ported yet")
-    if opt.get("resume", False) or opt.get("checkpoint_every", 0) > 0:
-        raise NotImplementedError(
-            "resume / checkpoint_every: stage-1 checkpoints (utils/checkpoint.py) are "
-            "not ported yet")
 
 
 def zero123_guidance(opt, ref_rgb, device):
-    """The fake Zero123 guidance for the reference view, or None (with a
-    warning) when there is neither a checkpoint nor the fake."""
+    """Zero123 guidance for the reference view from ``zero123_ckpt`` or the
+    fake, or None (with a warning) when there is neither."""
     if not (opt.get("lambda_zero123", 0) > 0 and ref_rgb is not None):
         return None
+    ckpt = opt.get("zero123_ckpt", None)
+    if ckpt:
+        from ..guidance.loader import load_zero123
+
+        return load_zero123(ckpt, ref_image=ref_rgb, stable=opt.get("stable_zero123", False),
+                            default_elevation=opt.get("elevation", 0), device=device)
     if not opt.get("fake_guidance", False):
         print("[WARN] lambda_zero123 > 0 but no zero123_ckpt given and "
               "fake_guidance=False; skipping zero123 guidance")
@@ -89,7 +92,13 @@ def run(opt) -> dict:
     trainer = Stage1Trainer(opt, ref_rgb=ref_rgb, ref_mask=ref_mask,
                             guidance_fns=guidance_fns, capacity=opt.get("capacity", 16384),
                             seed=opt.get("seed", 0), device=device)
-    stats = trainer.train(opt.get("iters", 500))
+    ckpt_dir = opt.get("checkpoint_dir", None)
+    if opt.get("resume", False) and ckpt_dir and os.path.exists(ckpt_dir):
+        trainer.load_checkpoint(ckpt_dir)
+        print(f"[INFO] resumed from {ckpt_dir} at step {trainer.step}")
+    stats = trainer.train(max(0, opt.get("iters", 500) - trainer.step),
+                          checkpoint_every=opt.get("checkpoint_every", 0),
+                          checkpoint_dir=ckpt_dir)
     print(f"[INFO] stage 1 done: {stats}")
 
     outdir = opt.get("outdir", "logs")
@@ -118,13 +127,13 @@ def run(opt) -> dict:
     return stats
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
     from ..utils.config import load_with_cli
 
     ap = argparse.ArgumentParser(description="dreamgaussian_tpu_torch stage 1 (gaussians)")
     ap.add_argument("--config", required=True)
     args, extras = ap.parse_known_args(argv)
-    run(load_with_cli(args.config, extras))
+    return run(load_with_cli(args.config, extras))
 
 
 if __name__ == "__main__":

@@ -3,14 +3,17 @@
 Port of ``dreamgaussian_tpu/cli/main2.py``:
 
     python -m dreamgaussian_tpu_torch.cli.main2 --config configs/image.yaml \\
-        input=x.png save_path=name [device=cpu] [key=value ...]
+        input=x.png save_path=name zero123_ckpt=<local diffusers snapshot> \\
+        [device=cpu] [key=value ...]
 
 finds the stage-1 mesh at ``<outdir>/<save_path>_mesh.<mesh_format>``
 unless ``mesh=<path>`` is given, refines it for ``iters_refine`` steps
+with the same Zero123 guidance as ``cli.main`` (a snapshot or the fake)
 and writes ``<outdir>/<save_path>.<mesh_format>``. A mesh without UVs is
 unwrapped (``auto_uv``, ``auto_normal``), one without a texture starts
-from 0.5 grey. The same options raise as in ``cli.main``, but ``mesh`` is
-the stage-1 mesh's path here.
+from 0.5 grey. The text priors raise as in ``cli.main``; ``mesh`` is the
+stage-1 mesh's path here, and ``resume`` / ``checkpoint_every`` are
+stage 1's keys, which stage 2 does not read (as in the JAX CLI).
 """
 
 from __future__ import annotations
@@ -74,13 +77,13 @@ def run(opt) -> dict:
     return stats
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
     from ..utils.config import load_with_cli
 
     ap = argparse.ArgumentParser(description="dreamgaussian_tpu_torch stage 2 (texture refinement)")
     ap.add_argument("--config", required=True)
     args, extras = ap.parse_known_args(argv)
-    run(load_with_cli(args.config, extras))
+    return run(load_with_cli(args.config, extras))
 
 
 if __name__ == "__main__":

@@ -1,16 +1,19 @@
 """Zero123 score distillation sampling and img2img refine in torch.
 
 Port of the Zero123 part of ``dreamgaussian_tpu/guidance/sds.py``
-(reference zero123_utils.py): CFG 5, camera-conditioned tokens through a
-linear projection, 8-channel UNet input (noisy latent ⊕ reference VAE
-latent), ``w = 1 - alpha_t``, timestep annealed with the step ratio.
+(reference zero123_utils.py): CFG 5, camera-conditioned
+tokens through a linear projection, 8-channel UNet input (noisy latent ⊕
+reference VAE latent), ``w = 1 - alpha_t``, the timestep annealed with the
+step ratio or drawn at random.
 
 Guidance-fn contract (consumed by train/stage1.py):
 ``fn(images [B,H,W,3] in [0,1], cond dict, step_ratio, draw) -> scalar``,
 differentiable w.r.t. the images. ``draw(name, shape, dist)`` supplies the
-random numbers (the SDS noise as "sds_noise", NHWC latent shape), so tests
-can feed both packages the same samples. The UNet runs under no_grad; the
-gradient reaches the images through the VAE encode of the render.
+random numbers (the SDS noise as "sds_noise", NHWC latent shape; the
+random timestep as ``draw("sds_t", (), "randint", t_min, t_max + 1)``),
+so tests can feed both packages the same samples. The UNet runs under
+no_grad; the gradient reaches the images through the VAE encode of the
+render.
 
 Refine-fn contract (consumed by train/stage2.py):
 ``fn(images, cond, strength, draw) -> refined images [B,S,S,3] in [0,1]``
@@ -93,15 +96,16 @@ class Zero123Guidance:
     ``clip_emb``: [1, 768] CLIP image embedding of the reference view.
     ``vae_latent``: [1, h, w, 4] UNSCALED posterior mean of the reference
     view. ``cam_proj``: (w [772, 768], b [768]) linear projection. ``vae``
-    has ``encode`` and (for refine) ``decode``. The timestep is annealed
-    with the step ratio, CFG scale 5; the random timestep waits for a
-    later slice.
+    has ``encode`` and (for refine) ``decode``. CFG scale 5. With
+    ``anneal`` the SDS timestep follows the step ratio; without it, it is
+    drawn uniformly from [t_min, t_max] through the trainer's ``draw``
+    ("sds_t", randint).
     """
 
     guidance_scale = 5.0
 
     def __init__(self, unet, vae, clip_emb, vae_latent, cam_proj, image_size: int = 256,
-                 stable: bool = False, default_elevation: float = 0.0):
+                 stable: bool = False, default_elevation: float = 0.0, anneal: bool = True):
         self.unet = unet
         self.vae = vae
         self.scheduler = DDIMScheduler(device=clip_emb.device)
@@ -109,6 +113,7 @@ class Zero123Guidance:
         self.t_min = int(self.num_train * 0.02)
         self.t_max = int(self.num_train * 0.98)
         self.image_size = image_size
+        self.anneal = anneal
         self.clip_emb = clip_emb
         self.vae_latent = vae_latent
         self.cam_proj = cam_proj
@@ -126,15 +131,18 @@ class Zero123Guidance:
         return torch.cat([clip, cam], -1) @ w + bias                     # [B,1,768]
 
     def guidance_fn(self):
-        alphas = self.scheduler.alphas_np
+        alphas = self.scheduler.alphas_cumprod
 
         def fn(images, cond, step_ratio, draw):
             dev = images.device
             b = images.shape[0]
             imgs = _resize(images, self.image_size) * 2.0 - 1.0
             latents = self.vae.encode(imgs)
-            t = anneal_t(step_ratio, self.num_train, self.t_min, self.t_max)
-            t_b = torch.full((b,), t, dtype=torch.int64, device=dev)
+            if self.anneal:
+                t = anneal_t(step_ratio, self.num_train, self.t_min, self.t_max)
+            else:
+                t = draw("sds_t", (), "randint", self.t_min, self.t_max + 1)
+            t_b = torch.as_tensor(t, device=dev).to(torch.int64).expand(b)
             noise = draw("sds_noise", tuple(latents.shape), "normal").to(dev)
             with torch.no_grad():
                 latents_noisy = self.scheduler.add_noise(latents.detach(), noise, t_b)
@@ -146,7 +154,7 @@ class Zero123Guidance:
                 eps = self.unet(x_in, torch.cat([t_b] * 2), ctx)
                 eps_cond, eps_uncond = eps.chunk(2)
                 eps_hat = eps_uncond + self.guidance_scale * (eps_cond - eps_uncond)
-                w = float(np.float32(1.0) - alphas[t])
+                w = (1.0 - alphas[t_b]).reshape(b, 1, 1, 1)
                 grad = torch.nan_to_num(w * (eps_hat - noise))
             # Mean over views times B: the reference's unscaled sum at B=1.
             return sds_grad_loss(latents, grad, divide_by_batch=True) * b

@@ -19,10 +19,12 @@ on schedule). Semantics kept:
 - renders at tile 32, chunk 128.
 
 Random draws other than the cameras (init positions and colours, split
-jitter, SDS noise) go through one ``draw(name, shape, dist)`` function,
-by default a seeded ``torch.Generator``; tests pass their own to inject
-samples. The fused multi-step scan, sharding meshes and checkpoints of the
-JAX trainer are not ported yet.
+jitter, SDS noise and timesteps) go through one ``draw(name, shape, dist,
+...)`` function, by default a seeded ``torch.Generator``; tests pass their
+own to inject samples. ``train`` saves checkpoints every
+``checkpoint_every`` steps and ``load_checkpoint`` resumes from one
+(``utils/checkpoint.py``). The fused multi-step scan and the sharding
+meshes of the JAX trainer are not ported yet.
 """
 
 from __future__ import annotations
@@ -66,11 +68,15 @@ class TorchDraw:
         self.device = device
         self.gen = torch.Generator(device=device).manual_seed(seed)
 
-    def __call__(self, name: str, shape: tuple, dist: str) -> torch.Tensor:
+    def __call__(self, name: str, shape: tuple, dist: str, low: int = 0,
+                 high: int | None = None) -> torch.Tensor:
+        """``dist``: "uniform" on [0, 1), "normal", or "randint" on [low, high)."""
         if dist == "uniform":
             return torch.rand(shape, generator=self.gen, device=self.device)
         if dist == "normal":
             return torch.randn(shape, generator=self.gen, device=self.device)
+        if dist == "randint":
+            return torch.randint(low, high, shape, generator=self.gen, device=self.device)
         raise ValueError(f"unknown distribution {dist!r} for draw {name!r}")
 
     def get_state(self) -> np.ndarray:
@@ -315,8 +321,12 @@ class Stage1Trainer:
         )
         self.capacity = new_capacity
 
-    def train(self, iters: int | None = None, log_every: int = 100) -> dict:
-        """Run ``iters`` steps, then the reference's final prune."""
+    def train(self, iters: int | None = None, log_every: int = 100,
+              checkpoint_every: int = 0, checkpoint_dir: str | None = None) -> dict:
+        """Run ``iters`` more steps, saving a checkpoint to ``checkpoint_dir``
+        after every step that is a multiple of ``checkpoint_every``; then the
+        reference's final prune unless ``final_prune`` is false (short runs
+        can lose every gaussian to it before any signal accumulates)."""
         iters = iters if iters is not None else self.opt.get("iters", 500)
         t0 = time.perf_counter()
         loss = torch.tensor(float("nan"))
@@ -326,13 +336,28 @@ class Stage1Trainer:
                 print(f"[stage1] step {self.step} loss {float(loss):.4f} "
                       f"alive {num_alive(self.aux)}")
                 self._check_overflow()
+            if checkpoint_every and checkpoint_dir and self.step % checkpoint_every == 0:
+                self.save_checkpoint(checkpoint_dir)
         self._check_overflow()
-        self.params, self.adam, self.aux = prune_only(
-            self.params, self.adam, self.aux, min_opacity=0.01, extent=1.0,
-            max_screen_size=1.0)
+        if self.opt.get("final_prune", True):
+            self.params, self.adam, self.aux = prune_only(
+                self.params, self.adam, self.aux, min_opacity=0.01, extent=1.0,
+                max_screen_size=1.0)
         loss = float(loss)
         return {"loss": loss, "wall_s": time.perf_counter() - t0,
-                "alive": num_alive(self.aux)}
+                "alive": num_alive(self.aux), "step": self.step}
+
+    def save_checkpoint(self, path: str) -> str:
+        """The whole train state into the directory ``path``."""
+        from ..utils.checkpoint import save_stage1
+
+        return save_stage1(path, self)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Resume from the checkpoint in the directory ``path``."""
+        from ..utils.checkpoint import restore_stage1
+
+        restore_stage1(path, self)
 
     @torch.no_grad()
     def render_view(self, cam: Camera, bg=None):

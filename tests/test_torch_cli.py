@@ -1,7 +1,8 @@
 """The port's CLIs: ``load_rgba`` against the JAX package's (which decodes
 with cv2 and shrinks with ``cv2.INTER_AREA``), both CLIs end to end on the
 CPU at the golden run's sizes with every output file read back, the
-options that are not ported yet, and the device policy."""
+options that are not ported yet, a missing snapshot, and the device
+policy."""
 
 import numpy as np
 import pytest
@@ -77,17 +78,24 @@ def test_both_clis_end_to_end_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("override,missing", [
-    ("zero123_ckpt=/nonexistent", "loader"),
     ("sd_ckpt=/nonexistent", "SD, MVDream"),
     ("mvdream=True", "SD, MVDream"),
-    ("resume=True", "checkpoint"),
-    ("checkpoint_every=10", "checkpoint"),
+    ("imagedream=True", "SD, MVDream"),
 ])
 def test_what_is_not_ported_raises(tmp_path, override, missing):
     opt = load_with_cli("configs/image.yaml", [f"input={disc_png(tmp_path / 'd.png')}",
                                                f"outdir={tmp_path}", *OVERRIDES, override])
     for cli in (tcli1, tcli2):
         with pytest.raises(NotImplementedError, match=missing):
+            cli.run(opt)
+
+
+def test_missing_snapshot_raises(tmp_path):
+    opt = load_with_cli("configs/image.yaml", [f"input={disc_png(tmp_path / 'd.png')}",
+                                               f"outdir={tmp_path}", *OVERRIDES,
+                                               f"zero123_ckpt={tmp_path / 'none'}"])
+    for cli in (tcli1, tcli2):
+        with pytest.raises(FileNotFoundError, match="no model weights"):
             cli.run(opt)
 
 

@@ -9,7 +9,9 @@ on a machine without them:
 
 import ctypes
 import functools
+import json
 import math
+import os
 
 import numpy as np
 import pytest
@@ -643,3 +645,101 @@ def test_clis_default_to_the_card(cuda_device, tmp_path):
     assert (tmp_path / "g_model.ply").exists()
     for name in ("g_mesh.obj", "g.obj"):
         assert len(Mesh.load(str(tmp_path / name), resize=False).f) > 0
+
+
+# -- the weights day on the card: snapshot loading and stage-1 checkpoints --
+
+
+def _tiny_snapshot(root, dtype):
+    """A tiny Zero123 snapshot written by the port's own writer on the card."""
+    from dreamgaussian_tpu_torch.guidance.clip import CLIPVisionConfig
+    from dreamgaussian_tpu_torch.guidance.synthetic import write_zero123_snapshot
+    from dreamgaussian_tpu_torch.guidance.unet import UNetConfig
+    from dreamgaussian_tpu_torch.guidance.vae import VAEConfig
+
+    write_zero123_snapshot(
+        str(root), UNetConfig(in_channels=8, block_out_channels=(8, 16), layers_per_block=1,
+                              cross_attention_dim=16,
+                              down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                              up_block_types=("UpBlock2D", "CrossAttnUpBlock2D")),
+        VAEConfig(block_out_channels=(4, 4, 4, 8), layers_per_block=1),
+        CLIPVisionConfig(hidden_size=16, intermediate_size=32, num_hidden_layers=2,
+                         num_attention_heads=2, image_size=32, patch_size=16, projection_dim=16),
+        dtype=dtype, seed=2, device="cuda")
+    return str(root)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_load_zero123_on_the_card_is_strict(cuda_device, tmp_path, dtype):
+    """A snapshot written on the card loads into bf16 modules on the card,
+    every parameter its snapshot tensor cast to bf16; the CLIP embedding
+    agrees with the CPU's; a stray key is refused."""
+    from dreamgaussian_tpu_torch.guidance import convert, loader
+
+    snap = _tiny_snapshot(tmp_path / "snap", dtype)
+    ref = np.full((64, 64, 3), 0.5, np.float32)
+    ref[16:48, 16:48] = [0.9, 0.2, 0.1]
+    g = loader.load_zero123(snap, ref_image=ref, device="cuda")
+    for module, sub, rename in ((g.unet, "unet", convert.unet_key),
+                                (g.vae, "vae", convert.vae_key)):
+        params = dict(module.named_parameters())
+        sd = convert.load_torch_state_dict(snap, sub)
+        assert sorted(rename(k) for k in sd) == sorted(params)
+        for k, v in sd.items():
+            p = params[rename(k)]
+            assert p.is_cuda and p.dtype == torch.bfloat16
+            assert torch.equal(p, v.to("cuda").to(torch.bfloat16)), k
+    cpu = loader.load_zero123(snap, ref_image=ref, device="cpu")
+    torch.testing.assert_close(g.clip_emb.cpu(), cpu.clip_emb, atol=1e-5, rtol=1e-5)
+    with open(os.path.join(snap, "unet", "config.json")) as f:
+        cfg = json.load(f)
+    cfg["out_channels"] = 5      # conv_out's snapshot tensors no longer fit
+    with open(os.path.join(snap, "unet", "config.json"), "w") as f:
+        json.dump(cfg, f)
+    with pytest.raises(ValueError, match="conv_out"):
+        loader.load_zero123(snap, ref_image=ref, device="cuda")
+
+
+@pytest.mark.cuda
+def test_stage1_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    """A card trainer's state round-trips bit for bit, both random states
+    included, and the resumed trainer carries on (the card's float-atomic
+    scatters make the continued run itself not bit-exact)."""
+    from dreamgaussian_tpu_torch.guidance.fake import fake_zero123_guidance
+    from dreamgaussian_tpu_torch.train import Stage1Trainer
+    from dreamgaussian_tpu_torch.utils.config import Config
+
+    opt = Config(dict(iters=8, ref_size=32, num_pts=256, novel_resolutions=[32, 32, 32],
+                      density_start_iter=2, densification_interval=2))
+    g = fake_zero123_guidance(device="cuda")
+    rgb = np.ones((32, 32, 3), np.float32)
+    mask = np.zeros((32, 32), np.float32)
+
+    def make(capacity):
+        return Stage1Trainer(opt, ref_rgb=rgb, ref_mask=mask, capacity=capacity, seed=1,
+                             guidance_fns=((1.0, g.guidance_fn()),), device="cuda")
+
+    def state(t):
+        return {**{f"p_{k}": v for k, v in t.params.items()},
+                **{f"mu_{k}": v for k, v in t.adam.mu.items()},
+                **{f"nu_{k}": v for k, v in t.adam.nu.items()},
+                **{f"aux_{k}": v for k, v in t.aux._asdict().items()}}
+
+    src = make(512)
+    for _ in range(4):
+        src.train_step()
+    src.save_checkpoint(str(tmp_path))
+    dst = make(300)
+    dst.load_checkpoint(str(tmp_path))
+    assert dst.step == 4 and dst.capacity == 512 and dst.adam.count == src.adam.count
+    assert dst.rng.bit_generator.state == src.rng.bit_generator.state
+    assert np.array_equal(dst.draw.get_state(), src.draw.get_state())
+    a, b = state(src), state(dst)
+    assert sorted(a) == sorted(b)
+    for k, v in a.items():
+        assert b[k].is_cuda and torch.equal(v, b[k]), k
+    before = tcu.LAUNCHES["composite_bwd"]
+    stats = dst.train(4, log_every=0)
+    assert stats["step"] == 8 and np.isfinite(stats["loss"])
+    assert tcu.LAUNCHES["composite_bwd"] >= before + 4

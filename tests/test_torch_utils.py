@@ -30,7 +30,7 @@ def test_config_load_and_cli_match():
 def test_chip_smoke_options_equal_image_yaml():
     import chip_smoke
 
-    assert chip_smoke.IMAGE_OPTIONS == dict(jcfg.load(IMAGE_YAML))
+    assert chip_smoke.image_options() == dict(jcfg.load(IMAGE_YAML))
 
 
 @pytest.mark.parametrize("elev,azim,radius", [(0, 0, 2.0), (-30, 135, 2.5), (45, -170, 1.3)])
@@ -78,14 +78,16 @@ def test_save_ply_bytes_identical_and_load(tmp_path, sh_degree):
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     """Every module of the port, and chip_smoke.py, imports in a process
-    where JAX, flax, the JAX package, cv2, PIL and yaml cannot be imported."""
+    where JAX, flax, the JAX package, cv2, PIL, yaml, transformers and
+    safetensors cannot be imported."""
     import subprocess
     import sys
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = """
 import importlib, importlib.abc, pkgutil, sys
-BLOCKED = {"jax", "jaxlib", "flax", "dreamgaussian_tpu", "cv2", "PIL", "yaml"}
+BLOCKED = {"jax", "jaxlib", "flax", "dreamgaussian_tpu", "cv2", "PIL", "yaml", "transformers",
+           "safetensors"}
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:

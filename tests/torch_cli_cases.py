@@ -5,6 +5,7 @@ from pathlib import Path
 
 import numpy as np
 
+from dreamgaussian_tpu_torch.utils.config import load
 from dreamgaussian_tpu_torch.utils.png import write_png
 
 IMAGE_YAML = Path(__file__).resolve().parents[1] / "configs" / "image.yaml"
@@ -24,24 +25,6 @@ def disc_png(path, size=64):
 
 
 def image_options() -> dict:
-    """configs/image.yaml's keys, read as the flat ``key: value`` file it
-    is: an empty value is None, True/False are booleans, numbers are
-    numbers, anything else (quotes stripped) a string."""
-    words = {"": None, "null": None, "True": True, "False": False}
-    out = {}
-    for line in IMAGE_YAML.read_text().splitlines():
-        line = line.split("#", 1)[0].rstrip()
-        if not line:
-            continue
-        key, _, text = line.partition(":")
-        text = text.strip().strip("'\"")
-        if text in words:
-            out[key.strip()] = words[text]
-            continue
-        for kind in (int, float, str):
-            try:
-                out[key.strip()] = kind(text)
-                break
-            except ValueError:
-                pass
-    return out
+    """configs/image.yaml's keys, read by the port's config reader (which
+    needs no PyYAML)."""
+    return dict(load(str(IMAGE_YAML)))
