@@ -58,7 +58,22 @@
    the outputs back and holds every K1, K2 and K3 call of these runs
    against the plain version (lines ``[weights]``, ``[cli]`` and
    ``[kernels] ... in the weights-day``);
-10. prints the ``kernels`` JSON line, the card's name and power limit, and
+10. the text day: writes a full-width SD 2.1-base diffusers snapshot (the
+   UNet, the KL-VAE, the 23-layer CLIP text tower, a tokenizer) as fp16
+   safetensors and a full-width single-file MVDream LDM checkpoint (the
+   4-view UNet with its camera MLP, the VAE, the 24-block OpenCLIP ViT-H
+   text tower) with ``torch.save``; loads both (seconds, device peak, the
+   MVDream load's host peak RSS in a process of its own; every UNet and VAE
+   weight equal to its file tensor cast to bf16; the text states on the
+   card against the CPU's); times stage-1 steps on each rung for each prior
+   (the 512^2 step under torch.profiler, one UNet call of each by CUDA
+   events); then runs ``cli.main`` (8 steps, the export at the configs'
+   sizes) and ``cli.main2`` (2 steps) on ``configs/text.yaml`` with the SD
+   snapshot and on ``configs/text_mv.yaml`` with the MVDream file, reads the
+   outputs back, gates the UNet calls and K3 launches per run, and holds
+   every K1, K2 and K3 call against the plain version (lines ``[text]``,
+   ``[cli]`` and ``[kernels] ... in the text-day``);
+11. prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
 Needs a CUDA card; exits non-zero without one, and on any failed check.
@@ -1376,29 +1391,33 @@ WEIGHTS_ARGS = ["density_start_iter=4", "densification_interval=4"]
 CLIP_REL_TOL = 1e-5
 
 
-# load_zero123 alone in a process of its own, started when chip_smoke.py is
-# still small: a child's peak RSS (getrusage) starts at its parent's RSS when
-# it is started, so the measurement cannot be started from the weights day. It
-# imports torch, then waits for its arguments on stdin (snapshot, reference
-# PNG, ref_size, one a line); it starts CUDA, cuBLAS and cuDNN (a convolution
-# and a matmul in both dtypes), loads, and prints its peak RSS before and after
-# the load as one JSON line.
+# A loader alone in a process of its own, started when chip_smoke.py is still
+# small: a child's peak RSS (getrusage) starts at its parent's RSS when it is
+# started, so the measurement cannot be started from a phase. It imports torch,
+# then waits for its arguments on stdin, one a line: "zero123", the snapshot,
+# the reference PNG and ref_size; or "mvdream", the LDM file and the prompt. It
+# starts CUDA, cuBLAS and cuDNN (a convolution and a matmul in both dtypes),
+# loads, and prints its peak RSS before and after the load as one JSON line.
 LOAD_ALONE = """
 import json, resource, sys, time
 import torch
 from dreamgaussian_tpu_torch.cli.main import load_reference
 from dreamgaussian_tpu_torch.guidance import loader
 from dreamgaussian_tpu_torch.utils.config import Config
-snap, png, ref_size = sys.stdin.read().splitlines()[:3]
+kind, *args = sys.stdin.read().splitlines()
 for dt in (torch.float32, torch.bfloat16):
     x = torch.ones(1, 4, 8, 8, device="cuda", dtype=dt)
     torch.nn.functional.conv2d(x, x[:, :, :3, :3].expand(4, 4, 3, 3))
     x.reshape(16, 16) @ x.reshape(16, 16)
-rgb, _ = load_reference(Config(input=png, ref_size=int(ref_size)))
+if kind == "zero123":
+    rgb, _ = load_reference(Config(input=args[1], ref_size=int(args[2])))
+    load = lambda: loader.load_zero123(args[0], ref_image=rgb, device="cuda")
+else:
+    load = lambda: loader.load_mvdream(args[0], args[1], device="cuda")
 torch.cuda.synchronize()
 before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 t = time.perf_counter()
-g = loader.load_zero123(snap, ref_image=rgb, device="cuda")
+g = load()
 torch.cuda.synchronize()
 print(json.dumps({"load_s": time.perf_counter() - t, "peak_before": before,
                   "peak_after": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
@@ -1420,16 +1439,16 @@ def load_alone_process():
         proc.wait()
 
 
-def load_host_peak(proc: subprocess.Popen, snap: str, png: str) -> dict:
-    """``LOAD_ALONE``'s reading; fails if the load raised its peak RSS by as
-    much as a float32 copy of the UNet."""
-    out, _ = proc.communicate(f"{snap}\n{png}\n{image_options()['ref_size']}\n", timeout=600)
+def load_host_peak(proc: subprocess.Popen, args: list) -> dict:
+    """``LOAD_ALONE``'s reading for ``args`` (its stdin lines); fails if the
+    load raised its peak RSS by as much as a float32 copy of the UNet."""
+    out, _ = proc.communicate("\n".join(args) + "\n", timeout=600)
     if proc.returncode:
-        raise RuntimeError(f"load_zero123 in a process of its own exited {proc.returncode}")
+        raise RuntimeError(f"{args[0]} load in a process of its own exited {proc.returncode}")
     r = json.loads(out.strip().splitlines()[-1])
     r["rise"] = r["peak_after"] - r["peak_before"]
     if r["rise"] >= r["unet_fp32"]:
-        raise RuntimeError(f"load_zero123 raised the host's peak RSS by {r['rise']} bytes, "
+        raise RuntimeError(f"the {args[0]} load raised the host's peak RSS by {r['rise']} bytes, "
                            f"as much as a float32 copy of the UNet ({r['unet_fp32']} bytes)")
     return r
 
@@ -1500,7 +1519,7 @@ def check_snapshot_load(snap: str, png: str, card: str, load_alone: subprocess.P
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    host = load_host_peak(load_alone, snap, png)
+    host = load_host_peak(load_alone, ["zero123", snap, png, str(image_options()["ref_size"])])
     n_params = 0
     for module, sub, rename in ((g.unet, "unet", convert.unet_key),
                                 (g.vae, "vae", convert.vae_key)):
@@ -1622,15 +1641,277 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
     return {"launches": total, "shapes": shapes}
 
 
+# The text day: a full-width SD 2.1-base diffusers snapshot (SD21_CONFIG's
+# UNet, the KL-VAE, the 23-layer CLIP text tower: about 1.29 B values) and a
+# full-width MVDream LDM file (MVDREAM_CONFIG's UNet with its camera MLP, the
+# VAE, the 24-block OpenCLIP ViT-H tower: about 1.31 B values), fp16, written,
+# loaded and driven: stage-1 steps at each rung (the first of a rung a warm-up,
+# none a densify step under the configs' interval of 50), then both CLIs.
+TEXT_PROMPT, TEXT_NEGATIVE = "a hamburger", "ugly, blurry, low quality"
+TEXT_RUNG_STEPS = {128: range(1, 5), 256: range(201, 205), 512: range(301, 305)}
+TEXT_PROFILED_STEP = 305
+# CLI runs: 8 stage-1 steps (the ladder's three rungs), the export at the
+# configs' sizes, 2 stage-2 steps; final_prune=False keeps the short run's
+# cloud for the export (the JAX trainer's option for short runs).
+TEXT_ITERS, TEXT_REFINE = 8, 2
+TEXT_CLI_ARGS = [f"prompt={TEXT_PROMPT}", f"negative_prompt={TEXT_NEGATIVE}",
+                 f"iters={TEXT_ITERS}", f"iters_refine={TEXT_REFINE}", "final_prune=False"]
+TEXT_PRIORS = {   # config, views per sampled camera, UNet batch (CFG x views), latent side
+    "sd": ("text.yaml", 1, 2, 64),
+    "mvdream": ("text_mv.yaml", 4, 8, 32),
+}
+
+
+@contextlib.contextmanager
+def counted_unet_calls(calls: list):
+    """Every UNet call's input shape kept in ``calls`` (the CLI builds its
+    own guidance, so the class's forward is wrapped)."""
+    from dreamgaussian_tpu_torch.guidance.unet import UNet
+
+    shipped = UNet.forward
+
+    def forward(self, sample, *args, **kw):
+        calls.append(tuple(sample.shape))
+        return shipped(self, sample, *args, **kw)
+    UNet.forward = forward
+    try:
+        yield
+    finally:
+        UNet.forward = shipped
+
+
+def text_options(prior: str):
+    from dreamgaussian_tpu_torch.utils.config import load
+
+    return dict(load(os.path.join(CONFIGS, TEXT_PRIORS[prior][0])))
+
+
+def check_text_load(prior: str, path: str, card: str, load_alone) -> dict:
+    """The prior loaded on the card from its file(s): seconds, device peak;
+    every UNet and VAE weight equal to its file tensor cast to bf16 with no key
+    left over; the text states on the card against the CPU's (float32 both)
+    within CLIP_REL_TOL of the largest; for MVDream the host peak RSS rise
+    (``LOAD_ALONE``). Returns the guidance and the numbers."""
+    import torch
+
+    from dreamgaussian_tpu_torch.guidance import convert, loader, text_encoder
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    g = loader.load_stable_diffusion(path, TEXT_PROMPT, TEXT_NEGATIVE, mvdream=prior == "mvdream",
+                                     device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    prompts = [TEXT_PROMPT, TEXT_NEGATIVE]
+    if prior == "sd":
+        files = {"unet": {convert.unet_key(k): v for k, v in
+                          convert.load_torch_state_dict(path, "unet").items()},
+                 "vae": {convert.vae_key(k): v for k, v in
+                         convert.load_torch_state_dict(path, "vae").items()}}
+        prompts += [f"{TEXT_PROMPT}, {d} view" for d in ("front", "side", "back")]
+        on_cpu = text_encoder.encode_text(path, prompts, "cpu")
+        host = None
+    else:
+        parts = convert.split_ldm(convert.load_torch_state_dict(path))
+        files = {"unet": convert.ldm_unet_state(parts["unet"], g.unet.config),
+                 "vae": convert.ldm_vae_state(parts["vae"], g.vae.config)}
+        on_cpu = text_encoder.encode_open_clip_text(
+            parts["text"], os.path.join(os.path.dirname(path), "tokenizer"), prompts, "cpu")
+        host = load_host_peak(load_alone, ["mvdream", path, TEXT_PROMPT])
+    n_params = 0
+    for sub, module in (("unet", g.unet), ("vae", g.vae)):
+        params = dict(module.named_parameters())
+        if sorted(files[sub]) != sorted(params):
+            raise RuntimeError(f"the {prior} file's {sub} keys and the module's parameters differ")
+        for k, v in files[sub].items():
+            if params[k].dtype != torch.bfloat16 or not torch.equal(
+                    params[k], v.to("cuda").to(torch.bfloat16)):
+                raise RuntimeError(f"{prior} {sub} parameter {k} is not its file tensor")
+            n_params += v.numel()
+    on_card = torch.stack([g.emb[k] for k in ("pos", "neg", "front", "side", "back")
+                           if k in g.emb]).cpu()
+    scale = float(on_cpu.abs().max())
+    err = float((on_card - on_cpu).abs().max())
+    if not err <= CLIP_REL_TOL * scale:
+        raise RuntimeError(f"{prior} text states on the card miss the CPU's: {err:.3e} against "
+                           f"{CLIP_REL_TOL} x {scale:.3e}")
+    host_s = "" if host is None else (
+        f"; alone in a process of its own {host['load_s']:.1f} s, host peak RSS "
+        f"{host['peak_before'] / 2**30:.2f} -> {host['peak_after'] / 2**30:.2f} GiB, a rise of "
+        f"{host['rise'] / 2**30:.2f} GiB (gate: under the UNet's float32 "
+        f"{host['unet_fp32'] / 2**30:.2f} GiB)")
+    print(f"[text] {prior} load {load_s:.1f} s, peak device memory {peak_gib:.2f} GiB; "
+          f"{n_params} UNet and VAE weights equal to the file's cast to bf16, no key left "
+          f"over; {len(prompts)} text states {tuple(on_card.shape)} card against CPU max abs "
+          f"err {err:.3e} (largest |state| {scale:.3e}, gate {CLIP_REL_TOL} of it){host_s}; "
+          f"card '{card}'")
+    return g, {"load_s": load_s, "load_peak_gib": peak_gib, "text_err": err, "text_scale": scale,
+               "host_rise_gib": None if host is None else host["rise"] / 2**30}
+
+
+def text_steps(prior: str, guidance, seed: int, card: str) -> dict:
+    """Stage1Trainer on the prior's config with its full-width guidance: the
+    steps of TEXT_RUNG_STEPS (median ms per rung without each rung's first),
+    one 512^2 step under torch.profiler, the peak memory, and one UNet call
+    at the step's shape: its device time from the profiler, and ms per call
+    by CUDA events around back-to-back calls (host-bound when the host
+    dispatches slower than the card runs)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from dreamgaussian_tpu_torch.ops.rasterize_cuda import LAUNCHES
+    from dreamgaussian_tpu_torch.train import Stage1Trainer
+    from dreamgaussian_tpu_torch.utils.config import Config
+
+    opt = Config({**text_options(prior), "prompt": TEXT_PROMPT})
+    _, views, batch, latent = TEXT_PRIORS[prior]
+    trainer = Stage1Trainer(opt, capacity=opt["capacity"], seed=seed,
+                            guidance_fns=((opt["lambda_sd"], guidance.guidance_fn()),),
+                            device="cuda")
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    rungs = {}
+    for size, steps in TEXT_RUNG_STEPS.items():
+        times = []
+        for step in steps:
+            trainer.step = step - 1
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = float(trainer.train_step())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            if not math.isfinite(loss):
+                raise RuntimeError(f"{prior}: non-finite loss at step {step}")
+        rungs[size] = {"median_ms": statistics.median(times[1:]), "warmup_ms": times[0],
+                       "ms": [round(x, 1) for x in times[1:]]}
+    trainer.step = TEXT_PROFILED_STEP - 1
+    _, wall, breakdown = profiled_step(trainer)
+    launches = dict(LAUNCHES)
+    n_steps = sum(len(r) for r in TEXT_RUNG_STEPS.values()) + 1
+    if launches["composite_fwd"] < n_steps * views or launches["composite_bwd"] < n_steps * views:
+        raise RuntimeError(f"{prior}: the steps did not launch K1 and K2 per view: {launches}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    x = torch.randn(batch, latent, latent, 4, device="cuda")
+    tt = torch.full((batch,), 500, device="cuda")
+    ctx = torch.randn(batch, 77, guidance.unet.config.cross_attention_dim, device="cuda")
+    cam = torch.randn(batch, 16, device="cuda") if prior == "mvdream" else None
+    with torch.no_grad():
+        unet_events_ms = cuda_ms(lambda: guidance.unet(x, tt, ctx, camera=cam), reps=5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("unet"):
+                guidance.unet(x, tt, ctx, camera=cam)
+            torch.cuda.synchronize()
+    unet_ms = range_device_ms(prof, ("unet",))["unet"]
+    print(f"[text] {prior} stage-1 ms per step by rung {json.dumps(rungs)}; 512^2 step under "
+          f"the profiler {wall:.1f} ms, device busy {breakdown['device_busy_ms']:.1f} ms; peak "
+          f"{peak_gib:.2f} GiB; one UNet call (batch {batch}, {latent}^2 latents) device "
+          f"{unet_ms:.2f} ms (profiler), {unet_events_ms:.2f} ms per call back to back (CUDA "
+          f"events); launches {json.dumps(launches)}; card '{card}'")
+    return {"rungs": rungs, "busy_ms": breakdown["device_busy_ms"], "peak_gib": peak_gib,
+            "unet_ms": unet_ms, "unet_events_ms": unet_events_ms}
+
+
+def run_text_day(seed: int, card: str, load_alone) -> dict:
+    """The SD snapshot and the MVDream file written, loaded, timed and driven
+    through both CLIs (see TEXT_PROMPT); every kernel call of the CLI runs
+    held against its plain version, the UNet calls and K3 launches gated."""
+    import numpy as np
+    import torch
+
+    from dreamgaussian_tpu_torch.cli import main as cli1
+    from dreamgaussian_tpu_torch.cli import main2 as cli2
+    from dreamgaussian_tpu_torch.guidance import synthetic
+    from dreamgaussian_tpu_torch.guidance.sds import refine_init_step
+    from dreamgaussian_tpu_torch.guidance.unet import MVDREAM_CONFIG, SD21_CONFIG
+    from dreamgaussian_tpu_torch.guidance.vae import VAEConfig
+
+    runs: dict = {}
+    unet_calls: dict = {}
+    summary: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {"sd": os.path.join(tmp, "sd21-base"),
+                 "mvdream": os.path.join(tmp, "mvdream", "sd-v2.1-base-4view.pt")}
+        os.makedirs(os.path.dirname(paths["mvdream"]))
+        for prior in TEXT_PRIORS:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if prior == "sd":
+                sizes = synthetic.write_sd_snapshot(paths[prior], SD21_CONFIG, VAEConfig(),
+                                                    synthetic.SD21_TEXT, dtype=torch.float16,
+                                                    seed=seed, device="cuda")
+                n_bytes = sum(nb for nb, _ in sizes.values())
+                n_values = sum(nv for _, nv in sizes.values())
+            else:
+                n_bytes, n_values = synthetic.write_mvdream_checkpoint(
+                    paths[prior], MVDREAM_CONFIG, VAEConfig(), dtype=torch.float16, seed=seed,
+                    device="cuda")
+            write_s = time.perf_counter() - t
+            print(f"[text] {prior} full-width file written in {write_s:.1f} s: {n_values} values, "
+                  f"{n_bytes} bytes of fp16; card '{card}'")
+            guidance, load = check_text_load(prior, paths[prior], card, load_alone)
+            steps = text_steps(prior, guidance, seed, card)
+            del guidance
+            torch.cuda.empty_cache()
+            summary[prior] = {"write_s": write_s, "values": n_values, "bytes": n_bytes, **load,
+                              **steps}
+        for prior, (config, views, batch, latent) in TEXT_PRIORS.items():
+            argv = ["--config", os.path.join(CONFIGS, config), f"sd_ckpt={paths[prior]}",
+                    f"save_path={prior}", f"outdir={tmp}", f"seed={seed}", *TEXT_CLI_ARGS]
+            for label, cli in ((f"{prior} main", cli1), (f"{prior} main2", cli2)):
+                calls: list = []
+                with counted_unet_calls(calls):
+                    stats = drive_cli(label, cli, argv, runs)
+                unet_calls[label] = calls
+                if not math.isfinite(stats["loss"]):
+                    raise RuntimeError(f"the text-day run {label} ended with loss {stats['loss']}")
+            n, faces = read_outputs(tmp, prior, text_options(prior)["texture_size"],
+                                    text_options(prior)["capacity"])
+            refine_steps = text_options(prior).get("refine_steps", 50)
+            refine_calls = sum(refine_steps - refine_init_step(
+                refine_steps, np.float32(min(1.0, s / TEXT_REFINE) * 0.15 + 0.8))
+                for s in range(1, TEXT_REFINE + 1))
+            want = {f"{prior} main": [(batch, latent, latent, 4)] * TEXT_ITERS,
+                    f"{prior} main2": [(batch, latent, latent, 4)] * refine_calls}
+            for label, shapes in want.items():
+                if unet_calls[label] != shapes:
+                    raise RuntimeError(f"{label} ran the UNet {len(unet_calls[label])} times at "
+                                       f"{sorted(set(unet_calls[label]))}, not {len(shapes)} at "
+                                       f"{shapes[:1]}")
+            main_l, main2_l = runs[f"{prior} main"]["launches"], runs[f"{prior} main2"]["launches"]
+            if (main_l["ztest"] != 26 or main2_l["ztest"] != 2 * views * TEXT_REFINE
+                    or main_l["composite_bwd"] != TEXT_ITERS * views
+                    or main_l["composite_fwd"] != TEXT_ITERS * views + 26):
+                raise RuntimeError(f"the text-day {prior} runs did not launch the kernels as "
+                                   f"the code gives: main {main_l}, main2 {main2_l}")
+            summary[prior]["cli"] = {"gaussians": n, "faces": faces, "unet_calls": {
+                k: len(v) for k, v in unet_calls.items() if k.startswith(prior)}}
+            print(f"[text] {prior} CLIs: {n} gaussians in the PLY, stage-1 mesh {faces} faces; "
+                  f"UNet calls main {TEXT_ITERS} (batch {batch}, {latent}^2), main2 "
+                  f"{refine_calls}; K3 launches main 26, main2 {2 * views} per step; losses "
+                  f"finite; card '{card}'")
+    shapes = hold_cli_calls(runs, "text-day")
+    launches = {k: v["launches"] for k, v in runs.items()}
+    total = {k: sum(v[k] for v in launches.values()) for k in launches[next(iter(launches))]}
+    walls = {k: round(v["wall_s"], 1) for k, v in runs.items()}
+    print(f"[text] launches {json.dumps(total)}; CLI seconds {json.dumps(walls)}; "
+          f"{json.dumps({p: {k: v for k, v in d.items() if k != 'rungs'} for p, d in summary.items()})}"
+          f"; card '{card}'")
+    return {"launches": total, "shapes": shapes}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    with load_alone_process() as load_alone:
-        return smoke(args, load_alone)
+    with load_alone_process() as zero123_alone, load_alone_process() as mvdream_alone:
+        return smoke(args, zero123_alone, mvdream_alone)
 
 
-def smoke(args, load_alone: subprocess.Popen) -> int:
+def smoke(args, load_alone: subprocess.Popen, mvdream_alone: subprocess.Popen) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1643,7 +1924,7 @@ def smoke(args, load_alone: subprocess.Popen) -> int:
     card = card_line()
     print(f"[toolchain] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} nvcc '{nvcc}' card '{card}'")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     # One nvcc per library, all at once: the kernels, and K3 without the
     # sift, which check_ztest times against the shipped build.
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
@@ -1695,6 +1976,13 @@ def smoke(args, load_alone: subprocess.Popen) -> int:
     for row in kernels:
         row["launches_weights_day"] = weights_day["launches"][row["name"]]
         row["weights_day_shapes"] = weights_day["shapes"][row["name"]]
+    t0 = time.perf_counter()
+    text_day = run_text_day(args.seed, card, mvdream_alone)
+    print(f"[text] the text day took {time.perf_counter() - t0:.1f} s; card '{card}'")
+    for row in kernels:
+        row["launches_text_day"] = text_day["launches"][row["name"]]
+        row["text_day_shapes"] = text_day["shapes"][row["name"]]
+    print(f"[smoke] {time.perf_counter() - t_start:.1f} s from the build to here; card '{card}'")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

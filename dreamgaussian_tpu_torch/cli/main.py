@@ -1,25 +1,33 @@
-"""Stage-1 CLI: image -> 3D gaussians -> textured mesh.
+"""Stage-1 CLI: image or text -> 3D gaussians -> textured mesh.
 
 Port of ``dreamgaussian_tpu/cli/main.py``:
 
     python -m dreamgaussian_tpu_torch.cli.main --config configs/image.yaml \\
         input=x.png save_path=name zero123_ckpt=<local diffusers snapshot> \\
         [checkpoint_dir=ckpt checkpoint_every=100 [resume=True]] [device=cpu] [key=value ...]
+    python -m dreamgaussian_tpu_torch.cli.main --config configs/text.yaml \\
+        prompt="a hamburger" save_path=name sd_ckpt=<SD 2.1 diffusers snapshot>
+    python -m dreamgaussian_tpu_torch.cli.main --config configs/text_mv.yaml \\
+        prompt="a hamburger" save_path=name sd_ckpt=<sd-v2.1-base-4view.pt or MVDream snapshot>
 
 takes the same YAML keys and dotlist overrides (read without PyYAML) and
 writes ``<outdir>/<save_path>_model.ply`` and, unless ``save_mesh=False``,
 ``<outdir>/<save_path>_mesh.<mesh_format>``. The config key ``device``
 (default ``cuda``) picks the card or the CPU.
 
-Guidance: Zero123 on an input image, from a Zero123-XL or Stable-Zero123
-diffusers snapshot (``zero123_ckpt``, ``stable_zero123``) or from
-``fake_guidance=True`` (a tiny random denoiser); with neither it warns and
-trains on the image alone. Checkpoints: with ``checkpoint_dir`` and
-``checkpoint_every`` the full train state is saved every that many steps;
-``resume=True`` continues from ``checkpoint_dir`` when it exists (else
-trains from step 0) up to ``iters`` steps in all. What is not ported
-raises NotImplementedError naming the missing piece: the text priors (SD,
-MVDream, ImageDream) and a ``mesh`` device spec (sharding).
+Guidance: Zero123 on an input image (``lambda_zero123``), from a
+Zero123-XL or Stable-Zero123 diffusers snapshot (``zero123_ckpt``,
+``stable_zero123``); SD 2.1, or MVDream with ``mvdream``, on the
+``prompt`` (``lambda_sd``), from ``sd_ckpt`` (an SD 2.1 diffusers snapshot;
+for MVDream the single LDM file with a ``tokenizer/`` beside it, or a
+diffusers snapshot). ``fake_guidance=True`` puts a tiny random denoiser in
+place of a missing checkpoint; with neither, a prior warns and is left
+out. Checkpoints: with ``checkpoint_dir`` and ``checkpoint_every`` the
+full train state is saved every that many steps; ``resume=True``
+continues from ``checkpoint_dir`` when it exists (else trains from step 0)
+up to ``iters`` steps in all. What is not ported raises
+NotImplementedError naming the missing piece: ImageDream and a ``mesh``
+device spec (sharding).
 """
 
 from __future__ import annotations
@@ -32,13 +40,10 @@ from .. import resolve_device
 
 
 def check_ported(opt) -> None:
-    """Raise for the options whose code is not ported yet (the text priors;
+    """Raise for the options whose code is not ported yet (ImageDream;
     ``run`` raises for a ``mesh`` device spec)."""
-    if (opt.get("sd_ckpt", None) or opt.get("mvdream", False) or opt.get("imagedream", False)
-            or (opt.get("lambda_sd", 0) > 0 and opt.get("prompt", None))):
-        raise NotImplementedError(
-            "the SD, MVDream and ImageDream priors (sd_ckpt, prompt with lambda_sd, "
-            "mvdream, imagedream) are not ported yet")
+    if opt.get("imagedream", False):
+        raise NotImplementedError("the ImageDream prior (imagedream) is not ported yet")
 
 
 def zero123_guidance(opt, ref_rgb, device):
@@ -62,11 +67,40 @@ def zero123_guidance(opt, ref_rgb, device):
                                  default_elevation=opt.get("elevation", 0), device=device)
 
 
+def text_guidance(opt, device):
+    """SD or (with ``mvdream``) MVDream guidance for the prompt from
+    ``sd_ckpt`` or the fake, or None (with a warning) when there is
+    neither."""
+    if not (opt.get("lambda_sd", 0) > 0 and opt.get("prompt", None)):
+        return None
+    mvdream = opt.get("mvdream", False)
+    ckpt = opt.get("sd_ckpt", None)
+    if ckpt:
+        from ..guidance.loader import load_stable_diffusion
+
+        return load_stable_diffusion(ckpt, prompt=opt.prompt,
+                                     negative_prompt=opt.get("negative_prompt", None) or "",
+                                     mvdream=mvdream, device=device)
+    if not opt.get("fake_guidance", False):
+        print("[WARN] mvdream needs sd_ckpt or fake_guidance" if mvdream else
+              "[WARN] lambda_sd > 0 but no sd_ckpt given and fake_guidance=False; "
+              "skipping SD guidance")
+        return None
+    from ..guidance.fake import fake_mvdream_guidance, fake_sd_guidance
+
+    return (fake_mvdream_guidance if mvdream else fake_sd_guidance)(device=device)
+
+
 def build_guidances(opt, ref_rgb, device="cuda") -> tuple:
-    """(weight, guidance fn) entries for the stage-1 trainer."""
+    """(weight, guidance fn) entries for the stage-1 trainer: Zero123, then
+    SD or MVDream."""
     check_ported(opt)
-    g = zero123_guidance(opt, ref_rgb, device)
-    return () if g is None else ((opt.lambda_zero123, g.guidance_fn()),)
+    entries = []
+    for weight, g in ((opt.get("lambda_zero123", 0), zero123_guidance(opt, ref_rgb, device)),
+                      (opt.get("lambda_sd", 0), text_guidance(opt, device))):
+        if g is not None:
+            entries.append((weight, g.guidance_fn()))
+    return tuple(entries)
 
 
 def load_reference(opt):

@@ -8,12 +8,14 @@ Port of ``dreamgaussian_tpu/cli/main2.py``:
 
 finds the stage-1 mesh at ``<outdir>/<save_path>_mesh.<mesh_format>``
 unless ``mesh=<path>`` is given, refines it for ``iters_refine`` steps
-with the same Zero123 guidance as ``cli.main`` (a snapshot or the fake)
-and writes ``<outdir>/<save_path>.<mesh_format>``. A mesh without UVs is
-unwrapped (``auto_uv``, ``auto_normal``), one without a texture starts
-from 0.5 grey. The text priors raise as in ``cli.main``; ``mesh`` is the
-stage-1 mesh's path here, and ``resume`` / ``checkpoint_every`` are
-stage 1's keys, which stage 2 does not read (as in the JAX CLI).
+with the same guidance as ``cli.main`` (Zero123, SD 2.1 or MVDream, from a
+checkpoint or the fake) and writes ``<outdir>/<save_path>.<mesh_format>``;
+the target render's size follows the largest refine image size (512^2
+for SD). A mesh without UVs is unwrapped (``auto_uv``, ``auto_normal``),
+one without a texture starts from 0.5 grey. ImageDream raises as in
+``cli.main``; ``mesh`` is the stage-1 mesh's path here, and ``resume`` /
+``checkpoint_every`` are stage 1's keys, which stage 2 does not read (as
+in the JAX CLI).
 """
 
 from __future__ import annotations
@@ -25,17 +27,21 @@ import sys
 import numpy as np
 
 from .. import resolve_device
-from .main import check_ported, load_reference, zero123_guidance
+from .main import check_ported, load_reference, text_guidance, zero123_guidance
 
 
 def build_refiners(opt, ref_rgb, device="cuda"):
-    """((weight, refine fn) entries, the largest refine image_size or None)."""
+    """((weight, refine fn) entries, the largest refine image_size or None):
+    Zero123, then SD or MVDream."""
     check_ported(opt)
-    g = zero123_guidance(opt, ref_rgb, device)
-    if g is None:
-        return (), None
-    entry = (opt.lambda_zero123, g.refine_fn(steps=opt.get("refine_steps", 50)))
-    return (entry,), g.image_size
+    steps = opt.get("refine_steps", 50)
+    entries, sizes = [], []
+    for weight, g in ((opt.get("lambda_zero123", 0), zero123_guidance(opt, ref_rgb, device)),
+                      (opt.get("lambda_sd", 0), text_guidance(opt, device))):
+        if g is not None:
+            entries.append((weight, g.refine_fn(steps=steps)))
+            sizes.append(g.image_size)
+    return tuple(entries), (max(sizes) if sizes else None)
 
 
 def find_mesh(opt) -> str:

@@ -1,2 +1,7 @@
 from .scheduler import DDIMScheduler  # noqa: F401
-from .sds import Zero123Guidance, sds_grad_loss  # noqa: F401
+from .sds import (  # noqa: F401
+    MVDreamGuidance,
+    StableDiffusionGuidance,
+    Zero123Guidance,
+    sds_grad_loss,
+)

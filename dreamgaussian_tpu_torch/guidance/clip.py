@@ -1,21 +1,28 @@
-"""CLIP vision tower with projection: Zero123's image conditioning.
+"""CLIP towers: Zero123's image conditioning and the text conditioning.
 
-The port's own counterpart of ``transformers.CLIPVisionModelWithProjection``,
-which the JAX package runs on the host in ``guidance/loader.py``
-``_clip_image_embed``. Its parameters carry the names of the state dict
-that a snapshot's ``image_encoder/`` ships
+The port's own counterparts of ``transformers.CLIPVisionModelWithProjection``
+and ``transformers.CLIPTextModel``, which the JAX package runs on the host
+in ``guidance/loader.py`` (``_clip_image_embed``, ``_encode_text``). Their
+parameters carry the names of the state dicts that a snapshot's
+``image_encoder/`` and ``text_encoder/`` ship
 (``vision_model.embeddings.patch_embedding.weight``,
 ``vision_model.pre_layrnorm`` with the upstream spelling,
-``vision_model.encoder.layers.N.self_attn.q_proj``, ``visual_projection``,
-...), so ``convert.load_into`` loads it without renaming; the
-``position_ids`` buffer of some snapshots is recomputed, not loaded.
+``text_model.encoder.layers.N.self_attn.q_proj``, ``visual_projection``,
+``text_model.final_layer_norm``, ...), so ``convert.load_into`` loads them
+without renaming; the ``position_ids`` buffer of some snapshots is
+recomputed, not loaded. Both share the pre-norm encoder layers
+(``quick_gelu`` or ``gelu``).
 
-It runs in float32, once per run: pre-norm ViT blocks (``quick_gelu`` or
-``gelu``), the CLS token through ``post_layernorm``, then the projection
-without bias -> ``image_embeds`` [B, projection_dim]. The patch embedding
-is a matmul over the unfolded patches (the same sum as the stride-p
-convolution), so on the card it takes the float32 matmul path rather than
-cuDNN's TF32 convolutions.
+Both run in float32, once per run. The vision tower: the CLS token
+through ``post_layernorm``, then the projection without bias ->
+``image_embeds`` [B, projection_dim]; its patch embedding is a matmul over
+the unfolded patches (the same sum as the stride-p convolution), so on the
+card it takes the float32 matmul path rather than cuDNN's TF32
+convolutions. The text tower: token and position embeddings, causal
+self-attention and no padding mask (the JAX side passes only
+``input_ids``), ``final_layer_norm`` -> ``last_hidden_state`` [B, L,
+hidden]. The OpenCLIP tower of an LDM checkpoint is converted onto the
+text tower (``guidance/text_encoder.py``).
 """
 
 from __future__ import annotations
@@ -34,8 +41,20 @@ CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
+class _FromJson:
+    @classmethod
+    def from_json(cls, path: str):
+        with open(path) as f:
+            raw = json.load(f)
+        cfg = cls(**{f.name: raw[f.name] for f in dataclasses.fields(cls) if f.name in raw})
+        if cfg.hidden_act not in ACTIVATIONS:
+            raise ValueError(f"{path}: hidden_act {cfg.hidden_act!r} is not one of "
+                             f"{sorted(ACTIVATIONS)}")
+        return cfg
+
+
 @dataclasses.dataclass(frozen=True)
-class CLIPVisionConfig:
+class CLIPVisionConfig(_FromJson):
     """The fields of transformers' ``CLIPVisionConfig`` the tower uses, with
     its defaults (a ``config.json`` may leave out a default value)."""
 
@@ -50,15 +69,20 @@ class CLIPVisionConfig:
     hidden_act: str = "quick_gelu"
     layer_norm_eps: float = 1e-5
 
-    @classmethod
-    def from_json(cls, path: str) -> "CLIPVisionConfig":
-        with open(path) as f:
-            raw = json.load(f)
-        cfg = cls(**{f.name: raw[f.name] for f in dataclasses.fields(cls) if f.name in raw})
-        if cfg.hidden_act not in ACTIVATIONS:
-            raise ValueError(f"{path}: hidden_act {cfg.hidden_act!r} is not one of "
-                             f"{sorted(ACTIVATIONS)}")
-        return cfg
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig(_FromJson):
+    """The fields of transformers' ``CLIPTextConfig`` the text tower uses,
+    with its defaults."""
+
+    vocab_size: int = 49408
+    hidden_size: int = 512
+    intermediate_size: int = 2048
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 8
+    max_position_embeddings: int = 77
+    hidden_act: str = "quick_gelu"
+    layer_norm_eps: float = 1e-5
 
 
 ACTIVATIONS = {
@@ -89,9 +113,10 @@ class CLIPVisionEmbeddings(nn.Module):
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, cfg: CLIPVisionConfig):
+    def __init__(self, cfg, causal: bool = False):
         super().__init__()
         d = cfg.hidden_size
+        self.causal = causal
         self.heads = cfg.num_attention_heads
         self.q_proj, self.k_proj = nn.Linear(d, d), nn.Linear(d, d)
         self.v_proj, self.out_proj = nn.Linear(d, d), nn.Linear(d, d)
@@ -101,13 +126,17 @@ class CLIPAttention(nn.Module):
         hd = d // self.heads
         split = lambda t: t.reshape(b, n, self.heads, hd).transpose(1, 2)  # noqa: E731
         q = split(self.q_proj(x)) * (hd ** -0.5)
-        probs = torch.softmax(q @ split(self.k_proj(x)).transpose(-1, -2), dim=-1)
+        scores = q @ split(self.k_proj(x)).transpose(-1, -2)
+        if self.causal:
+            above = torch.ones(n, n, dtype=torch.bool, device=x.device).triu(1)
+            scores = scores.masked_fill(above, float("-inf"))
+        probs = torch.softmax(scores, dim=-1)
         out = (probs @ split(self.v_proj(x))).transpose(1, 2).reshape(b, n, d)
         return self.out_proj(out)
 
 
 class CLIPMLP(nn.Module):
-    def __init__(self, cfg: CLIPVisionConfig):
+    def __init__(self, cfg):
         super().__init__()
         self.act = ACTIVATIONS[cfg.hidden_act]
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
@@ -118,10 +147,10 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPVisionConfig):
+    def __init__(self, cfg, causal: bool = False):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.self_attn = CLIPAttention(cfg)
+        self.self_attn = CLIPAttention(cfg, causal)
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.mlp = CLIPMLP(cfg)
 
@@ -131,9 +160,10 @@ class CLIPEncoderLayer(nn.Module):
 
 
 class CLIPEncoder(nn.Module):
-    def __init__(self, cfg: CLIPVisionConfig):
+    def __init__(self, cfg, causal: bool = False):
         super().__init__()
-        self.layers = nn.ModuleList(CLIPEncoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
+        self.layers = nn.ModuleList(CLIPEncoderLayer(cfg, causal)
+                                    for _ in range(cfg.num_hidden_layers))
 
     def forward(self, x):
         for layer in self.layers:
@@ -168,6 +198,39 @@ class CLIPVisionModelWithProjection(nn.Module):
         return self.visual_projection(self.vision_model(pixel_values.float()))
 
 
+class CLIPTextEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embedding = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
+
+    def forward(self, ids):
+        return self.token_embedding(ids) + self.position_embedding.weight[None, :ids.shape[1]]
+
+
+class CLIPTextTransformer(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.embeddings = CLIPTextEmbeddings(cfg)
+        self.encoder = CLIPEncoder(cfg, causal=True)
+        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+
+    def forward(self, ids):
+        return self.final_layer_norm(self.encoder(self.embeddings(ids)))
+
+
+class CLIPTextModel(nn.Module):
+    """input_ids [B, L] -> last_hidden_state [B, L, hidden] (float32)."""
+
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.config = cfg
+        self.text_model = CLIPTextTransformer(cfg)
+
+    def forward(self, ids):
+        return self.text_model(ids)
+
+
 def clip_pixel_values(image, size: int, device) -> torch.Tensor:
     """RGB [H, W, 3] in [0, 1] -> CLIP's normalised NCHW input at ``size``^2
     (bilinear, antialiased when downsampling, as ``jax.image.resize``)."""
@@ -178,16 +241,25 @@ def clip_pixel_values(image, size: int, device) -> torch.Tensor:
     return ((img - mean) / std).permute(0, 3, 1, 2)
 
 
-def load_clip_vision(encoder_dir: str, device) -> CLIPVisionModelWithProjection:
-    """The tower of a snapshot's ``image_encoder/`` folder, float32 on ``device``."""
+def _load_tower(folder: str, config_cls, model_cls, device):
     from .convert import load_into, load_torch_state_dict
 
-    cfg = CLIPVisionConfig.from_json(f"{encoder_dir}/config.json")
+    cfg = config_cls.from_json(f"{folder}/config.json")
     with torch.device("meta"):
-        tower = CLIPVisionModelWithProjection(cfg)
+        tower = model_cls(cfg)
     tower = tower.to_empty(device=device)
-    load_into(tower, load_torch_state_dict(encoder_dir), skip=("position_ids",))
+    load_into(tower, load_torch_state_dict(folder), skip=("position_ids",))
     return tower.eval().requires_grad_(False)
+
+
+def load_clip_vision(encoder_dir: str, device) -> CLIPVisionModelWithProjection:
+    """The tower of a snapshot's ``image_encoder/`` folder, float32 on ``device``."""
+    return _load_tower(encoder_dir, CLIPVisionConfig, CLIPVisionModelWithProjection, device)
+
+
+def load_clip_text(encoder_dir: str, device) -> CLIPTextModel:
+    """The tower of a snapshot's ``text_encoder/`` folder, float32 on ``device``."""
+    return _load_tower(encoder_dir, CLIPTextConfig, CLIPTextModel, device)
 
 
 @torch.no_grad()

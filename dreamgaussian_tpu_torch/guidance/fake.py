@@ -1,15 +1,16 @@
-"""Fake Zero123 guidance: a tiny random-weight denoiser in place of the
-real prior, for runs without weights (``fake_guidance=True`` in the CLIs)
-and for tests.
+"""Fake Zero123, SD and MVDream guidance: a tiny random-weight denoiser in
+place of the real prior, for runs without weights (``fake_guidance=True``
+in the CLIs) and for tests.
 
-Port of the Zero123 part of ``dreamgaussian_tpu/guidance/fake.py``: the
+Port of ``dreamgaussian_tpu/guidance/fake.py`` without ImageDream: the
 "VAE" average-pools the image to an 8x8 latent (its first channel
 repeated as the fourth) and decodes by nearest upsampling of the first
 three latent channels; the UNet is ``TinyUNet``. It runs every code path
 of SDS and refine and carries no semantic prior. The weights and
 embeddings are drawn from a seeded ``torch.Generator`` on the device as
-``realarch`` draws them (the JAX package draws its own from a JAX key).
-The SD, MVDream and ImageDream fakes wait for their priors.
+``realarch`` draws them (the JAX package draws its own from a JAX key);
+the text "embeddings" are [2, 32] random states (MVDream's negative one
+zeros).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from torch import nn
 
 from .. import resolve_device
 from .realarch import init_on_device
-from .sds import Zero123Guidance
+from .sds import MVDreamGuidance, StableDiffusionGuidance, Zero123Guidance
 from .unet import TinyUNet
 
 
@@ -45,6 +46,38 @@ class PoolVAE(nn.Module):
         return x.permute(0, 2, 3, 1)
 
 
+def _tiny_unet(in_channels: int, dev, gen):
+    with torch.device("meta"):
+        unet = TinyUNet(in_channels=in_channels, channels=16, context_dim=32, out_channels=4)
+    return init_on_device(unet, dev, gen)
+
+
+def fake_sd_guidance(image_size: int = 64, seed: int = 0,
+                     device: str | torch.device = "cuda") -> StableDiffusionGuidance:
+    """SD guidance with ``TinyUNet`` (context 32) and the pooling VAE at an
+    8x8 latent; states for pos, neg, front, side and back."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    unet = _tiny_unet(4, dev, gen)
+    emb = {k: torch.randn((2, 32), generator=gen, device=dev) * 0.1
+           for k in ("pos", "neg", "front", "side", "back")}
+    return StableDiffusionGuidance(unet, PoolVAE(latent_size=8, image_size=image_size), emb,
+                                   image_size=image_size)
+
+
+def fake_mvdream_guidance(image_size: int = 64, seed: int = 0,
+                          device: str | torch.device = "cuda") -> MVDreamGuidance:
+    """MVDream guidance with ``TinyUNet`` (which ignores the camera) and the
+    pooling VAE at an 8x8 latent."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    unet = _tiny_unet(4, dev, gen)
+    emb = {"pos": torch.randn((2, 32), generator=gen, device=dev) * 0.1,
+           "neg": torch.zeros((2, 32), device=dev)}
+    return MVDreamGuidance(unet, PoolVAE(latent_size=8, image_size=image_size), emb,
+                           image_size=image_size)
+
+
 def fake_zero123_guidance(image_size: int = 64, seed: int = 0, stable: bool = False,
                           default_elevation: float = 0.0,
                           device: str | torch.device = "cuda") -> Zero123Guidance:
@@ -53,9 +86,7 @@ def fake_zero123_guidance(image_size: int = 64, seed: int = 0, stable: bool = Fa
     4], cam_proj [28, 32]."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    with torch.device("meta"):
-        unet = TinyUNet(in_channels=8, channels=16, context_dim=32, out_channels=4)
-    unet = init_on_device(unet, dev, gen)
+    unet = _tiny_unet(8, dev, gen)
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
     return Zero123Guidance(
         unet, PoolVAE(latent_size=8, image_size=image_size),

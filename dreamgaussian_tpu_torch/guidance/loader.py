@@ -1,26 +1,36 @@
-"""Zero123 guidance from a local diffusers snapshot.
+"""Zero123, SD 2.1 and MVDream guidance from local checkpoints.
 
-Port of the diffusers-layout part of ``dreamgaussian_tpu/guidance/loader.py``
-(``_config_from_json``, ``_build_backbone``, ``load_zero123``) for the
-snapshots ``configs/image.yaml`` and ``configs/image_sai.yaml`` are
-written for (``ashawkey/zero123-xl-diffusers``,
-``ashawkey/stable-zero123-diffusers``)::
+Port of ``dreamgaussian_tpu/guidance/loader.py`` without ImageDream. Two
+layouts:
 
-    <dir>/unet/{config.json, diffusion_pytorch_model.safetensors | .bin}
-    <dir>/vae/...
-    <dir>/image_encoder/{config.json, model.safetensors | pytorch_model.bin}
-    <dir>/clip_camera_projection/...
+1. diffusers snapshot folders, as ``ashawkey/zero123-xl-diffusers``,
+   ``ashawkey/stable-zero123-diffusers`` and
+   ``stabilityai/stable-diffusion-2-1-base`` ship them::
+
+       <dir>/unet/{config.json, diffusion_pytorch_model.safetensors | .bin}
+       <dir>/vae/...
+       <dir>/image_encoder/ + <dir>/clip_camera_projection/    (Zero123)
+       <dir>/text_encoder/ + <dir>/tokenizer/                  (SD, MVDream)
+
+2. the single-file LDM checkpoint that MVDream ships
+   (``sd-v2.1-base-4view.pt``: the UNet with ``camera_embed``, the VAE and
+   the OpenCLIP text tower in one ``torch.save`` file), read with
+   ``torch.load(weights_only=True, mmap=True)``; its tokenizer is a
+   ``tokenizer/`` folder beside the file unless one is named.
 
 Each folder's ``config.json`` overrides the architecture as the JAX
-loader's does. The UNet keeps ``ZERO123_CONFIG``'s 8 heads whatever the
-file's ``attention_head_dim`` says (the JAX config's fixed head count wins
-over it too); values the port's modules cannot build
-(``use_linear_projection: true``, ``flip_sin_to_cos: false``, a
-``freq_shift``, an unknown block type) raise. The weights are copied from
-the mapped files into modules built on the device in ``dtype``, one
-tensor at a time (``convert.load_into``), so no whole host copy of the
-UNet is made. The single-file LDM layout and the SD, MVDream and
-ImageDream loaders wait for the slice of the text priors.
+loader's does; an LDM file's architecture is read from its tensors'
+shapes. The UNet's heads: Zero123 keeps its fixed 8 whatever the file's
+``attention_head_dim`` says (the JAX config's fixed head count wins over
+it too); SD 2.x reads an int as the head width and a list as heads per
+level, as diffusers reads SD 2.1-base's ``[5, 10, 20, 20]`` (the JAX
+package cannot build that list). Values the port's modules cannot build
+(a ``use_linear_projection`` other than the prior's,
+``flip_sin_to_cos: false``, a ``freq_shift``, an unknown block type)
+raise. The weights are copied from the mapped files into modules built on
+the device in ``dtype``, one tensor at a time (``convert.load_into``), so
+no whole host copy of the UNet is made. The text is encoded once, in
+float32, and its tower freed.
 """
 
 from __future__ import annotations
@@ -34,21 +44,25 @@ import torch
 
 from .. import resolve_device
 from .clip import clip_image_embed
-from .convert import camera_projection, load_into, load_torch_state_dict, unet_key, vae_key
-from .sds import Zero123Guidance, _resize
-from .unet import ZERO123_CONFIG, UNet, UNetConfig
+from .convert import (camera_projection, is_ldm_layout, ldm_unet_config, ldm_unet_state,
+                      ldm_vae_config, ldm_vae_state, load_into, load_torch_state_dict, split_ldm,
+                      unet_key, vae_key)
+from .sds import MVDreamGuidance, StableDiffusionGuidance, Zero123Guidance, _resize
+from .text_encoder import encode_open_clip_text, encode_text
+from .unet import MVDREAM_CONFIG, SD21_CONFIG, ZERO123_CONFIG, UNet, UNetConfig
 from .vae import AutoencoderKL, VAEConfig
 
 UNET_JSON_FIELDS = (
     "in_channels", "out_channels", "block_out_channels", "layers_per_block",
-    "cross_attention_dim", "down_block_types", "up_block_types",
+    "cross_attention_dim", "attention_head_dim", "down_block_types", "up_block_types",
 )
 VAE_JSON_FIELDS = (
     "in_channels", "latent_channels", "block_out_channels", "layers_per_block",
     "scaling_factor",
 )
-# UNet config.json values the port's modules are built for; another value raises.
-UNET_FIXED = {"use_linear_projection": False, "flip_sin_to_cos": True, "freq_shift": 0}
+# UNet config.json values the port's modules are built for; another value
+# raises (``use_linear_projection`` must be the prior's own).
+UNET_FIXED = {"flip_sin_to_cos": True, "freq_shift": 0}
 UNET_BLOCK_TYPES = {
     "down_block_types": ("CrossAttnDownBlock2D", "DownBlock2D"),
     "up_block_types": ("UpBlock2D", "CrossAttnUpBlock2D"),
@@ -76,7 +90,7 @@ def _config_from_json(ckpt_dir: str, subfolder: str, default, fields):
 def _unet_config(ckpt_dir: str, default: UNetConfig) -> UNetConfig:
     """``_config_from_json`` for the UNet, refusing what the port cannot build."""
     raw = _read_json(ckpt_dir, "unet") or {}
-    for key, want in UNET_FIXED.items():
+    for key, want in {**UNET_FIXED, "use_linear_projection": default.use_linear_projection}.items():
         if key in raw and raw[key] != want:
             raise ValueError(f"unet/config.json sets {key}={raw[key]!r}; the port's UNet is "
                              f"built for {want!r} only")
@@ -108,6 +122,78 @@ def _build_backbone(ckpt_dir: str, unet_config: UNetConfig, device="cuda",
     vae = load_into(_on_device(lambda: AutoencoderKL(vcfg), dev, dtype),
                     load_torch_state_dict(ckpt_dir, "vae"), vae_key)
     return unet.eval().requires_grad_(False), vae.eval().requires_grad_(False)
+
+
+def _build_backbone_ldm(sd: dict, unet_config: UNetConfig, vae_config: VAEConfig, device,
+                        dtype) -> tuple[UNet, AutoencoderKL]:
+    """The UNet and VAE of a split LDM checkpoint (``convert.split_ldm``), their
+    architecture read from the tensors over the given defaults."""
+    ucfg = ldm_unet_config(sd["unet"], unet_config)
+    unet = load_into(_on_device(lambda: UNet(ucfg), device, dtype),
+                     ldm_unet_state(sd["unet"], ucfg))
+    vcfg = ldm_vae_config(sd["vae"], vae_config)
+    vae = load_into(_on_device(lambda: AutoencoderKL(vcfg), device, dtype),
+                    ldm_vae_state(sd["vae"], vcfg))
+    return unet.eval().requires_grad_(False), vae.eval().requires_grad_(False)
+
+
+def load_stable_diffusion(
+    ckpt_dir: str,
+    prompt: str,
+    negative_prompt: str = "",
+    mvdream: bool = False,
+    image_size: int | None = None,
+    anneal: bool = True,
+    device: str | torch.device = "cuda",
+    dtype: torch.dtype = torch.bfloat16,
+):
+    """SD 2.1 SDS guidance from a diffusers snapshot, or MVDream's
+    (``load_mvdream``) when ``mvdream``. SD encodes the prompt, the negative
+    prompt and the three directional prompts ``"<prompt>, front view"``,
+    ``side`` and ``back`` (sd_utils.py:84-94)."""
+    if mvdream:
+        return load_mvdream(ckpt_dir, prompt, negative_prompt=negative_prompt,
+                            image_size=image_size or 256, anneal=anneal, device=device,
+                            dtype=dtype)
+    dev = resolve_device(device)
+    unet, vae = _build_backbone(ckpt_dir, SD21_CONFIG, dev, dtype)
+    dirs = [f"{prompt}, {d} view" for d in ("front", "side", "back")]
+    embs = encode_text(ckpt_dir, [prompt, negative_prompt or ""] + dirs, dev)
+    embeddings = dict(zip(("pos", "neg", "front", "side", "back"), embs))
+    return StableDiffusionGuidance(unet, vae, embeddings, image_size=image_size or 512,
+                                   anneal=anneal)
+
+
+def load_mvdream(
+    ckpt: str,
+    prompt: str,
+    negative_prompt: str = "",
+    tokenizer_dir: str | None = None,
+    image_size: int = 256,
+    anneal: bool = True,
+    device: str | torch.device = "cuda",
+    dtype: torch.dtype = torch.bfloat16,
+) -> MVDreamGuidance:
+    """MVDream 4-view guidance from a diffusers snapshot folder (the camera
+    MLP as the UNet's ``camera_embedding``; ``MVDREAM_CONFIG`` with its
+    ``config.json``) or the single LDM file (its UNet and VAE architecture
+    read from the tensors, heads of width 64), whose tokenizer is
+    ``tokenizer_dir`` or a ``tokenizer/`` folder beside it."""
+    dev = resolve_device(device)
+    prompts = [prompt, negative_prompt or ""]
+    if os.path.isfile(ckpt):
+        sd = load_torch_state_dict(ckpt)
+        if not is_ldm_layout(sd):
+            raise ValueError(f"{ckpt} is not an LDM-layout checkpoint")
+        sd = split_ldm(sd)
+        unet, vae = _build_backbone_ldm(sd, MVDREAM_CONFIG, VAEConfig(), dev, dtype)
+        tok_dir = tokenizer_dir or os.path.join(os.path.dirname(ckpt), "tokenizer")
+        embs = encode_open_clip_text(sd["text"], tok_dir, prompts, dev)
+    else:
+        unet, vae = _build_backbone(ckpt, MVDREAM_CONFIG, dev, dtype)
+        embs = encode_text(ckpt, prompts, dev)
+    return MVDreamGuidance(unet, vae, {"pos": embs[0], "neg": embs[1]}, image_size=image_size,
+                           anneal=anneal)
 
 
 def load_zero123(

@@ -1,11 +1,12 @@
-"""Real-architecture Zero123 guidance with random weights.
+"""Real-architecture Zero123 and MVDream guidance with random weights.
 
-Port of ``random_zero123_guidance`` from
+Port of ``random_zero123_guidance`` and ``random_mvdream_guidance`` from
 ``dreamgaussian_tpu/guidance/realarch.py``: the full Zero123 UNet (SD1.5
-class, 8-channel input, 320/640/1280/1280 blocks, about 860M weights) and
+class, 8-channel input, 320/640/1280/1280 blocks, about 860M weights) or
+MVDream's (SD 2.1 with 4-view joint attention and the camera MLP), and
 the KL-VAE (encoder and decoder), in bf16, with random weights. It is
 meaningless as a prior but exact in work and memory, so it measures the
-real per-step cost of Zero123 SDS and refine. The weights are made on the device from a seeded
+real per-step cost of SDS and refine. The weights are made on the device from a seeded
 ``torch.Generator`` (no host copy of 860M weights): kernels and dense
 weights ~ N(0, 1/fan_in), biases 0, norms scale 1 and bias 0.
 """
@@ -16,8 +17,8 @@ import torch
 from torch import nn
 
 from .. import resolve_device
-from .sds import Zero123Guidance
-from .unet import ZERO123_CONFIG, UNet
+from .sds import MVDreamGuidance, Zero123Guidance
+from .unet import MVDREAM_CONFIG, ZERO123_CONFIG, UNet
 from .vae import AutoencoderKL, VAEConfig
 
 
@@ -37,6 +38,13 @@ def init_on_device(module: nn.Module, device, gen: torch.Generator) -> nn.Module
     return module.eval().requires_grad_(False)
 
 
+def _random_backbone(config, dev, gen):
+    with torch.device("meta"):   # shapes only; the weights are made on `dev`
+        unet = UNet(config).to(torch.bfloat16)
+        vae = AutoencoderKL(VAEConfig()).to(torch.bfloat16)
+    return init_on_device(unet, dev, gen), init_on_device(vae, dev, gen)
+
+
 def random_zero123_guidance(image_size: int = 256, seed: int = 0,
                             device: str | torch.device = "cuda") -> Zero123Guidance:
     """Zero123 guidance with the real architecture and random bf16 weights
@@ -44,11 +52,7 @@ def random_zero123_guidance(image_size: int = 256, seed: int = 0,
     vae_latent [1, s/8, s/8, 4], cam_proj [772, 768]."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    with torch.device("meta"):   # shapes only; the weights are made on `dev`
-        unet = UNet(ZERO123_CONFIG).to(torch.bfloat16)
-        vae = AutoencoderKL(VAEConfig()).to(torch.bfloat16)
-    unet = init_on_device(unet, dev, gen)
-    vae = init_on_device(vae, dev, gen)
+    unet, vae = _random_backbone(ZERO123_CONFIG, dev, gen)
     latent = image_size // 8
     ctx = ZERO123_CONFIG.cross_attention_dim
     return Zero123Guidance(
@@ -59,3 +63,16 @@ def random_zero123_guidance(image_size: int = 256, seed: int = 0,
                   torch.zeros(ctx, device=dev)),
         image_size=image_size,
     )
+
+
+def random_mvdream_guidance(image_size: int = 256, seed: int = 0,
+                            device: str | torch.device = "cuda") -> MVDreamGuidance:
+    """MVDream guidance with the real 4-view architecture (sd-v2.1-base-4view
+    class) and random bf16 weights; states [77, 1024], 'neg' zeros."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    unet, vae = _random_backbone(MVDREAM_CONFIG, dev, gen)
+    d = MVDREAM_CONFIG.cross_attention_dim
+    emb = {"pos": torch.randn((77, d), generator=gen, device=dev) * 0.1,
+           "neg": torch.zeros((77, d), device=dev)}
+    return MVDreamGuidance(unet, vae, emb, image_size=image_size)

@@ -1,10 +1,19 @@
-"""Zero123 score distillation sampling and img2img refine in torch.
+"""Score distillation sampling and img2img refine in torch: Zero123, SD 2.1, MVDream.
 
-Port of the Zero123 part of ``dreamgaussian_tpu/guidance/sds.py``
-(reference zero123_utils.py): CFG 5, camera-conditioned
-tokens through a linear projection, 8-channel UNet input (noisy latent ⊕
-reference VAE latent), ``w = 1 - alpha_t``, the timestep annealed with the
-step ratio or drawn at random.
+Port of ``dreamgaussian_tpu/guidance/sds.py`` without ImageDream and the
+text-to-image samplers:
+
+- Zero123 (reference zero123_utils.py): CFG 5, camera-conditioned tokens
+  through a linear projection, 8-channel UNet input (noisy latent ⊕
+  reference VAE latent), ``w = 1 - alpha_t``;
+- SD 2.1 (sd_utils.py): CFG 100, ``w = 1 - alpha_t``, the prompt picked per
+  view by azimuth (front, side, back), the batch-mean loss;
+- MVDream (mvdream_utils.py): groups of 4 views denoised jointly, the raw
+  normalised 16-dim camera into the UNet, CFG 100, one timestep per step
+  and no ``w(t)``.
+
+Each anneals the timestep with the step ratio or draws it at random;
+each clips it to [0.02, 0.98] of the schedule.
 
 Guidance-fn contract (consumed by train/stage1.py):
 ``fn(images [B,H,W,3] in [0,1], cond dict, step_ratio, draw) -> scalar``,
@@ -18,7 +27,10 @@ render.
 Refine-fn contract (consumed by train/stage2.py):
 ``fn(images, cond, strength, draw) -> refined images [B,S,S,3] in [0,1]``
 without gradient: encode, noise to the DDIM step that ``strength`` picks
-("refine_noise"), denoise to t = 0 with CFG, decode.
+("refine_noise"), denoise to t = 0 with CFG, decode. The CFG batch is
+[cond, uncond] in SDS and in SD's refine, [uncond, cond] in MVDream's
+refine (the reference's orders); MVDream's halves each keep the groups of
+4 views whole.
 """
 
 from __future__ import annotations
@@ -188,3 +200,165 @@ class Zero123Guidance:
 
         return fn
 
+
+
+class _TextGuidance:
+    """What SD and MVDream share: the nets, the text states, the schedule."""
+
+    guidance_scale = 100.0
+
+    def __init__(self, unet, vae, embeddings: dict, image_size: int, anneal: bool):
+        self.unet = unet
+        self.vae = vae
+        self.emb = embeddings
+        self.scheduler = DDIMScheduler(device=embeddings["pos"].device)
+        self.num_train = self.scheduler.num_train_timesteps
+        self.t_min = int(self.num_train * 0.02)
+        self.t_max = int(self.num_train * 0.98)
+        self.image_size = image_size
+        self.anneal = anneal
+
+    def num_parameters(self) -> int:
+        return sum(p.numel() for m in (self.unet, self.vae) for p in m.parameters())
+
+    def _timestep(self, step_ratio, draw):
+        if self.anneal:
+            return anneal_t(step_ratio, self.num_train, self.t_min, self.t_max)
+        return draw("sds_t", (), "randint", self.t_min, self.t_max + 1)
+
+    def _batch(self, name: str, b: int):
+        return self.emb[name][None].expand((b,) + tuple(self.emb[name].shape))
+
+
+class StableDiffusionGuidance(_TextGuidance):
+    """SD 2.1 SDS. ``embeddings``: [77, D] text states under 'pos', 'neg'
+    and, for the directional prompts, 'front', 'side', 'back'."""
+
+    def __init__(self, unet, vae, embeddings: dict, image_size: int = 512, anneal: bool = True):
+        super().__init__(unet, vae, embeddings, image_size, anneal)
+
+    def _directional_embeds(self, hors, b: int):
+        """Per view by azimuth: |hor| < 60 front, < 120 side, else back."""
+        if "front" not in self.emb:
+            return self._batch("pos", b)
+        stack = torch.stack([self.emb["front"], self.emb["side"], self.emb["back"]])
+        ah = hors.abs()
+        return stack[torch.where(ah < 60, 0, torch.where(ah < 120, 1, 2))]
+
+    def _context(self, cond, b: int, dev):
+        hors = cond.get("hors") if cond else None
+        hors = torch.zeros(b, device=dev) if hors is None else hors.to(dev)
+        return torch.cat([self._directional_embeds(hors, b), self._batch("neg", b)])
+
+    def guidance_fn(self):
+        alphas = self.scheduler.alphas_cumprod
+
+        def fn(images, cond, step_ratio, draw):
+            dev = images.device
+            b = images.shape[0]
+            latents = self.vae.encode(_resize(images, self.image_size) * 2.0 - 1.0)
+            t = self._timestep(step_ratio, draw)
+            t_b = torch.as_tensor(t, device=dev).to(torch.int64).expand(b)
+            noise = draw("sds_noise", tuple(latents.shape), "normal").to(dev)
+            with torch.no_grad():
+                latents_noisy = self.scheduler.add_noise(latents.detach(), noise, t_b)
+                eps = self.unet(torch.cat([latents_noisy] * 2), torch.cat([t_b] * 2),
+                                self._context(cond, b, dev))
+                eps_cond, eps_uncond = eps.chunk(2)
+                eps_hat = eps_uncond + self.guidance_scale * (eps_cond - eps_uncond)
+                w = (1.0 - alphas[t_b]).reshape(b, 1, 1, 1)
+                grad = torch.nan_to_num(w * (eps_hat - noise))
+            return sds_grad_loss(latents, grad, divide_by_batch=True)
+
+        return fn
+
+    def refine_fn(self, steps: int = 50):
+        """img2img refine (the module's refine-fn contract); the prompt per
+        view from cond's hors, the front one without them."""
+        sch = self.scheduler
+
+        @torch.no_grad()
+        def fn(images, cond, strength, draw):
+            dev = images.device
+            b = images.shape[0]
+            latents = self.vae.encode(_resize(images, self.image_size) * 2.0 - 1.0)
+            ctx = self._context(cond, b, dev)
+
+            def denoise(lat, t):
+                t_in = torch.full((2 * b,), t, dtype=torch.int64, device=dev)
+                eps_cond, eps_uncond = self.unet(torch.cat([lat] * 2), t_in, ctx).chunk(2)
+                return eps_uncond + self.guidance_scale * (eps_cond - eps_uncond)
+
+            noise = draw("refine_noise", tuple(latents.shape), "normal").to(dev)
+            latents = ddim_img2img(sch, steps, latents, strength, noise, denoise)
+            return torch.clamp(self.vae.decode(latents) * 0.5 + 0.5, 0.0, 1.0)
+
+        return fn
+
+
+def mvdream_camera(poses):
+    """[B, 4, 4] OpenGL camera-to-world -> MVDream's [B, 16] camera
+    (mvdream_utils.py:125-128): rows 1 and 2 swapped, the new row 1
+    negated, the translation normalised."""
+    cam = poses.float()[:, [0, 2, 1, 3]].clone()
+    cam[:, 1] = -cam[:, 1]
+    t = cam[:, :3, 3]
+    cam[:, :3, 3] = t / (torch.linalg.norm(t, dim=-1, keepdim=True) + 1e-8)
+    return cam.reshape(cam.shape[0], 16)
+
+
+class MVDreamGuidance(_TextGuidance):
+    """4-view joint SDS (no w(t)). ``embeddings``: [77, D] states 'pos' and
+    'neg'. The images come in groups of ``num_views`` consecutive views
+    with their poses in ``cond["poses"]``; the raw 16-dim camera goes into
+    the UNet, which embeds it."""
+
+    num_views = 4
+
+    def __init__(self, unet, vae, embeddings: dict, image_size: int = 256, anneal: bool = True):
+        super().__init__(unet, vae, embeddings, image_size, anneal)
+
+    def guidance_fn(self):
+        def fn(images, cond, step_ratio, draw):
+            dev = images.device
+            b = images.shape[0]          # num_views x groups
+            latents = self.vae.encode(_resize(images, self.image_size) * 2.0 - 1.0)
+            t = self._timestep(step_ratio, draw)
+            t_b = torch.as_tensor(t, device=dev).to(torch.int64).expand(b)
+            noise = draw("sds_noise", tuple(latents.shape), "normal").to(dev)
+            with torch.no_grad():
+                latents_noisy = self.scheduler.add_noise(latents.detach(), noise, t_b)
+                cam = mvdream_camera(cond["poses"].to(dev))
+                ctx = torch.cat([self._batch("pos", b), self._batch("neg", b)])
+                eps = self.unet(torch.cat([latents_noisy] * 2), torch.cat([t_b] * 2), ctx,
+                                camera=torch.cat([cam] * 2))
+                eps_cond, eps_uncond = eps.chunk(2)
+                eps_hat = eps_uncond + self.guidance_scale * (eps_cond - eps_uncond)
+                grad = torch.nan_to_num(eps_hat - noise)
+            return sds_grad_loss(latents, grad, divide_by_batch=True)
+
+        return fn
+
+    def refine_fn(self, steps: int = 50):
+        """4-view joint img2img refine; cond needs the poses."""
+        sch = self.scheduler
+
+        @torch.no_grad()
+        def fn(images, cond, strength, draw):
+            dev = images.device
+            b = images.shape[0]
+            latents = self.vae.encode(_resize(images, self.image_size) * 2.0 - 1.0)
+            cam = torch.cat([mvdream_camera(cond["poses"].to(dev))] * 2)
+            ctx = torch.cat([self._batch("neg", b), self._batch("pos", b)])
+
+            def denoise(lat, t):
+                t_in = torch.full((2 * b,), t, dtype=torch.int64, device=dev)
+                eps_uncond, eps_cond = self.unet(torch.cat([lat] * 2), t_in, ctx,
+                                                 camera=cam).chunk(2)
+                return eps_uncond + self.guidance_scale * (eps_cond - eps_uncond)
+
+            noise = draw("refine_noise", tuple(latents.shape), "normal").to(dev)
+            latents = ddim_img2img(sch, steps, latents, strength, noise, denoise)
+            return torch.clamp(self.vae.decode(latents) * 0.5 + 0.5, 0.0, 1.0)
+
+        return fn

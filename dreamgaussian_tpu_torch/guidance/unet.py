@@ -1,18 +1,25 @@
-"""Stable-Diffusion-family denoising UNet in torch (Zero123 configuration).
+"""Stable-Diffusion-family denoising UNet in torch: Zero123, SD 2.x, MVDream.
 
-Port of the stage-1 part of ``dreamgaussian_tpu/guidance/unet.py``. The
-public ``UNet.forward`` takes and returns NHWC tensors, like the flax
-module; inside it runs NCHW. Submodules carry the flax module names
-(``down_0_res_0.conv1``, ``mid_attn.transformer_blocks_0.attn2.to_k``,
+Port of ``dreamgaussian_tpu/guidance/unet.py`` without ImageDream's
+IP-adapter path. The public ``UNet.forward`` takes and returns NHWC
+tensors, like the flax module; inside it runs NCHW. Submodules carry the
+flax module names (``down_0_res_0.conv1``,
+``mid_attn.transformer_blocks_0.attn2.to_k``, ``camera_embedding.linear_1``,
 ...), so ``weights.load_unet`` maps a flax tree onto it by name.
+
+Variants: Zero123 (8-channel input, conv projections in the transformers,
+8 heads, context 768); SD 2.x (linear projections, 64-wide heads, context
+1024); MVDream (SD 2.x whose self-attention attends jointly over the
+``num_views`` views of a group, plus a camera MLP whose output is added to
+the time embedding).
 
 Numerics kept from the JAX package: GroupNorm with float32 statistics and
 ``gcd(32, C)`` groups; LayerNorm with epsilon 1e-5 and float32 statistics;
 GEGLU with the exact (erf) GELU; ``flip_sin_to_cos`` timestep embedding;
-attention scores and softmax in float32. Only the Zero123 variant (conv
-projections, a fixed head count) is ported; the SD 2.1 / MVDream /
-ImageDream variants wait for the slice of the other priors. ``TinyUNet``
-is the small denoiser of the runs without weights (``guidance/fake.py``).
+attention scores and softmax in float32 (at SD's 64^2 latents, or
+MVDream's 4 x 32^2 joint tokens, 0.67 GB of scores per first-level call).
+``TinyUNet`` is the small denoiser of the runs without weights
+(``guidance/fake.py``).
 """
 
 from __future__ import annotations
@@ -29,14 +36,22 @@ from torch import nn
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
     """UNet shape. The defaults are Zero123's (SD1.5 class, 8-channel
-    input, 8 heads, conv projections in the transformers)."""
+    input, 8 heads, conv projections in the transformers).
+
+    Heads: ``num_attention_heads`` when set; else ``attention_head_dim``,
+    an int head width (``channels // width`` heads, as the JAX package
+    reads it) or a per-level tuple of head counts (as diffusers reads the
+    list of an SD 2.x ``config.json``: ``[5, 10, 20, 20]``)."""
 
     in_channels: int = 8
     out_channels: int = 4
     block_out_channels: Sequence[int] = (320, 640, 1280, 1280)
     layers_per_block: int = 2
     cross_attention_dim: int = 768
-    num_attention_heads: int = 8
+    num_attention_heads: int | None = 8
+    attention_head_dim: int | Sequence[int] = 64
+    use_linear_projection: bool = False
+    num_views: int = 1            # > 1: joint self-attention, and the camera MLP
     down_block_types: Sequence[str] = (
         "CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
         "CrossAttnDownBlock2D", "DownBlock2D",
@@ -46,8 +61,20 @@ class UNetConfig:
         "CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
     )
 
+    def heads_for(self, level: int) -> int:
+        """Heads of the transformers at ``level`` (the mid block is the last)."""
+        if self.num_attention_heads is not None:
+            return self.num_attention_heads
+        if not isinstance(self.attention_head_dim, int):
+            return int(self.attention_head_dim[level])
+        return max(1, self.block_out_channels[level] // self.attention_head_dim)
+
 
 ZERO123_CONFIG = UNetConfig()
+SD21_CONFIG = UNetConfig(in_channels=4, cross_attention_dim=1024, num_attention_heads=None,
+                         attention_head_dim=64, use_linear_projection=True)
+MVDREAM_CONFIG = dataclasses.replace(SD21_CONFIG, num_views=4)
+CAMERA_DIM = 16                   # MVDream's flattened 4x4 camera
 
 
 def timestep_embedding(t, dim: int, max_period: float = 10000.0):
@@ -154,8 +181,9 @@ class FeedForward(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    def __init__(self, dim: int, heads: int, context_dim: int):
+    def __init__(self, dim: int, heads: int, context_dim: int, num_views: int = 1):
         super().__init__()
+        self.num_views = num_views
         self.norm1 = LayerNorm32(dim)
         self.attn1 = CrossAttention(dim, heads)
         self.norm2 = LayerNorm32(dim)
@@ -164,23 +192,44 @@ class TransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, x, context):
-        x = x + self.attn1(self.norm1(x))
+        h = self.norm1(x)
+        if self.num_views > 1:
+            # The views of a group attend jointly: [B*V, N, C] -> [B, V*N, C].
+            bv, n, c = h.shape
+            h = self.attn1(h.reshape(bv // self.num_views, self.num_views * n, c))
+            h = h.reshape(bv, n, c)
+        else:
+            h = self.attn1(h)
+        x = x + h
         x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 
 
 class Transformer2D(nn.Module):
-    def __init__(self, channels: int, heads: int, context_dim: int):
+    """GroupNorm, proj_in, one transformer block, proj_out, residual. The
+    projections are 1x1 convolutions (Zero123) or ``Linear`` on the
+    flattened tokens (SD 2.x, ``linear``)."""
+
+    def __init__(self, channels: int, heads: int, context_dim: int, linear: bool = False,
+                 num_views: int = 1):
         super().__init__()
+        self.linear = linear
         # diffusers / ldm build this norm with eps 1e-6.
         self.norm = GroupNorm32(channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
-        self.transformer_blocks_0 = TransformerBlock(channels, heads, context_dim)
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        proj = (lambda: nn.Linear(channels, channels)) if linear else \
+            (lambda: nn.Conv2d(channels, channels, 1))
+        self.proj_in = proj()
+        self.transformer_blocks_0 = TransformerBlock(channels, heads, context_dim, num_views)
+        self.proj_out = proj()
 
     def forward(self, x, context):
         b, c, hh, ww = x.shape
-        h = self.proj_in(self.norm(x)).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
+        h = self.norm(x)
+        if self.linear:
+            h = self.proj_in(h.permute(0, 2, 3, 1).reshape(b, hh * ww, c))
+            h = self.proj_out(self.transformer_blocks_0(h, context))
+            return h.reshape(b, hh, ww, c).permute(0, 3, 1, 2) + x
+        h = self.proj_in(h).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
         h = self.transformer_blocks_0(h, context)
         return self.proj_out(h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)) + x
 
@@ -214,8 +263,10 @@ class TimeEmbedding(nn.Module):
 
 
 class UNet(nn.Module):
-    """Denoising UNet: NHWC latents, [B] timesteps, [B,L,D] context ->
-    NHWC float32 noise prediction. Runs in the dtype of its weights."""
+    """Denoising UNet: NHWC latents, [B] timesteps, [B,L,D] context and,
+    for MVDream, the raw [B, 16] camera -> NHWC float32 noise prediction.
+    Runs in the dtype of its weights. With ``num_views`` V > 1 the batch
+    holds whole groups of V consecutive views."""
 
     def __init__(self, config: UNetConfig):
         super().__init__()
@@ -223,25 +274,30 @@ class UNet(nn.Module):
         ch0 = cfg.block_out_channels[0]
         temb_dim = ch0 * 4
         ctx = cfg.cross_attention_dim
-        heads = cfg.num_attention_heads
-        self.time_embedding = TimeEmbedding(ch0, temb_dim)
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
         n_levels = len(cfg.block_out_channels)
+
+        def transformer(ch, level):
+            return Transformer2D(ch, cfg.heads_for(level), ctx, cfg.use_linear_projection,
+                                 cfg.num_views)
+
+        self.time_embedding = TimeEmbedding(ch0, temb_dim)
+        if cfg.num_views > 1:
+            self.camera_embedding = TimeEmbedding(CAMERA_DIM, temb_dim)
+        self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
         h_ch, skips = ch0, [ch0]
         for i, (btype, ch) in enumerate(zip(cfg.down_block_types, cfg.block_out_channels)):
             for j in range(cfg.layers_per_block):
                 self.add_module(f"down_{i}_res_{j}", ResnetBlock(h_ch, ch, temb_dim))
                 h_ch = ch
                 if btype == "CrossAttnDownBlock2D":
-                    self.add_module(f"down_{i}_attn_{j}",
-                                    Transformer2D(ch, heads, ctx))
+                    self.add_module(f"down_{i}_attn_{j}", transformer(ch, i))
                 skips.append(ch)
             if i < n_levels - 1:
                 self.add_module(f"down_{i}_downsample", Downsample(ch))
                 skips.append(ch)
         ch = cfg.block_out_channels[-1]
         self.mid_res_0 = ResnetBlock(h_ch, ch, temb_dim)
-        self.mid_attn = Transformer2D(ch, heads, ctx)
+        self.mid_attn = transformer(ch, n_levels - 1)
         self.mid_res_1 = ResnetBlock(ch, ch, temb_dim)
         h_ch = ch
         for i, (btype, ch) in enumerate(zip(cfg.up_block_types,
@@ -250,8 +306,7 @@ class UNet(nn.Module):
                 self.add_module(f"up_{i}_res_{j}", ResnetBlock(h_ch + skips.pop(), ch, temb_dim))
                 h_ch = ch
                 if btype == "CrossAttnUpBlock2D":
-                    self.add_module(f"up_{i}_attn_{j}",
-                                    Transformer2D(ch, heads, ctx))
+                    self.add_module(f"up_{i}_attn_{j}", transformer(ch, n_levels - 1 - i))
             if i < n_levels - 1:
                 self.add_module(f"up_{i}_upsample", Upsample(ch))
         self.conv_norm_out = GroupNorm32(h_ch)
@@ -260,11 +315,13 @@ class UNet(nn.Module):
     def _block(self, name):
         return getattr(self, name, None)
 
-    def forward(self, sample, timesteps, context):
+    def forward(self, sample, timesteps, context, camera=None):
         cfg = self.config
         dt = self.conv_in.weight.dtype
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt)
         temb = self.time_embedding(temb)
+        if camera is not None:
+            temb = temb + self.camera_embedding(camera.to(dt))
         context = context.to(dt)
         h = self.conv_in(sample.permute(0, 3, 1, 2).to(dt))
         skips = [h]
@@ -295,7 +352,8 @@ class UNet(nn.Module):
 class TinyUNet(nn.Module):
     """Small UNet-shaped denoiser for tests and the fake guidance: NHWC in
     and out, the flax module's auto-named children (``Dense_0``, ``Conv_0``,
-    ``GroupNorm_0``, ``Dense_1``, ``Conv_1``, ``Conv_2``)."""
+    ``GroupNorm_0``, ``Dense_1``, ``Conv_1``, ``Conv_2``). It takes and
+    ignores MVDream's ``camera``, as the JAX fake backbone drops it."""
 
     def __init__(self, in_channels: int = 4, channels: int = 16, context_dim: int = 32,
                  out_channels: int = 4):
@@ -308,7 +366,7 @@ class TinyUNet(nn.Module):
         self.Conv_1 = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
         self.Conv_2 = nn.Conv2d(channels, out_channels, 3, padding=1)
 
-    def forward(self, sample, timesteps, context):
+    def forward(self, sample, timesteps, context, camera=None):
         temb = self.Dense_0(timestep_embedding(timesteps, self.channels))
         h = self.Conv_0(sample.permute(0, 3, 1, 2).float()) + temb[:, :, None, None]
         h = F.silu(self.GroupNorm_0(h)) + self.Dense_1(context.mean(1))[:, :, None, None]

@@ -9,7 +9,9 @@ on schedule). Semantics kept:
 - novel-view resolution ladder 128/256/512 at step ratios 0.3/0.6;
 - orbit sampling ver ~ U[min_ver, max_ver), hor ~ U[-180, 180), drawn from
   ``np.random.default_rng(seed)`` in the JAX trainer's call order, then
-  the white/black background draw (``invert_bg_prob``);
+  the white/black background draw (``invert_bg_prob``); with ``mvdream``
+  each sampled camera becomes a group of 4 views at hor + 90 i, its poses
+  consecutive in ``cond["poses"]``;
 - densification stats from the LAST novel view, with the mean2D gradient
   scaled by (W/2, H/2); densify/prune every ``densification_interval``
   inside [density_start_iter, density_end_iter], opacity reset every
@@ -114,8 +116,8 @@ class Stage1Trainer:
     ):
         """opt: config namespace with the reference's image.yaml keys.
         guidance_fns: tuple of (weight, fn) entries (see GuidanceFn)."""
-        if opt.get("mvdream", False) or opt.get("imagedream", False):
-            raise ValueError("multi-view priors (mvdream/imagedream) are not ported yet")
+        if opt.get("imagedream", False):
+            raise NotImplementedError("the ImageDream prior (imagedream) is not ported yet")
         self.device = resolve_device(device)
         self.opt = opt
         self.seed = seed
@@ -152,6 +154,7 @@ class Stage1Trainer:
         self.elevation = opt.get("elevation", 0.0)
         pose = orbit_camera(self.elevation, 0.0, self.radius)
         self.fixed_cam = Camera.from_pose(pose, self.ref_size, self.ref_size, fovy, fovy)
+        self.n_views = 4 if opt.get("mvdream", False) else 1
         self.batch_size = opt.get("batch_size", 1)
 
         self.lr_schedules = {
@@ -199,9 +202,10 @@ class Stage1Trainer:
             hor = int(self.rng.integers(-180, 180))
             vers.append(ver)
             hors.append(hor)
-            pose = orbit_camera(self.elevation + ver, hor, self.radius)
-            poses.append(pose)
-            cams.append(Camera.from_pose(pose, size, size, self.fovy, self.fovx))
+            for i in range(self.n_views):
+                pose = orbit_camera(self.elevation + ver, hor + 90 * i, self.radius)
+                poses.append(pose)
+                cams.append(Camera.from_pose(pose, size, size, self.fovy, self.fovx))
         return (cams, np.array(vers, np.float32), np.array(hors, np.float32),
                 np.stack(poses).astype(np.float32))
 

@@ -16,7 +16,9 @@ step has two phases, the JAX package's two jitted programs:
 
 Cameras and the SSAA factor come from ``np.random.default_rng(seed)`` in
 the JAX trainer's call order (``_sample_ssaa``, then ``ver``, ``hor`` per
-batch entry). The refine noise comes from ``draw("refine_noise", shape,
+batch entry). With ``mvdream`` each sampled camera becomes a group of 4
+views at hor + 90 i (their poses in ``cond``), and the known view sits at
+azimuth 90. The refine noise comes from ``draw("refine_noise", shape,
 "normal")``, one draw per refine fn per step; tests inject JAX's samples.
 
 refine_fns: tuple of (weight, fn) entries with fn(images [B,H,W,3], cond,
@@ -61,9 +63,8 @@ class Stage2Trainer:
         """opt: config namespace with the reference's stage-2 keys. ref_mask
         is taken for the CLI's call and not used: the known-view loss masks
         by the render's own coverage and view angle."""
-        if opt.get("mvdream", False) or opt.get("imagedream", False):
-            raise NotImplementedError(
-                "multi-view priors (mvdream/imagedream) are not ported yet")
+        if opt.get("imagedream", False):
+            raise NotImplementedError("the ImageDream prior (imagedream) is not ported yet")
         self.device = resolve_device(device)
         self.opt = opt
         self.rng = np.random.default_rng(seed)
@@ -87,8 +88,10 @@ class Stage2Trainer:
         self.fovy = np.radians(opt.get("fovy", 49.1))
         self.radius = opt.get("radius", 2.0)
         self.elevation = opt.get("elevation", 0.0)
-        self.fixed_cam = Camera.from_pose(orbit_camera(self.elevation, 0, self.radius),
+        mv = bool(opt.get("mvdream", False))
+        self.fixed_cam = Camera.from_pose(orbit_camera(self.elevation, 90 if mv else 0, self.radius),
                                           self.ref_size, self.ref_size, self.fovy, self.fovy)
+        self.n_views = 4 if mv else 1
         self.batch_size = opt.get("batch_size", 1)
         self.render_resolution = opt.get("novel_resolution", 512)
         self.phase_times: list = []   # (target_s, grad_s) per step when phase_timing
@@ -114,9 +117,10 @@ class Stage2Trainer:
             hor = int(self.rng.integers(-180, 180))
             vers.append(ver)
             hors.append(hor)
-            pose = orbit_camera(self.elevation + ver, hor, self.radius)
-            poses.append(pose)
-            cams.append(Camera.from_pose(pose, size, size, self.fovy, self.fovy))
+            for i in range(self.n_views):
+                pose = orbit_camera(self.elevation + ver, hor + 90 * i, self.radius)
+                poses.append(pose)
+                cams.append(Camera.from_pose(pose, size, size, self.fovy, self.fovy))
         return cams, np.stack(poses), np.array(vers, np.float32), np.array(hors, np.float32)
 
     def _view(self, cam: Camera):

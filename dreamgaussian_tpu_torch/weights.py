@@ -9,11 +9,15 @@ weights. Imports neither JAX nor flax.
 - flax modules: conv kernels HWIO -> OIHW, ``Dense`` kernels [in, out] ->
   ``Linear`` [out, in], GroupNorm/LayerNorm ``scale`` -> ``weight``; the
   flax module path becomes the torch parameter name (GroupNorm32 wraps
-  flax's ``GroupNorm_0``, which has no counterpart level in torch).
+  flax's ``GroupNorm_0``, which has no counterpart level in torch); the
+  UNet's linear projections and camera MLP come along by name;
+- the JAX package's ``OpenCLIPTextEncoder`` onto the port's
+  ``clip.CLIPTextModel`` (its fused ``in_proj`` split into q, k and v).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
@@ -113,3 +117,28 @@ def load_tiny_unet(unet: torch.nn.Module, flax_params: Mapping) -> torch.nn.Modu
     unet.load_state_dict({f"{name}.{k}": v for name, sub in tree.items()
                           for k, v in flax_state_dict(sub, dev).items()})
     return unet
+
+
+def load_open_clip_text(tower: torch.nn.Module, flax_params: Mapping) -> torch.nn.Module:
+    """Load a flax ``OpenCLIPTextEncoder`` tree into ``clip.CLIPTextModel``
+    (strict): ``resblocks_i`` -> ``text_model.encoder.layers.i``."""
+    tree = dict(flax_params["params"] if set(flax_params) == {"params"} else flax_params)
+    dev = next(tower.parameters()).device
+    tm, enc = "text_model", "text_model.encoder.layers"
+    sd = {f"{tm}.embeddings.token_embedding.weight": _tensor(tree.pop("token_embedding"), dev),
+          f"{tm}.embeddings.position_embedding.weight":
+              _tensor(tree.pop("positional_embedding"), dev)}
+    names = {"ln_1": "layer_norm1", "ln_2": "layer_norm2", "out_proj": "self_attn.out_proj",
+             "c_fc": "mlp.fc1", "c_proj": "mlp.fc2"}
+    for key, t in flax_state_dict(tree, dev).items():
+        if key.startswith("ln_final."):
+            sd[f"{tm}.final_layer_norm.{key[len('ln_final.'):]}"] = t
+            continue
+        i, module, leaf = re.fullmatch(r"resblocks_(\d+)\.(\w+)\.(weight|bias)", key).groups()
+        if module == "in_proj":
+            for part, chunk in zip("qkv", t.chunk(3, dim=0)):
+                sd[f"{enc}.{i}.self_attn.{part}_proj.{leaf}"] = chunk.contiguous()
+        else:
+            sd[f"{enc}.{i}.{names[module]}.{leaf}"] = t
+    tower.load_state_dict(sd)
+    return tower

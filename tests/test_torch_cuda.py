@@ -743,3 +743,110 @@ def test_stage1_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
     stats = dst.train(4, log_every=0)
     assert stats["step"] == 8 and np.isfinite(stats["loss"])
     assert tcu.LAUNCHES["composite_bwd"] >= before + 4
+
+
+# -- the text priors on the card: SD 2.x and MVDream at small width --
+
+
+def _tiny_text_guidance(prior, device):
+    """SD or MVDream guidance on tiny float32 nets with seeded weights (the
+    same on every device): linear projections, 2 heads, for MVDream 4-view
+    joint attention and the camera MLP; VAE (4, 8)."""
+    from dreamgaussian_tpu_torch.guidance.realarch import init_on_device
+    from dreamgaussian_tpu_torch.guidance.sds import MVDreamGuidance, StableDiffusionGuidance
+    from dreamgaussian_tpu_torch.guidance.unet import UNet, UNetConfig
+    from dreamgaussian_tpu_torch.guidance.vae import AutoencoderKL, VAEConfig
+
+    cfg = UNetConfig(in_channels=4, block_out_channels=(32, 64), layers_per_block=1,
+                     cross_attention_dim=24, num_attention_heads=2, use_linear_projection=True,
+                     down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                     up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+                     num_views=4 if prior == "mvdream" else 1)
+    gen = torch.Generator().manual_seed(3)
+    with torch.device("meta"):
+        unet, vae = UNet(cfg), AutoencoderKL(VAEConfig(block_out_channels=(4, 8),
+                                                       layers_per_block=1))
+    unet, vae = (init_on_device(m, "cpu", gen).to(device) for m in (unet, vae))
+    names = ("pos", "neg") if prior == "mvdream" else ("pos", "neg", "front", "side", "back")
+    emb = {k: (torch.randn((5, 24), generator=gen) * 0.5).to(device) for k in names}
+    cls = MVDreamGuidance if prior == "mvdream" else StableDiffusionGuidance
+    return cls(unet, vae, emb, image_size=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prior", ["sd", "mvdream"])
+def test_text_guidance_on_card_matches_cpu(cuda_device, prior):
+    """SDS loss and image gradient (float32, CFG 100, the same noise and
+    timestep) and the refine on the card against the same guidance on the
+    CPU: 1e-4 of the loss, 2e-4 of the largest gradient, 1e-4 in the
+    refined images."""
+    rng = np.random.default_rng(4)
+    b = 8 if prior == "mvdream" else 6
+    images = torch.from_numpy(rng.uniform(size=(b, 48, 48, 3)).astype(np.float32))
+    poses = np.stack([orbit_camera(10.0, 30.0 + 90 * i + 45 * (i // 4), 2.5)
+                      for i in range(b)]).astype(np.float32)
+    cond = {"hors": torch.tensor([-170.0, -90.0, 0.0, 45.0, 100.0, 150.0, 10.0, 20.0][:b]),
+            "poses": torch.from_numpy(poses)}
+    noise = torch.from_numpy(rng.normal(size=(b, 16, 16, 4)).astype(np.float32))
+
+    def draw(name, shape, dist, low=0, high=None):
+        return torch.tensor(377) if name == "sds_t" else noise[:shape[0]]
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g = _tiny_text_guidance(prior, dev)
+        g.anneal = False
+        x = images.clone().to(dev).requires_grad_(True)
+        loss = g.guidance_fn()(x, {k: v.to(dev) for k, v in cond.items()}, 0.4, draw)
+        loss.backward()
+        refined = g.refine_fn(steps=10)(images.to(dev), {k: v.to(dev) for k, v in cond.items()},
+                                        np.float32(0.8), lambda n, s, d: noise[:s[0]])
+        out[dev] = (float(loss.detach()), x.grad.cpu(), refined.cpu())
+    (l_c, g_c, r_c), (l_g, g_g, r_g) = out["cpu"], out["cuda"]
+    assert abs(l_g - l_c) <= 1e-4 * abs(l_c)
+    assert float((g_g - g_c).abs().max()) <= 2e-4 * float(g_c.abs().max())
+    assert float((r_g - r_c).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_four_view_stage1_step_holds_k1_k2(cuda_device):
+    """One Stage1Trainer step on configs/text_mv.yaml's keys with the fake
+    MVDream on the card: 4 views per sampled camera, each through K1 and K2;
+    every call held against the plain versions with chip_smoke.py's gates."""
+    from chip_smoke import hold_composite_calls, tapped
+    from dreamgaussian_tpu_torch.guidance.fake import fake_mvdream_guidance
+    from dreamgaussian_tpu_torch.ops import rasterize
+    from dreamgaussian_tpu_torch.train import Stage1Trainer
+    from dreamgaussian_tpu_torch.utils.config import Config, load
+
+    text_mv = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "configs", "text_mv.yaml")
+    opt = Config({**dict(load(text_mv)), "prompt": "a cup", "novel_resolutions": [256, 256, 256]})
+    g = fake_mvdream_guidance(device="cuda")
+    tr = Stage1Trainer(opt, capacity=opt["capacity"], seed=2,
+                       guidance_fns=((1.0, g.guidance_fn()),), device="cuda")
+    fwd, bwd = [], []
+    with (tapped(rasterize, "composite_forward", fwd, tcu.LAST_GRID, "composite_fwd"),
+          tapped(rasterize, "composite_backward", bwd, tcu.LAST_GRID, "composite_bwd")):
+        loss = float(tr.train_step())
+    assert math.isfinite(loss) and len(fwd) == 4 and len(bwd) == 4
+    rows = hold_composite_calls("4-view step", fwd, bwd)
+    assert [r["calls"] for r in rows["composite_fwd"]] == [4]
+
+
+@pytest.mark.cuda
+def test_random_mvdream_guidance_steps_on_the_card(cuda_device):
+    """The full-width 4-view architecture with random bf16 weights: one SDS
+    step on a group of 4 views at 256^2 gives a finite loss and gradient."""
+    from dreamgaussian_tpu_torch.guidance.realarch import random_mvdream_guidance
+
+    g = random_mvdream_guidance(seed=1)
+    assert 0.9e9 < g.num_parameters() < 1.0e9
+    poses = np.stack([orbit_camera(0.0, 90.0 * i, 2.5) for i in range(4)]).astype(np.float32)
+    x = torch.rand(4, 256, 256, 3, device="cuda", requires_grad=True)
+    gen = torch.Generator("cuda").manual_seed(0)
+    loss = g.guidance_fn()(x, {"poses": torch.from_numpy(poses).cuda()}, 0.5,
+                           lambda n, s, d, *a: torch.randn(s, device="cuda", generator=gen))
+    loss.backward()
+    assert math.isfinite(float(loss.detach())) and bool(torch.isfinite(x.grad).all())
+    assert float(x.grad.abs().max()) > 0
