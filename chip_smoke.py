@@ -73,7 +73,24 @@
    outputs back, gates the UNet calls and K3 launches per run, and holds
    every K1, K2 and K3 call against the plain version (lines ``[text]``,
    ``[cli]`` and ``[kernels] ... in the text-day``);
-11. prints the ``kernels`` JSON line, the card's name and power limit, and
+11. the ImageDream day: writes a full-width single-file ImageDream checkpoint
+   (the 4+1-view ipmv UNet with its camera MLP, resampler and ip
+   projections, the VAE, the OpenCLIP text tower: about 1.41 B values) with
+   a CLIP ViT-H/14 ``image_encoder/`` folder beside it (0.63 B values), fp16;
+   loads it with ``load_imagedream`` on a disc reference (seconds, device
+   peak, the host peak RSS rise in a process of its own; every UNet and VAE
+   weight equal to its file tensor cast to bf16; the text states and the
+   CLIP tokens on the card against the CPU's); times stage-1 steps on each
+   rung (the 512^2 step under torch.profiler, one UNet call of batch 10 at
+   32^2 by the profiler and by CUDA events); runs ``cli.main`` (8 steps, the
+   export) and ``cli.main2`` (2 steps) on ``configs/imagedream.yaml`` with
+   the disc RGBA PNG and the file, reads the outputs back, gates the UNet
+   calls and K3 launches, holds every K1, K2 and K3 call against the plain
+   version; then runs ``cli.dream`` at 10 steps in its three modes on the
+   text day's SD snapshot and MVDream file and on the ipmv file, reads each
+   PNG back and checks its shape and the UNet calls (lines
+   ``[imagedream]``, ``[cli]``, ``[kernels] ... in the imagedream-day``);
+12. prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
 Needs a CUDA card; exits non-zero without one, and on any failed check.
@@ -1395,9 +1412,10 @@ CLIP_REL_TOL = 1e-5
 # small: a child's peak RSS (getrusage) starts at its parent's RSS when it is
 # started, so the measurement cannot be started from a phase. It imports torch,
 # then waits for its arguments on stdin, one a line: "zero123", the snapshot,
-# the reference PNG and ref_size; or "mvdream", the LDM file and the prompt. It
-# starts CUDA, cuBLAS and cuDNN (a convolution and a matmul in both dtypes),
-# loads, and prints its peak RSS before and after the load as one JSON line.
+# the reference PNG and ref_size; "mvdream", the LDM file and the prompt; or
+# "imagedream", the ipmv file, the reference PNG and ref_size. It starts CUDA,
+# cuBLAS and cuDNN (a convolution and a matmul in both dtypes), loads, and
+# prints its peak RSS before and after the load as one JSON line.
 LOAD_ALONE = """
 import json, resource, sys, time
 import torch
@@ -1412,6 +1430,9 @@ for dt in (torch.float32, torch.bfloat16):
 if kind == "zero123":
     rgb, _ = load_reference(Config(input=args[1], ref_size=int(args[2])))
     load = lambda: loader.load_zero123(args[0], ref_image=rgb, device="cuda")
+elif kind == "imagedream":
+    rgb, _ = load_reference(Config(input=args[1], ref_size=int(args[2])))
+    load = lambda: loader.load_imagedream(args[0], rgb, "", device="cuda")
 else:
     load = lambda: loader.load_mvdream(args[0], args[1], device="cuda")
 torch.cuda.synchronize()
@@ -1656,10 +1677,12 @@ TEXT_PROFILED_STEP = 305
 TEXT_ITERS, TEXT_REFINE = 8, 2
 TEXT_CLI_ARGS = [f"prompt={TEXT_PROMPT}", f"negative_prompt={TEXT_NEGATIVE}",
                  f"iters={TEXT_ITERS}", f"iters_refine={TEXT_REFINE}", "final_prune=False"]
-TEXT_PRIORS = {   # config, views per sampled camera, UNet batch (CFG x views), latent side
+PRIORS = {   # config, views per sampled camera, UNet batch (CFG x views), latent side
     "sd": ("text.yaml", 1, 2, 64),
     "mvdream": ("text_mv.yaml", 4, 8, 32),
+    "imagedream": ("imagedream.yaml", 4, 10, 32),     # each group of 4 with its identity view
 }
+TEXT_PRIORS = ("sd", "mvdream")
 
 
 @contextlib.contextmanager
@@ -1683,24 +1706,34 @@ def counted_unet_calls(calls: list):
 def text_options(prior: str):
     from dreamgaussian_tpu_torch.utils.config import load
 
-    return dict(load(os.path.join(CONFIGS, TEXT_PRIORS[prior][0])))
+    return dict(load(os.path.join(CONFIGS, PRIORS[prior][0])))
 
 
-def check_text_load(prior: str, path: str, card: str, load_alone) -> dict:
-    """The prior loaded on the card from its file(s): seconds, device peak;
-    every UNet and VAE weight equal to its file tensor cast to bf16 with no key
-    left over; the text states on the card against the CPU's (float32 both)
-    within CLIP_REL_TOL of the largest; for MVDream the host peak RSS rise
+def check_text_load(prior: str, path: str, card: str, load_alone, png: str = "") -> tuple:
+    """The prior loaded on the card from its file(s) (ImageDream's on the
+    reference ``png``): seconds, device peak; every UNet and VAE weight equal
+    to its file tensor cast to bf16 with no key left over; the text states on
+    the card against the CPU's (float32 both) within CLIP_REL_TOL of the
+    largest; for the single-file priors the host peak RSS rise
     (``LOAD_ALONE``). Returns the guidance and the numbers."""
     import torch
 
+    from dreamgaussian_tpu_torch.cli.main import load_reference
     from dreamgaussian_tpu_torch.guidance import convert, loader, text_encoder
+    from dreamgaussian_tpu_torch.utils.config import Config
 
+    tag = "imagedream" if prior == "imagedream" else "text"
+    if prior == "imagedream":
+        ref_size = text_options(prior)["ref_size"]
+        rgb, _ = load_reference(Config(input=png, ref_size=ref_size))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    g = loader.load_stable_diffusion(path, TEXT_PROMPT, TEXT_NEGATIVE, mvdream=prior == "mvdream",
-                                     device="cuda")
+    if prior == "imagedream":
+        g = loader.load_imagedream(path, rgb, TEXT_PROMPT, TEXT_NEGATIVE, device="cuda")
+    else:
+        g = loader.load_stable_diffusion(path, TEXT_PROMPT, TEXT_NEGATIVE,
+                                         mvdream=prior == "mvdream", device="cuda")
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1719,7 +1752,9 @@ def check_text_load(prior: str, path: str, card: str, load_alone) -> dict:
                  "vae": convert.ldm_vae_state(parts["vae"], g.vae.config)}
         on_cpu = text_encoder.encode_open_clip_text(
             parts["text"], os.path.join(os.path.dirname(path), "tokenizer"), prompts, "cpu")
-        host = load_host_peak(load_alone, ["mvdream", path, TEXT_PROMPT])
+        del parts
+        host = load_host_peak(load_alone, ["mvdream", path, TEXT_PROMPT] if prior == "mvdream"
+                              else ["imagedream", path, png, str(ref_size)])
     n_params = 0
     for sub, module in (("unet", g.unet), ("vae", g.vae)):
         params = dict(module.named_parameters())
@@ -1730,6 +1765,7 @@ def check_text_load(prior: str, path: str, card: str, load_alone) -> dict:
                     params[k], v.to("cuda").to(torch.bfloat16)):
                 raise RuntimeError(f"{prior} {sub} parameter {k} is not its file tensor")
             n_params += v.numel()
+    del files
     on_card = torch.stack([g.emb[k] for k in ("pos", "neg", "front", "side", "back")
                            if k in g.emb]).cpu()
     scale = float(on_cpu.abs().max())
@@ -1742,7 +1778,7 @@ def check_text_load(prior: str, path: str, card: str, load_alone) -> dict:
         f"{host['peak_before'] / 2**30:.2f} -> {host['peak_after'] / 2**30:.2f} GiB, a rise of "
         f"{host['rise'] / 2**30:.2f} GiB (gate: under the UNet's float32 "
         f"{host['unet_fp32'] / 2**30:.2f} GiB)")
-    print(f"[text] {prior} load {load_s:.1f} s, peak device memory {peak_gib:.2f} GiB; "
+    print(f"[{tag}] {prior} load {load_s:.1f} s, peak device memory {peak_gib:.2f} GiB; "
           f"{n_params} UNet and VAE weights equal to the file's cast to bf16, no key left "
           f"over; {len(prompts)} text states {tuple(on_card.shape)} card against CPU max abs "
           f"err {err:.3e} (largest |state| {scale:.3e}, gate {CLIP_REL_TOL} of it){host_s}; "
@@ -1766,7 +1802,7 @@ def text_steps(prior: str, guidance, seed: int, card: str) -> dict:
     from dreamgaussian_tpu_torch.utils.config import Config
 
     opt = Config({**text_options(prior), "prompt": TEXT_PROMPT})
-    _, views, batch, latent = TEXT_PRIORS[prior]
+    _, views, batch, latent = PRIORS[prior]
     trainer = Stage1Trainer(opt, capacity=opt["capacity"], seed=seed,
                             guidance_fns=((opt["lambda_sd"], guidance.guidance_fn()),),
                             device="cuda")
@@ -1794,19 +1830,24 @@ def text_steps(prior: str, guidance, seed: int, card: str) -> dict:
     if launches["composite_fwd"] < n_steps * views or launches["composite_bwd"] < n_steps * views:
         raise RuntimeError(f"{prior}: the steps did not launch K1 and K2 per view: {launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    cfg = guidance.unet.config
     x = torch.randn(batch, latent, latent, 4, device="cuda")
     tt = torch.full((batch,), 500, device="cuda")
-    ctx = torch.randn(batch, 77, guidance.unet.config.cross_attention_dim, device="cuda")
-    cam = torch.randn(batch, 16, device="cuda") if prior == "mvdream" else None
+    ctx = torch.randn(batch, 77, cfg.cross_attention_dim, device="cuda")
+    kw = {} if prior == "sd" else {"camera": torch.randn(batch, 16, device="cuda")}
+    if prior == "imagedream":
+        kw["ip"] = torch.randn(batch, 257, cfg.ip_embed_dim, device="cuda")
+        kw["ip_img"] = torch.randn(batch // cfg.num_views, latent, latent, 4, device="cuda")
     with torch.no_grad():
-        unet_events_ms = cuda_ms(lambda: guidance.unet(x, tt, ctx, camera=cam), reps=5)
+        unet_events_ms = cuda_ms(lambda: guidance.unet(x, tt, ctx, **kw), reps=5)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             with record_function("unet"):
-                guidance.unet(x, tt, ctx, camera=cam)
+                guidance.unet(x, tt, ctx, **kw)
             torch.cuda.synchronize()
     unet_ms = range_device_ms(prof, ("unet",))["unet"]
-    print(f"[text] {prior} stage-1 ms per step by rung {json.dumps(rungs)}; 512^2 step under "
+    tag = "[imagedream]" if prior == "imagedream" else f"[text] {prior}"
+    print(f"{tag} stage-1 ms per step by rung {json.dumps(rungs)}; 512^2 step under "
           f"the profiler {wall:.1f} ms, device busy {breakdown['device_busy_ms']:.1f} ms; peak "
           f"{peak_gib:.2f} GiB; one UNet call (batch {batch}, {latent}^2 latents) device "
           f"{unet_ms:.2f} ms (profiler), {unet_events_ms:.2f} ms per call back to back (CUDA "
@@ -1815,84 +1856,98 @@ def text_steps(prior: str, guidance, seed: int, card: str) -> dict:
             "unet_ms": unet_ms, "unet_events_ms": unet_events_ms}
 
 
-def run_text_day(seed: int, card: str, load_alone) -> dict:
-    """The SD snapshot and the MVDream file written, loaded, timed and driven
-    through both CLIs (see TEXT_PROMPT); every kernel call of the CLI runs
-    held against its plain version, the UNet calls and K3 launches gated."""
+def drive_prior_clis(prior: str, argv: list, outdir: str, runs: dict, card: str) -> dict:
+    """``cli.main`` then ``cli.main2`` on the prior's config with ``argv``
+    (``drive_cli``); reads the outputs back and gates each run's UNet calls
+    (TEXT_ITERS at the prior's batch, then one per refine step) and kernel
+    launches (K3: 26 for the export, a target and a grad render per view in
+    each stage-2 step; K1 and K2 per view per stage-1 step)."""
     import numpy as np
-    import torch
 
     from dreamgaussian_tpu_torch.cli import main as cli1
     from dreamgaussian_tpu_torch.cli import main2 as cli2
-    from dreamgaussian_tpu_torch.guidance import synthetic
     from dreamgaussian_tpu_torch.guidance.sds import refine_init_step
+
+    _, views, batch, latent = PRIORS[prior]
+    tag = "[imagedream]" if prior == "imagedream" else f"[text] {prior}"
+    unet_calls: dict = {}
+    for label, cli in ((f"{prior} main", cli1), (f"{prior} main2", cli2)):
+        calls: list = []
+        with counted_unet_calls(calls):
+            stats = drive_cli(label, cli, argv, runs)
+        unet_calls[label] = calls
+        if not math.isfinite(stats["loss"]):
+            raise RuntimeError(f"the run {label} ended with loss {stats['loss']}")
+    n, faces = read_outputs(outdir, prior, text_options(prior)["texture_size"],
+                            text_options(prior)["capacity"])
+    refine_steps = text_options(prior).get("refine_steps", 50)
+    refine_calls = sum(refine_steps - refine_init_step(
+        refine_steps, np.float32(min(1.0, s / TEXT_REFINE) * 0.15 + 0.8))
+        for s in range(1, TEXT_REFINE + 1))
+    want = {f"{prior} main": [(batch, latent, latent, 4)] * TEXT_ITERS,
+            f"{prior} main2": [(batch, latent, latent, 4)] * refine_calls}
+    for label, shapes in want.items():
+        if unet_calls[label] != shapes:
+            raise RuntimeError(f"{label} ran the UNet {len(unet_calls[label])} times at "
+                               f"{sorted(set(unet_calls[label]))}, not {len(shapes)} at "
+                               f"{shapes[:1]}")
+    main_l, main2_l = runs[f"{prior} main"]["launches"], runs[f"{prior} main2"]["launches"]
+    if (main_l["ztest"] != 26 or main2_l["ztest"] != 2 * views * TEXT_REFINE
+            or main_l["composite_bwd"] != TEXT_ITERS * views
+            or main_l["composite_fwd"] != TEXT_ITERS * views + 26):
+        raise RuntimeError(f"the {prior} runs did not launch the kernels as the code gives: "
+                           f"main {main_l}, main2 {main2_l}")
+    print(f"{tag} CLIs: {n} gaussians in the PLY, stage-1 mesh {faces} faces; "
+          f"UNet calls main {TEXT_ITERS} (batch {batch}, {latent}^2), main2 "
+          f"{refine_calls}; K3 launches main 26, main2 {2 * views} per step; losses "
+          f"finite; card '{card}'")
+    return {"gaussians": n, "faces": faces,
+            "unet_calls": {k: len(v) for k, v in unet_calls.items()}}
+
+
+def run_text_day(seed: int, card: str, load_alone, work: str) -> dict:
+    """The SD snapshot and the MVDream file written (under ``work``, where
+    the ImageDream day's cli.dream finds them), loaded, timed and driven
+    through both CLIs (see TEXT_PROMPT); every kernel call of the CLI runs
+    held against its plain version, the UNet calls and K3 launches gated."""
+    import torch
+
+    from dreamgaussian_tpu_torch.guidance import synthetic
     from dreamgaussian_tpu_torch.guidance.unet import MVDREAM_CONFIG, SD21_CONFIG
     from dreamgaussian_tpu_torch.guidance.vae import VAEConfig
 
     runs: dict = {}
-    unet_calls: dict = {}
     summary: dict = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        paths = {"sd": os.path.join(tmp, "sd21-base"),
-                 "mvdream": os.path.join(tmp, "mvdream", "sd-v2.1-base-4view.pt")}
-        os.makedirs(os.path.dirname(paths["mvdream"]))
-        for prior in TEXT_PRIORS:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            if prior == "sd":
-                sizes = synthetic.write_sd_snapshot(paths[prior], SD21_CONFIG, VAEConfig(),
-                                                    synthetic.SD21_TEXT, dtype=torch.float16,
-                                                    seed=seed, device="cuda")
-                n_bytes = sum(nb for nb, _ in sizes.values())
-                n_values = sum(nv for _, nv in sizes.values())
-            else:
-                n_bytes, n_values = synthetic.write_mvdream_checkpoint(
-                    paths[prior], MVDREAM_CONFIG, VAEConfig(), dtype=torch.float16, seed=seed,
-                    device="cuda")
-            write_s = time.perf_counter() - t
-            print(f"[text] {prior} full-width file written in {write_s:.1f} s: {n_values} values, "
-                  f"{n_bytes} bytes of fp16; card '{card}'")
-            guidance, load = check_text_load(prior, paths[prior], card, load_alone)
-            steps = text_steps(prior, guidance, seed, card)
-            del guidance
-            torch.cuda.empty_cache()
-            summary[prior] = {"write_s": write_s, "values": n_values, "bytes": n_bytes, **load,
-                              **steps}
-        for prior, (config, views, batch, latent) in TEXT_PRIORS.items():
-            argv = ["--config", os.path.join(CONFIGS, config), f"sd_ckpt={paths[prior]}",
-                    f"save_path={prior}", f"outdir={tmp}", f"seed={seed}", *TEXT_CLI_ARGS]
-            for label, cli in ((f"{prior} main", cli1), (f"{prior} main2", cli2)):
-                calls: list = []
-                with counted_unet_calls(calls):
-                    stats = drive_cli(label, cli, argv, runs)
-                unet_calls[label] = calls
-                if not math.isfinite(stats["loss"]):
-                    raise RuntimeError(f"the text-day run {label} ended with loss {stats['loss']}")
-            n, faces = read_outputs(tmp, prior, text_options(prior)["texture_size"],
-                                    text_options(prior)["capacity"])
-            refine_steps = text_options(prior).get("refine_steps", 50)
-            refine_calls = sum(refine_steps - refine_init_step(
-                refine_steps, np.float32(min(1.0, s / TEXT_REFINE) * 0.15 + 0.8))
-                for s in range(1, TEXT_REFINE + 1))
-            want = {f"{prior} main": [(batch, latent, latent, 4)] * TEXT_ITERS,
-                    f"{prior} main2": [(batch, latent, latent, 4)] * refine_calls}
-            for label, shapes in want.items():
-                if unet_calls[label] != shapes:
-                    raise RuntimeError(f"{label} ran the UNet {len(unet_calls[label])} times at "
-                                       f"{sorted(set(unet_calls[label]))}, not {len(shapes)} at "
-                                       f"{shapes[:1]}")
-            main_l, main2_l = runs[f"{prior} main"]["launches"], runs[f"{prior} main2"]["launches"]
-            if (main_l["ztest"] != 26 or main2_l["ztest"] != 2 * views * TEXT_REFINE
-                    or main_l["composite_bwd"] != TEXT_ITERS * views
-                    or main_l["composite_fwd"] != TEXT_ITERS * views + 26):
-                raise RuntimeError(f"the text-day {prior} runs did not launch the kernels as "
-                                   f"the code gives: main {main_l}, main2 {main2_l}")
-            summary[prior]["cli"] = {"gaussians": n, "faces": faces, "unet_calls": {
-                k: len(v) for k, v in unet_calls.items() if k.startswith(prior)}}
-            print(f"[text] {prior} CLIs: {n} gaussians in the PLY, stage-1 mesh {faces} faces; "
-                  f"UNet calls main {TEXT_ITERS} (batch {batch}, {latent}^2), main2 "
-                  f"{refine_calls}; K3 launches main 26, main2 {2 * views} per step; losses "
-                  f"finite; card '{card}'")
+    tmp = os.path.join(work, "text")
+    paths = {"sd": os.path.join(tmp, "sd21-base"),
+             "mvdream": os.path.join(tmp, "mvdream", "sd-v2.1-base-4view.pt")}
+    os.makedirs(os.path.dirname(paths["mvdream"]))
+    for prior in TEXT_PRIORS:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if prior == "sd":
+            sizes = synthetic.write_sd_snapshot(paths[prior], SD21_CONFIG, VAEConfig(),
+                                                synthetic.SD21_TEXT, dtype=torch.float16,
+                                                seed=seed, device="cuda")
+            n_bytes = sum(nb for nb, _ in sizes.values())
+            n_values = sum(nv for _, nv in sizes.values())
+        else:
+            n_bytes, n_values = synthetic.write_mvdream_checkpoint(
+                paths[prior], MVDREAM_CONFIG, VAEConfig(), dtype=torch.float16, seed=seed,
+                device="cuda")
+        write_s = time.perf_counter() - t
+        print(f"[text] {prior} full-width file written in {write_s:.1f} s: {n_values} values, "
+              f"{n_bytes} bytes of fp16; card '{card}'")
+        guidance, load = check_text_load(prior, paths[prior], card, load_alone)
+        steps = text_steps(prior, guidance, seed, card)
+        del guidance
+        torch.cuda.empty_cache()
+        summary[prior] = {"write_s": write_s, "values": n_values, "bytes": n_bytes, **load,
+                          **steps}
+    for prior in TEXT_PRIORS:
+        argv = ["--config", os.path.join(CONFIGS, PRIORS[prior][0]), f"sd_ckpt={paths[prior]}",
+                f"save_path={prior}", f"outdir={tmp}", f"seed={seed}", *TEXT_CLI_ARGS]
+        summary[prior]["cli"] = drive_prior_clis(prior, argv, tmp, runs, card)
     shapes = hold_cli_calls(runs, "text-day")
     launches = {k: v["launches"] for k, v in runs.items()}
     total = {k: sum(v[k] for v in launches.values()) for k in launches[next(iter(launches))]}
@@ -1900,6 +1955,124 @@ def run_text_day(seed: int, card: str, load_alone) -> dict:
     print(f"[text] launches {json.dumps(total)}; CLI seconds {json.dumps(walls)}; "
           f"{json.dumps({p: {k: v for k, v in d.items() if k != 'rungs'} for p, d in summary.items()})}"
           f"; card '{card}'")
+    return {"launches": total, "shapes": shapes, "paths": paths}
+
+
+# The ImageDream day: a full-width single-file ImageDream checkpoint
+# (IMAGEDREAM_CONFIG's UNet with its camera MLP, resampler and ip projections,
+# the VAE, the 24-block OpenCLIP ViT-H text tower: about 1.41 B values) and the
+# CLIP ViT-H/14 image encoder beside it (0.63 B values), fp16; loaded on the
+# disc reference, timed on the text day's rung steps, driven through both CLIs
+# on configs/imagedream.yaml, then cli.dream in its three modes.
+DREAM_STEPS = 10
+DREAM_SIDE = 512       # SD's one image, or the 2x2 grid of the 256^2 views
+
+
+def check_image_tokens(g, path: str, png: str, card: str) -> dict:
+    """ImageDream's image conditioning: the CLIP tokens of the reference on
+    the card, and those the guidance holds, against the CPU's (float32 both)
+    within CLIP_REL_TOL of the largest; [257, 1280] tokens and a finite
+    [32, 32, 4] ``ip_img``."""
+    import torch
+
+    from dreamgaussian_tpu_torch.cli.main import load_reference
+    from dreamgaussian_tpu_torch.guidance.clip import clip_pixel_values, load_clip_vision_tokens
+    from dreamgaussian_tpu_torch.utils.config import Config
+
+    rgb, _ = load_reference(Config(input=png, ref_size=text_options("imagedream")["ref_size"]))
+    enc = os.path.join(os.path.dirname(path), "image_encoder")
+    pixels = clip_pixel_values(rgb, 224, "cpu")
+    with torch.no_grad():
+        tokens_cpu = load_clip_vision_tokens(enc, "cpu")(pixels)[0]
+        tokens_card = load_clip_vision_tokens(enc, "cuda")(pixels.cuda())[0].cpu()
+    errs = {}
+    for name, got in (("tokens", tokens_card), ("guidance tokens", g.img_emb["pos"].cpu())):
+        scale = float(tokens_cpu.abs().max())
+        errs[name] = (float((got - tokens_cpu).abs().max()), scale)
+        if not errs[name][0] <= CLIP_REL_TOL * scale:
+            raise RuntimeError(f"ImageDream {name} on the card miss the CPU's: "
+                               f"{errs[name][0]:.3e} against {CLIP_REL_TOL} x {scale:.3e}")
+    if tuple(g.img_emb["pos"].shape) != (257, 1280) or tuple(g.img_emb["ip_img"].shape) != (
+            32, 32, 4) or not bool(torch.isfinite(g.img_emb["ip_img"]).all()):
+        raise RuntimeError(f"ImageDream's image conditioning has shapes "
+                           f"{tuple(g.img_emb['pos'].shape)}, {tuple(g.img_emb['ip_img'].shape)}")
+    print(f"[imagedream] CLIP tokens {tuple(tokens_cpu.shape)} card against CPU max abs err "
+          f"(largest |entry|): "
+          f"{json.dumps({k: [float(f'{e:.3e}'), float(f'{m:.3e}')] for k, (e, m) in errs.items()})}"
+          f" (gate {CLIP_REL_TOL} of the largest); ip_img {tuple(g.img_emb['ip_img'].shape)} "
+          f"finite; card '{card}'")
+    return {"clip_err": errs["tokens"][0], "clip_scale": errs["tokens"][1]}
+
+
+def run_imagedream_day(seed: int, card: str, load_alone, work: str, text_paths: dict) -> dict:
+    """The ImageDream file written, loaded, timed and driven through both CLIs
+    (every kernel call held against its plain version, the UNet calls and K3
+    launches gated), then ``cli.dream`` in its three modes on the text
+    day's files and this one (each PNG read back, ``DREAM_STEPS`` UNet calls
+    each)."""
+    import numpy as np
+    import torch
+
+    from dreamgaussian_tpu_torch.cli import dream
+    from dreamgaussian_tpu_torch.guidance import synthetic
+    from dreamgaussian_tpu_torch.guidance.unet import IMAGEDREAM_CONFIG
+    from dreamgaussian_tpu_torch.guidance.vae import VAEConfig
+    from dreamgaussian_tpu_torch.utils.png import read_png
+
+    tmp = os.path.join(work, "imagedream")
+    os.makedirs(tmp)
+    path = os.path.join(tmp, "sd-v2.1-base-4view-ipmv.pt")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sizes = synthetic.write_imagedream_checkpoint(path, IMAGEDREAM_CONFIG, VAEConfig(),
+                                                  dtype=torch.float16, seed=seed, device="cuda")
+    write_s = time.perf_counter() - t
+    print(f"[imagedream] full-width file and image encoder written in {write_s:.1f} s: "
+          f"{json.dumps(sizes)} (bytes, values) in fp16; card '{card}'")
+    png = os.path.join(tmp, "disc.png")
+    write_disc_png(png, 512, seed)
+    guidance, load = check_text_load("imagedream", path, card, load_alone, png)
+    load.update(check_image_tokens(guidance, path, png, card))
+    steps = text_steps("imagedream", guidance, seed, card)
+    del guidance
+    torch.cuda.empty_cache()
+
+    runs: dict = {}
+    argv = ["--config", os.path.join(CONFIGS, PRIORS["imagedream"][0]), f"input={png}",
+            f"sd_ckpt={path}", "save_path=imagedream", f"outdir={tmp}", f"seed={seed}",
+            *TEXT_CLI_ARGS]
+    cli = drive_prior_clis("imagedream", argv, tmp, runs, card)
+    shapes = hold_cli_calls(runs, "imagedream-day")
+
+    dreams = {}
+    for mode, ckpt in (("sd", text_paths["sd"]), ("mvdream", text_paths["mvdream"]),
+                       ("imagedream", path)):
+        out = os.path.join(tmp, f"dream_{mode}.png")
+        calls: list = []
+        with counted_unet_calls(calls):
+            drive_cli(f"dream {mode}", dream, [TEXT_PROMPT, "--negative", TEXT_NEGATIVE, "--mode",
+                                               mode, "--ckpt", ckpt, "--image", png, "--steps",
+                                               str(DREAM_STEPS), "--seed", str(seed), "--out",
+                                               out], runs)
+        img = read_png(out)
+        _, _, batch, latent = PRIORS[mode]
+        if img.shape != (DREAM_SIDE, DREAM_SIDE, 3) or float(img.std()) == 0.0:
+            raise RuntimeError(f"cli.dream {mode} wrote a {img.shape} image of spread "
+                               f"{float(img.std())}, not a {DREAM_SIDE}^2 one")
+        if calls != [(batch, latent, latent, 4)] * DREAM_STEPS:
+            raise RuntimeError(f"cli.dream {mode} ran the UNet {len(calls)} times at "
+                               f"{sorted(set(calls))}, not {DREAM_STEPS} at batch {batch}")
+        dreams[mode] = {"s": runs[f"dream {mode}"]["wall_s"], "png": list(img.shape),
+                        "mean": float(np.mean(img))}
+    print(f"[imagedream] cli.dream at {DREAM_STEPS} steps, {DREAM_STEPS} UNet calls each, PNGs "
+          f"read back: {json.dumps(dreams)}; card '{card}'")
+    launches = {k: v["launches"] for k, v in runs.items()}
+    total = {k: sum(v[k] for v in launches.values()) for k in launches[next(iter(launches))]}
+    walls = {k: round(v["wall_s"], 1) for k, v in runs.items()}
+    summary = {"write_s": write_s, "sizes": sizes, **load,
+               **{k: v for k, v in steps.items() if k != "rungs"}, "cli": cli}
+    print(f"[imagedream] launches {json.dumps(total)}; CLI seconds {json.dumps(walls)}; "
+          f"{json.dumps(summary)}; card '{card}'")
     return {"launches": total, "shapes": shapes}
 
 
@@ -1907,11 +2080,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    with load_alone_process() as zero123_alone, load_alone_process() as mvdream_alone:
-        return smoke(args, zero123_alone, mvdream_alone)
+    with (load_alone_process() as zero123_alone, load_alone_process() as mvdream_alone,
+          load_alone_process() as imagedream_alone):
+        return smoke(args, zero123_alone, mvdream_alone, imagedream_alone)
 
 
-def smoke(args, load_alone: subprocess.Popen, mvdream_alone: subprocess.Popen) -> int:
+def smoke(args, load_alone: subprocess.Popen, mvdream_alone: subprocess.Popen,
+          imagedream_alone: subprocess.Popen) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1976,12 +2151,20 @@ def smoke(args, load_alone: subprocess.Popen, mvdream_alone: subprocess.Popen) -
     for row in kernels:
         row["launches_weights_day"] = weights_day["launches"][row["name"]]
         row["weights_day_shapes"] = weights_day["shapes"][row["name"]]
-    t0 = time.perf_counter()
-    text_day = run_text_day(args.seed, card, mvdream_alone)
-    print(f"[text] the text day took {time.perf_counter() - t0:.1f} s; card '{card}'")
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        text_day = run_text_day(args.seed, card, mvdream_alone, work)
+        print(f"[text] the text day took {time.perf_counter() - t0:.1f} s; card '{card}'")
+        t0 = time.perf_counter()
+        imagedream_day = run_imagedream_day(args.seed, card, imagedream_alone, work,
+                                            text_day["paths"])
+        print(f"[imagedream] the ImageDream day took {time.perf_counter() - t0:.1f} s; "
+              f"card '{card}'")
     for row in kernels:
         row["launches_text_day"] = text_day["launches"][row["name"]]
         row["text_day_shapes"] = text_day["shapes"][row["name"]]
+        row["launches_imagedream_day"] = imagedream_day["launches"][row["name"]]
+        row["imagedream_day_shapes"] = imagedream_day["shapes"][row["name"]]
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s from the build to here; card '{card}'")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,6 +9,8 @@ Port of ``dreamgaussian_tpu/cli/main.py``:
         prompt="a hamburger" save_path=name sd_ckpt=<SD 2.1 diffusers snapshot>
     python -m dreamgaussian_tpu_torch.cli.main --config configs/text_mv.yaml \\
         prompt="a hamburger" save_path=name sd_ckpt=<sd-v2.1-base-4view.pt or MVDream snapshot>
+    python -m dreamgaussian_tpu_torch.cli.main --config configs/imagedream.yaml \\
+        input=x.png [prompt="a plush toy"] save_path=name sd_ckpt=<sd-v2.1-base-4view-ipmv.pt>
 
 takes the same YAML keys and dotlist overrides (read without PyYAML) and
 writes ``<outdir>/<save_path>_model.ply`` and, unless ``save_mesh=False``,
@@ -20,14 +22,16 @@ Zero123-XL or Stable-Zero123 diffusers snapshot (``zero123_ckpt``,
 ``stable_zero123``); SD 2.1, or MVDream with ``mvdream``, on the
 ``prompt`` (``lambda_sd``), from ``sd_ckpt`` (an SD 2.1 diffusers snapshot;
 for MVDream the single LDM file with a ``tokenizer/`` beside it, or a
-diffusers snapshot). ``fake_guidance=True`` puts a tiny random denoiser in
-place of a missing checkpoint; with neither, a prior warns and is left
-out. Checkpoints: with ``checkpoint_dir`` and ``checkpoint_every`` the
-full train state is saved every that many steps; ``resume=True``
-continues from ``checkpoint_dir`` when it exists (else trains from step 0)
-up to ``iters`` steps in all. What is not ported raises
-NotImplementedError naming the missing piece: ImageDream and a ``mesh``
-device spec (sharding).
+diffusers snapshot); ImageDream with ``imagedream`` on the input image and
+the prompt, which may be empty (``lambda_sd``), from ``sd_ckpt``, the
+single ipmv LDM file with ``tokenizer/`` and ``image_encoder/`` beside it.
+``fake_guidance=True`` puts a tiny random denoiser in place of a missing
+checkpoint; with neither, a prior warns and is left out. Checkpoints: with
+``checkpoint_dir`` and ``checkpoint_every`` the full train state is saved
+every that many steps; ``resume=True`` continues from ``checkpoint_dir``
+when it exists (else trains from step 0) up to ``iters`` steps in all. A
+``mesh`` device spec (sharding) is not ported and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,13 +41,6 @@ import os
 import sys
 
 from .. import resolve_device
-
-
-def check_ported(opt) -> None:
-    """Raise for the options whose code is not ported yet (ImageDream;
-    ``run`` raises for a ``mesh`` device spec)."""
-    if opt.get("imagedream", False):
-        raise NotImplementedError("the ImageDream prior (imagedream) is not ported yet")
 
 
 def zero123_guidance(opt, ref_rgb, device):
@@ -67,37 +64,43 @@ def zero123_guidance(opt, ref_rgb, device):
                                  default_elevation=opt.get("elevation", 0), device=device)
 
 
-def text_guidance(opt, device):
-    """SD or (with ``mvdream``) MVDream guidance for the prompt from
-    ``sd_ckpt`` or the fake, or None (with a warning) when there is
-    neither."""
-    if not (opt.get("lambda_sd", 0) > 0 and opt.get("prompt", None)):
+def text_guidance(opt, ref_rgb, device):
+    """SD, MVDream (``mvdream``) or ImageDream (``imagedream``, on the
+    reference image, with or without a prompt) guidance from ``sd_ckpt`` or
+    the fake, or None (with a warning) when there is neither."""
+    imagedream = opt.get("imagedream", False)
+    if not (opt.get("lambda_sd", 0) > 0 and (opt.get("prompt", None) or imagedream)):
         return None
     mvdream = opt.get("mvdream", False)
     ckpt = opt.get("sd_ckpt", None)
+    negative = opt.get("negative_prompt", None) or ""
     if ckpt:
-        from ..guidance.loader import load_stable_diffusion
+        from ..guidance import loader
 
-        return load_stable_diffusion(ckpt, prompt=opt.prompt,
-                                     negative_prompt=opt.get("negative_prompt", None) or "",
-                                     mvdream=mvdream, device=device)
+        if imagedream:
+            return loader.load_imagedream(ckpt, ref_rgb, opt.get("prompt", None) or "",
+                                          negative_prompt=negative, device=device)
+        return loader.load_stable_diffusion(ckpt, prompt=opt.prompt, negative_prompt=negative,
+                                            mvdream=mvdream, device=device)
     if not opt.get("fake_guidance", False):
-        print("[WARN] mvdream needs sd_ckpt or fake_guidance" if mvdream else
+        print("[WARN] imagedream needs sd_ckpt or fake_guidance" if imagedream else
+              "[WARN] mvdream needs sd_ckpt or fake_guidance" if mvdream else
               "[WARN] lambda_sd > 0 but no sd_ckpt given and fake_guidance=False; "
               "skipping SD guidance")
         return None
-    from ..guidance.fake import fake_mvdream_guidance, fake_sd_guidance
+    from ..guidance import fake
 
-    return (fake_mvdream_guidance if mvdream else fake_sd_guidance)(device=device)
+    if imagedream:
+        return fake.fake_imagedream_guidance(device=device)
+    return (fake.fake_mvdream_guidance if mvdream else fake.fake_sd_guidance)(device=device)
 
 
 def build_guidances(opt, ref_rgb, device="cuda") -> tuple:
     """(weight, guidance fn) entries for the stage-1 trainer: Zero123, then
-    SD or MVDream."""
-    check_ported(opt)
+    SD, MVDream or ImageDream."""
     entries = []
     for weight, g in ((opt.get("lambda_zero123", 0), zero123_guidance(opt, ref_rgb, device)),
-                      (opt.get("lambda_sd", 0), text_guidance(opt, device))):
+                      (opt.get("lambda_sd", 0), text_guidance(opt, ref_rgb, device))):
         if g is not None:
             entries.append((weight, g.guidance_fn()))
     return tuple(entries)

@@ -8,12 +8,12 @@ Port of ``dreamgaussian_tpu/cli/main2.py``:
 
 finds the stage-1 mesh at ``<outdir>/<save_path>_mesh.<mesh_format>``
 unless ``mesh=<path>`` is given, refines it for ``iters_refine`` steps
-with the same guidance as ``cli.main`` (Zero123, SD 2.1 or MVDream, from a
-checkpoint or the fake) and writes ``<outdir>/<save_path>.<mesh_format>``;
-the target render's size follows the largest refine image size (512^2
-for SD). A mesh without UVs is unwrapped (``auto_uv``, ``auto_normal``),
-one without a texture starts from 0.5 grey. ImageDream raises as in
-``cli.main``; ``mesh`` is the stage-1 mesh's path here, and ``resume`` /
+with the same guidance as ``cli.main`` (Zero123, SD 2.1, MVDream or
+ImageDream, from a checkpoint or the fake) and writes
+``<outdir>/<save_path>.<mesh_format>``; the target render's size follows
+the largest refine image size (512^2 for SD). A mesh without UVs is
+unwrapped (``auto_uv``, ``auto_normal``), one without a texture starts
+from 0.5 grey. ``mesh`` is the stage-1 mesh's path here, and ``resume`` /
 ``checkpoint_every`` are stage 1's keys, which stage 2 does not read (as
 in the JAX CLI).
 """
@@ -27,17 +27,16 @@ import sys
 import numpy as np
 
 from .. import resolve_device
-from .main import check_ported, load_reference, text_guidance, zero123_guidance
+from .main import load_reference, text_guidance, zero123_guidance
 
 
 def build_refiners(opt, ref_rgb, device="cuda"):
     """((weight, refine fn) entries, the largest refine image_size or None):
-    Zero123, then SD or MVDream."""
-    check_ported(opt)
+    Zero123, then SD, MVDream or ImageDream."""
     steps = opt.get("refine_steps", 50)
     entries, sizes = [], []
     for weight, g in ((opt.get("lambda_zero123", 0), zero123_guidance(opt, ref_rgb, device)),
-                      (opt.get("lambda_sd", 0), text_guidance(opt, device))):
+                      (opt.get("lambda_sd", 0), text_guidance(opt, ref_rgb, device))):
         if g is not None:
             entries.append((weight, g.refine_fn(steps=steps)))
             sizes.append(g.image_size)

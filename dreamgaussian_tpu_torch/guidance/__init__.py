@@ -1,5 +1,6 @@
 from .scheduler import DDIMScheduler  # noqa: F401
 from .sds import (  # noqa: F401
+    ImageDreamGuidance,
     MVDreamGuidance,
     StableDiffusionGuidance,
     Zero123Guidance,

@@ -1,8 +1,9 @@
-"""CLIP towers: Zero123's image conditioning and the text conditioning.
+"""CLIP towers: Zero123's and ImageDream's image conditioning, the text conditioning.
 
-The port's own counterparts of ``transformers.CLIPVisionModelWithProjection``
-and ``transformers.CLIPTextModel``, which the JAX package runs on the host
-in ``guidance/loader.py`` (``_clip_image_embed``, ``_encode_text``). Their
+The port's own counterparts of ``transformers.CLIPVisionModelWithProjection``,
+``transformers.CLIPVisionModel`` and ``transformers.CLIPTextModel``, which
+the JAX package runs on the host in ``guidance/loader.py``
+(``_clip_image_embed``, ``_clip_image_tokens``, ``_encode_text``). Their
 parameters carry the names of the state dicts that a snapshot's
 ``image_encoder/`` and ``text_encoder/`` ship
 (``vision_model.embeddings.patch_embedding.weight``,
@@ -18,7 +19,11 @@ through ``post_layernorm``, then the projection without bias ->
 ``image_embeds`` [B, projection_dim]; its patch embedding is a matmul over
 the unfolded patches (the same sum as the stride-p convolution), so on the
 card it takes the float32 matmul path rather than cuDNN's TF32
-convolutions. The text tower: token and position embeddings, causal
+convolutions. The token tower (ImageDream) is the same tower without the
+projection: ``last_hidden_state`` [B, 1 + patches, hidden], the encoder's
+output before ``post_layernorm``; it loads a ``CLIPVisionModel`` folder or
+a ``...WithProjection`` one, whose projection it leaves unused, as
+transformers' ``from_pretrained`` does. The text tower: token and position embeddings, causal
 self-attention and no padding mask (the JAX side passes only
 ``input_ids``), ``final_layer_norm`` -> ``last_hidden_state`` [B, L,
 hidden]. The OpenCLIP tower of an LDM checkpoint is converted onto the
@@ -179,10 +184,13 @@ class CLIPVisionTransformer(nn.Module):
         self.encoder = CLIPEncoder(cfg)
         self.post_layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
+    def hidden_states(self, pixel_values):
+        """NCHW pixel values -> the encoder's output [B, 1 + patches, hidden]."""
+        return self.encoder(self.pre_layrnorm(self.embeddings(pixel_values)))
+
     def forward(self, pixel_values):
         """NCHW pixel values -> the pooled (CLS) output [B, hidden]."""
-        x = self.encoder(self.pre_layrnorm(self.embeddings(pixel_values)))
-        return self.post_layernorm(x[:, 0])
+        return self.post_layernorm(self.hidden_states(pixel_values)[:, 0])
 
 
 class CLIPVisionModelWithProjection(nn.Module):
@@ -196,6 +204,18 @@ class CLIPVisionModelWithProjection(nn.Module):
 
     def forward(self, pixel_values):
         return self.visual_projection(self.vision_model(pixel_values.float()))
+
+
+class CLIPVisionModel(nn.Module):
+    """pixel_values [B, 3, S, S] -> last_hidden_state [B, 1 + patches, hidden]."""
+
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.config = cfg
+        self.vision_model = CLIPVisionTransformer(cfg)
+
+    def forward(self, pixel_values):
+        return self.vision_model.hidden_states(pixel_values.float())
 
 
 class CLIPTextEmbeddings(nn.Module):
@@ -241,20 +261,27 @@ def clip_pixel_values(image, size: int, device) -> torch.Tensor:
     return ((img - mean) / std).permute(0, 3, 1, 2)
 
 
-def _load_tower(folder: str, config_cls, model_cls, device):
+def _load_tower(folder: str, config_cls, model_cls, device, skip=("position_ids",)):
     from .convert import load_into, load_torch_state_dict
 
     cfg = config_cls.from_json(f"{folder}/config.json")
     with torch.device("meta"):
         tower = model_cls(cfg)
     tower = tower.to_empty(device=device)
-    load_into(tower, load_torch_state_dict(folder), skip=("position_ids",))
+    load_into(tower, load_torch_state_dict(folder), skip=skip)
     return tower.eval().requires_grad_(False)
 
 
 def load_clip_vision(encoder_dir: str, device) -> CLIPVisionModelWithProjection:
     """The tower of a snapshot's ``image_encoder/`` folder, float32 on ``device``."""
     return _load_tower(encoder_dir, CLIPVisionConfig, CLIPVisionModelWithProjection, device)
+
+
+def load_clip_vision_tokens(encoder_dir: str, device) -> CLIPVisionModel:
+    """The token tower of a ``CLIPVisionModel`` (or ``...WithProjection``,
+    its projection skipped) folder, float32 on ``device``."""
+    return _load_tower(encoder_dir, CLIPVisionConfig, CLIPVisionModel, device,
+                       skip=("position_ids", "visual_projection.weight"))
 
 
 def load_clip_text(encoder_dir: str, device) -> CLIPTextModel:
@@ -269,3 +296,11 @@ def clip_image_embed(encoder_dir: str, image, device) -> torch.Tensor:
     tower = load_clip_vision(encoder_dir, device)
     return tower(clip_pixel_values(image, tower.config.image_size, device))
 
+
+@torch.no_grad()
+def clip_image_tokens(encoder_dir: str, image, device) -> torch.Tensor:
+    """CLIP token sequence [1 + patches, hidden] (float32, on ``device``) of an
+    RGB [H, W, 3] image in [0, 1]: ImageDream's ip conditioning ([257, 1280]
+    for ViT-H/14); the tower is freed afterwards."""
+    tower = load_clip_vision_tokens(encoder_dir, device)
+    return tower(clip_pixel_values(image, tower.config.image_size, device))[0]

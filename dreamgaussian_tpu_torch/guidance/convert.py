@@ -1,7 +1,6 @@
 """Diffusers snapshots and single-file LDM checkpoints into the port's modules.
 
-Port of ``dreamgaussian_tpu/guidance/convert.py`` without ImageDream's
-resampler.
+Port of ``dreamgaussian_tpu/guidance/convert.py``.
 ``load_torch_state_dict`` finds a model's weights file in a snapshot
 folder (the JAX package's search order) and returns its tensors on the
 CPU without reading the file into memory first:
@@ -24,9 +23,11 @@ the parameter's dtype and device one tensor at a time, and is strict: a
 key that no parameter takes, a parameter that no key fills, or a shape
 that differs raises.
 
-The single-file LDM layout (MVDream's ``sd-v2.1-base-4view.pt``) holds
-three models under ``model.diffusion_model.`` (the UNet, with MVDream's
-``camera_embed``), ``first_stage_model.`` (the VAE) and
+The single-file LDM layout (MVDream's ``sd-v2.1-base-4view.pt``,
+ImageDream's ``sd-v2.1-base-4view-ipmv.pt``) holds three models under
+``model.diffusion_model.`` (the UNet, with MVDream's ``camera_embed`` and
+ImageDream's ``image_embed`` resampler and ``attn2.to_k_ip`` /
+``to_v_ip``), ``first_stage_model.`` (the VAE) and
 ``cond_stage_model.model.`` (the OpenCLIP text tower). ``split_ldm``
 splits it and ignores by name what no model uses (the diffusion schedule
 buffers, the text tower's projection, logit scale and causal-mask
@@ -242,10 +243,32 @@ def _ldm_levels(sd: Mapping, blocks: str) -> list[list[tuple[int, bool]]]:
     return levels
 
 
+# The IP-adapter Resampler's heads are 64 wide (20 at ImageDream's 1280).
+IP_HEAD_WIDTH = 64
+
+
+def _ldm_ip_config(sd: Mapping[str, torch.Tensor]) -> dict:
+    """ImageDream's IP-adapter fields read from an LDM UNet's ``image_embed``
+    (``ip_dim`` 0 without one): the query count and width of ``latents``
+    [1, Q, D], its heads of width ``IP_HEAD_WIDTH``, the token width
+    ``proj_in`` takes, the layers."""
+    if "image_embed.latents" not in sd:
+        return {"ip_dim": 0}
+    depth = 0
+    while f"image_embed.layers.{depth}.0.to_q.weight" in sd:
+        depth += 1
+    _, queries, dim = sd["image_embed.latents"].shape
+    return {"ip_dim": queries, "ip_resampler_dim": dim, "ip_resampler_depth": depth,
+            "ip_resampler_heads": max(1, dim // IP_HEAD_WIDTH),
+            "ip_embed_dim": sd["image_embed.proj_in.weight"].shape[1]}
+
+
 def ldm_unet_config(sd: Mapping[str, torch.Tensor], default):
     """``default`` (a ``unet.UNetConfig``) with the architecture of an LDM
     UNet state dict (``split_ldm(...)["unet"]``): channels, blocks, context
-    width, projections. Heads and views stay ``default``'s."""
+    width, projections, ImageDream's resampler (its widths, depth and heads
+    of width 64; no IP-adapter path without one). The UNet's heads and the
+    views stay ``default``'s."""
     levels = _ldm_levels(sd, "input_blocks")
     attn = next(k for k in sd if k.endswith("attn2.to_k.weight"))
     proj = next(k for k in sd if k.endswith(".proj_in.weight"))
@@ -265,6 +288,7 @@ def ldm_unet_config(sd: Mapping[str, torch.Tensor], default):
         down_block_types=tuple("CrossAttnDownBlock2D" if lvl[0][1] else "DownBlock2D"
                                for lvl in levels),
         up_block_types=tuple(up_types),
+        **_ldm_ip_config(sd),
     )
 
 
@@ -283,11 +307,23 @@ def _same(rest: str) -> str:
     return rest
 
 
+# ImageDream's resampler: layers.{i}.0 is the PerceiverAttention, layers.{i}.1
+# the feed-forward Sequential (0 LayerNorm, 1 Linear, 2 GELU, 3 Linear).
+_LDM_RESAMPLER = _renamer((
+    (r"^layers\.(\d+)\.0\.", r"layers_\1_attn."),
+    (r"^layers\.(\d+)\.1\.0\.", r"layers_\1_ff_norm."),
+    (r"^layers\.(\d+)\.1\.1\.", r"layers_\1_ff_in."),
+    (r"^layers\.(\d+)\.1\.3\.", r"layers_\1_ff_out."),
+))
+
+
 def ldm_unet_state(sd: Mapping[str, torch.Tensor], cfg) -> dict[str, torch.Tensor]:
     """An LDM UNet state dict (``split_ldm(...)["unet"]``) under the names of
     ``unet.UNet(cfg)``: ``input_blocks``, ``middle_block`` and
     ``output_blocks`` in SD 2.x's order, ``time_embed.0/2``, MVDream's
-    ``camera_embed.0/2``, ``out.0/2``."""
+    ``camera_embed.0/2``, ``out.0/2``, ImageDream's ``image_embed`` (its
+    ``latents`` [1, Q, D] as [Q, D]; ``attn2.to_k_ip`` / ``to_v_ip`` keep
+    their names)."""
     blocks = {"input_blocks.0.0": ("conv_in", _same), "out.0": ("conv_norm_out", _same),
               "out.2": ("conv_out", _same),
               "time_embed.0": ("time_embedding.linear_1", _same),
@@ -324,6 +360,10 @@ def ldm_unet_state(sd: Mapping[str, torch.Tensor], cfg) -> dict[str, torch.Tenso
                          r"(?:time_embed|camera_embed|out)\.\d+)\.(.+)$")
     out = {}
     for key, t in sd.items():
+        if key.startswith("image_embed."):
+            rest = key[len("image_embed."):]
+            out["image_embed." + _LDM_RESAMPLER(rest)] = t[0] if rest == "latents" else t
+            continue
         m = pattern.match(key)
         if m is None or m.group(1) not in blocks:
             raise KeyError(f"LDM UNet key {key!r} has no place in the port's UNet")

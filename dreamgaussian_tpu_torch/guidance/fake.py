@@ -1,16 +1,18 @@
-"""Fake Zero123, SD and MVDream guidance: a tiny random-weight denoiser in
-place of the real prior, for runs without weights (``fake_guidance=True``
-in the CLIs) and for tests.
+"""Fake Zero123, SD, MVDream and ImageDream guidance: a tiny random-weight
+denoiser in place of the real prior, for runs without weights
+(``fake_guidance=True`` in the CLIs, ``--fake`` in ``cli.dream``) and for
+tests.
 
-Port of ``dreamgaussian_tpu/guidance/fake.py`` without ImageDream: the
-"VAE" average-pools the image to an 8x8 latent (its first channel
+Port of ``dreamgaussian_tpu/guidance/fake.py``: the "VAE" average-pools the image to an 8x8 latent (its first channel
 repeated as the fourth) and decodes by nearest upsampling of the first
 three latent channels; the UNet is ``TinyUNet``. It runs every code path
 of SDS and refine and carries no semantic prior. The weights and
 embeddings are drawn from a seeded ``torch.Generator`` on the device as
 ``realarch`` draws them (the JAX package draws its own from a JAX key);
-the text "embeddings" are [2, 32] random states (MVDream's negative one
-zeros).
+the text "embeddings" are [2, 32] random states (MVDream's and
+ImageDream's negative one zeros); ImageDream's image tokens are [5, 16]
+random values and its identity latent zeros, which ``TinyUNet`` ignores
+as the JAX fake's does.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from torch import nn
 
 from .. import resolve_device
 from .realarch import init_on_device
-from .sds import MVDreamGuidance, StableDiffusionGuidance, Zero123Guidance
+from .sds import ImageDreamGuidance, MVDreamGuidance, StableDiffusionGuidance, Zero123Guidance
 from .unet import TinyUNet
 
 
@@ -44,6 +46,9 @@ class PoolVAE(nn.Module):
         x = F.interpolate(z[..., :3].permute(0, 3, 1, 2), size=(self.image_size,) * 2,
                           mode="nearest-exact")
         return x.permute(0, 2, 3, 1)
+
+    def latent_side(self, image_size: int) -> int:
+        return self.latent_size
 
 
 def _tiny_unet(in_channels: int, dev, gen):
@@ -76,6 +81,22 @@ def fake_mvdream_guidance(image_size: int = 64, seed: int = 0,
            "neg": torch.zeros((2, 32), device=dev)}
     return MVDreamGuidance(unet, PoolVAE(latent_size=8, image_size=image_size), emb,
                            image_size=image_size)
+
+
+def fake_imagedream_guidance(image_size: int = 64, seed: int = 0,
+                             device: str | torch.device = "cuda") -> ImageDreamGuidance:
+    """ImageDream guidance with ``TinyUNet`` (which ignores the camera, the
+    image tokens and the identity latent) and the pooling VAE at an 8x8
+    latent: tokens [5, 16], identity latent [8, 8, 4] of zeros."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    unet = _tiny_unet(4, dev, gen)
+    emb = {"pos": torch.randn((2, 32), generator=gen, device=dev) * 0.1,
+           "neg": torch.zeros((2, 32), device=dev)}
+    img_emb = {"pos": torch.randn((5, 16), generator=gen, device=dev) * 0.1,
+               "ip_img": torch.zeros((8, 8, 4), device=dev)}
+    return ImageDreamGuidance(unet, PoolVAE(latent_size=8, image_size=image_size), emb, img_emb,
+                              image_size=image_size)
 
 
 def fake_zero123_guidance(image_size: int = 64, seed: int = 0, stable: bool = False,

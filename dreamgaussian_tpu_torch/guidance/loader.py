@@ -1,7 +1,6 @@
-"""Zero123, SD 2.1 and MVDream guidance from local checkpoints.
+"""Zero123, SD 2.1, MVDream and ImageDream guidance from local checkpoints.
 
-Port of ``dreamgaussian_tpu/guidance/loader.py`` without ImageDream. Two
-layouts:
+Port of ``dreamgaussian_tpu/guidance/loader.py``. Two layouts:
 
 1. diffusers snapshot folders, as ``ashawkey/zero123-xl-diffusers``,
    ``ashawkey/stable-zero123-diffusers`` and
@@ -12,11 +11,18 @@ layouts:
        <dir>/image_encoder/ + <dir>/clip_camera_projection/    (Zero123)
        <dir>/text_encoder/ + <dir>/tokenizer/                  (SD, MVDream)
 
-2. the single-file LDM checkpoint that MVDream ships
-   (``sd-v2.1-base-4view.pt``: the UNet with ``camera_embed``, the VAE and
-   the OpenCLIP text tower in one ``torch.save`` file), read with
-   ``torch.load(weights_only=True, mmap=True)``; its tokenizer is a
-   ``tokenizer/`` folder beside the file unless one is named.
+2. the single-file LDM checkpoint that MVDream and ImageDream ship
+   (``sd-v2.1-base-4view.pt`` / ``sd-v2.1-base-4view-ipmv.pt``: the UNet
+   with ``camera_embed`` and, for ImageDream, its ``image_embed``
+   resampler, the VAE and the OpenCLIP text tower in one ``torch.save``
+   file), read with ``torch.load(weights_only=True, mmap=True)``; its
+   tokenizer is a ``tokenizer/`` folder beside the file unless one is
+   named, and ImageDream's CLIP ViT-H/14 image encoder an
+   ``image_encoder/`` folder (transformers' ``CLIPVisionModel``) beside
+   it unless one is named. ImageDream is loaded from this layout only: a
+   diffusers folder has no place for the resampler and the ip projections
+   (the JAX loader builds one without them, and its UNet then fails at its
+   first call with image tokens), so a folder raises.
 
 Each folder's ``config.json`` overrides the architecture as the JAX
 loader's does; an LDM file's architecture is read from its tensors'
@@ -43,13 +49,14 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .clip import clip_image_embed
+from .clip import clip_image_embed, clip_image_tokens
 from .convert import (camera_projection, is_ldm_layout, ldm_unet_config, ldm_unet_state,
                       ldm_vae_config, ldm_vae_state, load_into, load_torch_state_dict, split_ldm,
                       unet_key, vae_key)
-from .sds import MVDreamGuidance, StableDiffusionGuidance, Zero123Guidance, _resize
+from .sds import (ImageDreamGuidance, MVDreamGuidance, StableDiffusionGuidance,
+                  Zero123Guidance, _resize)
 from .text_encoder import encode_open_clip_text, encode_text
-from .unet import MVDREAM_CONFIG, SD21_CONFIG, ZERO123_CONFIG, UNet, UNetConfig
+from .unet import IMAGEDREAM_CONFIG, MVDREAM_CONFIG, SD21_CONFIG, ZERO123_CONFIG, UNet, UNetConfig
 from .vae import AutoencoderKL, VAEConfig
 
 UNET_JSON_FIELDS = (
@@ -194,6 +201,56 @@ def load_mvdream(
         embs = encode_text(ckpt, prompts, dev)
     return MVDreamGuidance(unet, vae, {"pos": embs[0], "neg": embs[1]}, image_size=image_size,
                            anneal=anneal)
+
+
+def load_imagedream(
+    ckpt: str,
+    ref_image: np.ndarray | None,
+    prompt: str,
+    negative_prompt: str = "",
+    tokenizer_dir: str | None = None,
+    image_encoder_dir: str | None = None,
+    image_size: int = 256,
+    anneal: bool = True,
+    device: str | torch.device = "cuda",
+    dtype: torch.dtype = torch.bfloat16,
+) -> ImageDreamGuidance:
+    """ImageDream 4(+1)-view guidance (imagedream_utils.py) from the single
+    ``sd-v2.1-base-4view-ipmv.pt`` LDM file: the UNet (``IMAGEDREAM_CONFIG``
+    with its widths, the resampler's and its depth read from the file;
+    heads of width 64 in both, 5 views) and VAE in ``dtype``,
+    the text states as ``load_mvdream``'s, the CLIP tokens [257, 1280] of
+    ``ref_image`` (RGB [H, W, 3] in [0, 1], required) from
+    ``image_encoder_dir`` or the ``image_encoder/`` folder beside the file,
+    and ``ip_img``, the VAE latent of ``ref_image`` resized to
+    ``image_size``^2. The file's map is released before the image
+    encoder's is made, so the host holds one at a time."""
+    dev = resolve_device(device)
+    if ref_image is None:
+        raise ValueError("load_imagedream requires the reference image")
+    if not os.path.isfile(ckpt):
+        raise ValueError(f"{ckpt} is not a file: ImageDream loads the single-file LDM layout "
+                         f"(sd-v2.1-base-4view-ipmv.pt) only, as a diffusers folder has no "
+                         f"image_embed resampler or to_k_ip / to_v_ip projections")
+    base = os.path.dirname(ckpt)
+    sd = load_torch_state_dict(ckpt)
+    if not is_ldm_layout(sd):
+        raise ValueError(f"{ckpt} is not an LDM-layout checkpoint")
+    sd = split_ldm(sd)
+    if "image_embed.latents" not in sd["unet"]:
+        raise ValueError(f"{ckpt} has no image_embed resampler: not an ImageDream checkpoint")
+    unet, vae = _build_backbone_ldm(sd, IMAGEDREAM_CONFIG, VAEConfig(), dev, dtype)
+    embs = encode_open_clip_text(sd["text"], tokenizer_dir or os.path.join(base, "tokenizer"),
+                                 [prompt, negative_prompt or ""], dev)
+    del sd
+    tokens = clip_image_tokens(image_encoder_dir or os.path.join(base, "image_encoder"),
+                               ref_image, dev)
+    img = torch.as_tensor(np.asarray(ref_image, np.float32), device=dev)[None]
+    with torch.no_grad():
+        ip_img = vae.encode(_resize(img, image_size) * 2.0 - 1.0)[0]
+    return ImageDreamGuidance(unet, vae, {"pos": embs[0], "neg": embs[1]},
+                              {"pos": tokens, "ip_img": ip_img}, image_size=image_size,
+                              anneal=anneal)
 
 
 def load_zero123(

@@ -1,7 +1,6 @@
-"""Score distillation sampling and img2img refine in torch: Zero123, SD 2.1, MVDream.
+"""Score distillation sampling, img2img refine and text-to-image sampling in torch.
 
-Port of ``dreamgaussian_tpu/guidance/sds.py`` without ImageDream and the
-text-to-image samplers:
+Port of ``dreamgaussian_tpu/guidance/sds.py``:
 
 - Zero123 (reference zero123_utils.py): CFG 5, camera-conditioned tokens
   through a linear projection, 8-channel UNet input (noisy latent ⊕
@@ -10,7 +9,13 @@ text-to-image samplers:
   view by azimuth (front, side, back), the batch-mean loss;
 - MVDream (mvdream_utils.py): groups of 4 views denoised jointly, the raw
   normalised 16-dim camera into the UNet, CFG 100, one timestep per step
-  and no ``w(t)``.
+  and no ``w(t)``;
+- ImageDream (imagedream_utils.py): MVDream's groups of 4 with a fifth,
+  identity view padded in for every UNet call (zero latent and camera,
+  the timestep repeated; the UNet writes the reference image's latent
+  ``ip_img`` into it) and stripped from the prediction; the CLIP image
+  tokens ``ip`` through the UNet's resampler, zeros for the negative half;
+  CFG 5, no ``w(t)``.
 
 Each anneals the timestep with the step ratio or draws it at random;
 each clips it to [0.02, 0.98] of the schedule.
@@ -29,8 +34,15 @@ Refine-fn contract (consumed by train/stage2.py):
 without gradient: encode, noise to the DDIM step that ``strength`` picks
 ("refine_noise"), denoise to t = 0 with CFG, decode. The CFG batch is
 [cond, uncond] in SDS and in SD's refine, [uncond, cond] in MVDream's
-refine (the reference's orders); MVDream's halves each keep the groups of
-4 views whole.
+refine and in everything ImageDream does (the reference's orders); the
+multi-view halves each keep the groups of views whole.
+
+Sample-fn contract (consumed by cli/dream.py): ``sample_fn(steps,
+guidance_scale)`` of a text prior returns ``fn(draw)`` (SD: one image [1, S, S,
+3]) or ``fn(poses [4, 4, 4], draw)`` (MVDream, ImageDream: 4 views), in
+[0, 1]: DDIM through every step of the leading-spaced schedule from pure
+noise ("sample_noise", the NHWC latent shape), CFG 7.5 (SD: [pos, neg],
+int timesteps; MVDream: [neg, pos]) or 5 (ImageDream: float timesteps).
 """
 
 from __future__ import annotations
@@ -97,6 +109,17 @@ def ddim_img2img(sch: DDIMScheduler, steps: int, latents, strength, noise, denoi
     latents = sch.add_noise(latents, noise, torch.full((b,), t0, dtype=torch.int64,
                                                        device=latents.device))
     for i in range(init_step, steps):
+        t = (steps - 1 - i) * spacing
+        latents = sch.step_with_spacing(denoise(latents, t), t, latents, spacing)
+    return latents
+
+
+def full_ddim_sample(sch: DDIMScheduler, steps: int, latents, denoise):
+    """Text-to-image DDIM from pure-noise ``latents``: every step i of the
+    leading-spaced schedule, t = (steps - 1 - i) * spacing.
+    ``denoise(latents, t) -> eps_hat``."""
+    spacing = sch.num_train_timesteps // steps
+    for i in range(steps):
         t = (steps - 1 - i) * spacing
         latents = sch.step_with_spacing(denoise(latents, t), t, latents, spacing)
     return latents
@@ -229,6 +252,19 @@ class _TextGuidance:
     def _batch(self, name: str, b: int):
         return self.emb[name][None].expand((b,) + tuple(self.emb[name].shape))
 
+    @property
+    def latent_size(self) -> int:
+        return self.vae.latent_side(self.image_size)
+
+    def _sample(self, b: int, steps: int, denoise, draw):
+        """``full_ddim_sample`` from drawn noise (the VAE's 4 latent
+        channels), decoded to [0, 1]."""
+        s = self.latent_size
+        noise = draw("sample_noise", (b, s, s, 4), "normal")
+        latents = full_ddim_sample(self.scheduler, steps, noise.to(self.emb["pos"].device),
+                                   denoise)
+        return torch.clamp(self.vae.decode(latents) * 0.5 + 0.5, 0.0, 1.0)
+
 
 class StableDiffusionGuidance(_TextGuidance):
     """SD 2.1 SDS. ``embeddings``: [77, D] text states under 'pos', 'neg'
@@ -292,6 +328,24 @@ class StableDiffusionGuidance(_TextGuidance):
             noise = draw("refine_noise", tuple(latents.shape), "normal").to(dev)
             latents = ddim_img2img(sch, steps, latents, strength, noise, denoise)
             return torch.clamp(self.vae.decode(latents) * 0.5 + 0.5, 0.0, 1.0)
+
+        return fn
+
+    def sample_fn(self, steps: int = 50, guidance_scale: float = 7.5):
+        """Text-to-image sampler (sd_utils.py prompt_to_img): ``fn(draw) ->
+        [1, S, S, 3]``, CFG [pos, neg] with int timesteps."""
+
+        @torch.no_grad()
+        def fn(draw):
+            dev = self.emb["pos"].device
+            ctx = torch.cat([self._batch("pos", 1), self._batch("neg", 1)])
+
+            def denoise(lat, t):
+                t_in = torch.full((2,), t, dtype=torch.int64, device=dev)
+                eps_cond, eps_uncond = self.unet(torch.cat([lat] * 2), t_in, ctx).chunk(2)
+                return eps_uncond + guidance_scale * (eps_cond - eps_uncond)
+
+            return self._sample(1, steps, denoise, draw)
 
         return fn
 
@@ -360,5 +414,126 @@ class MVDreamGuidance(_TextGuidance):
             noise = draw("refine_noise", tuple(latents.shape), "normal").to(dev)
             latents = ddim_img2img(sch, steps, latents, strength, noise, denoise)
             return torch.clamp(self.vae.decode(latents) * 0.5 + 0.5, 0.0, 1.0)
+
+        return fn
+
+    def sample_fn(self, steps: int = 30, guidance_scale: float = 7.5):
+        """Text-to-multiview sampler (mvdream_utils.py prompt_to_img): ``fn(poses
+        [4, 4, 4], draw) -> [4, S, S, 3]``, one group denoised jointly, CFG
+        [neg, pos]."""
+        b = self.num_views
+
+        @torch.no_grad()
+        def fn(poses, draw):
+            dev = self.emb["pos"].device
+            cam = torch.cat([mvdream_camera(poses.to(dev))] * 2)
+            ctx = torch.cat([self._batch("neg", b), self._batch("pos", b)])
+
+            def denoise(lat, t):
+                t_in = torch.full((2 * b,), t, dtype=torch.int64, device=dev)
+                eps_uncond, eps_cond = self.unet(torch.cat([lat] * 2), t_in, ctx,
+                                                 camera=cam).chunk(2)
+                return eps_uncond + guidance_scale * (eps_cond - eps_uncond)
+
+            return self._sample(b, steps, denoise, draw)
+
+        return fn
+
+
+class ImageDreamGuidance(_TextGuidance):
+    """Image+text SDS over groups of 4 views with the identity view
+    (imagedream_utils.py). ``embeddings``: [77, D] text states 'pos' and
+    'neg'. ``image_embeddings``: 'pos', the reference image's CLIP tokens
+    [L, D_ip], and 'ip_img', its VAE latent [h, w, 4] (the negatives are
+    zeros). The images come in groups of 4 consecutive views with their
+    poses in ``cond["poses"]``; every UNet call pads each group with the
+    identity view and strips it from the prediction. CFG 5, no w(t)."""
+
+    guidance_scale = 5.0
+    num_views = 4
+
+    def __init__(self, unet, vae, embeddings: dict, image_embeddings: dict, image_size: int = 256,
+                 anneal: bool = True):
+        super().__init__(unet, vae, embeddings, image_size, anneal)
+        self.img_emb = image_embeddings
+
+    def _pad_views(self, x, repeat: bool = False):
+        """[rB*4, ...] -> [rB*5, ...]: each group gains a fifth view, zeros or
+        (``repeat``) a copy of its first."""
+        g = x.reshape((-1, self.num_views) + tuple(x.shape[1:]))
+        pad = g[:, :1] if repeat else torch.zeros_like(g[:, :1])
+        return torch.cat([g, pad], 1).reshape((-1,) + tuple(x.shape[1:]))
+
+    def _strip_views(self, x):
+        g = x.reshape((-1, self.num_views + 1) + tuple(x.shape[1:]))
+        return g[:, :self.num_views].reshape((-1,) + tuple(x.shape[1:]))
+
+    def _denoiser(self, poses, guidance_scale: float):
+        """``denoise(latents [rB*4, h, w, C], t) -> eps_hat`` for the groups
+        of ``poses``: one UNet call on [uncond, cond] halves of rB*5 views
+        (zero ip tokens and identity latent in the uncond half), t repeated
+        into the identity view, the prediction stripped back to 4 views."""
+        dev = poses.device
+        rb = poses.shape[0] // self.num_views
+        n5 = rb * (self.num_views + 1)
+        cam = torch.cat([self._pad_views(mvdream_camera(poses))] * 2)
+        ctx = torch.cat([self._batch("neg", n5), self._batch("pos", n5)])
+        tokens = self.img_emb["pos"]
+        ip_pos = tokens[None].expand((n5,) + tuple(tokens.shape))
+        ip = torch.cat([torch.zeros_like(ip_pos), ip_pos])
+        latent = self.img_emb["ip_img"]
+        ip_img_pos = latent[None].expand((rb,) + tuple(latent.shape))
+        ip_img = torch.cat([torch.zeros_like(ip_img_pos), ip_img_pos])
+
+        def denoise(lat, t):
+            t_in = torch.as_tensor(t, device=dev).float().expand(lat.shape[0])
+            t_in = torch.cat([self._pad_views(t_in, repeat=True)] * 2)
+            eps = self.unet(torch.cat([self._pad_views(lat)] * 2), t_in, ctx, camera=cam, ip=ip,
+                            ip_img=ip_img)
+            eps_uncond, eps_cond = (self._strip_views(e) for e in eps.chunk(2))
+            return eps_uncond + guidance_scale * (eps_cond - eps_uncond)
+
+        return denoise
+
+    def guidance_fn(self):
+        def fn(images, cond, step_ratio, draw):
+            dev = images.device
+            b = images.shape[0]          # num_views x groups
+            latents = self.vae.encode(_resize(images, self.image_size) * 2.0 - 1.0)
+            t = self._timestep(step_ratio, draw)
+            t_b = torch.as_tensor(t, device=dev).to(torch.int64).expand(b)
+            noise = draw("sds_noise", tuple(latents.shape), "normal").to(dev)
+            with torch.no_grad():
+                latents_noisy = self.scheduler.add_noise(latents.detach(), noise, t_b)
+                denoise = self._denoiser(cond["poses"].to(dev), self.guidance_scale)
+                grad = torch.nan_to_num(denoise(latents_noisy, t) - noise)
+            return sds_grad_loss(latents, grad, divide_by_batch=True)
+
+        return fn
+
+    def refine_fn(self, steps: int = 50):
+        """4(+1)-view img2img refine; cond needs the poses."""
+        sch = self.scheduler
+
+        @torch.no_grad()
+        def fn(images, cond, strength, draw):
+            dev = images.device
+            latents = self.vae.encode(_resize(images, self.image_size) * 2.0 - 1.0)
+            denoise = self._denoiser(cond["poses"].to(dev), self.guidance_scale)
+            noise = draw("refine_noise", tuple(latents.shape), "normal").to(dev)
+            latents = ddim_img2img(sch, steps, latents, strength, noise, denoise)
+            return torch.clamp(self.vae.decode(latents) * 0.5 + 0.5, 0.0, 1.0)
+
+        return fn
+
+    def sample_fn(self, steps: int = 30, guidance_scale: float = 5.0):
+        """Image+text-to-multiview sampler (imagedream_utils.py prompt_to_img):
+        ``fn(poses [4, 4, 4], draw) -> [4, S, S, 3]``, the identity view
+        padded in at every step as in the refine."""
+
+        @torch.no_grad()
+        def fn(poses, draw):
+            denoise = self._denoiser(poses.to(self.emb["pos"].device), guidance_scale)
+            return self._sample(self.num_views, steps, denoise, draw)
 
         return fn

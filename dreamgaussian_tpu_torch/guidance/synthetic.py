@@ -4,13 +4,16 @@ The port's copy of ``synth_diffusers_unet`` / ``synth_diffusers_vae`` /
 ``synth_ldm_unet`` / ``synth_ldm_vae`` / ``synth_open_clip_text`` from
 ``dreamgaussian_tpu/guidance/synthetic.py``, plus the CLIP towers in
 transformers' layout, Zero123's camera projection and a CLIP BPE
-tokenizer with merges learned from a small corpus. Three checkpoints:
+tokenizer with merges learned from a small corpus. Four checkpoints:
 a Zero123 diffusers snapshot, an SD 2.1-base diffusers snapshot (its
 ``unet/config.json`` with ``attention_head_dim: [5, 10, 20, 20]``, as the
-published one has it) and MVDream's single LDM file (``torch.save``). The
+published one has it), MVDream's single LDM file (``torch.save``) and
+ImageDream's (the ipmv UNet with its resampler and ``to_k_ip`` /
+``to_v_ip``), with a CLIP ViT-H/14 ``image_encoder/`` folder beside it. The
 key names and torch shapes follow the diffusers ``UNet2DConditionModel`` /
 ``AutoencoderKL``, transformers ``CLIPVisionModelWithProjection`` /
-``CLIPTextModel``, ldm ``UNetModel`` / ``AutoencoderKL`` and open_clip
+``CLIPVisionModel`` / ``CLIPTextModel``, ldm ``UNetModel`` (ImageDream's
+``Resampler`` as the IP-adapter's) / ``AutoencoderKL`` and open_clip
 text-tower module structures, written out here independently of
 ``convert.py``'s renaming, so that a wrong mapping fails the strict load
 instead of cancelling itself out.
@@ -20,8 +23,9 @@ given device (a full-width snapshot is about 1.25 B values): weights ~
 N(0, 1/fan_in), norm scales 1 + N(0, 0.1^2), biases and embeddings
 N(0, 0.02^2). ``write_safetensors`` writes each tensor as it is drawn
 (header, then the raw bytes; F32, F16 or BF16), so host memory holds one
-tensor at a time; ``torch.save`` of the LDM file holds the whole state
-dict on the host (2.6 GB in fp16 at full width).
+tensor at a time; ``torch.save`` of an LDM file holds the whole state
+dict on the host (2.6 GB for MVDream, 2.8 GB for ImageDream in fp16 at
+full width).
 """
 
 from __future__ import annotations
@@ -46,6 +50,11 @@ Spec = list[tuple[str, tuple[int, ...]]]
 CLIP_VIT_L14 = CLIPVisionConfig(hidden_size=1024, intermediate_size=4096, num_hidden_layers=24,
                                 num_attention_heads=16, image_size=224, patch_size=14,
                                 projection_dim=768, hidden_act="quick_gelu")
+# The OpenCLIP ViT-H/14 vision tower in transformers' CLIPVisionModel layout
+# (ImageDream's image encoder: 257 tokens of width 1280).
+CLIP_VIT_H14 = CLIPVisionConfig(hidden_size=1280, intermediate_size=5120, num_hidden_layers=32,
+                                num_attention_heads=16, image_size=224, patch_size=14,
+                                projection_dim=1024, hidden_act="gelu")
 # The public stabilityai/stable-diffusion-2-1-base text tower (OpenCLIP ViT-H
 # without its last block, in transformers' layout); MVDream's OpenCLIP tower
 # has all 24 blocks.
@@ -193,8 +202,9 @@ def diffusers_vae_spec(cfg: VAEConfig) -> Spec:
     return spec
 
 
-def clip_vision_spec(cfg: CLIPVisionConfig) -> Spec:
-    """(key, shape) of a CLIPVisionModelWithProjection state dict."""
+def clip_vision_spec(cfg: CLIPVisionConfig, projection: bool = True) -> Spec:
+    """(key, shape) of a CLIPVisionModelWithProjection state dict, or of a
+    CLIPVisionModel's without ``projection``."""
     d, p = cfg.hidden_size, cfg.patch_size
     vm = "vision_model"
     spec: Spec = [
@@ -212,7 +222,8 @@ def clip_vision_spec(cfg: CLIPVisionConfig) -> Spec:
         _linear(spec, f"{lp}.mlp.fc2", d, cfg.intermediate_size)
         _norm(spec, f"{lp}.layer_norm2", d)
     _norm(spec, f"{vm}.post_layernorm", d)
-    _linear(spec, "visual_projection", cfg.projection_dim, d, bias=False)
+    if projection:
+        _linear(spec, "visual_projection", cfg.projection_dim, d, bias=False)
     return spec
 
 
@@ -243,21 +254,55 @@ def _ldm_resnet(spec: Spec, p: str, in_c: int, out_c: int, temb: int) -> None:
         _conv(spec, p + ".skip_connection", out_c, in_c, k=1)
 
 
+def _ldm_resampler(spec: Spec, p: str, cfg: UNetConfig) -> None:
+    """ImageDream's ``image_embed``: the IP-adapter Resampler (latents [1, Q,
+    D]; per layer a PerceiverAttention of no-bias Linears and a feed-forward
+    Sequential [LayerNorm, Linear, GELU, Linear])."""
+    d = cfg.ip_resampler_dim
+    spec.append((p + ".latents", (1, cfg.ip_dim, d)))
+    _linear(spec, p + ".proj_in", d, cfg.ip_embed_dim)
+    _linear(spec, p + ".proj_out", cfg.cross_attention_dim, d)
+    _norm(spec, p + ".norm_out", cfg.cross_attention_dim)
+    for i in range(cfg.ip_resampler_depth):
+        lp = f"{p}.layers.{i}"
+        _norm(spec, lp + ".0.norm1", d)
+        _norm(spec, lp + ".0.norm2", d)
+        _linear(spec, lp + ".0.to_q", d, d, bias=False)
+        _linear(spec, lp + ".0.to_kv", 2 * d, d, bias=False)
+        _linear(spec, lp + ".0.to_out", d, d, bias=False)
+        _norm(spec, lp + ".1.0", d)
+        _linear(spec, lp + ".1.1", 4 * d, d, bias=False)
+        _linear(spec, lp + ".1.3", d, 4 * d, bias=False)
+
+
+def _ldm_transformer(spec: Spec, p: str, ch: int, ctx: int, linear: bool, ip: bool) -> None:
+    """ldm's SpatialTransformer; with ``ip`` the ipmv cross-attention's
+    ``to_k_ip`` / ``to_v_ip``."""
+    _df_transformer(spec, p, ch, ctx, linear)
+    if ip:
+        tp = p + ".transformer_blocks.0.attn2"
+        _linear(spec, tp + ".to_k_ip", ch, ctx, bias=False)
+        _linear(spec, tp + ".to_v_ip", ch, ctx, bias=False)
+
+
 def ldm_unet_spec(cfg: UNetConfig) -> Spec:
-    """(key, shape) of an ldm / MVDream ``UNetModel`` state dict:
+    """(key, shape) of an ldm / MVDream / ImageDream ``UNetModel`` state dict:
     ``input_blocks`` (conv_in, per level [ResBlock, SpatialTransformer?] and
     a Downsample ``op``), ``middle_block``, ``output_blocks`` (the Upsample
     last in a level's last block), ``time_embed``, ``camera_embed`` (views
-    > 1), ``out``."""
+    > 1), ``image_embed`` and the ip projections (``ip_dim`` > 0), ``out``."""
     spec: Spec = []
     g = lambda name: "model.diffusion_model." + name  # noqa: E731
     ch = list(cfg.block_out_channels)
     temb, ctx, lin = ch[0] * 4, cfg.cross_attention_dim, cfg.use_linear_projection
+    ip = cfg.ip_dim > 0
     _linear(spec, g("time_embed.0"), temb, ch[0])
     _linear(spec, g("time_embed.2"), temb, temb)
     if cfg.num_views > 1:
         _linear(spec, g("camera_embed.0"), temb, CAMERA_DIM)
         _linear(spec, g("camera_embed.2"), temb, temb)
+    if ip:
+        _ldm_resampler(spec, g("image_embed"), cfg)
     _conv(spec, g("input_blocks.0.0"), ch[0], cfg.in_channels)
     h, skips, ib = ch[0], [ch[0]], 1
     for i, btype in enumerate(cfg.down_block_types):
@@ -265,7 +310,7 @@ def ldm_unet_spec(cfg: UNetConfig) -> Spec:
             _ldm_resnet(spec, g(f"input_blocks.{ib}.0"), h, ch[i], temb)
             h = ch[i]
             if btype == "CrossAttnDownBlock2D":
-                _df_transformer(spec, g(f"input_blocks.{ib}.1"), h, ctx, lin)
+                _ldm_transformer(spec, g(f"input_blocks.{ib}.1"), h, ctx, lin, ip)
             skips.append(h)
             ib += 1
         if i < len(ch) - 1:
@@ -273,7 +318,7 @@ def ldm_unet_spec(cfg: UNetConfig) -> Spec:
             skips.append(h)
             ib += 1
     _ldm_resnet(spec, g("middle_block.0"), h, h, temb)
-    _df_transformer(spec, g("middle_block.1"), h, ctx, lin)
+    _ldm_transformer(spec, g("middle_block.1"), h, ctx, lin, ip)
     _ldm_resnet(spec, g("middle_block.2"), h, h, temb)
     ob = 0
     for i, (btype, c) in enumerate(zip(cfg.up_block_types, reversed(ch))):
@@ -281,7 +326,7 @@ def ldm_unet_spec(cfg: UNetConfig) -> Spec:
             _ldm_resnet(spec, g(f"output_blocks.{ob}.0"), h + skips.pop(), c, temb)
             h, sub = c, 1
             if btype == "CrossAttnUpBlock2D":
-                _df_transformer(spec, g(f"output_blocks.{ob}.1"), h, ctx, lin)
+                _ldm_transformer(spec, g(f"output_blocks.{ob}.1"), h, ctx, lin, ip)
                 sub = 2
             if j == cfg.layers_per_block and i < len(ch) - 1:
                 _conv(spec, g(f"output_blocks.{ob}.{sub}.conv"), h, h)
@@ -521,6 +566,33 @@ def write_mvdream_checkpoint(path: str, unet_cfg: UNetConfig, vae_cfg: VAEConfig
     torch.save(sd, path)
     write_clip_tokenizer(os.path.join(os.path.dirname(path), "tokenizer"))
     return os.path.getsize(path), sum(math.prod(s) for _, s in spec)
+
+
+def write_imagedream_checkpoint(path: str, unet_cfg: UNetConfig, vae_cfg: VAEConfig,
+                                clip_cfg: CLIPVisionConfig = CLIP_VIT_H14,
+                                text_width: int = 1024, text_layers: int = OPEN_CLIP_H_LAYERS,
+                                vocab_size: int = 49408, dtype: torch.dtype = torch.float16,
+                                seed: int = 0, device="cuda") -> dict:
+    """A random single-file ImageDream checkpoint at ``path``
+    (``write_mvdream_checkpoint`` with the ipmv UNet of ``unet_cfg``, whose
+    ``ip_dim`` must be > 0), its ``tokenizer/`` and an ``image_encoder/``
+    folder (a transformers CLIPVisionModel of ``clip_cfg``, whose width the
+    resampler takes) beside it. Returns {"ldm" | "image_encoder": (bytes,
+    values)}."""
+    if unet_cfg.ip_dim <= 0 or clip_cfg.hidden_size != unet_cfg.ip_embed_dim:
+        raise ValueError(f"an ImageDream UNet needs ip_dim > 0 and ip_embed_dim equal to the "
+                         f"image encoder's width {clip_cfg.hidden_size}; got ip_dim "
+                         f"{unet_cfg.ip_dim}, ip_embed_dim {unet_cfg.ip_embed_dim}")
+    out = {"ldm": write_mvdream_checkpoint(path, unet_cfg, vae_cfg, text_width, text_layers,
+                                           vocab_size, dtype, seed, device)}
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    out["image_encoder"] = _write_model(
+        os.path.join(os.path.dirname(path), "image_encoder"), "model.safetensors",
+        {"architectures": ["CLIPVisionModel"], "model_type": "clip_vision_model",
+         **dataclasses.asdict(clip_cfg)},
+        clip_vision_spec(clip_cfg, projection=False), gen, device, dtype)
+    return out
 
 
 def learn_merges(corpus: str, n_merges: int) -> list[tuple[str, str]]:

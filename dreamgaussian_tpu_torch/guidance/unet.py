@@ -1,23 +1,27 @@
-"""Stable-Diffusion-family denoising UNet in torch: Zero123, SD 2.x, MVDream.
+"""Stable-Diffusion-family denoising UNet in torch: Zero123, SD 2.x, MVDream, ImageDream.
 
-Port of ``dreamgaussian_tpu/guidance/unet.py`` without ImageDream's
-IP-adapter path. The public ``UNet.forward`` takes and returns NHWC
-tensors, like the flax module; inside it runs NCHW. Submodules carry the
-flax module names (``down_0_res_0.conv1``,
+Port of ``dreamgaussian_tpu/guidance/unet.py``. The public ``UNet.forward``
+takes and returns NHWC tensors, like the flax module; inside it runs
+NCHW. Submodules carry the flax module names (``down_0_res_0.conv1``,
 ``mid_attn.transformer_blocks_0.attn2.to_k``, ``camera_embedding.linear_1``,
-...), so ``weights.load_unet`` maps a flax tree onto it by name.
+``image_embed.layers_0_attn.to_kv``, ...), so ``weights.load_unet`` maps a
+flax tree onto it by name.
 
 Variants: Zero123 (8-channel input, conv projections in the transformers,
 8 heads, context 768); SD 2.x (linear projections, 64-wide heads, context
 1024); MVDream (SD 2.x whose self-attention attends jointly over the
 ``num_views`` views of a group, plus a camera MLP whose output is added to
-the time embedding).
+the time embedding); ImageDream (MVDream over groups of 5 views, the last
+the identity view, plus the IP-adapter path: a perceiver ``Resampler``
+turns the CLIP image tokens into ``ip_dim`` context tokens, which every
+cross-attention reads through its own ``to_k_ip`` / ``to_v_ip``).
 
 Numerics kept from the JAX package: GroupNorm with float32 statistics and
 ``gcd(32, C)`` groups; LayerNorm with epsilon 1e-5 and float32 statistics;
 GEGLU with the exact (erf) GELU; ``flip_sin_to_cos`` timestep embedding;
 attention scores and softmax in float32 (at SD's 64^2 latents, or
-MVDream's 4 x 32^2 joint tokens, 0.67 GB of scores per first-level call).
+MVDream's 4 x 32^2 joint tokens, 0.67 GB of scores per first-level call;
+ImageDream's 5 x 32^2, 1.05 GB).
 ``TinyUNet`` is the small denoiser of the runs without weights
 (``guidance/fake.py``).
 """
@@ -52,6 +56,14 @@ class UNetConfig:
     attention_head_dim: int | Sequence[int] = 64
     use_linear_projection: bool = False
     num_views: int = 1            # > 1: joint self-attention, and the camera MLP
+    # ImageDream's IP-adapter path (ip_dim > 0): a Resampler from CLIP image
+    # tokens [L, ip_embed_dim] to ip_dim context tokens, read by to_k_ip /
+    # to_v_ip in every cross-attention (the JAX package's ip_weight, 1).
+    ip_dim: int = 0
+    ip_embed_dim: int = 1280       # CLIP ViT-H/14 token width
+    ip_resampler_dim: int = 1280
+    ip_resampler_depth: int = 4
+    ip_resampler_heads: int = 20   # heads of width 64
     down_block_types: Sequence[str] = (
         "CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
         "CrossAttnDownBlock2D", "DownBlock2D",
@@ -74,6 +86,8 @@ ZERO123_CONFIG = UNetConfig()
 SD21_CONFIG = UNetConfig(in_channels=4, cross_attention_dim=1024, num_attention_heads=None,
                          attention_head_dim=64, use_linear_projection=True)
 MVDREAM_CONFIG = dataclasses.replace(SD21_CONFIG, num_views=4)
+# sd-v2.1-base-4view-ipmv: 4 views and the identity view, 16 resampled image tokens.
+IMAGEDREAM_CONFIG = dataclasses.replace(SD21_CONFIG, num_views=5, ip_dim=16)
 CAMERA_DIM = 16                   # MVDream's flattened 4x4 camera
 
 
@@ -154,19 +168,84 @@ class ResnetBlock(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    def __init__(self, query_dim: int, heads: int, context_dim: int | None = None):
+    """Multi-head (cross-)attention. With ``ip`` (ImageDream) it also has
+    ``to_k_ip`` / ``to_v_ip``: called with ``n_ip`` > 0, the last ``n_ip``
+    context tokens are image tokens, attended through those projections,
+    and their output is added."""
+
+    def __init__(self, query_dim: int, heads: int, context_dim: int | None = None,
+                 ip: bool = False):
         super().__init__()
         ctx = query_dim if context_dim is None else context_dim
         self.heads = heads
         self.to_q = nn.Linear(query_dim, query_dim, bias=False)
         self.to_k = nn.Linear(ctx, query_dim, bias=False)
         self.to_v = nn.Linear(ctx, query_dim, bias=False)
+        if ip:
+            self.to_k_ip = nn.Linear(ctx, query_dim, bias=False)
+            self.to_v_ip = nn.Linear(ctx, query_dim, bias=False)
         self.to_out_0 = nn.Linear(query_dim, query_dim)
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, n_ip: int = 0):
         ctx = x if context is None else context
-        out = attention(self.to_q(x), self.to_k(ctx), self.to_v(ctx), self.heads)
+        q = self.to_q(x)
+        if n_ip:
+            ctx, ip = ctx[:, :-n_ip], ctx[:, -n_ip:]
+        out = attention(q, self.to_k(ctx), self.to_v(ctx), self.heads)
+        if n_ip:
+            out = out + attention(q, self.to_k_ip(ip), self.to_v_ip(ip), self.heads)
         return self.to_out_0(out)
+
+
+class PerceiverAttention(nn.Module):
+    """The Resampler's attention: the latents attend to [tokens ++ latents]
+    through no-bias projections."""
+
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.norm1 = LayerNorm32(dim)
+        self.norm2 = LayerNorm32(dim)
+        self.to_q = nn.Linear(dim, dim, bias=False)
+        self.to_kv = nn.Linear(dim, 2 * dim, bias=False)
+        self.to_out = nn.Linear(dim, dim, bias=False)
+
+    def forward(self, x, latents):
+        x, latents = self.norm1(x), self.norm2(latents)
+        k, v = self.to_kv(torch.cat([x, latents], dim=-2)).chunk(2, dim=-1)
+        return self.to_out(attention(self.to_q(latents), k, v, self.heads))
+
+
+class Resampler(nn.Module):
+    """ImageDream's ``image_embed`` (the IP-adapter perceiver resampler):
+    CLIP image tokens [B, L, embed_dim] -> [B, num_queries, output_dim].
+    ``latents`` [num_queries, dim] is the flax layout; each layer is the
+    attention, then LayerNorm -> Linear x4 -> exact GELU -> Linear, both
+    with residuals."""
+
+    def __init__(self, dim: int, depth: int, heads: int, num_queries: int, embed_dim: int,
+                 output_dim: int):
+        super().__init__()
+        self.depth = depth
+        self.latents = nn.Parameter(torch.empty(num_queries, dim))
+        self.proj_in = nn.Linear(embed_dim, dim)
+        for i in range(depth):
+            self.add_module(f"layers_{i}_attn", PerceiverAttention(dim, heads))
+            self.add_module(f"layers_{i}_ff_norm", LayerNorm32(dim))
+            self.add_module(f"layers_{i}_ff_in", nn.Linear(dim, 4 * dim, bias=False))
+            self.add_module(f"layers_{i}_ff_out", nn.Linear(4 * dim, dim, bias=False))
+        self.proj_out = nn.Linear(dim, output_dim)
+        self.norm_out = LayerNorm32(output_dim)
+
+    def forward(self, x):
+        x = self.proj_in(x.to(self.proj_in.weight.dtype))
+        latents = self.latents[None].expand(x.shape[0], -1, -1)
+        for i in range(self.depth):
+            latents = latents + getattr(self, f"layers_{i}_attn")(x, latents)
+            h = getattr(self, f"layers_{i}_ff_norm")(latents)
+            h = getattr(self, f"layers_{i}_ff_out")(F.gelu(getattr(self, f"layers_{i}_ff_in")(h)))
+            latents = latents + h
+        return self.norm_out(self.proj_out(latents))
 
 
 class FeedForward(nn.Module):
@@ -181,17 +260,18 @@ class FeedForward(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    def __init__(self, dim: int, heads: int, context_dim: int, num_views: int = 1):
+    def __init__(self, dim: int, heads: int, context_dim: int, num_views: int = 1,
+                 ip: bool = False):
         super().__init__()
         self.num_views = num_views
         self.norm1 = LayerNorm32(dim)
         self.attn1 = CrossAttention(dim, heads)
         self.norm2 = LayerNorm32(dim)
-        self.attn2 = CrossAttention(dim, heads, context_dim)
+        self.attn2 = CrossAttention(dim, heads, context_dim, ip)
         self.norm3 = LayerNorm32(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context):
+    def forward(self, x, context, n_ip: int = 0):
         h = self.norm1(x)
         if self.num_views > 1:
             # The views of a group attend jointly: [B*V, N, C] -> [B, V*N, C].
@@ -201,7 +281,7 @@ class TransformerBlock(nn.Module):
         else:
             h = self.attn1(h)
         x = x + h
-        x = x + self.attn2(self.norm2(x), context)
+        x = x + self.attn2(self.norm2(x), context, n_ip)
         return x + self.ff(self.norm3(x))
 
 
@@ -211,7 +291,7 @@ class Transformer2D(nn.Module):
     flattened tokens (SD 2.x, ``linear``)."""
 
     def __init__(self, channels: int, heads: int, context_dim: int, linear: bool = False,
-                 num_views: int = 1):
+                 num_views: int = 1, ip: bool = False):
         super().__init__()
         self.linear = linear
         # diffusers / ldm build this norm with eps 1e-6.
@@ -219,18 +299,18 @@ class Transformer2D(nn.Module):
         proj = (lambda: nn.Linear(channels, channels)) if linear else \
             (lambda: nn.Conv2d(channels, channels, 1))
         self.proj_in = proj()
-        self.transformer_blocks_0 = TransformerBlock(channels, heads, context_dim, num_views)
+        self.transformer_blocks_0 = TransformerBlock(channels, heads, context_dim, num_views, ip)
         self.proj_out = proj()
 
-    def forward(self, x, context):
+    def forward(self, x, context, n_ip: int = 0):
         b, c, hh, ww = x.shape
         h = self.norm(x)
         if self.linear:
             h = self.proj_in(h.permute(0, 2, 3, 1).reshape(b, hh * ww, c))
-            h = self.proj_out(self.transformer_blocks_0(h, context))
+            h = self.proj_out(self.transformer_blocks_0(h, context, n_ip))
             return h.reshape(b, hh, ww, c).permute(0, 3, 1, 2) + x
         h = self.proj_in(h).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
-        h = self.transformer_blocks_0(h, context)
+        h = self.transformer_blocks_0(h, context, n_ip)
         return self.proj_out(h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)) + x
 
 
@@ -264,9 +344,14 @@ class TimeEmbedding(nn.Module):
 
 class UNet(nn.Module):
     """Denoising UNet: NHWC latents, [B] timesteps, [B,L,D] context and,
-    for MVDream, the raw [B, 16] camera -> NHWC float32 noise prediction.
-    Runs in the dtype of its weights. With ``num_views`` V > 1 the batch
-    holds whole groups of V consecutive views."""
+    for MVDream and ImageDream, the raw [B, 16] camera -> NHWC float32 noise
+    prediction. Runs in the dtype of its weights. With ``num_views`` V > 1
+    the batch holds whole groups of V consecutive views.
+
+    ImageDream (``ip_dim`` > 0): ``ip`` [B, L, ip_embed_dim] CLIP image
+    tokens go through the ``image_embed`` Resampler and are appended to the
+    context for the cross-attentions' ip path; ``ip_img`` [B // V, h, w, C]
+    replaces the last view of every group of V (the identity view)."""
 
     def __init__(self, config: UNetConfig):
         super().__init__()
@@ -278,11 +363,15 @@ class UNet(nn.Module):
 
         def transformer(ch, level):
             return Transformer2D(ch, cfg.heads_for(level), ctx, cfg.use_linear_projection,
-                                 cfg.num_views)
+                                 cfg.num_views, cfg.ip_dim > 0)
 
         self.time_embedding = TimeEmbedding(ch0, temb_dim)
         if cfg.num_views > 1:
             self.camera_embedding = TimeEmbedding(CAMERA_DIM, temb_dim)
+        if cfg.ip_dim > 0:
+            self.image_embed = Resampler(cfg.ip_resampler_dim, cfg.ip_resampler_depth,
+                                         cfg.ip_resampler_heads, cfg.ip_dim, cfg.ip_embed_dim,
+                                         ctx)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
         h_ch, skips = ch0, [ch0]
         for i, (btype, ch) in enumerate(zip(cfg.down_block_types, cfg.block_out_channels)):
@@ -315,7 +404,7 @@ class UNet(nn.Module):
     def _block(self, name):
         return getattr(self, name, None)
 
-    def forward(self, sample, timesteps, context, camera=None):
+    def forward(self, sample, timesteps, context, camera=None, ip=None, ip_img=None):
         cfg = self.config
         dt = self.conv_in.weight.dtype
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt)
@@ -323,7 +412,17 @@ class UNet(nn.Module):
         if camera is not None:
             temb = temb + self.camera_embedding(camera.to(dt))
         context = context.to(dt)
-        h = self.conv_in(sample.permute(0, 3, 1, 2).to(dt))
+        sample = sample.to(dt)
+        if ip_img is not None:
+            grouped = sample.reshape((-1, cfg.num_views) + tuple(sample.shape[1:]))
+            sample = torch.cat([grouped[:, :-1], ip_img.to(dt)[:, None]], 1).reshape(sample.shape)
+        n_ip = 0
+        if ip is not None:
+            if cfg.ip_dim == 0:
+                raise ValueError("ip tokens given to a UNet without the IP-adapter path (ip_dim 0)")
+            context = torch.cat([context, self.image_embed(ip)], dim=1)
+            n_ip = cfg.ip_dim
+        h = self.conv_in(sample.permute(0, 3, 1, 2))
         skips = [h]
         n_levels = len(cfg.block_out_channels)
         for i in range(n_levels):
@@ -331,18 +430,18 @@ class UNet(nn.Module):
                 h = self._block(f"down_{i}_res_{j}")(h, temb)
                 attn = self._block(f"down_{i}_attn_{j}")
                 if attn is not None:
-                    h = attn(h, context)
+                    h = attn(h, context, n_ip)
                 skips.append(h)
             if i < n_levels - 1:
                 h = self._block(f"down_{i}_downsample")(h)
                 skips.append(h)
-        h = self.mid_res_1(self.mid_attn(self.mid_res_0(h, temb), context), temb)
+        h = self.mid_res_1(self.mid_attn(self.mid_res_0(h, temb), context, n_ip), temb)
         for i in range(n_levels):
             for j in range(cfg.layers_per_block + 1):
                 h = self._block(f"up_{i}_res_{j}")(torch.cat([h, skips.pop()], dim=1), temb)
                 attn = self._block(f"up_{i}_attn_{j}")
                 if attn is not None:
-                    h = attn(h, context)
+                    h = attn(h, context, n_ip)
             if i < n_levels - 1:
                 h = self._block(f"up_{i}_upsample")(h)
         h = self.conv_out(F.silu(self.conv_norm_out(h)))
@@ -353,7 +452,8 @@ class TinyUNet(nn.Module):
     """Small UNet-shaped denoiser for tests and the fake guidance: NHWC in
     and out, the flax module's auto-named children (``Dense_0``, ``Conv_0``,
     ``GroupNorm_0``, ``Dense_1``, ``Conv_1``, ``Conv_2``). It takes and
-    ignores MVDream's ``camera``, as the JAX fake backbone drops it."""
+    ignores the multi-view priors' ``camera``, ``ip`` and ``ip_img``, as the
+    JAX fake backbone drops every keyword."""
 
     def __init__(self, in_channels: int = 4, channels: int = 16, context_dim: int = 32,
                  out_channels: int = 4):
@@ -366,7 +466,7 @@ class TinyUNet(nn.Module):
         self.Conv_1 = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
         self.Conv_2 = nn.Conv2d(channels, out_channels, 3, padding=1)
 
-    def forward(self, sample, timesteps, context, camera=None):
+    def forward(self, sample, timesteps, context, camera=None, ip=None, ip_img=None):
         temb = self.Dense_0(timestep_embedding(timesteps, self.channels))
         h = self.Conv_0(sample.permute(0, 3, 1, 2).float()) + temb[:, :, None, None]
         h = F.silu(self.GroupNorm_0(h)) + self.Dense_1(context.mean(1))[:, :, None, None]

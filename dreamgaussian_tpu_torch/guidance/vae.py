@@ -151,3 +151,7 @@ class AutoencoderKL(nn.Module):
     def decode(self, z):
         x = self.decoder((z / self.config.scaling_factor).permute(0, 3, 1, 2))
         return x.permute(0, 2, 3, 1)
+
+    def latent_side(self, image_size: int) -> int:
+        """Side of the latents of an image_size^2 image."""
+        return image_size // 2 ** (len(self.config.block_out_channels) - 1)

@@ -10,8 +10,9 @@ on schedule). Semantics kept:
 - orbit sampling ver ~ U[min_ver, max_ver), hor ~ U[-180, 180), drawn from
   ``np.random.default_rng(seed)`` in the JAX trainer's call order, then
   the white/black background draw (``invert_bg_prob``); with ``mvdream``
-  each sampled camera becomes a group of 4 views at hor + 90 i, its poses
-  consecutive in ``cond["poses"]``;
+  or ``imagedream`` each sampled camera becomes a group of 4 views at
+  hor + 90 i, its poses consecutive in ``cond["poses"]``; ImageDream's
+  input image conditions the guidance, and there is no known view;
 - densification stats from the LAST novel view, with the mean2D gradient
   scaled by (W/2, H/2); densify/prune every ``densification_interval``
   inside [density_start_iter, density_end_iter], opacity reset every
@@ -116,8 +117,6 @@ class Stage1Trainer:
     ):
         """opt: config namespace with the reference's image.yaml keys.
         guidance_fns: tuple of (weight, fn) entries (see GuidanceFn)."""
-        if opt.get("imagedream", False):
-            raise NotImplementedError("the ImageDream prior (imagedream) is not ported yet")
         self.device = resolve_device(device)
         self.opt = opt
         self.seed = seed
@@ -145,7 +144,9 @@ class Stage1Trainer:
         self.ref_size = opt.get("ref_size", 256)
         self.ref_rgb = self._tensor(ref_rgb) if ref_rgb is not None else None
         self.ref_mask = self._tensor(ref_mask) if ref_mask is not None else None
-        self.use_known_view = ref_rgb is not None
+        # ImageDream takes the reference image as its conditioning, not as a
+        # known view.
+        self.use_known_view = ref_rgb is not None and not opt.get("imagedream", False)
 
         fovy = np.radians(opt.get("fovy", 49.1))
         self.fovy = fovy
@@ -154,7 +155,7 @@ class Stage1Trainer:
         self.elevation = opt.get("elevation", 0.0)
         pose = orbit_camera(self.elevation, 0.0, self.radius)
         self.fixed_cam = Camera.from_pose(pose, self.ref_size, self.ref_size, fovy, fovy)
-        self.n_views = 4 if opt.get("mvdream", False) else 1
+        self.n_views = 4 if (opt.get("mvdream", False) or opt.get("imagedream", False)) else 1
         self.batch_size = opt.get("batch_size", 1)
 
         self.lr_schedules = {

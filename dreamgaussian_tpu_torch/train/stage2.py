@@ -16,9 +16,10 @@ step has two phases, the JAX package's two jitted programs:
 
 Cameras and the SSAA factor come from ``np.random.default_rng(seed)`` in
 the JAX trainer's call order (``_sample_ssaa``, then ``ver``, ``hor`` per
-batch entry). With ``mvdream`` each sampled camera becomes a group of 4
-views at hor + 90 i (their poses in ``cond``), and the known view sits at
-azimuth 90. The refine noise comes from ``draw("refine_noise", shape,
+batch entry). With ``mvdream`` or ``imagedream`` each sampled camera
+becomes a group of 4 views at hor + 90 i (their poses in ``cond``), and
+the known view sits at azimuth 90 (ImageDream has none: its input image
+conditions the refine). The refine noise comes from ``draw("refine_noise", shape,
 "normal")``, one draw per refine fn per step; tests inject JAX's samples.
 
 refine_fns: tuple of (weight, fn) entries with fn(images [B,H,W,3], cond,
@@ -63,8 +64,6 @@ class Stage2Trainer:
         """opt: config namespace with the reference's stage-2 keys. ref_mask
         is taken for the CLI's call and not used: the known-view loss masks
         by the render's own coverage and view angle."""
-        if opt.get("imagedream", False):
-            raise NotImplementedError("the ImageDream prior (imagedream) is not ported yet")
         self.device = resolve_device(device)
         self.opt = opt
         self.rng = np.random.default_rng(seed)
@@ -83,12 +82,12 @@ class Stage2Trainer:
 
         self.ref_size = opt.get("ref_size", 256)
         self.ref_rgb = self._tensor(ref_rgb) if ref_rgb is not None else None
-        self.use_known_view = ref_rgb is not None
+        self.use_known_view = ref_rgb is not None and not opt.get("imagedream", False)
 
         self.fovy = np.radians(opt.get("fovy", 49.1))
         self.radius = opt.get("radius", 2.0)
         self.elevation = opt.get("elevation", 0.0)
-        mv = bool(opt.get("mvdream", False))
+        mv = bool(opt.get("mvdream", False) or opt.get("imagedream", False))
         self.fixed_cam = Camera.from_pose(orbit_camera(self.elevation, 90 if mv else 0, self.radius),
                                           self.ref_size, self.ref_size, self.fovy, self.fovy)
         self.n_views = 4 if mv else 1

@@ -10,7 +10,8 @@ weights. Imports neither JAX nor flax.
   ``Linear`` [out, in], GroupNorm/LayerNorm ``scale`` -> ``weight``; the
   flax module path becomes the torch parameter name (GroupNorm32 wraps
   flax's ``GroupNorm_0``, which has no counterpart level in torch); the
-  UNet's linear projections and camera MLP come along by name;
+  UNet's linear projections, camera MLP and ImageDream's resampler (its
+  ``latents`` [Q, D] as they are) come along by name;
 - the JAX package's ``OpenCLIPTextEncoder`` onto the port's
   ``clip.CLIPTextModel`` (its fused ``in_proj`` split into q, k and v).
 """
@@ -76,8 +77,8 @@ def flax_state_dict(tree: Mapping, device="cuda") -> dict[str, torch.Tensor]:
                 name = "weight"
             elif key == "scale":
                 name = "weight"
-            elif key == "bias":
-                name = "bias"
+            elif key in ("bias", "latents"):
+                name = key
             else:
                 raise KeyError(f"unexpected flax leaf {'/'.join(path + [key])}")
             out[".".join(path + [name])] = t.contiguous()

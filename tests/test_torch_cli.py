@@ -1,8 +1,8 @@
 """The port's CLIs: ``load_rgba`` against the JAX package's (which decodes
 with cv2 and shrinks with ``cv2.INTER_AREA``), both CLIs end to end on the
-CPU at the golden run's sizes with every output file read back, the
-option that is not ported yet (ImageDream), a missing snapshot, and the
-device policy."""
+CPU at the golden run's sizes with every output file read back, a
+missing snapshot, the device mesh that is not ported yet, and the device
+policy."""
 
 import numpy as np
 import pytest
@@ -75,19 +75,6 @@ def test_both_clis_end_to_end_on_the_cpu(tmp_path):
     refined = Mesh.load(str(tmp_path / "golden.obj"), resize=False)
     np.testing.assert_array_equal(refined.f, stage1.f)
     assert np.abs(refined.albedo - stage1.albedo).max() > 0      # the texture was refined
-
-
-@pytest.mark.parametrize("config,override,missing", [
-    ("configs/image.yaml", "imagedream=True", "ImageDream"),
-    ("configs/text.yaml", "imagedream=True", "ImageDream"),
-    ("configs/text_mv.yaml", "imagedream=True", "ImageDream"),
-])
-def test_what_is_not_ported_raises(tmp_path, config, override, missing):
-    opt = load_with_cli(config, [f"input={disc_png(tmp_path / 'd.png')}", "prompt=a cup",
-                                 f"outdir={tmp_path}", *OVERRIDES, override])
-    for cli in (tcli1, tcli2):
-        with pytest.raises(NotImplementedError, match=missing):
-            cli.run(opt)
 
 
 @pytest.mark.parametrize("config,key", [("configs/image.yaml", "zero123_ckpt"),

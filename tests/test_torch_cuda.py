@@ -745,43 +745,56 @@ def test_stage1_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
     assert tcu.LAUNCHES["composite_bwd"] >= before + 4
 
 
-# -- the text priors on the card: SD 2.x and MVDream at small width --
+# -- the text priors on the card: SD 2.x, MVDream and ImageDream at small width --
 
 
 def _tiny_text_guidance(prior, device):
-    """SD or MVDream guidance on tiny float32 nets with seeded weights (the
-    same on every device): linear projections, 2 heads, for MVDream 4-view
-    joint attention and the camera MLP; VAE (4, 8)."""
+    """SD, MVDream or ImageDream guidance on tiny float32 nets with seeded
+    weights (the same on every device): linear projections, 2 heads, for
+    MVDream 4-view joint attention and the camera MLP, for ImageDream 4+1
+    views, the camera MLP and the IP-adapter path (7 image tokens of width
+    20, 4 resampled; 64/128 channels, so that GroupNorm does not normalise
+    the constant identity view of the uncond half over single channels);
+    VAE (4, 8)."""
     from dreamgaussian_tpu_torch.guidance.realarch import init_on_device
-    from dreamgaussian_tpu_torch.guidance.sds import MVDreamGuidance, StableDiffusionGuidance
+    from dreamgaussian_tpu_torch.guidance.sds import (ImageDreamGuidance, MVDreamGuidance,
+                                                      StableDiffusionGuidance)
     from dreamgaussian_tpu_torch.guidance.unet import UNet, UNetConfig
     from dreamgaussian_tpu_torch.guidance.vae import AutoencoderKL, VAEConfig
 
-    cfg = UNetConfig(in_channels=4, block_out_channels=(32, 64), layers_per_block=1,
-                     cross_attention_dim=24, num_attention_heads=2, use_linear_projection=True,
-                     down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
-                     up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
-                     num_views=4 if prior == "mvdream" else 1)
+    kw = {"sd": {}, "mvdream": {"num_views": 4},
+          "imagedream": {"num_views": 5, "block_out_channels": (64, 128), "ip_dim": 4,
+                         "ip_embed_dim": 20, "ip_resampler_dim": 16, "ip_resampler_depth": 2,
+                         "ip_resampler_heads": 2}}[prior]
+    cfg = UNetConfig(**{"in_channels": 4, "block_out_channels": (32, 64), "layers_per_block": 1,
+                        "cross_attention_dim": 24, "num_attention_heads": 2,
+                        "use_linear_projection": True,
+                        "down_block_types": ("CrossAttnDownBlock2D", "DownBlock2D"),
+                        "up_block_types": ("UpBlock2D", "CrossAttnUpBlock2D"), **kw})
     gen = torch.Generator().manual_seed(3)
     with torch.device("meta"):
         unet, vae = UNet(cfg), AutoencoderKL(VAEConfig(block_out_channels=(4, 8),
                                                        layers_per_block=1))
     unet, vae = (init_on_device(m, "cpu", gen).to(device) for m in (unet, vae))
-    names = ("pos", "neg") if prior == "mvdream" else ("pos", "neg", "front", "side", "back")
+    names = ("pos", "neg") if prior != "sd" else ("pos", "neg", "front", "side", "back")
     emb = {k: (torch.randn((5, 24), generator=gen) * 0.5).to(device) for k in names}
+    if prior == "imagedream":
+        img = {"pos": torch.randn((7, 20), generator=gen).to(device),
+               "ip_img": torch.randn((16, 16, 4), generator=gen).to(device)}
+        return ImageDreamGuidance(unet, vae, emb, img, image_size=32)
     cls = MVDreamGuidance if prior == "mvdream" else StableDiffusionGuidance
     return cls(unet, vae, emb, image_size=32)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("prior", ["sd", "mvdream"])
+@pytest.mark.parametrize("prior", ["sd", "mvdream", "imagedream"])
 def test_text_guidance_on_card_matches_cpu(cuda_device, prior):
     """SDS loss and image gradient (float32, CFG 100, the same noise and
     timestep) and the refine on the card against the same guidance on the
     CPU: 1e-4 of the loss, 2e-4 of the largest gradient, 1e-4 in the
     refined images."""
     rng = np.random.default_rng(4)
-    b = 8 if prior == "mvdream" else 6
+    b = 6 if prior == "sd" else 8
     images = torch.from_numpy(rng.uniform(size=(b, 48, 48, 3)).astype(np.float32))
     poses = np.stack([orbit_camera(10.0, 30.0 + 90 * i + 45 * (i // 4), 2.5)
                       for i in range(b)]).astype(np.float32)
@@ -850,3 +863,83 @@ def test_random_mvdream_guidance_steps_on_the_card(cuda_device):
     loss.backward()
     assert math.isfinite(float(loss.detach())) and bool(torch.isfinite(x.grad).all())
     assert float(x.grad.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_four_plus_one_view_stage1_step_holds_k1_k2(cuda_device, tmp_path):
+    """One Stage1Trainer step on configs/imagedream.yaml's keys with the fake
+    ImageDream on the card and a disc input: the input conditions the
+    guidance (no known view), 4 views per sampled camera, each through K1
+    and K2; every call held against the plain versions with chip_smoke.py's
+    gates."""
+    from chip_smoke import hold_composite_calls, tapped
+    from dreamgaussian_tpu_torch.cli.main import load_reference
+    from dreamgaussian_tpu_torch.guidance.fake import fake_imagedream_guidance
+    from dreamgaussian_tpu_torch.ops import rasterize
+    from dreamgaussian_tpu_torch.train import Stage1Trainer
+    from dreamgaussian_tpu_torch.utils.config import Config, load
+
+    yaml = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "configs", "imagedream.yaml")
+    opt = Config({**dict(load(yaml)), "input": disc_png(tmp_path / "d.png", 256),
+                  "novel_resolutions": [256, 256, 256]})
+    rgb, mask = load_reference(opt)
+    g = fake_imagedream_guidance(device="cuda")
+    tr = Stage1Trainer(opt, ref_rgb=rgb, ref_mask=mask, capacity=opt["capacity"], seed=2,
+                       guidance_fns=((1.0, g.guidance_fn()),), device="cuda")
+    assert not tr.use_known_view and tr.n_views == 4
+    fwd, bwd = [], []
+    with (tapped(rasterize, "composite_forward", fwd, tcu.LAST_GRID, "composite_fwd"),
+          tapped(rasterize, "composite_backward", bwd, tcu.LAST_GRID, "composite_bwd")):
+        loss = float(tr.train_step())
+    assert math.isfinite(loss) and len(fwd) == 4 and len(bwd) == 4
+    rows = hold_composite_calls("4+1-view step", fwd, bwd)
+    assert [r["calls"] for r in rows["composite_fwd"]] == [4]
+
+
+@pytest.mark.cuda
+def test_random_imagedream_guidance_steps_on_the_card(cuda_device):
+    """The full-width 4+1-view IP-adapter architecture with random bf16
+    weights: one SDS step on a group of 4 views at 256^2 gives a finite loss
+    and gradient, and one refine step finite images."""
+    from dreamgaussian_tpu_torch.guidance.realarch import random_imagedream_guidance
+
+    g = random_imagedream_guidance(seed=1)
+    assert 1.0e9 < g.num_parameters() < 1.1e9
+    poses = torch.from_numpy(np.stack([orbit_camera(0.0, 90.0 * i, 2.5)
+                                       for i in range(4)]).astype(np.float32)).cuda()
+    x = torch.rand(4, 256, 256, 3, device="cuda", requires_grad=True)
+    gen = torch.Generator("cuda").manual_seed(0)
+    draw = lambda n, s, d, *a: torch.randn(s, device="cuda", generator=gen)  # noqa: E731
+    loss = g.guidance_fn()(x, {"poses": poses}, 0.5, draw)
+    loss.backward()
+    assert math.isfinite(float(loss.detach())) and bool(torch.isfinite(x.grad).all())
+    assert float(x.grad.abs().max()) > 0
+    out = g.refine_fn(steps=50)(x.detach(), {"poses": poses}, np.float32(0.98), draw)
+    assert tuple(out.shape) == (4, 256, 256, 3) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prior", ["sd", "mvdream", "imagedream"])
+def test_sampler_on_card_matches_cpu(cuda_device, prior):
+    """The fake prior's sampler (its tiny denoiser made on the CPU, then
+    moved) at 10 steps from the same noise on the card and on the CPU:
+    the images in [0, 1] to 1e-4."""
+    from dreamgaussian_tpu_torch.guidance import fake
+
+    cpu = {"sd": fake.fake_sd_guidance, "mvdream": fake.fake_mvdream_guidance,
+           "imagedream": fake.fake_imagedream_guidance}[prior](device="cpu")
+    poses = torch.from_numpy(np.stack([orbit_camera(10.0, 30.0 + 90 * i, 2.0)
+                                       for i in range(4)]).astype(np.float32))
+    noise = torch.randn((1 if prior == "sd" else 4, 8, 8, 4),
+                        generator=torch.Generator().manual_seed(5))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g = type(cpu)(cpu.unet.to(dev), cpu.vae, {k: v.to(dev) for k, v in cpu.emb.items()},
+                      *([{k: v.to(dev) for k, v in cpu.img_emb.items()}]
+                        if prior == "imagedream" else []), image_size=64)
+        fn = g.sample_fn(steps=10)
+        draw = lambda n, s, d: noise  # noqa: E731
+        out[dev] = (fn(draw) if prior == "sd" else fn(poses.to(dev), draw)).cpu()
+    assert out["cpu"].shape == out["cuda"].shape
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-4

@@ -3,8 +3,7 @@ package: two ``Stage1Trainer`` steps and one ``Stage2Trainer`` step with the
 fake MVDream on carried weights (the 4-view camera groups at hor + 90 i,
 poses in ``cond``, no known view, JAX's SDS and refine noise injected);
 both CLIs on ``text_mv.yaml`` with the fake and on a tiny single-file LDM
-checkpoint the port writes; ImageDream still refused by both CLIs and both
-trainers."""
+checkpoint the port writes; the device policy of the text entry points."""
 
 import dataclasses
 import os
@@ -31,7 +30,7 @@ from dreamgaussian_tpu_torch.scene.optim import adam_init
 from dreamgaussian_tpu_torch.train import Stage1Trainer as TStage1
 from dreamgaussian_tpu_torch.train import Stage2Trainer as TStage2
 from dreamgaussian_tpu_torch.utils.config import load_with_cli as t_load_with_cli
-from test_stage2 import sphere_mesh_uv, tiny_opt
+from test_stage2 import sphere_mesh_uv
 from test_torch_stage1 import JaxDraws
 from test_torch_stage2 import JaxRefineDraws
 from test_torch_text import CLI_UNET, CLI_VAE, CTX, OVERRIDES, read_cli_outputs
@@ -140,18 +139,6 @@ def test_both_clis_on_text_mv_yaml(tmp_path, prior):
     assert stats["step"] == 4 and np.isfinite(stats["loss"])
     assert np.isfinite(tcli2.main(argv)["loss"])
     read_cli_outputs(str(tmp_path), "mv")
-
-
-def test_imagedream_still_raises(tmp_path):
-    opt = t_load_with_cli("configs/text_mv.yaml", [f"outdir={tmp_path}", *OVERRIDES,
-                                                   "imagedream=True", "fake_guidance=True"])
-    for cli in (tcli1, tcli2):
-        with pytest.raises(NotImplementedError, match="ImageDream"):
-            cli.run(opt)
-    with pytest.raises(NotImplementedError, match="ImageDream"):
-        TStage1(opt, capacity=256, device="cpu")
-    with pytest.raises(NotImplementedError, match="ImageDream"):
-        TStage2(tiny_opt(imagedream=True), sphere_mesh_uv(), device="cpu")
 
 
 def test_text_entry_points_need_a_card_unless_cpu(tmp_path):
