@@ -90,7 +90,23 @@
    text day's SD snapshot and MVDream file and on the ipmv file, reads each
    PNG back and checks its shape and the UNet calls (lines
    ``[imagedream]``, ``[cli]``, ``[kernels] ... in the imagedream-day``);
-12. prints the ``kernels`` JSON line, the card's name and power limit, and
+12. the apps day (``run_apps_day``): ``cli.process`` mats an RGB photo (the
+   disc without its alpha) with a random full-width ``u2net.pth`` (U2Net's
+   matte on the card against the CPU's); ``scripts/port_runall.py --video``
+   runs stage 1, stage 2 and a 36-frame turntable on a folder with that one
+   input (fake guidance, cut in depth: ``APPS_ARGS``); ``cli.render`` makes
+   36-frame 512^2 GIFs of its PLY and OBJ (read back; ms per frame of the
+   renders alone); ``cli.eval`` scores both with a random VGG16 and lpips
+   lins and the CLIP ViT-L/14 of a full-width Zero123 snapshot, on which
+   ``cli.novel_view`` then samples 3 views at 10 steps (UNet calls gated);
+   ``cli.serve`` answers ``/``, ``/render`` in its three modes and 10 timed
+   renders at 512^2 for the PLY and for the mesh, then trains live on
+   ``configs/image.yaml`` until ``/status`` shows 5 steps; ``cli.webapp``
+   runs a stage-1 and a stage-2 job to their GIFs. Each run counts its
+   kernel launches from 0 and holds every K1, K2 and K3 call against the
+   plain version (lines ``[apps]``, ``[cli]``, ``[kernels] ... in the
+   apps-day``);
+13. prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
 Needs a CUDA card; exits non-zero without one, and on any failed check.
@@ -1275,11 +1291,12 @@ def hold_ztest_calls(phase: str, calls: list) -> list:
     return list(rows.values())
 
 
-def drive_cli(label: str, cli, argv: list, runs: dict) -> dict:
-    """``cli.main(argv)`` with every kernel count set to 0 just before it and
-    read just after, and every kernel call kept (``tapped``); records the
-    run's calls, launches and seconds in ``runs[label]`` and returns the
-    CLI's stats."""
+@contextlib.contextmanager
+def kernel_run(label: str, runs: dict):
+    """The block's run with every kernel count set to 0 just before it and
+    read just after, and every kernel call kept (``tapped``, from any
+    thread); records the run's calls, launches and seconds in
+    ``runs[label]``."""
     import torch
 
     from dreamgaussian_tpu_torch.ops import mesh_raster, mesh_raster_cuda, rasterize, rasterize_cuda
@@ -1293,15 +1310,21 @@ def drive_cli(label: str, cli, argv: list, runs: dict) -> dict:
     with (tapped(rasterize, "composite_forward", fwd, rasterize_cuda.LAST_GRID, "composite_fwd"),
           tapped(rasterize, "composite_backward", bwd, rasterize_cuda.LAST_GRID, "composite_bwd"),
           tapped(mesh_raster, "ztest", zt, mesh_raster_cuda.LAST_GRID, "ztest")):
-        stats = cli.main(argv)
+        yield
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {**rasterize_cuda.LAUNCHES, **mesh_raster_cuda.LAUNCHES}
     if [len(fwd), len(bwd), len(zt)] != [launches[k] for k in
                                           ("composite_fwd", "composite_bwd", "ztest")]:
-        raise RuntimeError(f"the CLI run {label} launched a kernel outside its caller")
+        raise RuntimeError(f"the run {label} launched a kernel outside its caller")
     runs[label] = {"calls": (fwd, bwd, zt), "launches": launches, "wall_s": wall}
     print(f"[cli] {label}: {wall:.1f} s, launches {json.dumps(launches)}")
+
+
+def drive_cli(label: str, cli, argv: list, runs: dict):
+    """``cli.main(argv)`` as a ``kernel_run``; returns what it returns."""
+    with kernel_run(label, runs):
+        stats = cli.main(argv)
     return stats
 
 
@@ -2076,6 +2099,283 @@ def run_imagedream_day(seed: int, card: str, load_alone, work: str, text_paths: 
     return {"launches": total, "shapes": shapes}
 
 
+# The apps day: a photo (the disc without its alpha) matted by a random
+# full-width U2Net through cli.process, then the batch script
+# (scripts/port_runall.py --video: stage 1, stage 2 and a turntable), the
+# turntables of its PLY and OBJ through cli.render (36 frames at 512^2), the
+# metrics (cli.eval) with a random full-width VGG16, lpips lins and the CLIP
+# ViT-L/14 image_encoder/ of a full-width Zero123 snapshot, novel views on that
+# snapshot (cli.novel_view), the viewer on the PLY and on the mesh and live on
+# configs/image.yaml (cli.serve), and a stage-1 and a stage-2 job of the web
+# app (cli.webapp). The batch and web-app runs are cut in depth (APPS_ARGS).
+APPS_FRAMES, APPS_SIZE, APPS_REF = 36, 512, 256
+APPS_ARGS = ["fake_guidance=True", "iters=12", "iters_refine=2", "density_start_iter=4",
+             "densification_interval=4", "density_thresh=0.2", "final_prune=False",
+             "mc_resolution=64", "decimate_target=20000", "texture_size=256",
+             "bake_resolution=256"]
+RUNALL_VIDEO = (36, 512, 512, 3)      # the batch script's turntable: cli.render's defaults
+NOVEL_HORS, NOVEL_STEPS = ("-60", "60", "180"), 10
+SERVE_REQUESTS, LIVE_STEPS = 10, 5
+U2NET_TOL = 1e-4    # U2Net's matte on the card against the CPU's (float32, TF32 off)
+
+
+def get_url(url: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=120) as r:
+        return r.read()
+
+
+@contextlib.contextmanager
+def served(handler):
+    """``handler`` served on a free local port in a thread: yields its URL."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+
+
+def drive_viewer(label: str, state, size: int, runs: dict) -> dict:
+    """``/``, ``/render`` in the three modes (each PNG decoded, its size
+    checked), ``/status``, then the median ms of SERVE_REQUESTS renders as
+    the client sees them; all as one kernel run."""
+    import numpy as np
+
+    from dreamgaussian_tpu_torch.cli import serve
+    from dreamgaussian_tpu_torch.utils.png import decode_png
+
+    with kernel_run(label, runs), served(serve.make_handler(state)) as url:
+        if b"viewer" not in get_url(url + "/"):
+            raise RuntimeError(f"{label}: the page is not the viewer's")
+        spread = {}
+        for mode in ("image", "depth", "alpha"):
+            img = decode_png(get_url(f"{url}/render?elev=15&azim=30&radius=2&mode={mode}"))
+            if img.shape != (size, size, 3):
+                raise RuntimeError(f"{label}: /render {mode} gave a {img.shape} PNG")
+            spread[mode] = float(img.std())
+        ms = []
+        for i in range(SERVE_REQUESTS):
+            t = time.perf_counter()
+            get_url(f"{url}/render?elev={5 * i}&azim={36 * i}&radius=2.2&mode=image")
+            ms.append(1e3 * (time.perf_counter() - t))
+        status = json.loads(get_url(url + "/status"))
+    if min(spread.values()) == 0.0:
+        raise RuntimeError(f"{label}: a mode rendered a flat image: {spread}")
+    return {"median_ms": statistics.median(ms), "min_ms": min(ms), "max_ms": max(ms),
+            "spread": spread, "status": status}
+
+
+def drive_live_viewer(png: str, runs: dict) -> dict:
+    """``cli.serve``'s live mode on configs/image.yaml with the fake guidance:
+    training on until ``/status`` shows LIVE_STEPS steps with a finite loss,
+    a ``/render``, training off, the trainer's thread ended."""
+    import numpy as np
+
+    from dreamgaussian_tpu_torch.cli import serve
+    from dreamgaussian_tpu_torch.utils.png import decode_png
+
+    state = serve.make_live_state(os.path.join(CONFIGS, "image.yaml"),
+                                  [f"input={png}", "fake_guidance=True"], APPS_SIZE)
+    try:
+        with kernel_run("serve live", runs), served(serve.make_handler(state)) as url:
+            get_url(url + "/train?on=1")
+            deadline = time.time() + 120
+            while time.time() < deadline:
+                st = json.loads(get_url(url + "/status"))
+                if st["step"] >= LIVE_STEPS and st["loss"] is not None:
+                    break
+                time.sleep(0.05)
+            img = decode_png(get_url(url + "/render?elev=10&azim=45&mode=image"))
+            get_url(url + "/train?on=0")
+            state.close()          # the step in flight ends before the counts are read
+            st = json.loads(get_url(url + "/status"))
+    finally:
+        state.close()
+    if st["step"] < LIVE_STEPS or not math.isfinite(st["loss"]) or img.shape != (
+            APPS_SIZE, APPS_SIZE, 3):
+        raise RuntimeError(f"the live viewer did not train: {st}, render {img.shape}")
+    return {"steps": st["step"], "loss": st["loss"]}
+
+
+def drive_webapp(data: str, outdir: str, png: str, runs: dict) -> dict:
+    """A stage-1 and then a stage-2 job of ``cli.webapp`` on ``png`` through
+    its routes, each polled until it ends with ``[webapp] done``; each orbit
+    GIF read back."""
+    from dreamgaussian_tpu_torch.cli import webapp
+    from dreamgaussian_tpu_torch.utils.gif import read_gif
+
+    state = webapp.AppState(data, outdir, APPS_ARGS, device="cuda")
+    out = {}
+    with served(webapp.make_handler(state)) as url:
+        if os.path.basename(png).encode() not in get_url(url + "/"):
+            raise RuntimeError("the web app does not list its input")
+        for stage in (1, 2):
+            with kernel_run(f"webapp stage {stage}", runs):
+                err = json.loads(get_url(f"{url}/run?stage={stage}&input={png}"))["error"]
+                if err:
+                    raise RuntimeError(f"the web app refused stage {stage}: {err}")
+                while json.loads(get_url(url + "/status"))["running"]:
+                    time.sleep(0.1)
+            st = json.loads(get_url(url + "/status"))
+            if not st["log"].endswith("[webapp] done"):
+                raise RuntimeError(f"the web app's stage {stage} failed:\n{st['log']}")
+            frames, delay = read_gif(st["artifact"])
+            if frames.shape != (webapp.ORBIT_FRAMES, webapp.ORBIT_SIZE, webapp.ORBIT_SIZE, 3):
+                raise RuntimeError(f"the web app's stage-{stage} GIF holds {frames.shape}")
+            if get_url(f"{url}/artifact?path={st['artifact']}")[:6] != b"GIF89a":
+                raise RuntimeError("the web app did not serve its GIF")
+            out[stage] = {"s": runs[f"webapp stage {stage}"]["wall_s"],
+                          "gif": list(frames.shape), "mesh": os.path.basename(st["mesh"])}
+    return out
+
+
+def run_apps_day(seed: int, card: str, work: str) -> dict:
+    """The apps day (see APPS_ARGS); every K1, K2 and K3 call of each run held
+    against its plain version right after the run."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dreamgaussian_tpu_torch.cli import eval as cli_eval
+    from dreamgaussian_tpu_torch.cli import novel_view, process, render, serve
+    from dreamgaussian_tpu_torch.guidance import synthetic
+    from dreamgaussian_tpu_torch.guidance.unet import ZERO123_CONFIG
+    from dreamgaussian_tpu_torch.guidance.vae import VAEConfig
+    from dreamgaussian_tpu_torch.preprocess.u2net import u2net_alpha
+    from dreamgaussian_tpu_torch.utils.gif import read_gif
+    from dreamgaussian_tpu_torch.utils.png import read_png, write_png
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import port_runall
+
+    tmp = os.path.join(work, "apps")
+    data, logs = os.path.join(tmp, "data"), os.path.join(tmp, "logs")
+    os.makedirs(data)
+    runs: dict = {}
+    shapes: dict = {"composite_fwd": [], "composite_bwd": [], "ztest": []}
+    launches = {"composite_fwd": 0, "composite_bwd": 0, "ztest": 0}
+    summary: dict = {}
+
+    def held(label: str):
+        """Hold the run's kernel calls now and drop them."""
+        for k, rows in hold_cli_calls({label: runs[label]}, "apps-day").items():
+            shapes[k] += rows
+        for k in launches:
+            launches[k] += runs[label]["launches"][k]
+        runs[label]["calls"] = None
+
+    # cli.process on an RGB PNG with a full-width u2net.pth; the matte card against CPU.
+    u2 = os.path.join(tmp, "u2net.pth")
+    n_u2 = synthetic.write_u2net(u2, full=True, seed=seed, device="cuda")
+    rgb, _ = disc_rgba(512, seed)
+    photo = np.round(np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+    photo_png = os.path.join(tmp, "photo.png")
+    write_png(photo_png, photo)
+    out = drive_cli("process", process, [photo_png, "--size", str(APPS_REF), "--u2net", u2], runs)
+    held("process")
+    rgba = read_png(out)
+    alpha = {d: u2net_alpha(photo, u2, device=d) for d in ("cuda", "cpu")}
+    u2_err = float(np.abs(alpha["cuda"] - alpha["cpu"]).max())
+    if rgba.shape != (APPS_REF, APPS_REF, 4) or u2_err > U2NET_TOL or float(rgba[..., 3].std()) == 0.0:
+        raise RuntimeError(f"cli.process wrote a {rgba.shape} RGBA; U2Net card against CPU "
+                           f"{u2_err:.3e} (gate {U2NET_TOL})")
+    summary["process"] = {"u2net_values": n_u2, "s": runs["process"]["wall_s"],
+                          "u2net_card_cpu_err": u2_err}
+    print(f"[apps] cli.process: a {n_u2}-value u2net.pth, the RGBA {rgba.shape} read back, "
+          f"U2Net card against CPU max abs err {u2_err:.3e} (gate {U2NET_TOL}); card '{card}'")
+    name = "photo"
+    png = os.path.join(data, f"{name}_rgba.png")
+    shutil.copy(out, png)
+
+    # The batch script on a folder with that one input.
+    written = drive_cli("port_runall", port_runall,
+                        ["--dir", data, "--out", logs, "--config",
+                         os.path.join(CONFIGS, "image.yaml"), "--video", "--extra", *APPS_ARGS],
+                        runs)
+    held("port_runall")
+    ply, obj = os.path.join(logs, f"{name}_model.ply"), os.path.join(logs, f"{name}.obj")
+    video, _ = read_gif(written[1])
+    if written[0] != obj or video.shape != RUNALL_VIDEO:
+        raise RuntimeError(f"port_runall wrote {written}, a {video.shape} turntable")
+
+    # cli.render on the stage-1 PLY and the stage-2 OBJ; the render alone timed apart.
+    fovy = math.radians(49.1)
+    for label, path in (("render gaussians", ply), ("render mesh", obj)):
+        gif = drive_cli(label, render, [path, "--out", os.path.join(tmp, f"{label[7:]}.gif"),
+                                        "--num_frames", str(APPS_FRAMES), "--size",
+                                        str(APPS_SIZE)], runs)
+        held(label)
+        frames, _ = read_gif(gif)
+        if frames.shape != (APPS_FRAMES, APPS_SIZE, APPS_SIZE, 3) or frames.std() == 0:
+            raise RuntimeError(f"{label} wrote a GIF of {frames.shape}")
+        with kernel_run(label + " (frames only)", runs):
+            render.orbit_frames(path, APPS_FRAMES, APPS_SIZE, 0.0, 2.0, fovy, "cuda")
+        held(label + " (frames only)")
+        summary[label] = {"s": runs[label]["wall_s"],
+                          "ms_per_frame": 1e3 * runs[label + " (frames only)"]["wall_s"]
+                          / APPS_FRAMES, "gif": list(frames.shape)}
+
+    # A full-width Zero123 snapshot: novel views on it, its CLIP tower for the metrics.
+    snap = os.path.join(tmp, "zero123")
+    synthetic.write_zero123_snapshot(snap, ZERO123_CONFIG, VAEConfig(), synthetic.CLIP_VIT_L14,
+                                     dtype=torch.float16, seed=seed, device="cuda")
+    vgg, lins = os.path.join(tmp, "vgg16.pth"), os.path.join(tmp, "vgg.pth")
+    synthetic.write_vgg16_features(vgg, seed=seed, device="cuda")
+    synthetic.write_lpips_lins(lins, seed=seed, device="cuda")
+    for label, path in (("eval gaussians", ply), ("eval mesh", obj)):
+        m = drive_cli(label, cli_eval, [png, path, "--clip_ckpt",
+                                        os.path.join(snap, "image_encoder"), "--vgg_ckpt", vgg,
+                                        "--lpips_ckpt", lins], runs)
+        held(label)
+        if sorted(m) != ["clip_sim", "front_lpips", "front_mae", "front_psnr"] or not all(
+                math.isfinite(v) for v in m.values()):
+            raise RuntimeError(f"{label} gave {m}")
+        summary[label] = {"s": runs[label]["wall_s"], **m}
+    calls: list = []
+    with counted_unet_calls(calls):
+        paths = drive_cli("novel_view", novel_view,
+                          [png, "--ckpt", snap, "--hors", *NOVEL_HORS, "--vers", "10",
+                           "--steps", str(NOVEL_STEPS), "--out", os.path.join(tmp, "nv")], runs)
+    held("novel_view")
+    views = [read_png(p) for p in paths]
+    if calls != [(2 * len(NOVEL_HORS), 32, 32, 8)] * NOVEL_STEPS or any(
+            v.shape != (256, 256, 3) for v in views):
+        raise RuntimeError(f"cli.novel_view ran the UNet at {calls[:2]} x {len(calls)} and "
+                           f"wrote {[v.shape for v in views]}")
+    summary["novel_view"] = {"s": runs["novel_view"]["wall_s"], "unet_calls": len(calls),
+                             "pngs": [os.path.basename(p) for p in paths]}
+    shutil.rmtree(snap)
+
+    # The viewer on the PLY and on the mesh, then live.
+    for label, path in (("serve gaussians", ply), ("serve mesh", obj)):
+        summary[label] = drive_viewer(label, serve.ViewerState(path, size=APPS_SIZE), APPS_SIZE,
+                                      runs)
+        held(label)
+    summary["serve live"] = drive_live_viewer(png, runs)
+    held("serve live")
+
+    # The web app's two jobs.
+    summary["webapp"] = drive_webapp(data, os.path.join(tmp, "webapp"), png, runs)
+    held("webapp stage 1")
+    held("webapp stage 2")
+
+    if min(launches.values()) < 1:
+        raise RuntimeError(f"the apps day did not go through every kernel: {launches}")
+    print(f"[apps] launches {json.dumps(launches)}; "
+          f"seconds {json.dumps({k: round(v['wall_s'], 2) for k, v in runs.items()})}; "
+          f"{json.dumps(summary)}; card '{card}'")
+    return {"launches": launches, "shapes": shapes}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2160,11 +2460,16 @@ def smoke(args, load_alone: subprocess.Popen, mvdream_alone: subprocess.Popen,
                                             text_day["paths"])
         print(f"[imagedream] the ImageDream day took {time.perf_counter() - t0:.1f} s; "
               f"card '{card}'")
+        t0 = time.perf_counter()
+        apps_day = run_apps_day(args.seed, card, work)
+        print(f"[apps] the apps day took {time.perf_counter() - t0:.1f} s; card '{card}'")
     for row in kernels:
         row["launches_text_day"] = text_day["launches"][row["name"]]
         row["text_day_shapes"] = text_day["shapes"][row["name"]]
         row["launches_imagedream_day"] = imagedream_day["launches"][row["name"]]
         row["imagedream_day_shapes"] = imagedream_day["shapes"][row["name"]]
+        row["launches_apps_day"] = apps_day["launches"][row["name"]]
+        row["apps_day_shapes"] = apps_day["shapes"][row["name"]]
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s from the build to here; card '{card}'")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -51,7 +51,7 @@ def load_guidance(args, device):
             raise SystemExit("--mode imagedream needs --image")
         from .process import load_rgba
 
-        rgba = load_rgba(args.image, size=256)
+        rgba = load_rgba(args.image, size=256, device=device)
         ref_rgb = rgba[..., :3] * rgba[..., 3:] + (1 - rgba[..., 3:])
     if args.ckpt:
         from ..guidance import loader

@@ -113,7 +113,7 @@ def load_reference(opt):
         return None, None
     from .process import load_rgba
 
-    rgba = load_rgba(opt.input, size=opt.get("ref_size", 256))
+    rgba = load_rgba(opt.input, size=opt.get("ref_size", 256), device=opt.get("device", "cuda"))
     return rgba[..., :3] * rgba[..., 3:] + (1 - rgba[..., 3:]), rgba[..., 3]
 
 

@@ -1,62 +1,144 @@
-"""Input images for the CLIs.
+"""Input preprocessing: background matting and recentring.
 
-Port of ``load_rgba`` from ``dreamgaussian_tpu/cli/process.py`` for RGBA
-PNG inputs: decoded by the port's ``utils/png.py`` (no cv2, no PIL) and
-resized by area averaging as ``cv2.INTER_AREA`` shrinks an image. Inputs
-that need matting (RGB or grey) wait for the port of the background
-removal (slice F, the apps) and raise.
+Port of ``dreamgaussian_tpu/cli/process.py``:
+
+- RGBA PNG inputs keep their alpha (the reference's own inputs are RGBA);
+- RGB and grey PNG inputs are matted by U2Net from a local checkpoint
+  (``--u2net`` or ``DG_U2NET_CKPT``: the official ``u2net.pth`` or
+  ``u2netp.pth``, ``preprocess/u2net.py``) on the port's device, then
+  recentred: cropped to the alpha's box and pasted, scaled to
+  ``(1 - border_ratio) * size``, in the middle of a ``size``^2 canvas.
+  Without a checkpoint the JAX package falls back to cv2's GrabCut, which
+  is not ported: the port raises NotImplementedError;
+- PNGs are decoded and encoded by the port's ``utils/png.py`` and resized
+  by ``utils/resize.py`` as ``cv2.INTER_AREA`` resizes them (no cv2, no
+  PIL); other formats raise NotImplementedError;
+- ``--caption`` writes a BLIP-2 caption (transformers, from a local
+  directory ``--blip_ckpt``).
+
+    python -m dreamgaussian_tpu_torch.cli.process input.png [--size 256] \\
+        [--u2net u2net.pth] [--device cpu]
+
+writes ``input_rgba.png`` beside the input.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
+import sys
 
 import numpy as np
 
-from ..utils.png import read_png
+from .. import resolve_device
+from ..utils.png import read_png, write_png
+from ..utils.resize import resize_area
 
 
-def _area_weights(src: int, dst: int) -> np.ndarray:
-    """[dst, src] weights of area averaging: output cell d covers source
-    coordinates [d * s, (d + 1) * s) with s = src / dst; each source pixel
-    weighs by its overlap, over s."""
-    scale = src / dst
-    lo = np.arange(dst)[:, None] * scale
-    hi = lo + scale
-    pix = np.arange(src)[None, :]
-    overlap = np.clip(np.minimum(hi, pix + 1) - np.maximum(lo, pix), 0.0, None)
-    return overlap / scale
-
-
-def resize_area(img: np.ndarray, size: int) -> np.ndarray:
-    """Shrink a uint8 [H, W, C] image to [size, size, C] by area averaging
-    (``cv2.INTER_AREA``). As in OpenCV, block means of an integer factor
-    round half up and the general path rounds half to even."""
-    h, w = img.shape[:2]
-    if size > h or size > w:
+def remove_background(img: np.ndarray, u2net_ckpt: str | None = None,
+                      device="cuda") -> np.ndarray:
+    """RGB uint8 [H, W, 3] -> RGBA, the alpha U2Net's matte of the image
+    (``u2net_ckpt``, else ``DG_U2NET_CKPT``)."""
+    u2net_ckpt = u2net_ckpt or os.environ.get("DG_U2NET_CKPT")
+    if not u2net_ckpt:
         raise NotImplementedError(
-            f"enlarging a {h}x{w} input to {size}^2 is not ported (cv2.INTER_AREA "
-            "upscaling); give an image at least as large as ref_size")
-    wy, wx = _area_weights(h, size), _area_weights(w, size)
-    out = np.einsum("ys,sxc->yxc", wy, np.einsum("xt,stc->sxc", wx, img.astype(np.float64)))
-    out = np.floor(out + 0.5) if h % size == 0 and w % size == 0 else np.rint(out)
-    return np.clip(out, 0, 255).astype(np.uint8)
+            "background matting needs U2Net weights: pass --u2net <u2net.pth or u2netp.pth> "
+            "(or set DG_U2NET_CKPT); the GrabCut matting without weights is not ported")
+    if not os.path.exists(u2net_ckpt):
+        raise FileNotFoundError(f"no U2Net checkpoint at {u2net_ckpt}")
+    from ..preprocess.u2net import u2net_alpha
+
+    alpha = (u2net_alpha(img, u2net_ckpt, device=device) * 255).astype(np.uint8)
+    return np.dstack([img, alpha])
 
 
-def load_rgba(path: str, size: int | None = None) -> np.ndarray:
-    """Load an RGBA PNG as float32 RGBA in [0, 1], shrunk to ``size``^2
-    when it is larger."""
+def recenter(rgba: np.ndarray, size: int, border_ratio: float = 0.2) -> np.ndarray:
+    """Crop to the alpha's box and paste it, scaled to ``(1 - border_ratio)
+    * size`` on its longer side, centred in a ``size``^2 canvas."""
+    mask = rgba[..., 3] > 0
+    if not mask.any():
+        return resize_area(rgba, size, size)
+    coords = np.argwhere(mask)
+    y0, x0 = coords.min(axis=0)
+    y1, x1 = coords.max(axis=0) + 1
+    crop = rgba[y0:y1, x0:x1]
+    ch, cw = crop.shape[:2]
+    desired = int(size * (1 - border_ratio))
+    scale = desired / max(ch, cw)
+    nh, nw = int(ch * scale), int(cw * scale)
+    crop = resize_area(np.ascontiguousarray(crop), nh, nw)
+    out = np.zeros((size, size, 4), dtype=rgba.dtype)
+    oy = (size - nh) // 2
+    ox = (size - nw) // 2
+    out[oy:oy + nh, ox:ox + nw] = crop
+    return out
+
+
+def load_rgba(path: str, size: int | None = None, border_ratio: float = 0.2,
+              u2net_ckpt: str | None = None, device="cuda") -> np.ndarray:
+    """A PNG as float32 RGBA in [0, 1] at ``size``^2 (or its own size):
+    RGBA and grey+alpha keep their alpha; RGB and grey are matted
+    (``remove_background``) and recentred."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     if not path.lower().endswith(".png"):
         raise NotImplementedError(
-            f"{path}: only RGBA PNG inputs are ported; other formats and the "
-            "background matting wait for the apps slice")
-    rgba = read_png(path)
-    if rgba.shape[-1] != 4:
-        raise NotImplementedError(
-            f"{path} has no alpha channel: background matting (remove_background, "
-            "U2Net/GrabCut) is not ported yet; pass an RGBA PNG")
+            f"{path}: only PNG inputs are ported (no JPEG or other decoders); convert it to PNG")
+    img = read_png(path)
+    if img.shape[-1] in (1, 2):                  # grey (+ alpha), as cv2 reads it
+        img = np.concatenate([np.repeat(img[..., :1], 3, axis=-1), img[..., 1:]], axis=-1)
+    if img.shape[-1] == 4:
+        rgba = img
+    else:
+        rgba = remove_background(img, u2net_ckpt, device)
+        rgba = recenter(rgba, size or max(rgba.shape[:2]), border_ratio)
     if size is not None and rgba.shape[0] != size:
-        rgba = resize_area(rgba, size)
+        rgba = resize_area(rgba, size, size)
     return rgba.astype(np.float32) / 255.0
+
+
+def caption_image(rgb: np.ndarray, blip_ckpt: str, device="cuda") -> str:
+    """A BLIP-2 caption of an RGB [H, W, 3] image in [0, 1], from the
+    transformers checkpoint in the local directory ``blip_ckpt``."""
+    import torch
+    from transformers import AutoProcessor, Blip2ForConditionalGeneration
+
+    device = resolve_device(device)
+    processor = AutoProcessor.from_pretrained(blip_ckpt)
+    model = Blip2ForConditionalGeneration.from_pretrained(
+        blip_ckpt, torch_dtype=torch.float32).to(device)
+    inputs = processor(images=(rgb * 255).astype(np.uint8), return_tensors="pt").to(device)
+    out = model.generate(**inputs, max_new_tokens=30)
+    return processor.decode(out[0], skip_special_tokens=True).strip()
+
+
+def main(argv=None) -> str:
+    ap = argparse.ArgumentParser(description="dreamgaussian_tpu_torch input preprocessing")
+    ap.add_argument("path")
+    ap.add_argument("--size", type=int, default=256)
+    ap.add_argument("--border_ratio", type=float, default=0.2)
+    ap.add_argument("--u2net", default=None, help="local u2net(p).pth for the matting")
+    ap.add_argument("--caption", action="store_true")
+    ap.add_argument("--blip_ckpt", default=None, help="local BLIP-2 directory for --caption")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    rgba = load_rgba(args.path, size=args.size, border_ratio=args.border_ratio,
+                     u2net_ckpt=args.u2net, device=device)
+    out_path = os.path.splitext(args.path)[0] + "_rgba.png"
+    write_png(out_path, (rgba * 255).astype(np.uint8))
+    print(f"[INFO] wrote {out_path}")
+    if args.caption:
+        if not args.blip_ckpt:
+            raise SystemExit("--caption needs --blip_ckpt <local dir> (no weights ship with the repo)")
+        text = caption_image(rgba[..., :3], args.blip_ckpt, device)
+        cap_path = os.path.splitext(args.path)[0] + "_caption.txt"
+        with open(cap_path, "w") as fh:
+            fh.write(text + "\n")
+        print(f"[INFO] caption: {text}")
+    return out_path
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -489,6 +489,27 @@ def _unet_json(cfg: UNetConfig) -> dict:
             "freq_shift": 0}
 
 
+def _clip_vision_model(cfg: CLIPVisionConfig) -> tuple:
+    """A transformers CLIPVisionModelWithProjection folder's (subfolder,
+    weights file, config, spec)."""
+    return ("image_encoder", "model.safetensors", {
+        "architectures": ["CLIPVisionModelWithProjection"],
+        "model_type": "clip_vision_model", **cfg.__dict__,
+    }, clip_vision_spec(cfg))
+
+
+def write_clip_vision(folder: str, cfg: CLIPVisionConfig = CLIP_VIT_L14,
+                      dtype: torch.dtype = torch.float16, seed: int = 0,
+                      device="cuda") -> tuple[int, int]:
+    """A random CLIPVisionModelWithProjection folder (``config.json`` and
+    ``model.safetensors``), as a Zero123 snapshot's ``image_encoder/``.
+    Returns (bytes, values)."""
+    device = resolve_device(device)
+    _, name, config, spec = _clip_vision_model(cfg)
+    return _write_model(folder, name, config, spec,
+                        torch.Generator(device=device).manual_seed(seed), device, dtype)
+
+
 def write_zero123_snapshot(root: str, unet_cfg: UNetConfig, vae_cfg: VAEConfig,
                            clip_cfg: CLIPVisionConfig, dtype: torch.dtype = torch.float16,
                            seed: int = 0, device="cuda") -> dict:
@@ -508,10 +529,7 @@ def write_zero123_snapshot(root: str, unet_cfg: UNetConfig, vae_cfg: VAEConfig,
          {**_unet_json(unet_cfg), "attention_head_dim": unet_cfg.num_attention_heads},
          diffusers_unet_spec(unet_cfg)),
         _vae_model(vae_cfg),
-        ("image_encoder", "model.safetensors", {
-            "architectures": ["CLIPVisionModelWithProjection"],
-            "model_type": "clip_vision_model", **clip_cfg.__dict__,
-        }, clip_vision_spec(clip_cfg)),
+        _clip_vision_model(clip_cfg),
         ("clip_camera_projection", "diffusion_pytorch_model.safetensors", {
             "_class_name": "CLIPCameraProjection", "embedding_dim": ctx,
             "additional_embeddings": 4,
@@ -650,3 +668,56 @@ def write_clip_tokenizer(path: str, n_merges: int = 200, model_max_length: int =
     with open(os.path.join(path, "special_tokens_map.json"), "w") as f:
         json.dump(special, f)
     return path
+
+
+# The apps' metric and matting models, as torch.save'd state dicts.
+VGG16_FEATURES = ((0, 3, 64), (2, 64, 64), (5, 64, 128), (7, 128, 128), (10, 128, 256),
+                  (12, 256, 256), (14, 256, 256), (17, 256, 512), (19, 512, 512),
+                  (21, 512, 512), (24, 512, 512), (26, 512, 512), (28, 512, 512))
+LPIPS_CHANNELS = (64, 128, 256, 512, 512)
+
+
+def _save_state(path: str, spec: Spec, make: Callable[[str, tuple], torch.Tensor]) -> int:
+    sd = {k: make(k, shape).cpu() for k, shape in spec}
+    torch.save(sd, path)
+    return sum(math.prod(shape) for _, shape in spec)
+
+
+def write_u2net(path: str, full: bool = True, seed: int = 0, device="cuda") -> int:
+    """A random ``u2net.pth`` (``full``) or ``u2netp.pth`` state dict in the
+    official layout, float32, with positive BatchNorm variances. Returns the
+    number of values."""
+    from ..preprocess.u2net import FULL_CFG, SMALL_CFG, U2NET
+
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.device("meta"):
+        sd = U2NET(FULL_CFG if full else SMALL_CFG).state_dict()
+
+    def make(key, shape):
+        if key.endswith("num_batches_tracked"):
+            return torch.zeros(shape, dtype=torch.int64)
+        x = random_tensor(key, shape, gen, device)
+        return 1.0 + x.abs() if key.endswith("running_var") else x
+
+    return _save_state(path, [(k, tuple(v.shape)) for k, v in sd.items()], make)
+
+
+def write_vgg16_features(path: str, seed: int = 0, device="cuda") -> int:
+    """A random torchvision ``vgg16`` state dict's ``features.N`` convolutions
+    (the ``vgg16-397923af.pth`` keys LPIPS reads), float32."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    spec: Spec = []
+    for i, cin, cout in VGG16_FEATURES:
+        _conv(spec, f"features.{i}", cout, cin)
+    return _save_state(path, spec, _made(gen, device))
+
+
+def write_lpips_lins(path: str, seed: int = 0, device="cuda") -> int:
+    """A random lpips ``vgg.pth``: ``lin{k}.model.1.weight`` [1, C, 1, 1],
+    non-negative as lpips keeps them, float32."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    spec: Spec = [(f"lin{k}.model.1.weight", (1, c, 1, 1)) for k, c in enumerate(LPIPS_CHANNELS)]
+    return _save_state(path, spec, lambda k, s: torch.rand(s, generator=gen, device=device) / s[1])

@@ -1,7 +1,8 @@
-"""Camera math: orbit poses and GS projection matrices (numpy, host side).
+"""Camera math: orbit poses, GS projection matrices and the interactive
+orbit camera (numpy, host side).
 
-The port's copy of the stage-1 part of ``dreamgaussian_tpu/utils/camera.py``;
-the two give exactly equal arrays. Conventions, kept verbatim because
+The port's copy of ``dreamgaussian_tpu/utils/camera.py``; the two give
+exactly equal arrays. Conventions, kept verbatim because
 trained checkpoints depend on them:
 
 - ``orbit_camera`` gives an OpenGL-convention camera-to-world pose from
@@ -11,6 +12,7 @@ trained checkpoints depend on them:
   1:3 of the w2c rotation and the whole translation) and the quirky
   ``campos = -c2w[:3, 3]``.
 - ``gs_projection`` is the z-forward GS projection with z_sign = +1.
+- ``OrbitCamera.perspective`` has the flipped-y row of the mesh pipeline.
 """
 
 from __future__ import annotations
@@ -136,3 +138,82 @@ def stack_cameras(cams: list[Camera]) -> dict:
     assert len({(c.width, c.height) for c in cams}) == 1, "mixed resolutions"
     ds = [c.arrays() for c in cams]
     return {k: np.stack([d[k] for d in ds], axis=0) for k in ds[0]}
+
+
+class OrbitCamera:
+    """Interactive orbit camera: a rotation, a radius and a target centre."""
+
+    def __init__(self, W: int, H: int, r: float = 2.0, fovy: float = 60.0,
+                 near: float = 0.01, far: float = 100.0):
+        self.W = W
+        self.H = H
+        self.radius = r
+        self.fovy = math.radians(fovy)
+        self.near = near
+        self.far = far
+        self.center = np.zeros(3, dtype=np.float32)
+        self.up = np.array([0, 1, 0], dtype=np.float32)
+        self._rotmat = np.eye(3, dtype=np.float32)
+
+    @property
+    def fovx(self) -> float:
+        return 2 * math.atan(math.tan(self.fovy / 2) * self.W / self.H)
+
+    @property
+    def pose(self) -> np.ndarray:
+        pose = np.eye(4, dtype=np.float32)
+        pose[2, 3] = self.radius
+        rot = np.eye(4, dtype=np.float32)
+        rot[:3, :3] = self._rotmat
+        pose = rot @ pose
+        pose[:3, 3] -= self.center
+        return pose
+
+    @property
+    def campos(self) -> np.ndarray:
+        return self.pose[:3, 3]
+
+    @property
+    def view(self) -> np.ndarray:
+        return np.linalg.inv(self.pose)
+
+    @property
+    def perspective(self) -> np.ndarray:
+        """OpenGL perspective with flipped y (the mesh pipeline's convention)."""
+        y = math.tan(self.fovy / 2)
+        aspect = self.W / self.H
+        return np.array(
+            [
+                [1 / (y * aspect), 0, 0, 0],
+                [0, -1 / y, 0, 0],
+                [0, 0, -(self.far + self.near) / (self.far - self.near),
+                 -(2 * self.far * self.near) / (self.far - self.near)],
+                [0, 0, -1, 0],
+            ],
+            dtype=np.float32,
+        )
+
+    @property
+    def intrinsics(self) -> np.ndarray:
+        focal = self.H / (2 * math.tan(self.fovy / 2))
+        return np.array([focal, focal, self.W // 2, self.H // 2], dtype=np.float32)
+
+    @property
+    def mvp(self) -> np.ndarray:
+        return self.perspective @ np.linalg.inv(self.pose)
+
+    def orbit(self, dx: float, dy: float) -> None:
+        """Turn about the up axis by -0.05 dx degrees and about the camera's
+        side axis by -0.05 dy degrees."""
+        from scipy.spatial.transform import Rotation as R
+
+        side = self._rotmat[:3, 0]
+        rot_x = R.from_rotvec(self.up * math.radians(-0.05 * dx))
+        rot_y = R.from_rotvec(side * math.radians(-0.05 * dy))
+        self._rotmat = (rot_x * rot_y * R.from_matrix(self._rotmat)).as_matrix()
+
+    def scale(self, delta: float) -> None:
+        self.radius *= 1.1 ** (-delta)
+
+    def pan(self, dx: float, dy: float, dz: float = 0.0) -> None:
+        self.center += 0.0005 * self._rotmat @ np.array([-dx, -dy, dz], dtype=np.float32)

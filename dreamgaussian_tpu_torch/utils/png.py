@@ -1,9 +1,10 @@
 """Small PNG writer and reader on ``zlib`` (no cv2, no PIL).
 
-Covers what the mesh textures need: 8-bit RGB or RGBA, non-interlaced.
-The writer emits filter type 0 (None) on every row; the reader undoes all
-five filter types (None, Sub, Up, Average, Paeth), so files of other
-encoders at that format read back too.
+Covers what the mesh textures and the input images need: 8-bit RGB or
+RGBA written; 8-bit grey, grey with alpha, RGB or RGBA read,
+non-interlaced. The writer emits filter type 0 (None) on every row; the
+reader undoes all five filter types (None, Sub, Up, Average, Paeth), so
+files of other encoders at those formats read back too.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {2: 3, 6: 4}   # colour type -> samples per pixel
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # colour type -> samples per pixel
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -70,7 +71,8 @@ def _unfilter_row(kind: int, cur: np.ndarray, prev: np.ndarray, bpp: int) -> np.
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes (8-bit RGB or RGBA, non-interlaced) -> uint8 [H, W, 3|4]."""
+    """PNG bytes (8-bit grey, grey+alpha, RGB or RGBA, non-interlaced) ->
+    uint8 [H, W, 1|2|3|4]."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
     off = 8
@@ -92,7 +94,7 @@ def decode_png(data: bytes) -> np.ndarray:
     if depth != 8 or ctype not in _CHANNELS or interlace != 0:
         raise ValueError(
             f"unsupported PNG (bit depth {depth}, colour type {ctype}, "
-            f"interlace {interlace}): 8-bit RGB/RGBA non-interlaced only")
+            f"interlace {interlace}): 8-bit grey/RGB(A) non-interlaced only")
     bpp = _CHANNELS[ctype]
     stride = w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)

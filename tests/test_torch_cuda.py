@@ -943,3 +943,66 @@ def test_sampler_on_card_matches_cpu(cuda_device, prior):
         out[dev] = (fn(draw) if prior == "sd" else fn(poses.to(dev), draw)).cpu()
     assert out["cpu"].shape == out["cuda"].shape
     assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True])
+def test_u2net_on_card_matches_cpu(cuda_device, tmp_path, full):
+    """U2Net's matte (float32, TF32 off) on the card against the CPU's on the
+    same random official-layout weights: within 1e-4."""
+    from dreamgaussian_tpu_torch.guidance import synthetic
+    from dreamgaussian_tpu_torch.preprocess.u2net import u2net_alpha
+
+    path = str(tmp_path / "u2net.pth")
+    synthetic.write_u2net(path, full=full, seed=3, device="cpu")
+    rgb = np.random.default_rng(1).integers(0, 256, (200, 150, 3), dtype=np.uint8)
+    cpu = u2net_alpha(rgb, path, device="cpu")
+    card = u2net_alpha(rgb, path, device="cuda")
+    assert card.shape == (200, 150) and float(card.max() - card.min()) > 0.5
+    assert float(np.abs(card - cpu).max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_lpips_on_card_matches_cpu(cuda_device, tmp_path):
+    from dreamgaussian_tpu_torch.guidance import synthetic
+    from dreamgaussian_tpu_torch.utils.lpips import LPIPS
+
+    vgg, lins = str(tmp_path / "vgg16.pth"), str(tmp_path / "vgg.pth")
+    synthetic.write_vgg16_features(vgg, seed=0, device="cpu")
+    synthetic.write_lpips_lins(lins, seed=1, device="cpu")
+    rng = np.random.default_rng(4)
+    a = rng.random((2, 128, 128, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    cpu = LPIPS(vgg, lins, device="cpu")(a, b).numpy()
+    card = LPIPS(vgg, lins, device="cuda")(a, b).cpu().numpy()
+    np.testing.assert_allclose(card, cpu, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ply", "obj"])
+def test_viewer_render_holds_k1_and_k3(cuda_device, tmp_path, kind):
+    """The viewer's three modes of a PLY (K1) or a mesh (K3) on the card:
+    every kernel call held against its plain version, and the images
+    within one level of the CPU viewer's."""
+    from chip_smoke import hold_composite_calls, hold_ztest_calls, tapped
+    from dreamgaussian_tpu_torch.cli.serve import ViewerState
+    from dreamgaussian_tpu_torch.ops import mesh_raster, rasterize
+    from torch_apps_cases import write_cloud_ply, write_sphere_obj
+
+    path = (write_cloud_ply(tmp_path / "c.ply", n=3000) if kind == "ply"
+            else write_sphere_obj(tmp_path / "s.obj"))
+    card, cpu = ViewerState(path, size=256, device="cuda"), ViewerState(path, size=256, device="cpu")
+    fwd, zt = [], []
+    with (tapped(rasterize, "composite_forward", fwd, tcu.LAST_GRID, "composite_fwd"),
+          tapped(mesh_raster, "ztest", zt, tzc.LAST_GRID, "ztest")):
+        images = {m: card.render(15.0, 40.0, 2.2, m) for m in ("image", "depth", "alpha")}
+    if kind == "ply":
+        assert len(fwd) == 3 and not zt
+        hold_composite_calls("viewer", fwd, [])
+    else:
+        assert len(zt) == 3 and not fwd
+        hold_ztest_calls("viewer", zt)
+    for mode, img in images.items():
+        ref = cpu.render(15.0, 40.0, 2.2, mode)
+        assert img.shape == (256, 256, 3) and ref.std() > 5, mode
+        assert np.abs(img.astype(int) - ref).max() <= 1, mode
