@@ -106,7 +106,21 @@
    kernel launches from 0 and holds every K1, K2 and K3 call against the
    plain version (lines ``[apps]``, ``[cli]``, ``[kernels] ... in the
    apps-day``);
-13. prints the ``kernels`` JSON line, the card's name and power limit, and
+13. the sharding day (``run_shard_day``): ranks of a (data, tile) mesh, one
+   process each, all on the one card, joined by gloo (the backend rule of
+   ``parallel/multihost.py``; NCCL refuses two ranks on one device), each
+   loading a full-width Zero123 snapshot written for the day: tile2 (3
+   steps), data2 (batch 2, 3 steps, densify at step 2) and data2xtile2 (2
+   steps) at the 512^2 rung; gates: the replicas bit for bit after every
+   step, every K1/K2 call of every rank (tile offsets included) against the
+   plain version, the data2 step against one process over both views with
+   the ranks' draws replayed, the tile2 and tile4 renders of the synthetic
+   512^2 scene against the unsharded one with their gradients; then
+   ``torchrun --nproc-per-node 2`` of ``cli.main`` with mesh=data2 (the
+   CLI's cut depth, the export on rank 0), every kernel call of both ranks
+   held; lines ``[shard]`` (ms per step, all-reduce ms, rays/s, peak memory
+   per rank) and ``[kernels] ... in the shard-day``;
+14. prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
 Needs a CUDA card; exits non-zero without one, and on any failed check.
@@ -393,26 +407,8 @@ def bin_cloud(xyz, scale, quat, opacity, shs, cam, size: int, alive=None,
 def main_path_scene(seed: int, n: int = 16384, size: int = 512):
     """A scene covering a 512^2 frame, made from the seed, binned as the
     main path bins it: (dup_feat, bins, geo)."""
-    import numpy as np
-    import torch
-
-    from dreamgaussian_tpu_torch.utils.camera import Camera, orbit_camera
-
-    rng = np.random.default_rng(seed)
-    dev = torch.device("cuda")
-    u = rng.uniform(size=(n, 3)).astype(np.float32)
-    r = 0.9 * np.cbrt(u[:, 0])
-    phi, cos_t = 2 * np.pi * u[:, 1], 2 * u[:, 2] - 1
-    sin_t = np.sqrt(1 - cos_t ** 2)
-    xyz = np.stack([r * sin_t * np.cos(phi), r * sin_t * np.sin(phi), r * cos_t], 1)
-    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
-    scale = t(np.exp(rng.uniform(-4.0, -2.5, size=(n, 3))))
-    quat = t(rng.normal(size=(n, 4)))
-    opacity = t(rng.uniform(0.1, 0.9, size=n))
-    shs = t(rng.normal(size=(n, 1, 3)) * 0.5)
-    cam = Camera.from_pose(orbit_camera(0.0, 0.0, 2.0), size, size,
-                           math.radians(49.1), math.radians(49.1))
-    return bin_cloud(t(xyz), scale, quat, opacity, shs, cam, size)
+    cloud, cam = main_path_cloud(seed, n, size)
+    return bin_cloud(*cloud, cam, size)
 
 
 def trainer_shapes(trainer) -> list:
@@ -1227,10 +1223,19 @@ def render_side(geo: dict) -> int:
     return int(round(math.sqrt(geo["num_tiles"]))) * geo["tile"]
 
 
+def composite_label(geo: dict) -> str:
+    """A K1/K2 call's frame: "512^2", or a tile-sharded rank's slab
+    ("512 wide, tiles 128...255")."""
+    off, n = geo.get("tile_offset", 0), geo["num_tiles"]
+    if off == 0 and n == geo["grid_x"] ** 2:
+        return f"{render_side(geo)}^2"
+    return f"{geo['grid_x'] * geo['tile']} wide, tiles {off}...{off + n - 1}"
+
+
 def hold_composite_calls(phase: str, fwd: list, bwd: list) -> dict:
-    """K1 and K2 at every call a CLI made, against their plain versions on
-    the same inputs, with check_shape's gates; one row per kernel and
-    render size: calls and the largest error."""
+    """K1 and K2 at every call a run made, against their plain versions on
+    the same inputs (the tile offset included), with check_shape's gates;
+    one row per kernel and frame or slab: calls and the largest error."""
     import torch
 
     from dreamgaussian_tpu_torch.ops import rasterize_cuda as rc
@@ -1238,7 +1243,7 @@ def hold_composite_calls(phase: str, fwd: list, bwd: list) -> dict:
     rows: dict = {"composite_fwd": {}, "composite_bwd": {}}
     for name, calls in (("composite_fwd", fwd), ("composite_bwd", bwd)):
         for c in calls:
-            side = render_side(c["geo"])
+            label = composite_label(c["geo"])
             args, out = [a.detach() for a in c["args"]], c["out"].detach()
             with torch.no_grad():
                 if name == "composite_fwd":
@@ -1250,10 +1255,11 @@ def hold_composite_calls(phase: str, fwd: list, bwd: list) -> dict:
                     err = float((out - ref).abs().max())
                     ok = grad_rows_agree(out, ref, K2_RTOL, K2_ATOL, verbose=False)
             if not ok:
-                raise RuntimeError(f"{name} disagrees with its plain version at a {side}^2 "
-                                   f"call of the CLI's {phase}")
-            row = rows[name].setdefault(side, {"phase": phase, "label": f"{side}^2", "calls": 0,
-                                               "max_abs_err": 0.0, "blocks": c["blocks"]})
+                raise RuntimeError(f"{name} disagrees with its plain version at a {label} "
+                                   f"call of {phase}")
+            row = rows[name].setdefault(label, {
+                "phase": phase, "label": label, "tile_offset": c["geo"].get("tile_offset", 0),
+                "calls": 0, "max_abs_err": 0.0, "blocks": c["blocks"]})
             row["calls"] += 1
             row["max_abs_err"] = max(row["max_abs_err"], err)
     return {k: list(v.values()) for k, v in rows.items()}
@@ -2376,7 +2382,464 @@ def run_apps_day(seed: int, card: str, work: str) -> dict:
     return {"launches": launches, "shapes": shapes}
 
 
+# The sharding day: ranks of a (data, tile) mesh, one process each, all on
+# the one card. They join by gloo, by the backend rule of
+# parallel/multihost.py (NCCL refuses two ranks on one device), and
+# time-slice the card: the day proves the sharded paths and the offset
+# kernels, not a speed-up. Each run at the 512^2 rung with the full-width
+# Zero123 snapshot in bf16: (data, tile), trainer options, steps.
+SHARD_SIZE = 512
+SHARD_RUNS = {
+    "tile2": ((1, 2), {"batch_size": 1}, 3),
+    "data2": ((2, 1), {"batch_size": 2, "density_start_iter": 1, "densification_interval": 2}, 3),
+    "data2xtile2": ((2, 2), {"batch_size": 2}, 2),
+}
+# The data2 step against one process over both views with the same draws.
+# Zero123's guidance returns the sum over its views (the reference's loss
+# at one view), and the data-parallel step divides each rank's guidance term
+# by the data size, as the JAX step does: the one-process step that it
+# reproduces has the guidance weight over the data size. The one process
+# evaluates the guidance view by view (batch 1, as on a rank): in bf16 a
+# convolution's rounding follows the batch it runs in (a batch of 2 moves
+# the VAE's latents and the UNet's output by 2% of their scale on the CPU,
+# and CFG's factor 5 carries that into the gradient). What differs then is
+# the order of float32 sums (the all-reduce, the known view's two halves):
+# each parameter group's gradient to 1e-3 of its norm, the loss to 1e-4.
+SHARD_GRAD_REL = 1e-3
+SHARD_LOSS_RTOL = 1e-4
+SHARD_CLI_RANKS = 2
+
+
+def state_digest(trainer) -> dict:
+    """SHA-256 of every parameter, Adam moment and densify stat of the
+    trainer, and Adam's step count: equal digests are equal bits."""
+    import hashlib
+
+    out = {"adam_count": int(trainer.adam.count), "capacity": trainer.capacity}
+    for group, tensors in (("p", trainer.params), ("mu", trainer.adam.mu),
+                           ("nu", trainer.adam.nu), ("aux", trainer.aux._asdict())):
+        for k, v in tensors.items():
+            data = v.detach().contiguous().cpu().numpy().tobytes()
+            out[f"{group}_{k}"] = hashlib.sha256(data).hexdigest()
+    return out
+
+
+class KeptDraw:
+    """The trainer's ``draw``, keeping every draw after the init's (name,
+    value on the CPU) for a replay."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.kept = []
+
+    def __call__(self, name, shape, dist, low=0, high=None):
+        value = self.inner(name, shape, dist, low, high)
+        if not name.startswith("init_"):
+            self.kept.append((name, value.detach().cpu()))
+        return value
+
+
+class ReplayedDraw:
+    """A rank's kept draws for the one-process step that evaluates the
+    guidance view by view over all the data ranks' views: every rank drew
+    the same samples for its own views, so each kept draw is served once per
+    data rank."""
+
+    def __init__(self, inner, kept: list, data: int):
+        self.inner, self.data = inner, data
+        self.kept = [item for item in kept for _ in range(data)]
+
+    def __call__(self, name, shape, dist, low=0, high=None):
+        if name.startswith("init_"):
+            return self.inner(name, shape, dist, low, high)
+        kept_name, value = self.kept.pop(0)
+        if kept_name != name:
+            raise RuntimeError(f"replayed draw {kept_name!r} where {name!r} was asked")
+        if tuple(value.shape) != tuple(shape):
+            raise RuntimeError(f"replayed {name!r} of {tuple(value.shape)} for {tuple(shape)}")
+        return value.to(self.inner.device)
+
+
+def main_path_cloud(seed: int, n: int = 16384, size: int = 512):
+    """The synthetic scene of ``main_path_scene``: activated parameters on
+    the card and its camera."""
+    import numpy as np
+    import torch
+
+    from dreamgaussian_tpu_torch.utils.camera import Camera, orbit_camera
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    u = rng.uniform(size=(n, 3)).astype(np.float32)
+    r = 0.9 * np.cbrt(u[:, 0])
+    phi, cos_t = 2 * np.pi * u[:, 1], 2 * u[:, 2] - 1
+    sin_t = np.sqrt(1 - cos_t ** 2)
+    xyz = np.stack([r * sin_t * np.cos(phi), r * sin_t * np.sin(phi), r * cos_t], 1)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    scale = t(np.exp(rng.uniform(-4.0, -2.5, size=(n, 3))))
+    quat = t(rng.normal(size=(n, 4)))
+    opacity = t(rng.uniform(0.1, 0.9, size=n))
+    shs = t(rng.normal(size=(n, 1, 3)) * 0.5)
+    cam = Camera.from_pose(orbit_camera(0.0, 0.0, 2.0), size, size,
+                           math.radians(49.1), math.radians(49.1))
+    return (t(xyz), scale, quat, opacity, shs), cam
+
+
+def shard_render_check(seed: int, tile2, tile4) -> dict:
+    """The synthetic 512^2 scene rendered tile-sharded over ``tile2`` and
+    ``tile4`` (mesh tile axes) against the unsharded render on the same
+    card: image, depth and alpha with K1's gate, the gradients of sum(image
+    * w) + sum(alpha) per parameter with K2's (per element, K2_RTOL of the
+    value plus K2_ATOL of the largest). Returns the errors."""
+    import torch
+
+    from dreamgaussian_tpu_torch.ops.rasterize import render_gaussians
+    from dreamgaussian_tpu_torch.parallel.tile_shard import render_gaussians_tile_sharded
+
+    cloud, cam = main_path_cloud(seed)
+    a = [torch.from_numpy(cam.arrays()[k]).cuda() for k in ("view", "full_proj", "campos", "tanfov")]
+    w = torch.randn((SHARD_SIZE, SHARD_SIZE, 3), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(seed))
+    bg = torch.ones(3, device="cuda")
+
+    def render(axis):
+        args = [c.detach().clone().requires_grad_(True) for c in cloud]
+        if axis is None:
+            out = render_gaussians(*args, *a, SHARD_SIZE, SHARD_SIZE, bg, tile=32, device="cuda")
+        else:
+            out = render_gaussians_tile_sharded(*args, *a, SHARD_SIZE, SHARD_SIZE, bg, axis, tile=32)
+        grads = torch.autograd.grad((out.image * w).sum() + out.alpha.sum(), args)
+        return out, grads
+
+    single, g_single = render(None)
+    errs = {}
+    for label, axis in (("tile2", tile2), ("tile4", tile4)):
+        out, grads = render(axis)
+        torch.cuda.synchronize()
+        img_err = max(float((getattr(out, k) - getattr(single, k)).abs().max())
+                      for k in ("image", "depth", "alpha"))
+        share = 0.0
+        for g, g0 in zip(grads, g_single):
+            tol = K2_RTOL * g0.abs() + K2_ATOL * float(g0.abs().max())
+            share = max(share, float(((g - g0).abs() / tol.clamp_min(1e-30)).max()))
+        if not img_err <= 1e-3 or share > 1.0:
+            raise RuntimeError(f"the {label} render disagrees with the unsharded one: image, "
+                               f"depth, alpha max err {img_err}, gradient tolerance used {share}")
+        errs[label] = {"render_max_abs_err": img_err, "grad_share_of_tolerance": share}
+    return errs
+
+
+def shard_rank_main(argv: list) -> int:
+    """One rank of a sharding-day run (``SHARD_RUNS``): joins the run's
+    process group, loads the snapshot, trains the run's steps on the mesh
+    with every K1/K2 call kept, holds them, and writes its results to
+    ``<work>/<run>_r<rank>.json``."""
+    t_start = time.perf_counter()
+    run, init, world, rank, work, seed = argv
+    world, rank, seed = int(world), int(rank), int(seed)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dreamgaussian_tpu_torch.guidance.loader import load_zero123
+    from dreamgaussian_tpu_torch.ops import rasterize, rasterize_cuda
+    from dreamgaussian_tpu_torch.parallel import initialize_multihost, make_mesh_2d
+    from dreamgaussian_tpu_torch.train import Stage1Trainer
+    from dreamgaussian_tpu_torch.train.stage1 import TorchDraw
+    from dreamgaussian_tpu_torch.utils.config import Config
+
+    (data, tile), over, steps = SHARD_RUNS[run]
+    backend = initialize_multihost(init_method=init, world_size=world, rank=rank, device="cuda")
+    mesh = make_mesh_2d(data, tile, device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = {"run": run, "rank": rank, "backend": backend, "device": str(mesh.device)}
+    if run == "data2xtile2":
+        result["render_check"] = shard_render_check(seed, mesh.tile, make_mesh_2d(1, 4, device="cuda").tile)
+
+    opt = Config({**image_options(), "novel_resolutions": [SHARD_SIZE] * 3, **over})
+    rgb, mask = disc_rgba(opt["ref_size"], seed)
+    t = time.perf_counter()
+    guidance = load_zero123(os.path.join(work, "zero123"), ref_image=rgb, device=mesh.device)
+    result["load_s"] = time.perf_counter() - t
+    draw = KeptDraw(TorchDraw(seed, mesh.device))
+    trainer = Stage1Trainer(opt, ref_rgb=rgb, ref_mask=mask, capacity=opt["capacity"], seed=seed,
+                            guidance_fns=((opt["lambda_zero123"], guidance.guidance_fn()),),
+                            device=mesh.device, draw=draw, mesh=mesh)
+
+    shipped = dist.all_reduce
+    spent = [0.0]
+
+    def timed_all_reduce(*a, **k):
+        # Synchronized on both sides: the collective's own time.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = shipped(*a, **k)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    fwd, bwd = [], []
+    steps_ms, reduce_ms, losses, digests = [], [], [], []
+    for k in rasterize_cuda.LAUNCHES:
+        rasterize_cuda.LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    result["setup_s"] = time.perf_counter() - t_start
+    dist.all_reduce = timed_all_reduce
+    try:
+        with (tapped(rasterize, "composite_forward", fwd, rasterize_cuda.LAST_GRID, "composite_fwd"),
+              tapped(rasterize, "composite_backward", bwd, rasterize_cuda.LAST_GRID,
+                     "composite_bwd")):
+            for i in range(steps):
+                spent[0] = 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = float(trainer.train_step())
+                torch.cuda.synchronize()
+                steps_ms.append((time.perf_counter() - t0) * 1e3)
+                reduce_ms.append(spent[0] * 1e3)
+                losses.append(loss)
+                digests.append(state_digest(trainer))
+                if i == 0 and run == "data2" and rank == 0:
+                    np.savez(os.path.join(work, "data2_step1.npz"), loss=loss,
+                             **{f"mu_{k}": v.cpu().numpy() for k, v in trainer.adam.mu.items()},
+                             **{f"aux_{k}": v.cpu().numpy()
+                                for k, v in trainer.aux._asdict().items()})
+                    torch.save(draw.kept, os.path.join(work, "data2_draws.pt"))
+    finally:
+        dist.all_reduce = shipped
+    launches = dict(rasterize_cuda.LAUNCHES)
+    if [len(fwd), len(bwd)] != [launches["composite_fwd"], launches["composite_bwd"]]:
+        raise RuntimeError(f"rank {rank} of {run} launched a kernel outside its caller")
+    result.update(
+        steps_ms=steps_ms, allreduce_ms=reduce_ms, losses=losses, digests=digests,
+        launches=launches, splits=sum(1 for name, _ in draw.kept if name == "split"),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        held=hold_composite_calls(f"{run} rank {rank}", fwd, bwd))
+    with open(os.path.join(work, f"{run}_r{rank}.json"), "w") as f:
+        json.dump(result, f)
+    if backend is not None:
+        dist.destroy_process_group()
+    return 0
+
+
+def cli_rank_main(argv: list) -> int:
+    """One rank of ``torchrun ... chip_smoke.py cli-rank <work> <cli args>``:
+    runs ``python -m dreamgaussian_tpu_torch.cli.main <cli args>`` in this
+    process (``runpy``, as ``-m`` runs it) as a ``kernel_run``, holds every
+    kernel call against the plain version and writes the launches and rows
+    to ``<work>/cli_r<rank>.json``."""
+    import runpy
+
+    work, cli_args = argv[0], argv[1:]
+    rank = int(os.environ["RANK"])
+    runs: dict = {}
+    sys.argv = ["dreamgaussian_tpu_torch.cli.main", *cli_args]
+    with kernel_run(f"CLI rank {rank}", runs):
+        runpy.run_module("dreamgaussian_tpu_torch.cli.main", run_name="__main__", alter_sys=True)
+    shapes = hold_cli_calls(runs, "shard-day")
+    with open(os.path.join(work, f"cli_r{rank}.json"), "w") as f:
+        json.dump({"launches": next(iter(runs.values()))["launches"],
+                   "shapes": {k: [{kk: vv for kk, vv in row.items()} for row in rows]
+                              for k, rows in shapes.items()}}, f)
+    return 0
+
+
+def shard_single_process(seed: int, work: str, rank0: dict) -> dict:
+    """The data2 run's first step in this process over both views, with the
+    rank's draws replayed (``ReplayedDraw``), the guidance view by view and
+    its weight over the data size (see SHARD_GRAD_REL): the loss and the
+    gradients (Adam's first moment after one step: 0.1 of the gradient,
+    before Adam's division) against the ranks'."""
+    import numpy as np
+    import torch
+
+    from dreamgaussian_tpu_torch.guidance.loader import load_zero123
+    from dreamgaussian_tpu_torch.train import Stage1Trainer
+    from dreamgaussian_tpu_torch.train.stage1 import TorchDraw
+    from dreamgaussian_tpu_torch.utils.config import Config
+
+    (data, _), over, _ = SHARD_RUNS["data2"]
+    opt = Config({**image_options(), "novel_resolutions": [SHARD_SIZE] * 3, **over})
+    rgb, mask = disc_rgba(opt["ref_size"], seed)
+    guidance = load_zero123(os.path.join(work, "zero123"), ref_image=rgb, device="cuda")
+    draw = ReplayedDraw(TorchDraw(seed, torch.device("cuda")),
+                        torch.load(os.path.join(work, "data2_draws.pt")), data)
+    fn = guidance.guidance_fn()
+
+    def view_by_view(images, cond, step_ratio, draw):
+        return sum(fn(images[i:i + 1], {k: v[i:i + 1] for k, v in cond.items()}, step_ratio, draw)
+                   for i in range(images.shape[0]))
+
+    trainer = Stage1Trainer(opt, ref_rgb=rgb, ref_mask=mask, capacity=opt["capacity"], seed=seed,
+                            guidance_fns=((opt["lambda_zero123"] / data, view_by_view),),
+                            device="cuda", draw=draw)
+    loss = float(trainer.train_step())
+    with np.load(os.path.join(work, "data2_step1.npz")) as z:
+        ranks = {k: z[k] for k in z.files}
+    rel = {}
+    for k, mu in trainer.adam.mu.items():
+        mu = mu.cpu().numpy()
+        if mu.size:
+            rel[k] = float(np.linalg.norm(ranks[f"mu_{k}"] - mu) / max(np.linalg.norm(mu), 1e-30))
+    loss_rel = abs(float(ranks["loss"]) - loss) / abs(loss)
+    denom_equal = bool(np.array_equal(ranks["aux_denom"], trainer.aux.denom.cpu().numpy()))
+    radii_equal = bool(np.array_equal(ranks["aux_max_radii2d"],
+                                      trainer.aux.max_radii2d.cpu().numpy()))
+    acc = trainer.aux.grad_accum.cpu().numpy()
+    rel["densify_grad_accum"] = float(np.linalg.norm(ranks["aux_grad_accum"] - acc)
+                                      / max(np.linalg.norm(acc), 1e-30))
+    ok = (max(rel.values()) <= SHARD_GRAD_REL and loss_rel <= SHARD_LOSS_RTOL and denom_equal
+          and radii_equal and float(ranks["loss"]) == rank0["losses"][0])
+    out = {"loss_ranks": float(ranks["loss"]), "loss_one_process": loss,
+           "loss_rel_err": loss_rel, "grad_rel_err": rel, "densify_counts_equal": denom_equal,
+           "densify_radii_equal": radii_equal}
+    print(f"[shard] data2 step 1 against one process over both views (replayed draws, guidance "
+          f"view by view, weight / {data}): {json.dumps(out)}; gates: gradient {SHARD_GRAD_REL} "
+          f"of its norm, loss {SHARD_LOSS_RTOL}")
+    if not ok:
+        raise RuntimeError("the data-parallel step disagrees with one process")
+    return out
+
+
+def run_shard_day(seed: int, card: str, work: str) -> dict:
+    """The sharding day (see SHARD_RUNS): a full-width Zero123 snapshot
+    written to ``work``; each run's ranks started together on the card;
+    their replicas bit for bit after every step, their launches, every K1
+    and K2 call held (offsets included); the data2 step against one
+    process; the tile-sharded render against the unsharded one (in the
+    data2xtile2 ranks); then ``torchrun`` of cli.main on two ranks with
+    mesh=data2. Returns the day's launches and rows per kernel."""
+    import numpy as np
+    import torch
+
+    from dreamgaussian_tpu_torch.guidance import synthetic
+    from dreamgaussian_tpu_torch.guidance.unet import ZERO123_CONFIG
+    from dreamgaussian_tpu_torch.guidance.vae import VAEConfig
+    from dreamgaussian_tpu_torch.meshing.mesh import Mesh
+    from dreamgaussian_tpu_torch.parallel import rays_per_second
+    from dreamgaussian_tpu_torch.parallel.launch import free_port, run_ranks
+    from dreamgaussian_tpu_torch.scene import load_ply
+
+    work = os.path.join(work, "shard")
+    os.makedirs(work)
+    t = time.perf_counter()
+    synthetic.write_zero123_snapshot(os.path.join(work, "zero123"), ZERO123_CONFIG, VAEConfig(),
+                                     synthetic.CLIP_VIT_L14, dtype=torch.float16, seed=seed,
+                                     device="cuda")
+    print(f"[shard] full-width Zero123 snapshot written in {time.perf_counter() - t:.1f} s")
+    me = os.path.abspath(__file__)
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    launches = {"composite_fwd": 0, "composite_bwd": 0, "ztest": 0}
+    shapes: dict = {"composite_fwd": [], "composite_bwd": [], "ztest": []}
+    results = {}
+    for run, ((data, tile), over, steps) in SHARD_RUNS.items():
+        world = data * tile
+        init = f"tcp://127.0.0.1:{free_port()}"
+        t = time.perf_counter()
+        run_ranks(lambda r: [sys.executable, me, "shard-rank", run, init, str(world), str(r), work,
+                             str(seed)], world, timeout=300, env=env)
+        wall = time.perf_counter() - t
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(work, f"{run}_r{r}.json")) as f:
+                ranks.append(json.load(f))
+        for i in range(steps):
+            if any(rk["digests"][i] != ranks[0]["digests"][i] for rk in ranks):
+                raise RuntimeError(f"{run}: the replicas differ after step {i + 1}")
+        if not all(math.isfinite(x) for rk in ranks for x in rk["losses"]):
+            raise RuntimeError(f"{run}: non-finite losses")
+        if any(min(rk["launches"].values()) < 1 for rk in ranks):
+            raise RuntimeError(f"{run}: a rank did not launch every kernel")
+        offsets = sorted({row["tile_offset"] for rk in ranks for rows in rk["held"].values()
+                          for row in rows})
+        if tile > 1 and not any(offsets):
+            raise RuntimeError(f"{run}: no call with a tile offset")
+        if run == "data2" and any(rk["splits"] != 1 for rk in ranks):
+            raise RuntimeError("data2: the densify of step 2 did not run on every rank")
+        for k in ("composite_fwd", "composite_bwd"):
+            launches[k] += sum(rk["launches"][k] for rk in ranks)
+            for rk in ranks:
+                shapes[k] += rk["held"][k]
+        # A step of the mesh takes as long as its slowest rank.
+        step_ms = [max(rk["steps_ms"][i] for rk in ranks) for i in range(steps)]
+        red_ms = [max(rk["allreduce_ms"][i] for rk in ranks) for i in range(steps)]
+        steady = statistics.median(step_ms[1:])
+        views = over["batch_size"]
+        rays = rays_per_second(SHARD_SIZE, SHARD_SIZE, views, steady / 1e3)
+        results[run] = {"wall_s": wall, "step_ms": step_ms, "steady_ms": steady,
+                        "allreduce_ms": red_ms, "rays_per_s": rays, "offsets": offsets,
+                        "peak_gib": [rk["peak_gib"] for rk in ranks],
+                        "load_s": [rk["load_s"] for rk in ranks],
+                        "setup_s": [rk["setup_s"] for rk in ranks], "losses": ranks[0]["losses"]}
+        print(f"[shard] {run} (data={data}xtile={tile}, backend {ranks[0]['backend']}, ranks on "
+              f"{ranks[0]['device']}): ms per step {[round(x, 1) for x in step_ms]} (steady "
+              f"{steady:.1f}), all-reduce ms per step {[round(x, 2) for x in red_ms]}, "
+              f"rays_per_second {rays:.0f} ({views} views of {SHARD_SIZE}^2), peak GiB per rank "
+              f"{[round(rk['peak_gib'], 2) for rk in ranks]}, losses {ranks[0]['losses']}, "
+              f"launches per rank {[rk['launches'] for rk in ranks]}, tile offsets seen "
+              f"{offsets}, replicas bit for bit after every step; {wall:.1f} s (a rank's start to "
+              f"its first step {max(results[run]['setup_s']):.1f} s, the snapshot's load "
+              f"{max(results[run]['load_s']):.1f} s of it); card '{card}'")
+        if run == "data2xtile2":
+            for rk in ranks:
+                print(f"[shard] tile-sharded {SHARD_SIZE}^2 render against the unsharded one, rank "
+                      f"{rk['rank']}: {json.dumps(rk['render_check'])}")
+        if run == "data2":
+            results["one_process"] = shard_single_process(seed, work, ranks[0])
+
+    # The CLI under torchrun, two ranks, mesh=data2, as a user runs it.
+    outdir = os.path.join(work, "cli")
+    png = os.path.join(work, "disc.png")
+    write_disc_png(png, 512, seed)
+    cli_args = ["--config", os.path.join(CONFIGS, "image.yaml"), f"input={png}", "save_path=shard",
+                f"outdir={outdir}", f"seed={seed}", "mesh=data2", "batch_size=2",
+                *(f"{k}={v}" for k, v in CLI_OVERRIDES.items())]
+    t = time.perf_counter()
+    log = run_ranks(lambda _: [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc-per-node", str(SHARD_CLI_RANKS), me, "cli-rank", work,
+                               *cli_args], 1, timeout=300, env=env)[0]
+    cli_s = time.perf_counter() - t
+    print("\n".join(line for line in log.splitlines()
+                    if line.startswith(("[shard]", "[INFO] training", "[cli]", "[kernels]"))))
+    if "[INFO] training on a data=2xtile=1 device mesh" not in log or "backend gloo" not in log:
+        raise RuntimeError(f"the CLI did not train on a gloo data=2 mesh:\n{log[-3000:]}")
+    params, aux, _ = load_ply(os.path.join(outdir, "shard_model.ply"),
+                              capacity=image_options()["capacity"], device="cuda")
+    n = int(aux.alive.sum())
+    mesh = Mesh.load(os.path.join(outdir, "shard_mesh.obj"), resize=False)
+    if n == 0 or not bool(torch.isfinite(params["xyz"][:n]).all()) or len(mesh.f) == 0 \
+            or not np.isfinite(mesh.v).all():
+        raise RuntimeError("the sharded CLI's PLY or mesh did not read back")
+    for k, rows in shapes.items():
+        for row in rows:
+            print(f"[kernels] {k} in the shard-day {row['phase']} at {row['label']}: "
+                  f"{row['calls']} calls held against the plain version, max abs err "
+                  f"{row['max_abs_err']:.3e}, grid {row['blocks']} blocks")
+    cli_launches = []
+    for r in range(SHARD_CLI_RANKS):
+        with open(os.path.join(work, f"cli_r{r}.json")) as f:
+            cli = json.load(f)
+        cli_launches.append(cli["launches"])
+        for k in launches:
+            launches[k] += cli["launches"][k]
+            shapes[k] += cli["shapes"][k]
+    if cli_launches[0]["ztest"] != 26 or cli_launches[1]["ztest"] != 0 \
+            or min(cl[k] for cl in cli_launches for k in ("composite_fwd", "composite_bwd")) < 1:
+        raise RuntimeError(f"the sharded CLI's ranks did not go through the kernels: {cli_launches}")
+    print(f"[shard] torchrun --nproc-per-node {SHARD_CLI_RANKS} cli.main mesh=data2: {cli_s:.1f} s, "
+          f"every rank exit 0, {n} gaussians in the PLY, mesh {len(mesh.f)} faces, launches per "
+          f"rank {cli_launches}; card '{card}'")
+    results["cli_s"] = cli_s
+    return {"launches": launches, "shapes": shapes, "results": results}
+
+
 def main() -> int:
+    # The sharding day's processes: a rank of a run, a rank of the CLI.
+    if sys.argv[1:2] == ["shard-rank"]:
+        return shard_rank_main(sys.argv[2:])
+    if sys.argv[1:2] == ["cli-rank"]:
+        return cli_rank_main(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -2463,6 +2926,9 @@ def smoke(args, load_alone: subprocess.Popen, mvdream_alone: subprocess.Popen,
         t0 = time.perf_counter()
         apps_day = run_apps_day(args.seed, card, work)
         print(f"[apps] the apps day took {time.perf_counter() - t0:.1f} s; card '{card}'")
+        t0 = time.perf_counter()
+        shard_day = run_shard_day(args.seed, card, work)
+        print(f"[shard] the sharding day took {time.perf_counter() - t0:.1f} s; card '{card}'")
     for row in kernels:
         row["launches_text_day"] = text_day["launches"][row["name"]]
         row["text_day_shapes"] = text_day["shapes"][row["name"]]
@@ -2470,6 +2936,8 @@ def smoke(args, load_alone: subprocess.Popen, mvdream_alone: subprocess.Popen,
         row["imagedream_day_shapes"] = imagedream_day["shapes"][row["name"]]
         row["launches_apps_day"] = apps_day["launches"][row["name"]]
         row["apps_day_shapes"] = apps_day["shapes"][row["name"]]
+        row["launches_shard_day"] = shard_day["launches"][row["name"]]
+        row["shard_day_shapes"] = shard_day["shapes"][row["name"]]
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s from the build to here; card '{card}'")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -29,15 +29,25 @@ single ipmv LDM file with ``tokenizer/`` and ``image_encoder/`` beside it.
 checkpoint; with neither, a prior warns and is left out. Checkpoints: with
 ``checkpoint_dir`` and ``checkpoint_every`` the full train state is saved
 every that many steps; ``resume=True`` continues from ``checkpoint_dir``
-when it exists (else trains from step 0) up to ``iters`` steps in all. A
-``mesh`` device spec (sharding) is not ported and raises
-NotImplementedError.
+when it exists (else trains from step 0) up to ``iters`` steps in all.
+
+Sharding: ``mesh=8``, ``mesh=data8`` or ``mesh=data4xtile2`` trains on a
+(data, tile) mesh of ranks, one process each, started by ``torchrun``:
+
+    torchrun --standalone --nproc-per-node 2 -m dreamgaussian_tpu_torch.cli.main \
+        --config configs/image.yaml input=x.png save_path=name mesh=data2 batch_size=2
+
+The mesh's size must equal the number of processes. Ranks share the
+host's cards (``cuda:{LOCAL_RANK % cards}``) or run on the CPU with
+``device=cpu``; rank 0 writes the PLY, the mesh and the checkpoints, and
+the other ranks wait for it at a barrier.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import re
 import sys
 
 from .. import resolve_device
@@ -106,29 +116,88 @@ def build_guidances(opt, ref_rgb, device="cuda") -> tuple:
     return tuple(entries)
 
 
-def load_reference(opt):
+def load_reference(opt, device=None):
     """(rgb composited on white, mask) of ``opt.input`` at ref_size, or
-    (None, None) without an input."""
+    (None, None) without an input; an RGB input is matted on ``device``
+    (the config's by default)."""
     if not opt.get("input", None):
         return None, None
     from .process import load_rgba
 
-    rgba = load_rgba(opt.input, size=opt.get("ref_size", 256), device=opt.get("device", "cuda"))
+    rgba = load_rgba(opt.input, size=opt.get("ref_size", 256),
+                     device=device or opt.get("device", "cuda"))
     return rgba[..., :3] * rgba[..., 3:] + (1 - rgba[..., 3:]), rgba[..., 3]
 
 
+def parse_mesh_spec(spec) -> dict | None:
+    """The ``mesh`` config value as axis sizes: ``8`` and ``"data8"`` give
+    {"data": 8}, ``"data4xtile2"`` {"data": 4, "tile": 2}; None when unset."""
+    if spec in (None, "", 0, False):
+        return None
+    if isinstance(spec, int) or (isinstance(spec, str) and spec.isdigit()):
+        return {"data": int(spec)}
+    axes = {}
+    for part in str(spec).split("x"):
+        m = re.fullmatch(r"(data|tile)(\d+)", part.strip())
+        if not m or m.group(1) in axes or int(m.group(2)) < 1:
+            raise ValueError(f"bad mesh spec {spec!r}: use e.g. 8, 'data8', 'data4xtile2'")
+        axes[m.group(1)] = int(m.group(2))
+    return axes
+
+
+def build_mesh(opt):
+    """The (data, tile) mesh of the ``mesh`` config key over this run's
+    ranks (``torchrun``'s environment), or None when the key is unset. The
+    mesh's size must equal the world size."""
+    axes = parse_mesh_spec(opt.get("mesh", None))
+    if axes is None:
+        return None
+    from ..parallel.multihost import initialize_multihost, make_mesh_2d
+
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    total = axes.get("data", 1) * axes.get("tile", 1)
+    if total != world:
+        raise ValueError(f"mesh {opt.mesh!r} needs {total} ranks, this run has {world} "
+                         "(start it with torchrun --nproc-per-node N)")
+    device = opt.get("device", "cuda")
+    backend = initialize_multihost(device=device)
+    mesh = make_mesh_2d(axes.get("data", 1), axes.get("tile", 1), device=device)
+    if mesh.rank == 0:
+        print(f"[shard] rank 0 of {world}, backend {backend or 'none (one process)'}, "
+              f"device {mesh.device}")
+    return mesh
+
+
 def run(opt) -> dict:
+    device = resolve_device(opt.get("device", "cuda"))
+    mesh = build_mesh(opt)
+    try:
+        return _run(opt, device, mesh)
+    finally:
+        if mesh is not None and mesh.backend is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(opt, device, mesh) -> dict:
     from ..train import Stage1Trainer
 
-    device = resolve_device(opt.get("device", "cuda"))
-    if opt.get("mesh", None) not in (None, "", 0, False):
-        raise NotImplementedError(
-            f"mesh={opt.mesh!r}: device meshes (data/tile sharding) are not ported yet")
-    ref_rgb, ref_mask = load_reference(opt)
+    if mesh is not None:
+        device = mesh.device
+        if mesh.rank == 0:
+            print(f"[INFO] training on a {mesh.describe()} device mesh")
+    ref_rgb, ref_mask = load_reference(opt, device)
     guidance_fns = build_guidances(opt, ref_rgb, device)
+    if mesh is not None and mesh.rank == 0 and mesh.data.size > 1 \
+            and any(getattr(fn, "sums_views", False) for _, fn in guidance_fns):
+        print(f"[shard] note: Zero123's guidance returns the sum over its views and each data "
+              f"rank's share is divided by data={mesh.data.size}, so the Zero123 term weighs "
+              f"1/{mesh.data.size} of what it weighs in one process at the same batch_size "
+              "(kept as the JAX package has it)")
     trainer = Stage1Trainer(opt, ref_rgb=ref_rgb, ref_mask=ref_mask,
                             guidance_fns=guidance_fns, capacity=opt.get("capacity", 16384),
-                            seed=opt.get("seed", 0), device=device)
+                            seed=opt.get("seed", 0), device=device, mesh=mesh)
     ckpt_dir = opt.get("checkpoint_dir", None)
     if opt.get("resume", False) and ckpt_dir and os.path.exists(ckpt_dir):
         trainer.load_checkpoint(ckpt_dir)
@@ -139,8 +208,15 @@ def run(opt) -> dict:
     print(f"[INFO] stage 1 done: {stats}")
 
     outdir = opt.get("outdir", "logs")
-    os.makedirs(outdir, exist_ok=True)
     ply_path = os.path.join(outdir, f"{opt.save_path}_model.ply")
+    stats["ply_path"] = ply_path
+    if not trainer.is_writer:
+        # Rank 0 writes the files; the others wait for it and leave.
+        import torch.distributed as dist
+
+        dist.barrier()
+        return stats
+    os.makedirs(outdir, exist_ok=True)
     n = trainer.save_ply(ply_path)
     print(f"[INFO] saved {n} gaussians to {ply_path}")
 
@@ -160,7 +236,10 @@ def run(opt) -> dict:
         )
         print(f"[INFO] saved textured mesh to {mesh_path}")
         stats["mesh_path"] = mesh_path
-    stats["ply_path"] = ply_path
+    if mesh is not None and mesh.backend is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
     return stats
 
 

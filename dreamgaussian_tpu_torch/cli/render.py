@@ -56,11 +56,11 @@ def render_view(kind: str, artifact, cam: Camera, device) -> tuple:
     on a white background."""
     arrays = {k: torch.from_numpy(v).to(device) for k, v in cam.arrays().items()}
     if kind == "gaussians":
-        from ..train.stage1 import _render_one
+        from ..train.step import render_one
 
         params, aux, sh_degree = artifact
-        out = _render_one(params, arrays, torch.ones(3, device=device), cam.width, cam.height,
-                          sh_degree, aux.alive)
+        out = render_one(params, arrays, torch.ones(3, device=device), cam.width, cam.height,
+                         sh_degree, aux.alive)
         return out.image, out.depth, out.alpha
     from ..render.mesh_renderer import render_mesh
 

@@ -125,7 +125,8 @@ composite_bwd_kernel(const float* __restrict__ feat, int64_t k_total,
                      const int* __restrict__ n_chunks,
                      const float* __restrict__ fwd,
                      const float* __restrict__ gout,
-                     float* __restrict__ dfeat, int grid_x, int chunk) {
+                     float* __restrict__ dfeat, int grid_x, int tile_offset,
+                     int chunk) {
   constexpr int kPpt = PPT;
   constexpr int kThreads = kQuad * kQuad / PPT;
   constexpr int kWarps = kThreads / 32;
@@ -145,8 +146,10 @@ composite_bwd_kernel(const float* __restrict__ feat, int64_t k_total,
   const int cs = chunk_starts[t];
   const int nc = n_chunks[t];
   const float half = (tile - 1) * 0.5f;
-  const int ty = t / grid_x;
-  const int tx = t - ty * grid_x;
+  // The tile's place in the whole frame (see K1); chunk_starts, n_chunks and
+  // the forward's tiles are the local slab's.
+  const int ty = (t + tile_offset) / grid_x;
+  const int tx = t + tile_offset - ty * grid_x;
   const float cx = (float)(tx * tile) + half;
   const float cy = (float)(ty * tile) + half;
   const int lane = threadIdx.x & 31;
@@ -362,7 +365,7 @@ composite_bwd_kernel(const float* __restrict__ feat, int64_t k_total,
 template <int Q, int PPT>
 cudaError_t launch(const float* feat, int64_t k_total, const int* chunk_starts,
                    const int* n_chunks, const float* fwd, const float* gout, float* dfeat,
-                   int num_tiles, int grid_x, int chunk, cudaStream_t stream,
+                   int num_tiles, int grid_x, int tile_offset, int chunk, cudaStream_t stream,
                    int* blocks_launched) {
   constexpr int threads = kQuad * kQuad / PPT;
   using Shared = Smem<threads / 32>;
@@ -385,7 +388,7 @@ cudaError_t launch(const float* feat, int64_t k_total, const int* chunk_starts,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, feat, k_total, chunk_starts, n_chunks, fwd, gout,
-                           dfeat, grid_x, chunk);
+                           dfeat, grid_x, tile_offset, chunk);
   if (err == cudaSuccess) *blocks_launched = (int)cfg.gridDim.x;
   return err;
 }
@@ -398,7 +401,7 @@ cudaError_t launch(const float* feat, int64_t k_total, const int* chunk_starts,
 template <int Q>
 cudaError_t launch_tiles(const float* feat, int64_t k_total, const int* chunk_starts,
                          const int* n_chunks, const float* fwd, const float* gout,
-                         float* dfeat, int num_tiles, int grid_x, int chunk,
+                         float* dfeat, int num_tiles, int grid_x, int tile_offset, int chunk,
                          cudaStream_t stream, int* blocks_launched) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -407,9 +410,9 @@ cudaError_t launch_tiles(const float* feat, int64_t k_total, const int* chunk_st
   if (err != cudaSuccess) return err;
   return (long long)num_tiles * Q > (long long)kBlocksPerSm * sms
              ? launch<Q, 2>(feat, k_total, chunk_starts, n_chunks, fwd, gout, dfeat, num_tiles,
-                            grid_x, chunk, stream, blocks_launched)
+                            grid_x, tile_offset, chunk, stream, blocks_launched)
              : launch<Q, 1>(feat, k_total, chunk_starts, n_chunks, fwd, gout, dfeat, num_tiles,
-                            grid_x, chunk, stream, blocks_launched);
+                            grid_x, tile_offset, chunk, stream, blocks_launched);
 }
 
 }  // namespace
@@ -419,17 +422,18 @@ cudaError_t launch_tiles(const float* feat, int64_t k_total, const int* chunk_st
 extern "C" int composite_bwd(const float* feat, long long k_total,
                              const int* chunk_starts, const int* n_chunks,
                              const float* fwd, const float* gout, float* dfeat,
-                             int num_tiles, int grid_x, int chunk, int tile,
+                             int num_tiles, int grid_x, int tile_offset, int chunk, int tile,
                              void* stream, int* blocks_launched) {
-  if (chunk <= 0 || chunk > kMaxChunk || num_tiles <= 0) return (int)cudaErrorInvalidValue;
+  if (chunk <= 0 || chunk > kMaxChunk || num_tiles <= 0 || tile_offset < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (tile == kQuad) {
     err = launch_tiles<1>(feat, k_total, chunk_starts, n_chunks, fwd, gout, dfeat, num_tiles,
-                          grid_x, chunk, s, blocks_launched);
+                          grid_x, tile_offset, chunk, s, blocks_launched);
   } else if (tile == 2 * kQuad) {
     err = launch_tiles<4>(feat, k_total, chunk_starts, n_chunks, fwd, gout, dfeat, num_tiles,
-                          grid_x, chunk, s, blocks_launched);
+                          grid_x, tile_offset, chunk, s, blocks_launched);
   } else {
     return (int)cudaErrorInvalidValue;
   }

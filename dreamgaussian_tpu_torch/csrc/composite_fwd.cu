@@ -57,7 +57,8 @@ __global__ void __launch_bounds__(kThreads)
 composite_fwd_kernel(const float* __restrict__ feat, int64_t k_total,
                      const int* __restrict__ chunk_starts,
                      const int* __restrict__ n_chunks,
-                     float* __restrict__ out, int grid_x, int chunk) {
+                     float* __restrict__ out, int grid_x, int tile_offset,
+                     int chunk) {
   __shared__ StagedChunk s_st[2];
   __shared__ RawChunk s_raw[2];
 
@@ -68,8 +69,10 @@ composite_fwd_kernel(const float* __restrict__ feat, int64_t k_total,
   const int cs = chunk_starts[t];
   const int nc = n_chunks[t];
   const float half = (tile - 1) * 0.5f;
-  const int ty = t / grid_x;
-  const int tx = t - ty * grid_x;
+  // The tile's place in the whole frame: a rank of a tile-sharded render
+  // composites the slab of tiles that starts at tile_offset.
+  const int ty = (t + tile_offset) / grid_x;
+  const int tx = t + tile_offset - ty * grid_x;
   const float cx = (float)(tx * tile) + half;
   const float cy = (float)(ty * tile) + half;
 
@@ -178,19 +181,20 @@ composite_fwd_kernel(const float* __restrict__ feat, int64_t k_total,
 // launched, the grid it gave the launch in *blocks_launched.
 extern "C" int composite_fwd(const float* feat, long long k_total,
                              const int* chunk_starts, const int* n_chunks,
-                             float* out, int num_tiles, int grid_x, int chunk,
-                             int tile, void* stream, int* blocks_launched) {
-  if (chunk <= 0 || chunk > kMaxChunk || num_tiles <= 0) return (int)cudaErrorInvalidValue;
+                             float* out, int num_tiles, int grid_x, int tile_offset,
+                             int chunk, int tile, void* stream, int* blocks_launched) {
+  if (chunk <= 0 || chunk > kMaxChunk || num_tiles <= 0 || tile_offset < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid;
   if (tile == kQuad) {
     grid = dim3((unsigned)num_tiles);
     composite_fwd_kernel<1><<<grid, kThreads, 0, s>>>(
-        feat, k_total, chunk_starts, n_chunks, out, grid_x, chunk);
+        feat, k_total, chunk_starts, n_chunks, out, grid_x, tile_offset, chunk);
   } else if (tile == 2 * kQuad) {
     grid = dim3((unsigned)num_tiles * 4u);
     composite_fwd_kernel<4><<<grid, kThreads, 0, s>>>(
-        feat, k_total, chunk_starts, n_chunks, out, grid_x, chunk);
+        feat, k_total, chunk_starts, n_chunks, out, grid_x, tile_offset, chunk);
   } else {
     return (int)cudaErrorInvalidValue;
   }

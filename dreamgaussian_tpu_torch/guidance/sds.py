@@ -194,6 +194,9 @@ class Zero123Guidance:
             # Mean over views times B: the reference's unscaled sum at B=1.
             return sds_grad_loss(latents, grad, divide_by_batch=True) * b
 
+        # A sum over the views, not the mean the trainers' contract asks
+        # for: the data-parallel step weighs it 1/data (cli.main says so).
+        fn.sums_views = True
         return fn
 
     def refine_fn(self, steps: int = 50, guidance_scale: float = 5.0):

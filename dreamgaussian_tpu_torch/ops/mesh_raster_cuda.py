@@ -150,12 +150,13 @@ def ztest(dup_feat, chunk_starts, n_chunks, *, grid_x, num_tiles, chunk, tile):
                        device=dup_feat.device)
     done = torch.zeros(quads, dtype=torch.int32, device=dup_feat.device)
     blocks = ctypes.c_int(0)
-    rc = lib.ztest(
-        dup_feat.data_ptr(), dup_feat.shape[1], chunk_starts.data_ptr(),
-        n_chunks.data_ptr(), out_id.data_ptr(), out_z.data_ptr(), part.data_ptr(),
-        done.data_ptr(), num_tiles, grid_x, chunk, tile,
-        torch.cuda.current_stream(dup_feat.device).cuda_stream, ctypes.byref(blocks),
-    )
+    with torch.cuda.device(dup_feat.device):
+        rc = lib.ztest(
+            dup_feat.data_ptr(), dup_feat.shape[1], chunk_starts.data_ptr(),
+            n_chunks.data_ptr(), out_id.data_ptr(), out_z.data_ptr(), part.data_ptr(),
+            done.data_ptr(), num_tiles, grid_x, chunk, tile,
+            torch.cuda.current_stream(dup_feat.device).cuda_stream, ctypes.byref(blocks),
+        )
     if rc != 0:
         raise RuntimeError(f"ztest kernel launch failed with CUDA error {rc}")
     LAUNCHES["ztest"] += 1

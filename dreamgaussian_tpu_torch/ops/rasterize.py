@@ -43,30 +43,44 @@ class GaussianRender(NamedTuple):
 
 
 class _CompositeCols(torch.autograd.Function):
-    """Duplicate gather + K1 forward; K2 + per-gaussian reduction backward."""
+    """Duplicate gather + K1 forward; K2 + per-gaussian reduction backward.
+
+    Composites the ``tile_count`` tiles of the frame from ``tile_start`` on:
+    ``chunk_starts`` and ``n_chunks`` are sliced to them and K1/K2 take
+    ``tile_start`` as their tile offset, while ``dup_feat`` stays whole (the
+    slab's chunk starts index into it). With a ``group`` (the tile axis of a
+    tile-sharded render) the per-gaussian gradient of the slab is a partial
+    sum; one all-reduce over the group completes it."""
 
     @staticmethod
     def forward(ctx, feat_cols, dup_map, chunk_starts, n_chunks, grid_x,
-                num_tiles, chunk, tile):
+                tile_start, tile_count, chunk, tile, group):
+        cs = chunk_starts[tile_start:tile_start + tile_count].contiguous()
+        nc = n_chunks[tile_start:tile_start + tile_count].contiguous()
         dup_feat = feat_cols.index_select(1, dup_map)
-        out = composite_forward(dup_feat, chunk_starts, n_chunks, grid_x=grid_x,
-                                num_tiles=num_tiles, chunk=chunk, tile=tile)
-        ctx.save_for_backward(dup_feat, dup_map, chunk_starts, n_chunks, out)
-        ctx.geometry = (grid_x, num_tiles, chunk, tile, feat_cols.shape[1])
+        out = composite_forward(dup_feat, cs, nc, grid_x=grid_x, num_tiles=tile_count,
+                                chunk=chunk, tile=tile, tile_offset=tile_start)
+        ctx.save_for_backward(dup_feat, dup_map, cs, nc, out)
+        ctx.geometry = (grid_x, tile_start, tile_count, chunk, tile, feat_cols.shape[1])
+        ctx.group = group
         return out
 
     @staticmethod
     def backward(ctx, g_out):
-        dup_feat, dup_map, chunk_starts, n_chunks, out = ctx.saved_tensors
-        grid_x, num_tiles, chunk, tile, cols = ctx.geometry
+        dup_feat, dup_map, cs, nc, out = ctx.saved_tensors
+        grid_x, tile_start, tile_count, chunk, tile, cols = ctx.geometry
         d_feat = composite_backward(
-            dup_feat, chunk_starts, n_chunks, out, g_out.contiguous(),
-            grid_x=grid_x, num_tiles=num_tiles, chunk=chunk, tile=tile,
+            dup_feat, cs, nc, out, g_out.contiguous(), grid_x=grid_x,
+            num_tiles=tile_count, chunk=chunk, tile=tile, tile_offset=tile_start,
         )
         g_cols = torch.zeros((FEAT_ROWS, cols), dtype=d_feat.dtype, device=d_feat.device)
         g_cols[:REAL_FEAT_ROWS].index_add_(1, dup_map, d_feat[:REAL_FEAT_ROWS])
         g_cols[:, cols - 1] = 0.0    # the sentinel column is a constant
-        return g_cols, None, None, None, None, None, None, None
+        if ctx.group is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(g_cols, group=ctx.group)
+        return g_cols, None, None, None, None, None, None, None, None, None
 
 
 def build_feature_cols(mean2d, depth, conic, color, opacity):
@@ -88,6 +102,47 @@ def build_feature_cols(mean2d, depth, conic, color, opacity):
     return feat_cols + sentinel
 
 
+def composite_tiles(mean2d, depth, conic, color, opacity, radius, width: int,
+                    height: int, tile: int = TILE, tile_start: int = 0,
+                    tile_count: int | None = None, group=None):
+    """Bin already-projected gaussians over the whole frame and composite the
+    ``tile_count`` tiles from ``tile_start`` on (all of them by default).
+
+    Returns (tiles [tile_count, OUT_CH, tile^2] channel-planar, overflow[]
+    int32). ``group``: the process group whose ranks composite the frame's
+    other tiles (see ``_CompositeCols``); None when this call renders alone.
+    """
+    if width % tile or height % tile:
+        raise ValueError(f"image size must be {tile}-aligned, got {width}x{height}")
+    grid_x = width // tile
+    num_tiles = grid_x * (height // tile)
+    if tile_count is None:
+        tile_count = num_tiles - tile_start
+    if not (0 <= tile_start and 0 < tile_count and tile_start + tile_count <= num_tiles):
+        raise ValueError(f"tiles {tile_start}..{tile_start + tile_count} outside the "
+                         f"frame's {num_tiles}")
+    bins = bin_gaussians(
+        mean2d.detach(), depth.detach(), radius, width, height, chunk=CHUNK,
+        tile=tile, conic=conic.detach(),
+        log_opacity=torch.log(torch.clamp_min(opacity.detach().float(), 1e-30)),
+    )
+    feat_cols = build_feature_cols(mean2d, depth, conic, color, opacity)
+    out = _CompositeCols.apply(feat_cols, bins.dup_map, bins.chunk_starts, bins.n_chunks,
+                               grid_x, tile_start, tile_count, CHUNK, tile, group)
+    return out, bins.overflow
+
+
+def tiles_to_image(out, width: int, height: int, tile: int, bg):
+    """The frame's tiles [T, OUT_CH, tile^2] -> (image[H,W,3] on ``bg``
+    without clamp, depth[H,W], alpha[H,W])."""
+    grid_x, grid_y = width // tile, height // tile
+    hw = out.reshape(grid_y, grid_x, OUT_CH, tile, tile)
+    hw = hw.permute(0, 3, 1, 4, 2).reshape(height, width, OUT_CH)
+    t_final = hw[..., 4]
+    image = hw[..., 0:3] + t_final[..., None] * bg[None, None, :]
+    return image, hw[..., 3], 1.0 - t_final
+
+
 def rasterize_projected(mean2d, depth, conic, color, opacity, radius,
                         width: int, height: int, bg, tile: int = TILE):
     """Composite already-projected gaussians into an image.
@@ -98,24 +153,9 @@ def rasterize_projected(mean2d, depth, conic, color, opacity, radius,
     Returns (image[H,W,3] without clamp, depth[H,W], alpha[H,W],
     overflow[] int32).
     """
-    if width % tile or height % tile:
-        raise ValueError(f"image size must be {tile}-aligned, got {width}x{height}")
-    grid_x = width // tile
-    grid_y = height // tile
-    num_tiles = grid_x * grid_y
-    bins = bin_gaussians(
-        mean2d.detach(), depth.detach(), radius, width, height, chunk=CHUNK,
-        tile=tile, conic=conic.detach(),
-        log_opacity=torch.log(torch.clamp_min(opacity.detach().float(), 1e-30)),
-    )
-    feat_cols = build_feature_cols(mean2d, depth, conic, color, opacity)
-    out = _CompositeCols.apply(feat_cols, bins.dup_map, bins.chunk_starts,
-                               bins.n_chunks, grid_x, num_tiles, CHUNK, tile)
-    hw = out.reshape(grid_y, grid_x, OUT_CH, tile, tile)
-    hw = hw.permute(0, 3, 1, 4, 2).reshape(height, width, OUT_CH)
-    t_final = hw[..., 4]
-    image = hw[..., 0:3] + t_final[..., None] * bg[None, None, :]
-    return image, hw[..., 3], 1.0 - t_final, bins.overflow
+    out, overflow = composite_tiles(mean2d, depth, conic, color, opacity, radius,
+                                    width, height, tile=tile)
+    return (*tiles_to_image(out, width, height, tile, bg), overflow)
 
 
 def render_gaussians(

@@ -54,12 +54,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     # feat, k_total, chunk_starts, n_chunks, out, num_tiles, grid_x,
-    # chunk, tile, stream, blocks_launched
-    "composite_fwd": [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _P,
+    # tile_offset, chunk, tile, stream, blocks_launched
+    "composite_fwd": [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                       ctypes.POINTER(_I)],
     # feat, k_total, chunk_starts, n_chunks, fwd_out, g_out, d_feat,
-    # num_tiles, grid_x, chunk, tile, stream, blocks_launched
-    "composite_bwd": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _I, _I, _I,
+    # num_tiles, grid_x, tile_offset, chunk, tile, stream, blocks_launched
+    "composite_bwd": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _P, ctypes.POINTER(_I)],
 }
 
@@ -69,8 +69,10 @@ _ARGTYPES = {
 # ---------------------------------------------------------------------------
 
 
-def _tile_centers(num_tiles, grid_x, tile, device):
-    tid = torch.arange(num_tiles, device=device)
+def _tile_centers(num_tiles, grid_x, tile, device, tile_offset=0):
+    """Centres of the tiles ``tile_offset .. tile_offset + num_tiles - 1`` of
+    a frame ``grid_x`` tiles wide (a tile-sharded render's local slab)."""
+    tid = torch.arange(num_tiles, device=device) + tile_offset
     ty = tid // grid_x
     tx = tid - ty * grid_x
     half = (tile - 1) / 2.0
@@ -111,15 +113,16 @@ def _chunk_alpha(f, cx, cy, x, y):
 
 
 def composite_forward_ref(dup_feat, chunk_starts, n_chunks, *, grid_x,
-                          num_tiles, chunk, tile=TILE):
-    """Plain PyTorch K1: [FEAT_ROWS, K] features -> [T, OUT_CH, PIX]."""
+                          num_tiles, chunk, tile=TILE, tile_offset=0):
+    """Plain PyTorch K1: [FEAT_ROWS, K] features -> [T, OUT_CH, PIX]. The
+    T tiles are the frame's tiles from ``tile_offset`` on."""
     dev = dup_feat.device
     pix = tile * tile
     out = torch.zeros((num_tiles, OUT_CH, pix), dtype=torch.float32, device=dev)
     out[:, 4] = 1.0
     if num_tiles == 0:
         return out
-    cx, cy = _tile_centers(num_tiles, grid_x, tile, dev)
+    cx, cy = _tile_centers(num_tiles, grid_x, tile, dev, tile_offset)
     x, y = _pixel_coords(tile, dev)
     sub = torch.arange(chunk, device=dev)
     t_naive = torch.ones((num_tiles, pix), device=dev)
@@ -149,15 +152,16 @@ def composite_forward_ref(dup_feat, chunk_starts, n_chunks, *, grid_x,
 
 
 def composite_backward_ref(dup_feat, chunk_starts, n_chunks, fwd_out, g_out, *,
-                           grid_x, num_tiles, chunk, tile=TILE):
+                           grid_x, num_tiles, chunk, tile=TILE, tile_offset=0):
     """Plain PyTorch K2: per-duplicate feature gradients [FEAT_ROWS, K].
 
-    Slots outside every tile's chunk range get zero."""
+    Slots outside every tile's chunk range get zero (under tile sharding,
+    the slots of other ranks' tiles among them)."""
     dev = dup_feat.device
     d_feat = torch.zeros((FEAT_ROWS, dup_feat.shape[1]), dtype=torch.float32, device=dev)
     if num_tiles == 0:
         return d_feat
-    cx, cy = _tile_centers(num_tiles, grid_x, tile, dev)
+    cx, cy = _tile_centers(num_tiles, grid_x, tile, dev, tile_offset)
     x, y = _pixel_coords(tile, dev)
     p6 = torch.stack([torch.ones_like(x), x, y, x * x, x * y, y * y])   # [6, PIX]
     sub = torch.arange(chunk, device=dev)
@@ -207,7 +211,7 @@ def composite_backward_ref(dup_feat, chunk_starts, n_chunks, fwd_out, g_out, *,
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(dup_feat, chunk_starts, n_chunks, num_tiles, chunk, tile):
+def _check_inputs(dup_feat, chunk_starts, n_chunks, num_tiles, chunk, tile, tile_offset):
     dev = dup_feat.device
     if dev.type != "cuda":
         raise ValueError(f"compositing kernels run on CUDA or CPU tensors, got {dev}")
@@ -222,6 +226,8 @@ def _check_inputs(dup_feat, chunk_starts, n_chunks, num_tiles, chunk, tile):
         raise ValueError(f"the kernels take tile 16 or 32, got {tile}")
     if not 0 < chunk <= MAX_CHUNK:
         raise ValueError(f"chunk must be in (0, {MAX_CHUNK}], got {chunk}")
+    if tile_offset < 0:
+        raise ValueError(f"tile_offset must be >= 0, got {tile_offset}")
 
 
 def _check_tiles(name, t, dev, num_tiles, pix):
@@ -241,41 +247,48 @@ def _launched(name: str, blocks: ctypes.c_int) -> None:
 
 
 def composite_forward(dup_feat, chunk_starts, n_chunks, *, grid_x, num_tiles,
-                      chunk, tile=TILE):
-    """K1: front-to-back compositing of every tile -> [T, OUT_CH, PIX]."""
+                      chunk, tile=TILE, tile_offset=0):
+    """K1: front-to-back compositing of every tile -> [T, OUT_CH, PIX].
+
+    ``tile_offset``: the frame's tile that the first of the T tiles is (a
+    host int; nonzero on the ranks of a tile-sharded render after the
+    first); ``chunk_starts`` and ``n_chunks`` are the T tiles' own."""
     if dup_feat.device.type == "cpu":
         return composite_forward_ref(
             dup_feat, chunk_starts, n_chunks, grid_x=grid_x,
-            num_tiles=num_tiles, chunk=chunk, tile=tile,
+            num_tiles=num_tiles, chunk=chunk, tile=tile, tile_offset=tile_offset,
         )
-    _check_inputs(dup_feat, chunk_starts, n_chunks, num_tiles, chunk, tile)
+    _check_inputs(dup_feat, chunk_starts, n_chunks, num_tiles, chunk, tile, tile_offset)
     out = torch.empty((num_tiles, OUT_CH, tile * tile), dtype=torch.float32,
                       device=dup_feat.device)
     if num_tiles == 0:
         return out
     lib = cuda_build.load("composite_fwd", _ARGTYPES["composite_fwd"])
     blocks = ctypes.c_int(0)
-    rc = lib.composite_fwd(
-        dup_feat.data_ptr(), dup_feat.shape[1], chunk_starts.data_ptr(),
-        n_chunks.data_ptr(), out.data_ptr(), num_tiles, grid_x, chunk, tile,
-        torch.cuda.current_stream(dup_feat.device).cuda_stream, ctypes.byref(blocks),
-    )
+    # The tensors' card is current for the launch (a kernel launches only
+    # on a stream of the current device; a rank's card may not be cuda:0).
+    with torch.cuda.device(dup_feat.device):
+        rc = lib.composite_fwd(
+            dup_feat.data_ptr(), dup_feat.shape[1], chunk_starts.data_ptr(),
+            n_chunks.data_ptr(), out.data_ptr(), num_tiles, grid_x, tile_offset, chunk, tile,
+            torch.cuda.current_stream(dup_feat.device).cuda_stream, ctypes.byref(blocks),
+        )
     _raise_on(rc, "composite_fwd")
     _launched("composite_fwd", blocks)
     return out
 
 
 def composite_backward(dup_feat, chunk_starts, n_chunks, fwd_out, g_out, *,
-                       grid_x, num_tiles, chunk, tile=TILE):
+                       grid_x, num_tiles, chunk, tile=TILE, tile_offset=0):
     """K2: per-duplicate feature gradients [FEAT_ROWS, K] from the forward
     output and its cotangent (both [T, OUT_CH, PIX]); slots outside every
-    tile's range are zero."""
+    tile's range are zero. ``tile_offset`` as for K1."""
     if dup_feat.device.type == "cpu":
         return composite_backward_ref(
             dup_feat, chunk_starts, n_chunks, fwd_out, g_out, grid_x=grid_x,
-            num_tiles=num_tiles, chunk=chunk, tile=tile,
+            num_tiles=num_tiles, chunk=chunk, tile=tile, tile_offset=tile_offset,
         )
-    _check_inputs(dup_feat, chunk_starts, n_chunks, num_tiles, chunk, tile)
+    _check_inputs(dup_feat, chunk_starts, n_chunks, num_tiles, chunk, tile, tile_offset)
     _check_tiles("fwd_out", fwd_out, dup_feat.device, num_tiles, tile * tile)
     _check_tiles("g_out", g_out, dup_feat.device, num_tiles, tile * tile)
     # The kernel writes rows 0-9 of live chunks only; these zeros are the
@@ -286,12 +299,13 @@ def composite_backward(dup_feat, chunk_starts, n_chunks, fwd_out, g_out, *,
         return d_feat
     lib = cuda_build.load("composite_bwd", _ARGTYPES["composite_bwd"])
     blocks = ctypes.c_int(0)
-    rc = lib.composite_bwd(
-        dup_feat.data_ptr(), dup_feat.shape[1], chunk_starts.data_ptr(),
-        n_chunks.data_ptr(), fwd_out.data_ptr(), g_out.data_ptr(),
-        d_feat.data_ptr(), num_tiles, grid_x, chunk, tile,
-        torch.cuda.current_stream(dup_feat.device).cuda_stream, ctypes.byref(blocks),
-    )
+    with torch.cuda.device(dup_feat.device):
+        rc = lib.composite_bwd(
+            dup_feat.data_ptr(), dup_feat.shape[1], chunk_starts.data_ptr(),
+            n_chunks.data_ptr(), fwd_out.data_ptr(), g_out.data_ptr(),
+            d_feat.data_ptr(), num_tiles, grid_x, tile_offset, chunk, tile,
+            torch.cuda.current_stream(dup_feat.device).cuda_stream, ctypes.byref(blocks),
+        )
     _raise_on(rc, "composite_bwd")
     _launched("composite_bwd", blocks)
     return d_feat

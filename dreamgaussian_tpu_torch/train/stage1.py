@@ -26,8 +26,15 @@ jitter, SDS noise and timesteps) go through one ``draw(name, shape, dist,
 ...)`` function, by default a seeded ``torch.Generator``; tests pass their
 own to inject samples. ``train`` saves checkpoints every
 ``checkpoint_every`` steps and ``load_checkpoint`` resumes from one
-(``utils/checkpoint.py``). The fused multi-step scan and the sharding
-meshes of the JAX trainer are not ported yet.
+(``utils/checkpoint.py``). The fused multi-step scan of the JAX trainer
+has no counterpart (the loop runs its steps eagerly).
+
+With a ``mesh`` (``parallel.make_mesh_2d``, one process per rank) the novel
+views shard over its data axis and each render's tile rows over its tile
+axis (``parallel/dp.py``, ``parallel/tile_shard.py``); the step body
+(``train/step.py``) is the same one the single-process trainer runs.
+Every rank holds the same parameters, Adam state and densify statistics
+after every step, and only rank 0 writes files (PLY, checkpoints).
 """
 
 from __future__ import annotations
@@ -40,11 +47,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.rasterize import render_gaussians
 from ..scene import (
-    accumulate_stats,
     adam_init,
-    adam_update,
     densify_and_prune,
     expon_lr,
     init_random,
@@ -56,12 +60,11 @@ from ..scene import (
 )
 from ..scene.optim import AdamState
 from ..utils.camera import Camera, orbit_camera, stack_cameras
+from .step import apply_update, gradients, render_one
 
 # Guidance interface: (images [B,H,W,3] in [0,1], cond dict, step_ratio,
 # draw) -> scalar loss, differentiable w.r.t. images.
 GuidanceFn = Callable[..., torch.Tensor]
-
-TILE = 32
 
 
 class TorchDraw:
@@ -90,17 +93,6 @@ class TorchDraw:
         self.gen.set_state(torch.from_numpy(np.asarray(state, np.uint8)))
 
 
-def _render_one(params, cam, bg, width, height, sh_degree, alive, tap=None):
-    return render_gaussians(
-        params["xyz"], torch.exp(params["scaling"]), params["rotation"],
-        torch.sigmoid(params["opacity"][:, 0]),
-        torch.cat([params["f_dc"], params["f_rest"]], dim=1),
-        cam["view"], cam["full_proj"], cam["campos"], cam["tanfov"],
-        width, height, bg, sh_degree=sh_degree, alive=alive, mean2d_tap=tap,
-        tile=TILE, device=params["xyz"].device,
-    )
-
-
 class Stage1Trainer:
     """Headless stage-1 optimization (GUI-free equivalent of main.py)."""
 
@@ -114,10 +106,14 @@ class Stage1Trainer:
         seed: int = 0,
         device: str | torch.device = "cuda",
         draw: Callable[[str, tuple, str], torch.Tensor] | None = None,
+        mesh=None,
     ):
         """opt: config namespace with the reference's image.yaml keys.
-        guidance_fns: tuple of (weight, fn) entries (see GuidanceFn)."""
+        guidance_fns: tuple of (weight, fn) entries (see GuidanceFn).
+        mesh: a ``parallel.Mesh2D`` (its ``device`` is this rank's), or None
+        for one process."""
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.opt = opt
         self.seed = seed
         self.rng = np.random.default_rng(seed)
@@ -157,6 +153,14 @@ class Stage1Trainer:
         self.fixed_cam = Camera.from_pose(pose, self.ref_size, self.ref_size, fovy, fovy)
         self.n_views = 4 if (opt.get("mvdream", False) or opt.get("imagedream", False)) else 1
         self.batch_size = opt.get("batch_size", 1)
+        if mesh is not None:
+            total_views = self.batch_size * self.n_views
+            if total_views % mesh.data.size:
+                raise ValueError(f"{total_views} views cannot shard over data={mesh.data.size}")
+            if (total_views // mesh.data.size) % self.n_views:
+                raise ValueError(
+                    "multi-view groups must stay on one device "
+                    f"(views/device={total_views // mesh.data.size}, group={self.n_views})")
 
         self.lr_schedules = {
             "total_iters": float(opt.get("iters", 500)),
@@ -216,36 +220,14 @@ class Stage1Trainer:
         ladder = self.opt.get("novel_resolutions", [128, 256, 512])
         return ladder[0] if ratio < 0.3 else (ladder[1] if ratio < 0.6 else ladder[2])
 
-    def _loss(self, params, tap, step, novel, bg, cond, size):
-        opt = self.opt
-        # float32 like the JAX step's traced scalars.
-        step_ratio = float(min(np.float32(1.0), np.float32(step) / np.float32(self.lr_schedules["total_iters"])))
-        w = step_ratio if opt.get("warmup_rgb_loss", True) else 1.0
-        alive = self.aux.alive
-        loss = torch.zeros((), device=self.device)
-        overflow = torch.zeros((), dtype=torch.int32, device=self.device)
-        if self.use_known_view:
-            known = self._cam_tensors(self.fixed_cam.arrays())
-            out = _render_one(params, known, torch.ones(3, device=self.device),
-                              self.ref_size, self.ref_size, self.sh_degree, alive)
-            loss = loss + 10000.0 * w * torch.mean((out.image - self.ref_rgb) ** 2)
-            loss = loss + 1000.0 * w * torch.mean((out.alpha - self.ref_mask) ** 2)
-            overflow = overflow + out.overflow
-        images, last = [], None
-        n_novel = novel["view"].shape[0]
-        for b in range(n_novel):
-            cam_b = {k: v[b] for k, v in novel.items()}
-            last = _render_one(params, cam_b, bg, size, size, self.sh_degree, alive,
-                               tap=tap if b == n_novel - 1 else None)
-            images.append(last.image)
-            overflow = overflow + last.overflow
-        images = torch.stack(images)
-        for weight, fn in self.guidance_fns:
-            loss = loss + weight * fn(images, cond, step_ratio, self.draw)
-        return loss, last.radii, overflow
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes the run's files (rank 0 of a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def train_step(self) -> torch.Tensor:
-        """One optimization step; returns the loss (a device tensor)."""
+        """One optimization step; returns the loss (a device tensor, summed
+        over the mesh's data ranks)."""
         opt = self.opt
         self.step += 1
         size = self.novel_size_for(self.step)
@@ -256,25 +238,25 @@ class Stage1Trainer:
         cond = {"vers": self._tensor(vers), "hors": self._tensor(hors),
                 "radii": torch.zeros(len(vers), device=self.device),
                 "poses": self._tensor(poses)}
+        if self.mesh is not None:
+            from ..parallel.dp import shard_cameras
 
-        params = {k: v.detach().requires_grad_(True) for k, v in self.params.items()}
-        tap = torch.zeros((self.capacity, 2), device=self.device, requires_grad=True)
-        loss, radii, self.overflow = self._loss(params, tap, self.step, novel, bg, cond, size)
-        loss.backward()
-        # A parameter (or the tap) that no loss term reached has no .grad:
-        # its gradient is zero, as jax.grad returns it.
-        grad = lambda t: torch.zeros_like(t) if t.grad is None else torch.nan_to_num(t.grad)  # noqa: E731
-        grads = {k: grad(p) for k, p in params.items()}
+            # This rank's views, and their per-camera and per-view entries.
+            novel, cond = shard_cameras(self.mesh, novel), shard_cameras(self.mesh, cond)
+        known = self._cam_tensors(self.fixed_cam.arrays()) if self.use_known_view else None
 
-        lrs = {k: self.lr_schedules[k] for k in ("f_dc", "f_rest", "opacity", "scaling", "rotation")}
-        lrs["xyz"] = self.lr_schedules["xyz"](self.step)
-        self.params, self.adam = adam_update(self.params, grads, self.adam, lrs)
-
+        loss, grads, tap_grad, radii, self.overflow = gradients(
+            self.params, self.step, known, novel, bg, self.ref_rgb, self.ref_mask, self.draw,
+            cond, self.aux.alive, mesh=self.mesh, novel_size=size, ref_size=self.ref_size,
+            sh_degree=self.sh_degree, use_known_view=self.use_known_view,
+            warmup_rgb_loss=opt.get("warmup_rgb_loss", True),
+            total_iters=self.lr_schedules["total_iters"], guidance_fns=self.guidance_fns)
         in_window = (opt.get("density_start_iter", 100) <= self.step
                      <= opt.get("density_end_iter", 3000))
+        self.params, self.adam, self.aux = apply_update(
+            self.params, self.adam, self.aux, grads, tap_grad, radii, self.step,
+            self.lr_schedules, size, accum=in_window)
         if in_window:
-            # CUDA reports dL/dmean2D in half-image units.
-            self.aux = accumulate_stats(self.aux, grad(tap) * (size / 2.0), radii)
             if self.step % opt.get("densification_interval", 100) == 0:
                 split_noise = self.draw("split", (2, self.capacity, 3), "normal").to(self.device)
                 self.params, self.adam, self.aux, dropped = self._densify(
@@ -283,7 +265,7 @@ class Stage1Trainer:
                     else torch.maximum(self.densify_dropped, dropped)
             if self.step % opt.get("opacity_reset_interval", 700) == 0:
                 self.params, self.adam = reset_opacity(self.params, self.adam)
-        return loss.detach()
+        return loss
 
     def _check_overflow(self) -> None:
         """Host-sync check: binning must not have dropped duplicates, and a
@@ -341,7 +323,8 @@ class Stage1Trainer:
                 print(f"[stage1] step {self.step} loss {float(loss):.4f} "
                       f"alive {num_alive(self.aux)}")
                 self._check_overflow()
-            if checkpoint_every and checkpoint_dir and self.step % checkpoint_every == 0:
+            if (checkpoint_every and checkpoint_dir and self.step % checkpoint_every == 0
+                    and self.is_writer):
                 self.save_checkpoint(checkpoint_dir)
         self._check_overflow()
         if self.opt.get("final_prune", True):
@@ -368,8 +351,12 @@ class Stage1Trainer:
     def render_view(self, cam: Camera, bg=None):
         """No-grad render of one camera (test_step analogue)."""
         bg = torch.ones(3, device=self.device) if bg is None else self._tensor(bg)
-        return _render_one(self.params, self._cam_tensors(cam.arrays()), bg,
-                           cam.width, cam.height, self.sh_degree, self.aux.alive)
+        return render_one(self.params, self._cam_tensors(cam.arrays()), bg,
+                          cam.width, cam.height, self.sh_degree, self.aux.alive)
 
     def save_ply(self, path: str) -> int:
+        """Write the cloud as PLY (rank 0 of a mesh only); returns the number
+        of gaussians."""
+        if not self.is_writer:
+            return num_alive(self.aux)
         return save_ply(path, self.params, self.aux)

@@ -87,9 +87,12 @@ def test_missing_snapshot_raises(tmp_path, config, key):
             cli.run(opt)
 
 
-def test_stage1_device_mesh_raises(tmp_path):
+def test_stage1_device_mesh_raises(tmp_path, monkeypatch):
+    """A mesh whose size is not the run's number of ranks (one process,
+    not started by torchrun) is refused, naming both numbers."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     opt = load_with_cli("configs/image.yaml", [f"outdir={tmp_path}", *OVERRIDES, "mesh=data4"])
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(ValueError, match="needs 4 ranks, this run has 1"):
         tcli1.run(opt)
 
 

@@ -188,7 +188,11 @@ def test_refused_launch_raises_and_does_not_fall_back(cuda_device, name, monkeyp
     stream = torch.cuda.current_stream().cuda_stream
     args = [dup.data_ptr(), dup.shape[1], cs.data_ptr(), nc.data_ptr()]
     args += [ref.data_ptr()] if name == "composite_fwd" else [ref.data_ptr(), ref.data_ptr(), dup.data_ptr()]
-    assert getattr(lib, name)(*args, geo["num_tiles"], geo["grid_x"], 4 * CHUNK, 32, stream,
+    assert getattr(lib, name)(*args, geo["num_tiles"], geo["grid_x"], 0, 4 * CHUNK, 32, stream,
+                              ctypes.byref(blocks)) != 0
+    assert blocks.value == -1
+    # And a negative tile offset.
+    assert getattr(lib, name)(*args, geo["num_tiles"], geo["grid_x"], -1, CHUNK, 32, stream,
                               ctypes.byref(blocks)) != 0
     assert blocks.value == -1
 
@@ -224,6 +228,188 @@ def test_refused_launch_raises_and_does_not_fall_back(cuda_device, name, monkeyp
     torch.cuda.synchronize()
     out = tcu.composite_forward(dup, cs, nc, **geo)
     assert float((out[:, :5] - ref[:, :5]).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,tile", [(128, 16), (128, 32), (512, 32)])
+def test_kernels_with_tile_offset_on_a_slab(cuda_device, size, tile):
+    """K1 and K2 on the lower half of a frame's tile rows, as a rank of a
+    tile-sharded render runs them: the chunk lists sliced to the slab and
+    the slab's first tile as the offset. Held against the plain versions
+    with the same offset; K1's slab equals the whole frame's launch on
+    those tiles bit for bit."""
+    dup, cs, nc, geo = _binned(6000 if size == 512 else 3000, 6, size, tile, cuda_device)
+    t0 = geo["num_tiles"] // 2
+    whole = tcu.composite_forward(dup, cs, nc, **geo)
+    slab = dict(geo, num_tiles=geo["num_tiles"] - t0, tile_offset=t0)
+    cs_s, nc_s = cs[t0:].contiguous(), nc[t0:].contiguous()
+    ref = _hold_kernels(dup, cs_s, nc_s, slab, cuda_device)
+    assert float(ref[:, 5].max()) > 0
+    assert torch.equal(tcu.composite_forward(dup, cs_s, nc_s, **slab), whole[t0:])
+    # Without the offset the slab's tiles take the first tiles' centres.
+    no_offset = tcu.composite_forward_ref(dup, cs_s, nc_s, **dict(slab, tile_offset=0))
+    assert not torch.equal(no_offset, ref)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_match_one_process(cuda_device, tmp_path):
+    """One data-parallel step in two gloo ranks that share the card (each
+    its own K1 and K2 launches; on a host with a card per rank, NCCL ranks
+    on cuda:0 and cuda:1) against the same step in this process over both
+    views, with each rank's noise repeated per view: the loss and the
+    reduced gradients (Adam's first moment after one step) agree, and the
+    ranks' states are equal bit for bit."""
+    from dreamgaussian_tpu_torch.parallel import make_data_mesh, make_dp_train_step
+    from dreamgaussian_tpu_torch.scene import GaussianAux, adam_init
+    from torch_shard_cases import (LRS, XYZ_LR, Injected, noisy_guidance, run_ranks,
+                                   write_inputs)
+
+    size, n = 64, 2000
+    xyz, scale, quat, op, shs = (a.cpu().numpy() for a in _scene(n, 5, "cpu"))
+    params = {"xyz": xyz, "scaling": np.log(scale), "rotation": quat,
+              "opacity": np.log(op / (1 - op))[:, None], "f_dc": shs,
+              "f_rest": np.zeros((n, 0, 3), np.float32)}
+    aux = {"alive": np.ones(n, bool), "max_radii2d": np.zeros(n, np.float32),
+           "grad_accum": np.zeros(n, np.float32), "denom": np.zeros(n, np.float32)}
+    views = [Camera.from_pose(orbit_camera(10.0, a, 2.5), size, size, 0.8, 0.8).arrays()
+             for a in (25.0, 115.0)]
+    known = Camera.from_pose(orbit_camera(0.0, 0.0, 2.5), size, size, 0.8, 0.8).arrays()
+    noise = np.random.default_rng(1).normal(size=(1, 1, size, size, 3)).astype(np.float32)
+    ref_rgb = np.full((size, size, 3), 0.5, np.float32)
+    ref_mask = np.ones((size, size), np.float32)
+    arrays = {**{f"p_{k}": v.astype(np.float32) for k, v in params.items()},
+              **{f"aux_{k}": v for k, v in aux.items()},
+              **{f"known_{k}": v for k, v in known.items()},
+              **{f"novel_{k}": np.stack([v[k] for v in views]) for k in known},
+              "noise": noise, "ref_rgb": ref_rgb, "ref_mask": ref_mask}
+    write_inputs(str(tmp_path), arrays, {"size": size, "steps": 1, "noise": True})
+    ranks = run_ranks([("dp_step", str(tmp_path))], 2, device="cuda")[0]
+
+    dev = cuda_device
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    p = {k: t(v.astype(np.float32)) for k, v in params.items()}
+    step = make_dp_train_step(make_data_mesh(device="cuda"), novel_size=size, ref_size=size,
+                              sh_degree=0, views_per_device=2, use_known_view=True,
+                              warmup_rgb_loss=False, lr_schedules=dict(LRS, xyz=lambda s: XYZ_LR),
+                              guidance_fns=((1.0, noisy_guidance),))
+    before = dict(tcu.LAUNCHES)
+    _, adam, _, m = step(p, adam_init(p), GaussianAux(**{k: t(v) for k, v in aux.items()}), 1.0,
+                         {k: t(v) for k, v in known.items()},
+                         {k: t(np.stack([v[k] for v in views])) for k in known},
+                         torch.ones(3, device=dev), t(ref_rgb), t(ref_mask),
+                         Injected({"sds_noise": np.repeat(noise, 2, axis=1)}), {})
+    assert tcu.LAUNCHES["composite_fwd"] - before["composite_fwd"] == 3
+    for r in ranks:
+        assert int(r["launches_fwd"]) == 2 and int(r["launches_bwd"]) == 2
+        # The loss is a mean over the views in either split: float32 rounding.
+        np.testing.assert_allclose(r["loss_0"], float(m["loss"]), rtol=1e-6)
+        for k, mu in adam.mu.items():
+            mu = mu.cpu().numpy()
+            if mu.size:
+                np.testing.assert_allclose(r[f"mu0_{k}"], mu, rtol=1e-4,
+                                           atol=1e-6 * np.abs(mu).max(), err_msg=k)
+    for k in ranks[0]:
+        np.testing.assert_array_equal(ranks[1][k], ranks[0][k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_launches_make_their_tensors_card_current(cuda_device, monkeypatch):
+    """K1, K2 and K3 launch inside a guard that makes their tensors' card
+    the current device: a kernel launches only on a stream of the current
+    device, and PyTorch leaves cuda:0 current on a rank whose card is
+    another unless something sets it. Each launch is recorded with the
+    guards open around it."""
+    active, seen = [], {}
+    real_guard, real_load = torch.cuda.device, cuda_build.load
+
+    class Guard(real_guard):
+        def __enter__(self):
+            active.append(self.idx)
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            active.pop()
+            return super().__exit__(*exc)
+
+    class Lib:
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, name):
+            fn = getattr(self.lib, name)
+
+            def call(*args):
+                seen[name] = list(active)
+                return fn(*args)
+
+            return call
+
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(cuda_build, "load", lambda *a, **k: Lib(real_load(*a, **k)))
+    dup, cs, nc, geo = _binned(3000, 6, 128, 32, cuda_device)
+    out = tcu.composite_forward(dup, cs, nc, **geo)
+    tcu.composite_backward(dup, cs, nc, out, torch.ones_like(out), **geo)
+    zdup, zcs, znc, zgeo = _ztest_case_on(ZTEST_CASES[0], 16, cuda_device)
+    tzc.ztest(zdup, zcs, znc, **zgeo)
+    card = dup.device.index
+    assert {k: seen.get(k) for k in ("composite_fwd", "composite_bwd", "ztest")} == {
+        "composite_fwd": [card], "composite_bwd": [card], "ztest": [card]}
+
+
+@pytest.mark.cuda
+def test_kernels_and_mesh_on_a_card_that_is_not_current(cuda_device, monkeypatch):
+    """A rank's card under torchrun on a host of several: K1, K2 and K3 on
+    the last card while cuda:0 is current, held against their plain
+    versions; make_mesh_2d makes cuda:{LOCAL_RANK % cards} current."""
+    from dreamgaussian_tpu_torch.parallel import make_mesh_2d
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards")
+    last = torch.device("cuda", n - 1)
+    try:
+        torch.cuda.set_device(0)
+        _hold_kernels(*_binned(3000, 6, 128, 32, last), last)
+        assert torch.cuda.current_device() == 0
+        dup, cs, nc, geo = _ztest_case_on(ZTEST_CASES[0], 16, last)
+        ids, z = tzc.ztest(dup, cs, nc, **geo)
+        r_ids, r_z = tzc.ztest_ref(dup, cs, nc, **geo)
+        assert torch.equal(ids, r_ids) and torch.equal(z, r_z)
+        monkeypatch.setenv("LOCAL_RANK", str(n - 1))
+        mesh = make_mesh_2d(1, 1, device="cuda")
+        assert mesh.device == last and torch.cuda.current_device() == n - 1
+    finally:
+        torch.cuda.set_device(0)
+
+
+@pytest.mark.cuda
+def test_cli_under_torchrun_on_the_cards(cuda_device, tmp_path):
+    """``torchrun --nproc-per-node 4`` of cli.main with mesh=data2xtile2 on
+    the card: four gloo ranks sharing the one card of a one-card host, or
+    four NCCL ranks on cuda:0-3 of a host with four (the rule of
+    ``choose_backend``); every rank exits 0, rank 0 writes the PLY."""
+    import subprocess
+    import sys
+
+    from dreamgaussian_tpu_torch.scene import load_ply
+    from torch_shard_cases import REPO
+
+    backend = "nccl" if torch.cuda.device_count() >= 4 else "gloo"
+    args = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
+            "-m", "dreamgaussian_tpu_torch.cli.main", "--config", "configs/image.yaml",
+            f"input={disc_png(tmp_path / 'disc.png')}", f"outdir={tmp_path}", "save_path=mesh",
+            "mesh=data2xtile2", "batch_size=2", "fake_guidance=True", "iters=3", "ref_size=64",
+            "novel_resolutions=[64,64,64]", "num_pts=1000", "capacity=2048", "save_mesh=False",
+            "final_prune=False"]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    res = subprocess.run(args, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    log = res.stdout + res.stderr
+    assert res.returncode == 0, log[-6000:]
+    assert "[INFO] training on a data=2xtile=2 device mesh" in log, log[-6000:]
+    assert f"backend {backend}, device cuda:0" in log, log[-6000:]
+    params, aux, _ = load_ply(str(tmp_path / "mesh_model.ply"), capacity=2048, device="cpu")
+    n = int(aux.alive.sum())
+    assert n > 0 and bool(torch.isfinite(params["xyz"][:n]).all())
 
 
 @pytest.mark.cuda
