@@ -2,8 +2,17 @@
 
     python3 chip_smoke.py [--seed 0]
 
-1. builds the port's CUDA kernels (one nvcc per source, all at once) and
-   prints the toolchain;
+1. builds the port's CUDA kernels (one nvcc per source) and its host
+   tools (g++: the mesh tools and the image tools), all at once, and prints
+   the toolchain;
+1b. the formats phase (``run_formats``): decodes every checked-in JPEG
+   fixture (``tests/fixtures/port_jpeg/``, written by
+   ``scripts/port_make_jpeg_fixtures.py``) and holds it bit for bit against
+   cv2's decode stored beside it, with the host's decode ms; runs GrabCut on
+   the card on the 512^2 photo (device ms of the pixel work under
+   torch.profiler, host ms of the min-cuts) and holds its matte against the
+   port's CPU run and cv2's stored one (alpha >= 128 IoU); lines
+   ``[formats]``;
 2. runs stage-1 image-to-3D with full-width Zero123 guidance (random bf16
    weights) through ``Stage1Trainer`` with ``configs/image.yaml``'s
    options at capacity 16384: steps 1-3 at the 128 rung, step 200 (256,
@@ -57,7 +66,9 @@
    and ``configs/image_sai.yaml`` (stable-zero123) for a few steps; reads
    the outputs back and holds every K1, K2 and K3 call of these runs
    against the plain version (lines ``[weights]``, ``[cli]`` and
-   ``[kernels] ... in the weights-day``);
+   ``[kernels] ... in the weights-day``); the ``image_sai.yaml`` run takes
+   the 512^2 RGB JPEG fixture and no U2Net weights: decoded by the port,
+   matted by GrabCut on the card (checked), recentred, then stage 1;
 10. the text day: writes a full-width SD 2.1-base diffusers snapshot (the
    UNet, the KL-VAE, the 23-layer CLIP text tower, a tokenizer) as fp16
    safetensors and a full-width single-file MVDream LDM checkpoint (the
@@ -1609,6 +1620,125 @@ def check_snapshot_load(snap: str, png: str, card: str, load_alone: subprocess.P
     return {"load_s": load_s, "load_peak_gib": peak_gib, "load_host_rise_gib": host["rise"] / 2**30}
 
 
+# The formats phase: the port's JPEG decoder held against cv2's decodes of the
+# checked-in fixtures (scripts/port_make_jpeg_fixtures.py; the card's machine
+# has no cv2), and GrabCut on the card on the 512^2 photo against the port's
+# CPU run and cv2's stored matte. Card against CPU: the same draws (a seeded
+# CPU generator) and float64 on both, where exp and log may round apart in
+# the last bit; against cv2: OpenCV's k-means draws from its own RNG.
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                             "port_jpeg")
+PHOTO_512 = os.path.join(JPEG_FIXTURES, "photo_512.jpg")
+GRABCUT_IOU_CPU = 0.99
+GRABCUT_IOU_CV2 = 0.95
+DECODE_REPS = 5
+
+
+def alpha_iou(a, b) -> float:
+    """Intersection over union of two alphas' ``>= 128`` masks."""
+    x, y = a >= 128, b >= 128
+    return float((x & y).sum() / max((x | y).sum(), 1))
+
+
+@contextlib.contextmanager
+def grabcut_watch(record: dict):
+    """Within the block, each GrabCut run's device and min-cut calls and
+    host seconds in ``record``."""
+    from dreamgaussian_tpu_torch.preprocess import grabcut
+
+    real_cut, real_grabcut = grabcut.min_cut, grabcut.grabcut
+    record.update(runs=[], cuts=0, cut_s=0.0)
+
+    def min_cut(*args):
+        t = time.perf_counter()
+        out = real_cut(*args)
+        record["cuts"] += 1
+        record["cut_s"] += time.perf_counter() - t
+        return out
+
+    def run(*args, **kw):
+        mask = real_grabcut(*args, **kw)
+        record["runs"].append(str(mask.device))
+        return mask
+
+    grabcut.min_cut, grabcut.grabcut = min_cut, run
+    try:
+        yield
+    finally:
+        grabcut.min_cut, grabcut.grabcut = real_cut, real_grabcut
+
+
+def run_formats(card: str) -> dict:
+    """Every JPEG fixture decoded and held bit for bit against cv2's decode;
+    GrabCut on the 512^2 photo on the card (device ms of the pixel work,
+    host ms of the min-cuts) against the CPU's and cv2's mattes."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dreamgaussian_tpu_torch.preprocess.grabcut import ITERATIONS, grabcut_alpha
+    from dreamgaussian_tpu_torch.utils.jpeg import decode_jpeg
+    from dreamgaussian_tpu_torch.utils.png import read_png
+
+    with open(os.path.join(JPEG_FIXTURES, "decodes.json")) as fh:
+        digests = json.load(fh)
+    decode_ms = {}
+    for name, want in sorted(digests.items()):
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as fh:
+            data = fh.read()
+        times = []
+        for _ in range(DECODE_REPS):
+            t = time.perf_counter()
+            got = decode_jpeg(data)
+            times.append((time.perf_counter() - t) * 1e3)
+        digest = hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest()
+        npy = os.path.join(JPEG_FIXTURES, name.replace(".jpg", ".npy"))
+        err = (int(np.abs(got.astype(np.int32) - np.load(npy)).max())
+               if os.path.exists(npy) and got.shape == np.load(npy).shape else 0)
+        if list(got.shape) != want["shape"] or digest != want["sha256"] or err:
+            raise RuntimeError(f"{name}: decoded {got.shape} (SHA-256 {digest[:16]}, max abs "
+                               f"err {err}) against cv2's {want['shape']} {want['sha256'][:16]}")
+        decode_ms[name] = statistics.median(times)
+        print(f"[formats] {name} {list(got.shape)}: equal to cv2's decode bit for bit (SHA-256 "
+              f"{digest[:16]}), decoded in a median {decode_ms[name]:.2f} ms of {DECODE_REPS} on "
+              f"the host; card '{card}'")
+
+    with open(PHOTO_512, "rb") as fh:
+        img = decode_jpeg(fh.read())
+    cv2_alpha = read_png(os.path.join(JPEG_FIXTURES, "photo_512_alpha.png"))[..., 0]
+    grabcut_alpha(img[:128, :128], device="cuda")       # warm-up: the card's first kernels
+    watch: dict = {}
+    torch.cuda.synchronize()
+    with grabcut_watch(watch), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        card_alpha = grabcut_alpha(img, device="cuda")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    device_ms = sum(device_ms_by_name(prof).values())
+    t = time.perf_counter()
+    cpu_alpha = grabcut_alpha(img, device="cpu")
+    cpu_s = time.perf_counter() - t
+    iou_cpu, iou_cv2 = alpha_iou(card_alpha, cpu_alpha), alpha_iou(card_alpha, cv2_alpha)
+    if (watch["runs"] != ["cuda:0"] or watch["cuts"] != ITERATIONS or iou_cpu < GRABCUT_IOU_CPU
+            or iou_cv2 < GRABCUT_IOU_CV2):
+        raise RuntimeError(f"GrabCut on the card: runs {watch['runs']}, {watch['cuts']} min-cuts, "
+                           f"IoU {iou_cpu:.4f} against the CPU (gate {GRABCUT_IOU_CPU}), "
+                           f"{iou_cv2:.4f} against cv2 (gate {GRABCUT_IOU_CV2})")
+    out = {"decode_ms": decode_ms, "grabcut_wall_s": wall_s, "grabcut_device_ms": device_ms,
+           "grabcut_min_cut_ms": watch["cut_s"] * 1e3, "grabcut_cpu_s": cpu_s,
+           "iou_cpu": iou_cpu, "iou_cv2": iou_cv2,
+           "differ_cpu": int((card_alpha != cpu_alpha).sum())}
+    print(f"[formats] GrabCut of the 512^2 photo on the card: {wall_s * 1e3:.1f} ms of wall, "
+          f"{device_ms:.1f} ms of device time (the pixel work), {watch['cut_s'] * 1e3:.1f} ms "
+          f"of host min-cut ({ITERATIONS} cuts); the port's CPU run {cpu_s * 1e3:.1f} ms; "
+          f"alpha>=128 IoU against the CPU {iou_cpu:.4f} ({out['differ_cpu']} alpha values "
+          f"differ; gate {GRABCUT_IOU_CPU}), against cv2's stored matte {iou_cv2:.4f} (gate "
+          f"{GRABCUT_IOU_CV2}); card '{card}'")
+    return out
+
+
 def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
     """The full-width snapshot written, loaded and driven through both CLIs
     (see WEIGHTS_STOP); every kernel call of the CLI runs held against its
@@ -1620,9 +1750,12 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
     from dreamgaussian_tpu_torch.guidance import synthetic
     from dreamgaussian_tpu_torch.guidance.unet import ZERO123_CONFIG
     from dreamgaussian_tpu_torch.guidance.vae import VAEConfig
+    from dreamgaussian_tpu_torch.preprocess.grabcut import ITERATIONS
 
     runs: dict = {}
     saved, restored, losses = [], [], []
+    sai_matte: dict = {}
+    os.environ.pop("DG_U2NET_CKPT", None)       # the JPEG is matted by GrabCut
     with tempfile.TemporaryDirectory() as tmp:
         snap = os.path.join(tmp, "zero123-snapshot")
         torch.cuda.synchronize()
@@ -1651,13 +1784,20 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
             refined = drive_cli("stage 2", cli2,
                                 argv + [f"iters={WEIGHTS_ITERS}", f"iters_refine={WEIGHTS_REFINE}"],
                                 runs)
-            sai = drive_cli("image_sai stage 1", cli1,
-                            ["--config", os.path.join(CONFIGS, "image_sai.yaml"), f"input={png}",
-                             "save_path=sai", f"outdir={tmp}", f"seed={seed}",
-                             f"zero123_ckpt={snap}", f"iters={SAI_ITERS}", "save_mesh=False"],
-                            runs)
+            with grabcut_watch(sai_matte):
+                sai = drive_cli("image_sai stage 1", cli1,
+                                ["--config", os.path.join(CONFIGS, "image_sai.yaml"),
+                                 f"input={PHOTO_512}", "save_path=sai", f"outdir={tmp}",
+                                 f"seed={seed}", f"zero123_ckpt={snap}", f"iters={SAI_ITERS}",
+                                 "save_mesh=False"], runs)
         n, faces = read_outputs(tmp, "weights", image_options()["texture_size"],
                                 image_options()["capacity"])
+    if sai_matte["runs"] != ["cuda:0"] or sai_matte["cuts"] != ITERATIONS:
+        raise RuntimeError(f"the image_sai run's JPEG was not matted by GrabCut on the card: "
+                           f"{sai_matte}")
+    print(f"[weights] image_sai input {os.path.relpath(PHOTO_512)}: a JPEG decoded by the port, "
+          f"matted by GrabCut on {sai_matte['runs'][0]} ({sai_matte['cuts']} host min-cuts, "
+          f"{sai_matte['cut_s'] * 1e3:.1f} ms), recentred; card '{card}'")
     if (first["step"], resumed["step"], sai["step"]) != (WEIGHTS_STOP, WEIGHTS_ITERS, SAI_ITERS):
         raise RuntimeError(f"stage-1 runs ended at steps {first['step']}, {resumed['step']}, "
                            f"{sai['step']}")
@@ -2862,19 +3002,23 @@ def smoke(args, load_alone: subprocess.Popen, mvdream_alone: subprocess.Popen,
     card = card_line()
     print(f"[toolchain] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} nvcc '{nvcc}' card '{card}'")
-    t_start = t0 = time.perf_counter()
-    # One nvcc per library, all at once: the kernels, and K3 without the
-    # sift, which check_ztest times against the shipped build.
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(cuda_build.build, ["composite_fwd", "composite_bwd", "ztest"], True),
-                  pool.submit(cuda_build.build, ["ztest"], True, ("-DZTEST_SIFT=0",))]
-        for b in builds:
-            b.result()
-    print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s")
     from dreamgaussian_tpu_torch import native
 
+    t_start = t0 = time.perf_counter()
+    # One compiler per library, all at once: the kernels, K3 without the
+    # sift (which check_ztest times against the shipped build), and the
+    # host tools (g++): the mesh tools and the image tools.
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        builds = [pool.submit(cuda_build.build, ["composite_fwd", "composite_bwd", "ztest"], True),
+                  pool.submit(cuda_build.build, ["ztest"], True, ("-DZTEST_SIFT=0",)),
+                  pool.submit(native.build), pool.submit(native.build, native.IMAGE_TOOLS)]
+        libs = [b.result() for b in builds]
+    print(f"[build] kernels, {libs[2].name} and {libs[3].name} ready in "
+          f"{time.perf_counter() - t0:.1f} s")
+
     t0 = time.perf_counter()
-    print(f"[build] mesh tools {native.build().name} ready in {time.perf_counter() - t0:.1f} s")
+    formats = run_formats(card)
+    print(f"[formats] the formats phase took {time.perf_counter() - t0:.1f} s; card '{card}'")
 
     result = run_slice(args.seed)
     by_step = {row["step"]: row["ms"] for row in result["steps"]}
@@ -2938,7 +3082,9 @@ def smoke(args, load_alone: subprocess.Popen, mvdream_alone: subprocess.Popen,
         row["apps_day_shapes"] = apps_day["shapes"][row["name"]]
         row["launches_shard_day"] = shard_day["launches"][row["name"]]
         row["shard_day_shapes"] = shard_day["shapes"][row["name"]]
-    print(f"[smoke] {time.perf_counter() - t_start:.1f} s from the build to here; card '{card}'")
+    print(f"[smoke] {time.perf_counter() - t_start:.1f} s from the build to here (the formats "
+          f"phase {formats['grabcut_wall_s'] + formats['grabcut_cpu_s']:.1f} s of GrabCut); "
+          f"card '{card}'")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

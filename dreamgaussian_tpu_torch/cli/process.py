@@ -1,22 +1,28 @@
-"""Input preprocessing: background matting and recentring.
+"""Input preprocessing: decoding, background matting and recentring.
 
 Port of ``dreamgaussian_tpu/cli/process.py``:
 
-- RGBA PNG inputs keep their alpha (the reference's own inputs are RGBA);
-- RGB and grey PNG inputs are matted by U2Net from a local checkpoint
+- the decoder follows the file's leading bytes, as ``cv2.imread`` does:
+  PNG through the port's ``utils/png.py``, JPEG through its
+  ``utils/jpeg.py`` (equal to cv2's decode bit for bit); WebP, TIFF, BMP,
+  JPEG 2000, GIF and PNM files, which cv2 reads, raise
+  NotImplementedError naming the format; a file no decoder recognises
+  raises FileNotFoundError, as the JAX function does when ``cv2.imread``
+  returns None;
+- RGBA inputs keep their alpha (the reference's own inputs are RGBA);
+- RGB and grey inputs are matted, then recentred: cropped to the alpha's
+  box and pasted, scaled to ``(1 - border_ratio) * size``, in the middle
+  of a ``size``^2 canvas. The matte is U2Net's from a local checkpoint
   (``--u2net`` or ``DG_U2NET_CKPT``: the official ``u2net.pth`` or
-  ``u2netp.pth``, ``preprocess/u2net.py``) on the port's device, then
-  recentred: cropped to the alpha's box and pasted, scaled to
-  ``(1 - border_ratio) * size``, in the middle of a ``size``^2 canvas.
-  Without a checkpoint the JAX package falls back to cv2's GrabCut, which
-  is not ported: the port raises NotImplementedError;
-- PNGs are decoded and encoded by the port's ``utils/png.py`` and resized
-  by ``utils/resize.py`` as ``cv2.INTER_AREA`` resizes them (no cv2, no
-  PIL); other formats raise NotImplementedError;
+  ``u2netp.pth``, ``preprocess/u2net.py``), else GrabCut's, as the JAX
+  package falls back to ``cv2.grabCut`` (``preprocess/grabcut.py``), both
+  with their pixel work on the port's device. A named checkpoint that is
+  missing raises FileNotFoundError (the JAX package falls back silently);
+- resizes are ``utils/resize.py``'s copies of ``cv2.INTER_AREA``;
 - ``--caption`` writes a BLIP-2 caption (transformers, from a local
   directory ``--blip_ckpt``).
 
-    python -m dreamgaussian_tpu_torch.cli.process input.png [--size 256] \\
+    python -m dreamgaussian_tpu_torch.cli.process input.jpg [--size 256] \\
         [--u2net u2net.pth] [--device cpu]
 
 writes ``input_rgba.png`` beside the input.
@@ -31,19 +37,48 @@ import sys
 import numpy as np
 
 from .. import resolve_device
-from ..utils.png import read_png, write_png
+from ..utils.jpeg import decode_jpeg
+from ..utils.png import decode_png, write_png
 from ..utils.resize import resize_area
+
+# Leading bytes of the formats cv2 reads that the port does not (WebP's
+# "RIFF" is followed by a size, then "WEBP").
+_REFUSED = ((b"RIFF", "WebP"), (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"), (b"BM", "BMP"),
+            (b"\xff\x4f\xff\x51", "JPEG 2000"), (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
+            (b"GIF8", "GIF"))
+
+
+def read_image(path: str) -> np.ndarray:
+    """The image at ``path`` as uint8 [H, W] or [H, W, C] (C = 2, 3 or 4,
+    RGB order), its decoder chosen by the file's leading bytes."""
+    try:
+        with open(path, "rb") as fh:
+            data = fh.read()
+    except OSError:
+        raise FileNotFoundError(path) from None
+    if data.startswith(b"\x89PNG\r\n\x1a\n"):
+        return decode_png(data)
+    if data.startswith(b"\xff\xd8\xff"):
+        return decode_jpeg(data)
+    for sig, name in _REFUSED:
+        if data.startswith(sig) and (name != "WebP" or data[8:12] == b"WEBP"):
+            raise NotImplementedError(f"{path}: {name} images are not read by the port "
+                                      f"(PNG and JPEG are); convert it to PNG")
+    if data[:1] == b"P" and data[1:2] in b"1234567" and data[2:3].isspace():
+        raise NotImplementedError(f"{path}: PNM images are not read by the port "
+                                  f"(PNG and JPEG are); convert it to PNG")
+    raise FileNotFoundError(path)
 
 
 def remove_background(img: np.ndarray, u2net_ckpt: str | None = None,
                       device="cuda") -> np.ndarray:
-    """RGB uint8 [H, W, 3] -> RGBA, the alpha U2Net's matte of the image
-    (``u2net_ckpt``, else ``DG_U2NET_CKPT``)."""
+    """RGB uint8 [H, W, 3] -> RGBA: U2Net's matte when a checkpoint is given
+    (``u2net_ckpt``, else ``DG_U2NET_CKPT``), GrabCut's otherwise."""
     u2net_ckpt = u2net_ckpt or os.environ.get("DG_U2NET_CKPT")
     if not u2net_ckpt:
-        raise NotImplementedError(
-            "background matting needs U2Net weights: pass --u2net <u2net.pth or u2netp.pth> "
-            "(or set DG_U2NET_CKPT); the GrabCut matting without weights is not ported")
+        from ..preprocess.grabcut import grabcut_alpha
+
+        return np.dstack([img, grabcut_alpha(img, device=device)])
     if not os.path.exists(u2net_ckpt):
         raise FileNotFoundError(f"no U2Net checkpoint at {u2net_ckpt}")
     from ..preprocess.u2net import u2net_alpha
@@ -76,15 +111,12 @@ def recenter(rgba: np.ndarray, size: int, border_ratio: float = 0.2) -> np.ndarr
 
 def load_rgba(path: str, size: int | None = None, border_ratio: float = 0.2,
               u2net_ckpt: str | None = None, device="cuda") -> np.ndarray:
-    """A PNG as float32 RGBA in [0, 1] at ``size``^2 (or its own size):
-    RGBA and grey+alpha keep their alpha; RGB and grey are matted
+    """A PNG or JPEG as float32 RGBA in [0, 1] at ``size``^2 (or its own
+    size): RGBA and grey+alpha keep their alpha; RGB and grey are matted
     (``remove_background``) and recentred."""
-    if not os.path.exists(path):
-        raise FileNotFoundError(path)
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(
-            f"{path}: only PNG inputs are ported (no JPEG or other decoders); convert it to PNG")
-    img = read_png(path)
+    img = read_image(path)
+    if img.ndim == 2:
+        img = img[..., None]
     if img.shape[-1] in (1, 2):                  # grey (+ alpha), as cv2 reads it
         img = np.concatenate([np.repeat(img[..., :1], 3, axis=-1), img[..., 1:]], axis=-1)
     if img.shape[-1] == 4:

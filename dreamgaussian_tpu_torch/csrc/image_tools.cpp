@@ -1,0 +1,711 @@
+// Host-side image tools of the port: the JPEG decoder's pixel work and
+// GrabCut's min-cut. Built and loaded by dreamgaussian_tpu_torch/native.py,
+// exposed through a plain C ABI for ctypes.
+//
+// JPEG (utils/jpeg.py parses the markers and calls these):
+//  - dg_jpeg_scan: Huffman decoding of one scan into the coefficient
+//    arrays, sequential or progressive (DC/AC first and refinement passes,
+//    EOB runs), with restart markers;
+//  - dg_jpeg_finish: dequantisation, libjpeg's integer "islow" IDCT
+//    (jidctint.c), libjpeg's "fancy" triangular chroma upsampling
+//    (jdsample.c: h2v1, h1v2, h2v2; plain replication for other factors and
+//    for components two samples wide or less), the fixed-point YCbCr->RGB
+//    tables (jdcolor.c), YCCK->CMYK, and OpenCV's CMYK->BGR
+//    (icvCvt_CMYK2BGR_8u_C4C3R). Every step is integer arithmetic, so the
+//    result equals cv2.imread's (libjpeg-turbo) bit for bit.
+// GrabCut (preprocess/grabcut.py):
+//  - dg_maxflow: the Boykov-Kolmogorov max-flow of OpenCV's GCGraph
+//    (modules/imgproc/src/gcgraph.hpp), on the edges in the order given.
+
+#include <cstdint>
+#include <cstring>
+#include <cmath>
+#include <climits>
+#include <vector>
+#include <algorithm>
+
+namespace {
+
+// Zigzag position -> natural position, with libjpeg's 16 extra entries so
+// that corrupt run lengths land on coefficient 63 instead of outside.
+const int kNatural[80] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// A Huffman table as jdhuff.c derives it: maxcode and value offset per
+// code length (canonical codes).
+struct Huff {
+  bool present = false;
+  int maxcode[18];
+  int valoffset[17];
+  uint8_t vals[256];
+};
+
+// table: 16 code counts then up to 256 symbols; all counts 0 = absent. A
+// DC table's symbols (difference sizes) are at most 15, as jdhuff.c checks.
+bool make_huff(const uint8_t* table, bool dc, Huff* h) {
+  int total = 0;
+  for (int l = 0; l < 16; l++) total += table[l];
+  if (total == 0) return true;
+  if (total > 256) return false;
+  std::memcpy(h->vals, table + 16, total);
+  for (int i = 0; dc && i < total; i++)
+    if (h->vals[i] > 15) return false;
+  int code = 0, p = 0;
+  for (int l = 1; l <= 16; l++) {
+    int n = table[l - 1];
+    if (n) {
+      h->valoffset[l] = p - code;
+      code += n;
+      p += n;
+      h->maxcode[l] = code - 1;
+      if (code >= (1 << l)) return false;  // an all-ones code, as jdhuff.c refuses
+    } else {
+      h->maxcode[l] = -1;
+    }
+    code <<= 1;
+  }
+  h->maxcode[17] = INT_MAX;
+  h->present = true;
+  return true;
+}
+
+// Entropy-coded bits, most significant first: 0xFF 0x00 is a data 0xFF,
+// 0xFF fill bytes are skipped, and at a marker (or the end) zeros follow,
+// as libjpeg inserts them.
+struct Bits {
+  const uint8_t* p;
+  const uint8_t* end;
+  uint64_t acc = 0;
+  int n = 0;
+  bool at_marker = false;
+
+  void fill() {
+    while (n <= 56) {
+      int c = 0;
+      if (!at_marker && p < end) {
+        c = *p++;
+        if (c == 0xFF) {
+          while (p < end && *p == 0xFF) p++;
+          if (p < end && *p == 0x00) {
+            p++;
+          } else {
+            at_marker = true;
+            p--;             // back onto the 0xFF before the marker's code
+            c = 0;
+          }
+        }
+      }
+      acc |= uint64_t(c) << (56 - n);
+      n += 8;
+    }
+  }
+  int get(int k) {          // k in 0..16
+    if (k == 0) return 0;
+    if (n < k) fill();
+    int v = int(acc >> (64 - k));
+    acc <<= k;
+    n -= k;
+    return v;
+  }
+  int bit() { return get(1); }
+  int decode(const Huff& h) {
+    int code = bit();
+    int l = 1;
+    while (code > h.maxcode[l]) {
+      code = (code << 1) | bit();
+      if (++l > 16) return 0;     // corrupt: libjpeg warns and decodes 0
+    }
+    return h.vals[(h.valoffset[l] + code) & 0xFF];
+  }
+  // Drop the bits left in the interval and step over its RSTn marker.
+  void restart() {
+    acc = 0;
+    n = 0;
+    at_marker = false;
+    while (p + 1 < end && !(p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7)) p++;
+    if (p + 1 < end) p += 2;
+  }
+};
+
+inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
+
+struct Scan {
+  int ss, se, ah, al;
+  int eobrun = 0;
+};
+
+// jdhuff.c decode_mcu for one block of a sequential scan.
+void block_sequential(Bits& br, const Huff& dc, const Huff& ac, int* last_dc, int16_t* blk) {
+  int s = br.decode(dc);
+  int diff = s ? extend(br.get(s), s) : 0;
+  *last_dc = int(unsigned(*last_dc) + unsigned(diff));
+  blk[0] = int16_t(*last_dc);
+  for (int k = 1; k < 64; k++) {
+    int rs = br.decode(ac);
+    int r = rs >> 4;
+    s = rs & 15;
+    if (s) {
+      k += r;
+      blk[kNatural[k]] = int16_t(extend(br.get(s), s));
+    } else {
+      if (r != 15) break;
+      k += 15;
+    }
+  }
+}
+
+// jdphuff.c decode_mcu_DC_first / _DC_refine for one block.
+void block_dc_first(Bits& br, const Huff& dc, int* last_dc, int al, int16_t* blk) {
+  int s = br.decode(dc);
+  int diff = s ? extend(br.get(s), s) : 0;
+  *last_dc = int(unsigned(*last_dc) + unsigned(diff));
+  blk[0] = int16_t(unsigned(*last_dc) << al);
+}
+
+void block_dc_refine(Bits& br, int al, int16_t* blk) {
+  if (br.bit()) blk[0] = int16_t(blk[0] | (1 << al));
+}
+
+// jdphuff.c decode_mcu_AC_first for one block.
+void block_ac_first(Bits& br, const Huff& ac, Scan& sc, int16_t* blk) {
+  if (sc.eobrun > 0) {
+    sc.eobrun--;
+    return;
+  }
+  for (int k = sc.ss; k <= sc.se; k++) {
+    int rs = br.decode(ac);
+    int r = rs >> 4;
+    int s = rs & 15;
+    if (s) {
+      k += r;
+      blk[kNatural[k]] = int16_t(unsigned(extend(br.get(s), s)) << sc.al);
+    } else {
+      if (r == 15) {
+        k += 15;
+      } else {
+        sc.eobrun = 1 << r;
+        if (r) sc.eobrun += br.get(r);
+        sc.eobrun--;
+        break;
+      }
+    }
+  }
+}
+
+// jdphuff.c decode_mcu_AC_refine for one block.
+void block_ac_refine(Bits& br, const Huff& ac, Scan& sc, int16_t* blk) {
+  const int p1 = 1 << sc.al;
+  const int m1 = -1 * (1 << sc.al);
+  int k = sc.ss;
+  auto correct = [&](int16_t* c) {
+    if (br.bit() && (*c & p1) == 0) *c = int16_t(*c >= 0 ? *c + p1 : *c + m1);
+  };
+  if (sc.eobrun == 0) {
+    for (; k <= sc.se; k++) {
+      int rs = br.decode(ac);
+      int r = rs >> 4;
+      int s = rs & 15;
+      if (s) {
+        s = br.bit() ? p1 : m1;     // a newly nonzero coefficient is +-1 << al
+      } else if (r != 15) {
+        sc.eobrun = 1 << r;
+        if (r) sc.eobrun += br.get(r);
+        break;                      // the rest of the block is the EOB run's
+      }
+      // Advance over nonzero coefficients (appending their correction bits)
+      // and r zero ones.
+      do {
+        int16_t* c = blk + kNatural[k];
+        if (*c != 0) {
+          correct(c);
+        } else {
+          if (--r < 0) break;
+        }
+        k++;
+      } while (k <= sc.se);
+      if (s) blk[kNatural[k]] = int16_t(s);
+    }
+  }
+  if (sc.eobrun > 0) {
+    for (; k <= sc.se; k++) {
+      int16_t* c = blk + kNatural[k];
+      if (*c != 0) correct(c);
+    }
+    sc.eobrun--;
+  }
+}
+
+// ---- IDCT (jidctint.c jpeg_idct_islow) -------------------------------------
+
+const int64_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196, FIX_0_541196100 = 4433,
+              FIX_0_765366865 = 6270, FIX_0_899976223 = 7373, FIX_1_175875602 = 9633,
+              FIX_1_501321110 = 12299, FIX_1_847759065 = 15137, FIX_1_961570560 = 16069,
+              FIX_2_053119869 = 16819, FIX_2_562915447 = 20995, FIX_3_072711026 = 25172;
+const int CONST_BITS = 13, PASS1_BITS = 2;
+
+inline int64_t descale(int64_t x, int n) { return (x + (int64_t(1) << (n - 1))) >> n; }
+
+// The post-IDCT range limit of jdmaster.c prepare_range_limit_table,
+// indexed by the descaled value & 1023.
+inline uint8_t idct_limit(int64_t x) {
+  int t = int(x & 1023);
+  if (t < 128) return uint8_t(t + 128);
+  if (t < 512) return 255;
+  if (t < 896) return 0;
+  return uint8_t(t - 896);
+}
+
+// One 8x8 block: even and odd parts of one pass over 8 values.
+template <typename In, typename Out>
+inline void idct_1d(const In& in, Out out) {
+  int64_t z2 = in(2), z3 = in(6);
+  int64_t z1 = (z2 + z3) * FIX_0_541196100;
+  int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
+  int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+  z2 = in(0);
+  z3 = in(4);
+  int64_t tmp0 = (z2 + z3) * (int64_t(1) << CONST_BITS);
+  int64_t tmp1 = (z2 - z3) * (int64_t(1) << CONST_BITS);
+  int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  tmp0 = in(7);
+  tmp1 = in(5);
+  tmp2 = in(3);
+  tmp3 = in(1);
+  z1 = tmp0 + tmp3;
+  z2 = tmp1 + tmp2;
+  z3 = tmp0 + tmp2;
+  int64_t z4 = tmp1 + tmp3;
+  int64_t z5 = (z3 + z4) * FIX_1_175875602;
+  tmp0 *= FIX_0_298631336;
+  tmp1 *= FIX_2_053119869;
+  tmp2 *= FIX_3_072711026;
+  tmp3 *= FIX_1_501321110;
+  z1 *= -FIX_0_899976223;
+  z2 *= -FIX_2_562915447;
+  z3 *= -FIX_1_961570560;
+  z4 *= -FIX_0_390180644;
+  z3 += z5;
+  z4 += z5;
+  tmp0 += z1 + z3;
+  tmp1 += z2 + z4;
+  tmp2 += z2 + z3;
+  tmp3 += z1 + z4;
+  out(0, tmp10 + tmp3);
+  out(7, tmp10 - tmp3);
+  out(1, tmp11 + tmp2);
+  out(6, tmp11 - tmp2);
+  out(2, tmp12 + tmp1);
+  out(5, tmp12 - tmp1);
+  out(3, tmp13 + tmp0);
+  out(4, tmp13 - tmp0);
+}
+
+void idct_islow(const int16_t* coef, const int16_t* q, uint8_t* out, int stride) {
+  int ws[64];
+  for (int c = 0; c < 8; c++) {       // pass 1: columns
+    auto in = [&](int r) { return int64_t(int(coef[r * 8 + c]) * int(q[r * 8 + c])); };
+    // (libjpeg's shortcut for a column or row whose AC terms are all zero
+    // gives the same values as the full pass, so there is none here.)
+    idct_1d(in, [&](int r, int64_t v) { ws[r * 8 + c] = int(descale(v, CONST_BITS - PASS1_BITS)); });
+  }
+  for (int r = 0; r < 8; r++) {       // pass 2: rows
+    const int* w = ws + r * 8;
+    auto in = [&](int c) { return int64_t(w[c]); };
+    uint8_t* o = out + size_t(r) * stride;
+    idct_1d(in, [&](int c, int64_t v) { o[c] = idct_limit(descale(v, CONST_BITS + PASS1_BITS + 3)); });
+  }
+}
+
+inline uint8_t clamp255(int v) { return uint8_t(v < 0 ? 0 : (v > 255 ? 255 : v)); }
+
+// One component's samples [dh, dw] upsampled by (hx, vx) to [oh, ow]
+// (oh <= dh * vx, ow <= dw * hx), as jdsample.c does it with fancy
+// upsampling on; rows and columns past the component's edge repeat its
+// last one, as jdmainct.c's context rows do.
+void upsample(const uint8_t* in, int dw, int dh, int hx, int vx, uint8_t* out, int ow, int oh) {
+  auto at = [&](int y, int x) {
+    y = std::min(std::max(y, 0), dh - 1);
+    x = std::min(std::max(x, 0), dw - 1);
+    return int(in[size_t(y) * dw + x]);
+  };
+  const bool h2 = hx == 2 && vx == 1 && dw > 2;
+  const bool v2 = hx == 1 && vx == 2;
+  const bool hv2 = hx == 2 && vx == 2 && dw > 2;
+  for (int y = 0; y < oh; y++) {
+    uint8_t* o = out + size_t(y) * ow;
+    if (h2) {                          // h2v1_fancy_upsample
+      for (int x = 0; x < ow; x++) {
+        int i = x >> 1, near = at(y, i) * 3;
+        o[x] = uint8_t((x & 1) ? (near + at(y, i + 1) + 2) >> 2 : (near + at(y, i - 1) + 1) >> 2);
+      }
+    } else if (v2) {                   // h1v2_fancy_upsample
+      int i = y >> 1;
+      int other = (y & 1) ? i + 1 : i - 1, bias = (y & 1) ? 2 : 1;
+      for (int x = 0; x < ow; x++) o[x] = uint8_t((at(i, x) * 3 + at(other, x) + bias) >> 2);
+    } else if (hv2) {                  // h2v2_fancy_upsample
+      int i = y >> 1, other = (y & 1) ? i + 1 : i - 1;
+      auto colsum = [&](int x) { return at(i, x) * 3 + at(other, x); };
+      for (int x = 0; x < ow; x++) {
+        int j = x >> 1, here = colsum(j) * 3;
+        o[x] = uint8_t((x & 1) ? (here + colsum(j + 1) + 7) >> 4 : (here + colsum(j - 1) + 8) >> 4);
+      }
+    } else {                           // fullsize, h2v1/h2v2 plain, int_upsample
+      for (int x = 0; x < ow; x++) o[x] = uint8_t(at(y / vx, x / hx));
+    }
+  }
+}
+
+// ---- Max-flow (OpenCV's GCGraph) -------------------------------------------
+
+struct Vtx {
+  Vtx* next;
+  int parent;
+  int first;
+  int ts;
+  int dist;
+  double weight;
+  uint8_t t;
+};
+
+struct Edge {
+  int dst;
+  int next;
+  double weight;
+};
+
+}  // namespace
+
+extern "C" {
+
+// Decode one scan. data/len: its entropy-coded bytes up to the next marker
+// other than RSTn. Per scan component c: coefs[c] its int16 [rows, stride,
+// 64] array, desc[c*4 ..] = (h, v, stride, unused): blocks per MCU across
+// and down (1, 1 in a scan of one component) and the array's row width in
+// blocks; dc/ac[c*272 ..] its tables (16 counts, 256 symbols; all counts 0
+// where the scan needs none). mcus_x, mcus_y: the scan's MCU grid. Returns
+// 0, or 1 for a table the scan needs that is missing or malformed.
+int dg_jpeg_scan(const uint8_t* data, int64_t len, int ncomp, int16_t** coefs,
+                 const int32_t* desc, const uint8_t* dc, const uint8_t* ac, int mcus_x,
+                 int mcus_y, int ss, int se, int ah, int al, int progressive,
+                 int restart_interval) {
+  std::vector<Huff> dct(ncomp), act(ncomp);
+  for (int c = 0; c < ncomp; c++) {
+    if (!make_huff(dc + c * 272, true, &dct[c]) || !make_huff(ac + c * 272, false, &act[c]))
+      return 1;
+    bool need_dc = !progressive || (ss == 0 && ah == 0);
+    bool need_ac = !progressive || ss > 0;
+    if ((need_dc && !dct[c].present) || (need_ac && !act[c].present)) return 1;
+  }
+  Bits br{data, data + len};
+  Scan sc{ss, se, ah, al};
+  std::vector<int> last_dc(ncomp, 0);
+  int64_t n_mcus = int64_t(mcus_x) * mcus_y;
+  for (int64_t m = 0; m < n_mcus; m++) {
+    if (restart_interval && m > 0 && m % restart_interval == 0) {
+      br.restart();
+      std::fill(last_dc.begin(), last_dc.end(), 0);
+      sc.eobrun = 0;
+    }
+    int mx = int(m % mcus_x), my = int(m / mcus_x);
+    for (int c = 0; c < ncomp; c++) {
+      int h = desc[c * 4], v = desc[c * 4 + 1], stride = desc[c * 4 + 2];
+      for (int by = 0; by < v; by++) {
+        for (int bx = 0; bx < h; bx++) {
+          int16_t* blk = coefs[c] + (int64_t(my * v + by) * stride + (mx * h + bx)) * 64;
+          if (!progressive) {
+            block_sequential(br, dct[c], act[c], &last_dc[c], blk);
+          } else if (ss == 0) {
+            if (ah == 0) block_dc_first(br, dct[c], &last_dc[c], al, blk);
+            else block_dc_refine(br, al, blk);
+          } else if (ah == 0) {
+            block_ac_first(br, act[c], sc, blk);
+          } else {
+            block_ac_refine(br, act[c], sc, blk);
+          }
+        }
+      }
+    }
+  }
+  return 0;
+}
+
+// Dequantise, inverse-transform, upsample and convert every component into
+// out [height, width, 1 or 3]. Per component c: coefs[c] int16 [rows,
+// stride, 64], desc[c*6 ..] = (h, v, stride, width_in_blocks,
+// height_in_blocks, has_table), q[c*64 ..] its quantisation table in
+// natural order. transform: 0 grey, 1 YCbCr->RGB, 2 RGB as stored,
+// 3 CMYK, 4 YCCK (both then OpenCV's CMYK->BGR, written as RGB).
+int dg_jpeg_finish(int ncomp, int16_t** coefs, const int32_t* desc, const uint16_t* q,
+                   int width, int height, int max_h, int max_v, int transform, uint8_t* out) {
+  std::vector<std::vector<uint8_t>> planes(ncomp);
+  for (int c = 0; c < ncomp; c++) {
+    const int32_t* d = desc + c * 6;
+    int h = d[0], v = d[1], stride = d[2], bw = d[3], bh = d[4];
+    if (max_h % h || max_v % v) return 1;             // fractional sampling
+    int dw = int((int64_t(width) * h + max_h - 1) / max_h);
+    int dh = int((int64_t(height) * v + max_v - 1) / max_v);
+    int16_t qt[64];
+    for (int i = 0; i < 64; i++) qt[i] = d[5] ? int16_t(q[c * 64 + i]) : 0;
+    std::vector<uint8_t> samples(size_t(bw) * 8 * bh * 8);
+    for (int by = 0; by < bh; by++)
+      for (int bx = 0; bx < bw; bx++)
+        idct_islow(coefs[c] + (int64_t(by) * stride + bx) * 64, qt,
+                   samples.data() + size_t(by) * 8 * bw * 8 + bx * 8, bw * 8);
+    std::vector<uint8_t> crop(size_t(dw) * dh);
+    for (int y = 0; y < dh; y++)
+      std::memcpy(crop.data() + size_t(y) * dw, samples.data() + size_t(y) * bw * 8, dw);
+    planes[c].resize(size_t(width) * height);
+    upsample(crop.data(), dw, dh, max_h / h, max_v / v, planes[c].data(), width, height);
+  }
+  const size_t n = size_t(width) * height;
+  if (transform == 0) {
+    std::memcpy(out, planes[0].data(), n);
+    return 0;
+  }
+  // jdcolor.c build_ycc_rgb_table
+  const int SCALEBITS = 16;
+  const int64_t ONE_HALF = int64_t(1) << (SCALEBITS - 1);
+  auto fix = [](double x) { return int64_t(x * (1L << 16) + 0.5); };
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  for (int i = 0, x = -128; i < 256; i++, x++) {
+    cr_r[i] = int((fix(1.40200) * x + ONE_HALF) >> SCALEBITS);
+    cb_b[i] = int((fix(1.77200) * x + ONE_HALF) >> SCALEBITS);
+    cr_g[i] = -fix(0.71414) * x;
+    cb_g[i] = -fix(0.34414) * x + ONE_HALF;
+  }
+  for (size_t i = 0; i < n; i++) {
+    int a = planes[0][i], b = planes[1][i], c = planes[2][i];
+    int r = a, g = b, bl = c;                          // RGB and CMYK as stored
+    if (transform == 1 || transform == 4) {            // ycc_rgb_convert
+      r = a + cr_r[c];
+      g = a + int((cb_g[b] + cr_g[c]) >> SCALEBITS);
+      bl = a + cb_b[b];
+      if (transform == 4) {                            // ycck_cmyk_convert
+        r = 255 - r;
+        g = 255 - g;
+        bl = 255 - bl;
+      }
+      r = clamp255(r);
+      g = clamp255(g);
+      bl = clamp255(bl);
+    }
+    if (transform >= 3) {                              // icvCvt_CMYK2BGR_8u_C4C3R
+      int k = planes[3][i];
+      r = k - ((255 - r) * k >> 8);
+      g = k - ((255 - g) * k >> 8);
+      bl = k - ((255 - bl) * k >> 8);
+    }
+    out[i * 3] = uint8_t(r);
+    out[i * 3 + 1] = uint8_t(g);
+    out[i * 3 + 2] = uint8_t(bl);
+  }
+  return 0;
+}
+
+// Max-flow/min-cut of a graph with terminal weights, as OpenCV's GCGraph
+// computes it (Boykov-Kolmogorov search trees; edges added in the order
+// given, each with its capacity and its reverse capacity). source_w[i] and
+// sink_w[i] are vertex i's capacities from the source and to the sink.
+// Writes in_source[i] = 1 for the vertices GCGraph places in the source
+// segment (tree 0, which includes the vertices no tree reached) and the
+// flow's value to *flow. Returns 0, 1 for a bad edge, 2 for a path of no
+// positive capacity (OpenCV's assertion).
+int dg_maxflow(int n_vtx, int64_t n_edges, const int32_t* src, const int32_t* dst,
+               const double* cap, const double* rev_cap, const double* source_w,
+               const double* sink_w, uint8_t* in_source, double* flow_out) {
+  std::vector<Vtx> vtcs(n_vtx);
+  std::vector<Edge> edges(2 + 2 * size_t(n_edges));
+  double flow = 0;
+  for (int i = 0; i < n_vtx; i++) {
+    Vtx& v = vtcs[i];
+    std::memset(&v, 0, sizeof(Vtx));
+    double s = source_w[i], t = sink_w[i];
+    flow += (s < t) ? s : t;
+    v.weight = s - t;
+  }
+  for (int64_t e = 0; e < n_edges; e++) {
+    int i = src[e], j = dst[e];
+    if (i < 0 || j < 0 || i >= n_vtx || j >= n_vtx || i == j) return 1;
+    int k = int(2 + 2 * e);
+    edges[k] = {j, vtcs[i].first, cap[e]};
+    vtcs[i].first = k;
+    edges[k + 1] = {i, vtcs[j].first, rev_cap[e]};
+    vtcs[j].first = k + 1;
+  }
+
+  const int TERMINAL = -1, ORPHAN = -2;
+  Vtx stub, *nil = &stub, *first = nil, *last = nil;
+  std::memset(&stub, 0, sizeof(Vtx));
+  int curr_ts = 0;
+  stub.next = nil;
+  Vtx* V = vtcs.data();
+  Edge* E = edges.data();
+  std::vector<Vtx*> orphans;
+
+  for (int i = 0; i < n_vtx; i++) {
+    Vtx* v = V + i;
+    v->ts = 0;
+    if (v->weight != 0) {
+      last = last->next = v;
+      v->dist = 1;
+      v->parent = TERMINAL;
+      v->t = v->weight < 0;
+    } else {
+      v->parent = 0;
+    }
+  }
+  first = first->next;
+  last->next = nil;
+  nil->next = 0;
+
+  for (;;) {
+    Vtx *v, *u;
+    int e0 = -1, ei = 0, ej = 0;
+    double min_weight, weight;
+    uint8_t vt;
+
+    // grow the source and sink trees, find an edge joining them
+    while (first != nil) {
+      v = first;
+      if (v->parent) {
+        vt = v->t;
+        for (ei = v->first; ei != 0; ei = E[ei].next) {
+          if (E[ei ^ vt].weight == 0) continue;
+          u = V + E[ei].dst;
+          if (!u->parent) {
+            u->t = vt;
+            u->parent = ei ^ 1;
+            u->ts = v->ts;
+            u->dist = v->dist + 1;
+            if (!u->next) {
+              u->next = nil;
+              last = last->next = u;
+            }
+            continue;
+          }
+          if (u->t != vt) {
+            e0 = ei ^ vt;
+            break;
+          }
+          if (u->dist > v->dist + 1 && u->ts <= v->ts) {
+            u->parent = ei ^ 1;
+            u->ts = v->ts;
+            u->dist = v->dist + 1;
+          }
+        }
+        if (e0 > 0) break;
+      }
+      first = first->next;
+      v->next = 0;
+    }
+    if (e0 <= 0) break;
+
+    // the bottleneck of the path
+    min_weight = E[e0].weight;
+    if (!(min_weight > 0)) return 2;
+    for (int k = 1; k >= 0; k--) {
+      for (v = V + E[e0 ^ k].dst;; v = V + E[ei].dst) {
+        if ((ei = v->parent) < 0) break;
+        weight = E[ei ^ k].weight;
+        min_weight = std::min(min_weight, weight);
+        if (!(min_weight > 0)) return 2;
+      }
+      weight = std::fabs(v->weight);
+      min_weight = std::min(min_weight, weight);
+      if (!(min_weight > 0)) return 2;
+    }
+
+    // push it, collecting the orphans
+    E[e0].weight -= min_weight;
+    E[e0 ^ 1].weight += min_weight;
+    flow += min_weight;
+    for (int k = 1; k >= 0; k--) {
+      for (v = V + E[e0 ^ k].dst;; v = V + E[ei].dst) {
+        if ((ei = v->parent) < 0) break;
+        E[ei ^ (k ^ 1)].weight += min_weight;
+        if ((E[ei ^ k].weight -= min_weight) == 0) {
+          orphans.push_back(v);
+          v->parent = ORPHAN;
+        }
+      }
+      v->weight = v->weight + min_weight * (1 - k * 2);
+      if (v->weight == 0) {
+        orphans.push_back(v);
+        v->parent = ORPHAN;
+      }
+    }
+
+    // adopt the orphans
+    curr_ts++;
+    while (!orphans.empty()) {
+      Vtx* v2 = orphans.back();
+      orphans.pop_back();
+      int d, min_dist = INT_MAX;
+      e0 = 0;
+      vt = v2->t;
+      for (ei = v2->first; ei != 0; ei = E[ei].next) {
+        if (E[ei ^ (vt ^ 1)].weight == 0) continue;
+        u = V + E[ei].dst;
+        if (u->t != vt || u->parent == 0) continue;
+        for (d = 0;;) {               // the distance to the tree's root
+          if (u->ts == curr_ts) {
+            d += u->dist;
+            break;
+          }
+          ej = u->parent;
+          d++;
+          if (ej < 0) {
+            if (ej == ORPHAN) {
+              d = INT_MAX - 1;
+            } else {
+              u->ts = curr_ts;
+              u->dist = 1;
+            }
+            break;
+          }
+          u = V + E[ej].dst;
+        }
+        if (++d < INT_MAX) {
+          if (d < min_dist) {
+            min_dist = d;
+            e0 = ei;
+          }
+          for (u = V + E[ei].dst; u->ts != curr_ts; u = V + E[u->parent].dst) {
+            u->ts = curr_ts;
+            u->dist = --d;
+          }
+        }
+      }
+      if ((v2->parent = e0) > 0) {
+        v2->ts = curr_ts;
+        v2->dist = min_dist;
+        continue;
+      }
+      v2->ts = 0;                     // no parent: free it
+      for (ei = v2->first; ei != 0; ei = E[ei].next) {
+        u = V + E[ei].dst;
+        ej = u->parent;
+        if (u->t != vt || !ej) continue;
+        if (E[ei ^ (vt ^ 1)].weight && !u->next) {
+          u->next = nil;
+          last = last->next = u;
+        }
+        if (ej > 0 && V + E[ej].dst == v2) {
+          orphans.push_back(u);
+          u->parent = ORPHAN;
+        }
+      }
+    }
+  }
+  for (int i = 0; i < n_vtx; i++) in_source[i] = vtcs[i].t == 0;
+  *flow_out = flow;
+  return 0;
+}
+
+}  // extern "C"

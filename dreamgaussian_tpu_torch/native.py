@@ -1,12 +1,16 @@
-"""ctypes loader for the port's host-side mesh tools (``csrc/mesh_tools.cpp``).
+"""ctypes loader for the port's host-side native code.
 
-Port of ``dreamgaussian_tpu/native/__init__.py`` with its own copy of the
-source. The shared library is compiled at first use into ``build/native/``
-at the root of the checkout, under a name that carries the hash of the
-source and the flags, so an edited source is rebuilt. The host compiler is
-``g++``; where there is none, the same file goes through ``nvcc``, which
-drives its own host compiler. The flags name no machine-specific
-instruction set (no ``-march=native``). A failed build raises.
+Two sources under ``csrc/``: ``mesh_tools.cpp`` (the port's own copy of
+``dreamgaussian_tpu/native/``'s, wrapped below) and ``image_tools.cpp``
+(the JPEG decoder's pixel work and GrabCut's min-cut, wrapped by
+``utils/jpeg.py`` and ``preprocess/grabcut.py``); ``image_tools()``
+declares the latter's functions. Each shared library is
+compiled at first use into ``build/native/`` at the root of the checkout,
+under a name that carries the hash of its source and the flags, so an
+edited source is rebuilt. The host compiler is ``g++``; where there is
+none, the same file goes through ``nvcc``, which drives its own host
+compiler. The flags name no machine-specific instruction set (no
+``-march=native``). A failed build raises.
 """
 
 from __future__ import annotations
@@ -22,70 +26,95 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "csrc" / "mesh_tools.cpp"
+IMAGE_TOOLS = SRC.with_name("image_tools.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 _LOCK = threading.Lock()
-_LIB = None
+_LIBS: dict[Path, ctypes.CDLL] = {}
 
 
-def _compile_command(out: Path) -> list[str]:
+def _compile_command(src: Path, out: Path) -> list[str]:
     gxx = shutil.which("g++")
     if gxx:
-        return [gxx, *CXX_FLAGS, str(SRC), "-o", str(out)]
+        return [gxx, *CXX_FLAGS, str(src), "-o", str(out)]
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if os.path.exists(nvcc):
         return [nvcc, "-x", "c++", "-O3", "-std=c++17", "-shared", "-Xcompiler",
-                "-fPIC", str(SRC), "-o", str(out)]
-    raise RuntimeError("neither g++ nor nvcc found: cannot build the mesh tools")
+                "-fPIC", str(src), "-o", str(out)]
+    raise RuntimeError(f"neither g++ nor nvcc found: cannot build {src.name}")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SRC.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libmesh_tools-{digest.hexdigest()[:16]}.so"
+def library_path(src: Path = SRC) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the mesh tools if their library is missing; returns its path."""
-    so = library_path()
+def build(src: Path = SRC) -> Path:
+    """Compile ``src`` if its library is missing; returns the library's path."""
+    so = library_path(src)
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(_compile_command(tmp), capture_output=True, text=True)
+        proc = subprocess.run(_compile_command(src, tmp), capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"building {SRC.name} failed:\n{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"building {src.name} failed:\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, so)
     return so
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
+def _load(src: Path, declare) -> ctypes.CDLL:
+    """The library of ``src``, built and loaded once per process;
+    ``declare(lib)`` sets every function's argtypes and restype."""
     with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            dp = ctypes.POINTER(ctypes.c_double)
-            ip = ctypes.POINTER(ctypes.c_int32)
-            lib.clean_mesh.argtypes = [
-                dp, ctypes.c_int, ip, ctypes.c_int,
-                ctypes.c_double, ctypes.c_double, dp, ip, ip, ip,
-            ]
-            lib.decimate_mesh.argtypes = [
-                dp, ctypes.c_int, ip, ctypes.c_int, ctypes.c_int,
-                dp, ip, ip, ip,
-            ]
-            lib.laplacian_smooth.argtypes = [
-                dp, ctypes.c_int, ip, ctypes.c_int,
-                ctypes.c_int, ctypes.c_double,
-            ]
-            lib.isotropic_remesh.argtypes = [
-                dp, ctypes.c_int, ip, ctypes.c_int,
-                ctypes.c_double, ctypes.c_int,
-                dp, ctypes.c_int32, ip, ip, ctypes.c_int32, ip,
-            ]
-            for fn in (lib.clean_mesh, lib.decimate_mesh, lib.laplacian_smooth,
-                       lib.isotropic_remesh):
-                fn.restype = ctypes.c_int
-            _LIB = lib
-    return _LIB
+        if src not in _LIBS:
+            lib = ctypes.CDLL(str(build(src)))
+            declare(lib)
+            _LIBS[src] = lib
+    return _LIBS[src]
+
+
+def _declare_image_tools(lib: ctypes.CDLL) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.dg_jpeg_scan.argtypes = [vp, i64, i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                                 i32, i32]
+    lib.dg_jpeg_finish.argtypes = [i32, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+    lib.dg_maxflow.argtypes = [i32, i64, vp, vp, vp, vp, vp, vp, vp, vp]
+    for fn in (lib.dg_jpeg_scan, lib.dg_jpeg_finish, lib.dg_maxflow):
+        fn.restype = ctypes.c_int
+
+
+def image_tools() -> ctypes.CDLL:
+    """``csrc/image_tools.cpp``'s library with its functions declared."""
+    return _load(IMAGE_TOOLS, _declare_image_tools)
+
+
+def _declare_mesh_tools(lib: ctypes.CDLL) -> None:
+    dp = ctypes.POINTER(ctypes.c_double)
+    ip = ctypes.POINTER(ctypes.c_int32)
+    lib.clean_mesh.argtypes = [
+        dp, ctypes.c_int, ip, ctypes.c_int,
+        ctypes.c_double, ctypes.c_double, dp, ip, ip, ip,
+    ]
+    lib.decimate_mesh.argtypes = [
+        dp, ctypes.c_int, ip, ctypes.c_int, ctypes.c_int,
+        dp, ip, ip, ip,
+    ]
+    lib.laplacian_smooth.argtypes = [
+        dp, ctypes.c_int, ip, ctypes.c_int,
+        ctypes.c_int, ctypes.c_double,
+    ]
+    lib.isotropic_remesh.argtypes = [
+        dp, ctypes.c_int, ip, ctypes.c_int,
+        ctypes.c_double, ctypes.c_int,
+        dp, ctypes.c_int32, ip, ip, ctypes.c_int32, ip,
+    ]
+    for fn in (lib.clean_mesh, lib.decimate_mesh, lib.laplacian_smooth,
+               lib.isotropic_remesh):
+        fn.restype = ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    return _load(SRC, _declare_mesh_tools)
 
 
 def _as_c(verts: np.ndarray, faces: np.ndarray):

@@ -1,8 +1,8 @@
 """The port's CLIs: ``load_rgba`` against the JAX package's (which decodes
 with cv2 and shrinks with ``cv2.INTER_AREA``), both CLIs end to end on the
 CPU at the golden run's sizes with every output file read back, a
-missing snapshot, the device mesh that is not ported yet, and the device
-policy."""
+missing snapshot, a device mesh whose size is not the number of ranks,
+and the device policy."""
 
 import numpy as np
 import pytest
@@ -40,11 +40,14 @@ def test_load_rgba_matches_jax(tmp_path, src, dst):
     np.testing.assert_array_equal(t_load_rgba(path), rgba.astype(np.float32) / 255.0)
 
 
-def test_load_rgba_refuses_what_needs_matting(tmp_path):
+def test_load_rgba_refuses_what_needs_matting(tmp_path, monkeypatch):
+    """An RGB input is matted by GrabCut without weights; one too small for
+    its rect (inset by 4 on each side) is refused, as cv2.grabCut asserts."""
+    monkeypatch.delenv("DG_U2NET_CKPT", raising=False)
     path = str(tmp_path / "rgb.png")
     write_png(path, np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="matting"):
-        t_load_rgba(path)
+    with pytest.raises(ValueError, match="no background or no foreground"):
+        t_load_rgba(path, device="cpu")
 
 
 OVERRIDES = [   # tests/test_golden_e2e.py's run, on the CPU

@@ -29,6 +29,7 @@ from dreamgaussian_tpu_torch.ops.rasterize import build_feature_cols, render_gau
 from dreamgaussian_tpu_torch.utils.camera import Camera, orbit_camera
 from torch_cli_cases import disc_png, image_options
 from torch_composite_cases import CASES, composite_case
+from torch_image_cases import JPEG_FIXTURES, SCENES, iou, scene
 from torch_ztest_cases import CARD_CASES as ZTEST_CASES
 from torch_ztest_cases import ztest_case
 
@@ -1192,3 +1193,63 @@ def test_viewer_render_holds_k1_and_k3(cuda_device, tmp_path, kind):
         ref = cpu.render(15.0, 40.0, 2.2, mode)
         assert img.shape == (256, 256, 3) and ref.std() > 5, mode
         assert np.abs(img.astype(int) - ref).max() <= 1, mode
+
+
+# -- input decoding and GrabCut matting on the card --
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SCENES)
+def test_grabcut_on_card_matches_cpu(cuda_device, kind):
+    """GrabCut's pixel work on the card against the CPU's: the same draws
+    (a seeded CPU generator), float64 on both; exp and log may round apart
+    in the last bit, so the mattes are held at IoU >= 0.99."""
+    from dreamgaussian_tpu_torch.preprocess.grabcut import grabcut_alpha
+
+    img = scene(kind, 128, 160, seed=7)
+    card, cpu = grabcut_alpha(img, device="cuda"), grabcut_alpha(img, device="cpu")
+    assert card.shape == (128, 160) and card.dtype == np.uint8
+    assert iou(card, cpu) >= 0.99
+
+
+@pytest.mark.cuda
+def test_grabcut_keeps_its_pixel_work_on_the_card(cuda_device, monkeypatch):
+    """The mask comes back on the card; the min-cut is the one host step,
+    handed numpy t-links once per iteration."""
+    from dreamgaussian_tpu_torch.preprocess import grabcut as tgc
+
+    calls = []
+    real = tgc.min_cut
+
+    def counted(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(tgc, "min_cut", counted)
+    mask = tgc.grabcut(scene("box", 96, 96, seed=1), (8, 8, 80, 80), device="cuda")
+    assert mask.is_cuda and mask.dtype == torch.uint8
+    assert len(calls) == tgc.ITERATIONS and all(isinstance(a[0], np.ndarray) for a in calls)
+
+
+@pytest.mark.cuda
+def test_blur_on_card_is_the_cpus_bit_for_bit(cuda_device):
+    from dreamgaussian_tpu_torch.preprocess.grabcut import gaussian_blur5
+
+    rng = np.random.default_rng(0)
+    for h, w in ((5, 5), (63, 41), (512, 512)):
+        a = torch.from_numpy(((rng.random((h, w)) < 0.5) * 255).astype(np.uint8))
+        assert torch.equal(gaussian_blur5(a.cuda()).cpu(), gaussian_blur5(a))
+
+
+@pytest.mark.cuda
+def test_jpeg_photo_matted_on_card_against_cpu_and_cv2(cuda_device):
+    """The 512^2 fixture photo: decoded as cv2 decoded it, matted on the
+    card, held against the CPU's matte and cv2's stored one."""
+    from dreamgaussian_tpu_torch.cli.process import read_image
+    from dreamgaussian_tpu_torch.preprocess.grabcut import grabcut_alpha
+    from dreamgaussian_tpu_torch.utils.png import read_png
+
+    img = read_image(str(JPEG_FIXTURES / "photo_512.jpg"))
+    card = grabcut_alpha(img, device="cuda")
+    assert iou(card, grabcut_alpha(img, device="cpu")) >= 0.99
+    assert iou(card, read_png(str(JPEG_FIXTURES / "photo_512_alpha.png"))[..., 0]) >= 0.95

@@ -1,7 +1,8 @@
 """Input preprocessing of the PyTorch port against the JAX package's
 (U2Net in torch on the CPU, cv2 for decoding and resizing) on the same
 inputs: U2Net's matte, ``recenter``, ``load_rgba`` of RGB and grey PNGs,
-and ``cli.process.main``.
+``cli.process.main``, and what still raises (JPEGs and GrabCut:
+``test_torch_jpeg.py``, ``test_torch_grabcut.py``).
 
 Tolerances: the matte within 1e-5 absolute; recentred images equal;
 loaded RGB equal and alpha within one level of 255."""
@@ -95,17 +96,22 @@ def test_process_main_writes_rgba(tmp_path, u2net_files):
 
 
 def test_missing_weights_and_formats_raise(tmp_path, monkeypatch):
+    """What still raises since JPEGs and GrabCut are ported: a named U2Net
+    file that is missing (the JAX package falls back to GrabCut silently)
+    and the formats cv2 reads that the port does not."""
     monkeypatch.delenv("DG_U2NET_CKPT", raising=False)
     path = str(tmp_path / "rgb.png")
     Image.fromarray(_photo(16, 16, 1)).save(path)
-    with pytest.raises(NotImplementedError, match="matting"):
-        tproc.load_rgba(path, device="cpu")
     with pytest.raises(FileNotFoundError, match="U2Net"):
         tproc.load_rgba(path, u2net_ckpt=str(tmp_path / "none.pth"), device="cpu")
-    jpg = str(tmp_path / "x.jpg")
-    Image.fromarray(_photo(16, 16, 1)).save(jpg)
-    with pytest.raises(NotImplementedError, match="PNG"):
-        tproc.load_rgba(jpg, device="cpu")
+    monkeypatch.setenv("DG_U2NET_CKPT", str(tmp_path / "none.pth"))
+    with pytest.raises(FileNotFoundError, match="U2Net"):
+        tproc.load_rgba(path, device="cpu")
+    for ext, name in ((".webp", "WebP"), (".tiff", "TIFF")):
+        other = str(tmp_path / f"x{ext}")
+        Image.fromarray(_photo(16, 16, 1)).save(other)
+        with pytest.raises(NotImplementedError, match=name):
+            tproc.load_rgba(other, device="cpu")
 
 
 def test_process_needs_a_card_unless_cpu(tmp_path, u2net_files):
