@@ -3,12 +3,17 @@
     python3 chip_smoke.py [--seed 0]
 
 1. builds the port's CUDA kernels (one nvcc per source) and its host
-   tools (g++: the mesh tools and the image tools), all at once, and prints
-   the toolchain;
+   tools (g++: the mesh tools, the image tools and the image codecs), all
+   at once, and prints the toolchain;
 1b. the formats phase (``run_formats``): decodes every checked-in JPEG
    fixture (``tests/fixtures/port_jpeg/``, written by
    ``scripts/port_make_jpeg_fixtures.py``) and holds it bit for bit against
-   cv2's decode stored beside it, with the host's decode ms; runs GrabCut on
+   cv2's decode stored beside it, with the host's decode ms; reads every
+   fixture of ``tests/fixtures/port_images/`` (PNG, WebP, BMP, PNM, GIF;
+   ``scripts/port_make_image_fixtures.py``) under IMREAD_UNCHANGED and
+   IMREAD_COLOR, and the GLB's and OBJs' textures through ``Mesh.load``,
+   each held bit for bit against cv2's stored decode, with the host's
+   median ms (``check_image_fixtures``); runs GrabCut on
    the card on the 512^2 photo (device ms of the pixel work under
    torch.profiler, host ms of the min-cuts) and holds its matte against the
    port's CPU run and cv2's stored one (alpha >= 128 IoU); lines
@@ -68,7 +73,12 @@
    against the plain version (lines ``[weights]``, ``[cli]`` and
    ``[kernels] ... in the weights-day``); the ``image_sai.yaml`` run takes
    the 512^2 RGB JPEG fixture and no U2Net weights: decoded by the port,
-   matted by GrabCut on the card (checked), recentred, then stage 1;
+   matted by GrabCut on the card (checked), recentred, then stage 1; then
+   ``cli.main`` on ``configs/image.yaml`` with the 512^2 lossy RGBA WebP
+   photo (its alpha kept: no matting, checked) for a few steps, and
+   ``cli.main2`` with ``mesh=`` the GLB fixture whose base colour is a 512^2
+   JPEG (read by the port, checked) for the stage-2 steps, 3 K3 launches
+   each;
 10. the text day: writes a full-width SD 2.1-base diffusers snapshot (the
    UNet, the KL-VAE, the 23-layer CLIP text tower, a tokenizer) as fp16
    safetensors and a full-width single-file MVDream LDM checkpoint (the
@@ -1629,6 +1639,10 @@ def check_snapshot_load(snap: str, png: str, card: str, load_alone: subprocess.P
 JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                              "port_jpeg")
 PHOTO_512 = os.path.join(JPEG_FIXTURES, "photo_512.jpg")
+IMAGE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                              "port_images")
+PHOTO_WEBP = os.path.join(IMAGE_FIXTURES, "photo_512_rgba.webp")
+SPHERE_GLB = os.path.join(IMAGE_FIXTURES, "sphere_jpeg.glb")
 GRABCUT_IOU_CPU = 0.99
 GRABCUT_IOU_CV2 = 0.95
 DECODE_REPS = 5
@@ -1705,9 +1719,11 @@ def run_formats(card: str) -> dict:
               f"{digest[:16]}), decoded in a median {decode_ms[name]:.2f} ms of {DECODE_REPS} on "
               f"the host; card '{card}'")
 
+    decode_ms.update(check_image_fixtures(card))
+
     with open(PHOTO_512, "rb") as fh:
         img = decode_jpeg(fh.read())
-    cv2_alpha = read_png(os.path.join(JPEG_FIXTURES, "photo_512_alpha.png"))[..., 0]
+    cv2_alpha = read_png(os.path.join(JPEG_FIXTURES, "photo_512_alpha.png"))
     grabcut_alpha(img[:128, :128], device="cuda")       # warm-up: the card's first kernels
     watch: dict = {}
     torch.cuda.synchronize()
@@ -1739,6 +1755,78 @@ def run_formats(card: str) -> dict:
     return out
 
 
+def check_image_fixtures(card: str) -> dict:
+    """Every fixture of ``scripts/port_make_image_fixtures.py`` read by the
+    port under IMREAD_UNCHANGED and IMREAD_COLOR (``utils/imread.py``), the
+    GLB and the OBJs through ``Mesh.load``, each held bit for bit against
+    cv2's stored decode (shape, dtype, SHA-256; the 83x61 files' arrays
+    too); one line each with the host's median ms of ``DECODE_REPS`` reads."""
+    import hashlib
+
+    import numpy as np
+
+    from dreamgaussian_tpu_torch.meshing.mesh import Mesh
+    from dreamgaussian_tpu_torch.utils.imread import IMREAD_COLOR, IMREAD_UNCHANGED, decode_image
+
+    with open(os.path.join(IMAGE_FIXTURES, "decodes.json")) as fh:
+        digests = json.load(fh)
+    small = np.load(os.path.join(IMAGE_FIXTURES, "small_decodes.npz"))
+    textures = {"tex_grey.obj": "tex_grey.png", "tex_palette.obj": "tex_palette.png",
+                "tex_exif.obj": "tex_exif.jpg", "sphere_jpeg.glb": "sphere_jpeg.glb"}
+
+    def held(name: str, key: str, got) -> str:
+        want = digests[name][key]
+        digest = hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest()
+        err = (int(np.abs(got.astype(np.int64) - small[name].astype(np.int64)).max())
+               if key == "unchanged" and name in small.files and got.shape == small[name].shape
+               else 0)
+        if ([list(got.shape), str(got.dtype), digest] != [want["shape"], want["dtype"],
+                                                          want["sha256"]] or err):
+            raise RuntimeError(f"{name} ({key}): read {got.dtype} {list(got.shape)} (SHA-256 "
+                               f"{digest[:16]}, max abs err {err}) against cv2's {want}")
+        return digest
+
+    def timed(fn):
+        times, out = [], None
+        for _ in range(DECODE_REPS):
+            t = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return out, statistics.median(times)
+
+    out = {}
+    for name in sorted(digests):
+        if name.endswith(".glb"):
+            continue
+        with open(os.path.join(IMAGE_FIXTURES, name), "rb") as fh:
+            data = fh.read()
+        parts = []
+        for key, flags in (("unchanged", IMREAD_UNCHANGED), ("color", IMREAD_COLOR)):
+            if digests[name][key] is None:
+                try:
+                    decode_image(data, flags, name)
+                except NotImplementedError:
+                    parts.append(f"{key}: refused as cv2 leaves it in part unwritten")
+                    continue
+                raise RuntimeError(f"{name} ({key}): read where cv2's decode is undefined")
+            got, ms = timed(lambda: decode_image(data, flags, name))
+            digest = held(name, key, got)
+            out[f"{name} {key}"] = ms
+            parts.append(f"{key} {got.dtype} {list(got.shape)} SHA-256 {digest[:16]} in a median "
+                         f"{ms:.2f} ms")
+        print(f"[formats] {name}: equal to cv2's decode bit for bit ({'; '.join(parts)} of "
+              f"{DECODE_REPS} on the host); card '{card}'")
+    for mesh_file, tex in textures.items():
+        mesh, ms = timed(lambda: Mesh.load(os.path.join(IMAGE_FIXTURES, mesh_file), resize=False))
+        albedo = np.rint(mesh.albedo * 255).astype(np.uint8)
+        digest = held(tex, "color", albedo)
+        out[mesh_file] = ms
+        print(f"[formats] {mesh_file}: albedo {list(albedo.shape)} equal to cv2's IMREAD_COLOR "
+              f"decode of {tex} bit for bit (SHA-256 {digest[:16]}), Mesh.load in a median "
+              f"{ms:.2f} ms of {DECODE_REPS}; card '{card}'")
+    return out
+
+
 def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
     """The full-width snapshot written, loaded and driven through both CLIs
     (see WEIGHTS_STOP); every kernel call of the CLI runs held against its
@@ -1750,11 +1838,14 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
     from dreamgaussian_tpu_torch.guidance import synthetic
     from dreamgaussian_tpu_torch.guidance.unet import ZERO123_CONFIG
     from dreamgaussian_tpu_torch.guidance.vae import VAEConfig
+    from dreamgaussian_tpu_torch.meshing.mesh import Mesh
     from dreamgaussian_tpu_torch.preprocess.grabcut import ITERATIONS
 
     runs: dict = {}
     saved, restored, losses = [], [], []
     sai_matte: dict = {}
+    webp_matte: dict = {}
+    glb_albedo = Mesh.load(SPHERE_GLB, resize=False).albedo
     os.environ.pop("DG_U2NET_CKPT", None)       # the JPEG is matted by GrabCut
     with tempfile.TemporaryDirectory() as tmp:
         snap = os.path.join(tmp, "zero123-snapshot")
@@ -1790,6 +1881,16 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
                                  f"input={PHOTO_512}", "save_path=sai", f"outdir={tmp}",
                                  f"seed={seed}", f"zero123_ckpt={snap}", f"iters={SAI_ITERS}",
                                  "save_mesh=False"], runs)
+            # A user's inputs in the formats the port reads since the image
+            # slice: the lossy RGBA WebP photo through stage 1 (its alpha
+            # kept: no matting), and a GLB with a JPEG base colour refined.
+            webp_argv = ["--config", os.path.join(CONFIGS, "image.yaml"), f"input={PHOTO_WEBP}",
+                         f"outdir={tmp}", f"seed={seed}", f"zero123_ckpt={snap}"]
+            with grabcut_watch(webp_matte):
+                webp = drive_cli("webp stage 1", cli1, webp_argv + [
+                    "save_path=webp", f"iters={SAI_ITERS}", "save_mesh=False"], runs)
+            glb = drive_cli("glb stage 2", cli2, webp_argv + [
+                "save_path=glb", f"mesh={SPHERE_GLB}", f"iters_refine={WEIGHTS_REFINE}"], runs)
         n, faces = read_outputs(tmp, "weights", image_options()["texture_size"],
                                 image_options()["capacity"])
     if sai_matte["runs"] != ["cuda:0"] or sai_matte["cuts"] != ITERATIONS:
@@ -1798,9 +1899,18 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
     print(f"[weights] image_sai input {os.path.relpath(PHOTO_512)}: a JPEG decoded by the port, "
           f"matted by GrabCut on {sai_matte['runs'][0]} ({sai_matte['cuts']} host min-cuts, "
           f"{sai_matte['cut_s'] * 1e3:.1f} ms), recentred; card '{card}'")
-    if (first["step"], resumed["step"], sai["step"]) != (WEIGHTS_STOP, WEIGHTS_ITERS, SAI_ITERS):
+    if webp_matte["runs"] or glb_albedo is None or glb_albedo.shape != (512, 512, 3):
+        raise RuntimeError(f"the WebP photo was matted ({webp_matte}) or the GLB's JPEG base "
+                           f"colour was not read ({None if glb_albedo is None else glb_albedo.shape})")
+    print(f"[weights] webp input {os.path.relpath(PHOTO_WEBP)}: a lossy RGBA WebP decoded by the "
+          f"port, its alpha kept (no matting), {SAI_ITERS} stage-1 steps in "
+          f"{runs['webp stage 1']['wall_s']:.1f} s; glb mesh {os.path.relpath(SPHERE_GLB)}: its "
+          f"512^2 JPEG base colour read by the port, {WEIGHTS_REFINE} stage-2 steps in "
+          f"{runs['glb stage 2']['wall_s']:.1f} s (loss {glb['loss']:.5f}); card '{card}'")
+    if (first["step"], resumed["step"], sai["step"], webp["step"]) != (
+            WEIGHTS_STOP, WEIGHTS_ITERS, SAI_ITERS, SAI_ITERS):
         raise RuntimeError(f"stage-1 runs ended at steps {first['step']}, {resumed['step']}, "
-                           f"{sai['step']}")
+                           f"{sai['step']}, {webp['step']}")
     if len(saved) != 1 or len(restored) != 1 or restored[0]["step"] != WEIGHTS_STOP:
         raise RuntimeError(f"expected one checkpoint at step {WEIGHTS_STOP} saved and restored, "
                            f"got {len(saved)} saved, {len(restored)} restored")
@@ -1808,14 +1918,17 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
         torch.equal(v, restored[0][k]) if isinstance(v, torch.Tensor) else v == restored[0][k])]
     if differ:
         raise RuntimeError(f"the resumed trainer's state differs from the saved one in {differ}")
-    n_steps = WEIGHTS_STOP + (WEIGHTS_ITERS - WEIGHTS_STOP) + SAI_ITERS
-    if len(losses) != n_steps or not all(math.isfinite(x) for x in losses + [refined["loss"]]):
-        raise RuntimeError(f"stage-1 losses {losses}, stage-2 loss {refined['loss']}")
+    n_steps = WEIGHTS_STOP + (WEIGHTS_ITERS - WEIGHTS_STOP) + 2 * SAI_ITERS
+    if len(losses) != n_steps or not all(math.isfinite(x) for x in
+                                         losses + [refined["loss"], glb["loss"]]):
+        raise RuntimeError(f"stage-1 losses {losses}, stage-2 losses {refined['loss']}, "
+                           f"{glb['loss']}")
     launches = {k: v["launches"] for k, v in runs.items()}
     k1k2 = ("composite_fwd", "composite_bwd")
     if (any(launches[k][name] < 1 for k in launches if "stage 1" in k for name in k1k2)
             or launches["stage 1 resumed, export"]["ztest"] != 26
-            or launches["stage 2"]["ztest"] != 3 * WEIGHTS_REFINE):
+            or launches["stage 2"]["ztest"] != 3 * WEIGHTS_REFINE
+            or launches["glb stage 2"]["ztest"] != 3 * WEIGHTS_REFINE):
         raise RuntimeError(f"the weights-day runs did not go through the kernels: {launches}")
     walls = {k: v["wall_s"] for k, v in runs.items()}
     print(f"[weights] checkpoint at step {WEIGHTS_STOP} restored bit for bit "
@@ -3008,12 +3121,13 @@ def smoke(args, load_alone: subprocess.Popen, mvdream_alone: subprocess.Popen,
     # One compiler per library, all at once: the kernels, K3 without the
     # sift (which check_ztest times against the shipped build), and the
     # host tools (g++): the mesh tools and the image tools.
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         builds = [pool.submit(cuda_build.build, ["composite_fwd", "composite_bwd", "ztest"], True),
                   pool.submit(cuda_build.build, ["ztest"], True, ("-DZTEST_SIFT=0",)),
-                  pool.submit(native.build), pool.submit(native.build, native.IMAGE_TOOLS)]
+                  pool.submit(native.build), pool.submit(native.build, native.IMAGE_TOOLS),
+                  pool.submit(native.build, native.IMAGE_CODECS)]
         libs = [b.result() for b in builds]
-    print(f"[build] kernels, {libs[2].name} and {libs[3].name} ready in "
+    print(f"[build] kernels, {libs[2].name}, {libs[3].name} and {libs[4].name} ready in "
           f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

@@ -2,14 +2,18 @@
 
 Port of ``dreamgaussian_tpu/cli/process.py``:
 
-- the decoder follows the file's leading bytes, as ``cv2.imread`` does:
-  PNG through the port's ``utils/png.py``, JPEG through its
-  ``utils/jpeg.py`` (equal to cv2's decode bit for bit); WebP, TIFF, BMP,
-  JPEG 2000, GIF and PNM files, which cv2 reads, raise
-  NotImplementedError naming the format; a file no decoder recognises
-  raises FileNotFoundError, as the JAX function does when ``cv2.imread``
-  returns None;
-- RGBA inputs keep their alpha (the reference's own inputs are RGBA);
+- ``read_image`` (``utils/imread.py``) is the port's ``cv2.imread(path,
+  cv2.IMREAD_UNCHANGED)``, channels in RGB(A) order, bit for bit: PNG (every
+  colour type and bit depth, Adam7, ``tRNS``), JPEG, WebP (lossless, lossy,
+  alpha, an animation's first frame), BMP, PNM/PAM and GIF by the file's
+  leading bytes; TIFF, JPEG 2000, AVIF, Radiance HDR, PFM and Sun raster
+  files, which cv2 reads, raise NotImplementedError naming the format; a
+  file no decoder recognises raises FileNotFoundError, as the JAX function
+  does when ``cv2.imread`` returns None;
+- the steps after the decode are the JAX function's: grey becomes RGB,
+  4-channel inputs keep their alpha (the reference's own inputs are RGBA),
+  and the values are divided by 255 whatever the dtype, so a 16-bit input
+  comes out with values up to 257 as it does from the JAX package;
 - RGB and grey inputs are matted, then recentred: cropped to the alpha's
   box and pasted, scaled to ``(1 - border_ratio) * size``, in the middle
   of a ``size``^2 canvas. The matte is U2Net's from a local checkpoint
@@ -37,37 +41,9 @@ import sys
 import numpy as np
 
 from .. import resolve_device
-from ..utils.jpeg import decode_jpeg
-from ..utils.png import decode_png, write_png
+from ..utils.imread import read_image
+from ..utils.png import write_png
 from ..utils.resize import resize_area
-
-# Leading bytes of the formats cv2 reads that the port does not (WebP's
-# "RIFF" is followed by a size, then "WEBP").
-_REFUSED = ((b"RIFF", "WebP"), (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"), (b"BM", "BMP"),
-            (b"\xff\x4f\xff\x51", "JPEG 2000"), (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
-            (b"GIF8", "GIF"))
-
-
-def read_image(path: str) -> np.ndarray:
-    """The image at ``path`` as uint8 [H, W] or [H, W, C] (C = 2, 3 or 4,
-    RGB order), its decoder chosen by the file's leading bytes."""
-    try:
-        with open(path, "rb") as fh:
-            data = fh.read()
-    except OSError:
-        raise FileNotFoundError(path) from None
-    if data.startswith(b"\x89PNG\r\n\x1a\n"):
-        return decode_png(data)
-    if data.startswith(b"\xff\xd8\xff"):
-        return decode_jpeg(data)
-    for sig, name in _REFUSED:
-        if data.startswith(sig) and (name != "WebP" or data[8:12] == b"WEBP"):
-            raise NotImplementedError(f"{path}: {name} images are not read by the port "
-                                      f"(PNG and JPEG are); convert it to PNG")
-    if data[:1] == b"P" and data[1:2] in b"1234567" and data[2:3].isspace():
-        raise NotImplementedError(f"{path}: PNM images are not read by the port "
-                                  f"(PNG and JPEG are); convert it to PNG")
-    raise FileNotFoundError(path)
 
 
 def remove_background(img: np.ndarray, u2net_ckpt: str | None = None,
@@ -78,6 +54,9 @@ def remove_background(img: np.ndarray, u2net_ckpt: str | None = None,
     if not u2net_ckpt:
         from ..preprocess.grabcut import grabcut_alpha
 
+        if img.dtype != np.uint8:
+            raise ValueError(f"GrabCut takes an 8-bit RGB image, as cv2.grabCut does; got "
+                             f"{img.dtype} (give U2Net weights, or convert the image to 8 bits)")
         return np.dstack([img, grabcut_alpha(img, device=device)])
     if not os.path.exists(u2net_ckpt):
         raise FileNotFoundError(f"no U2Net checkpoint at {u2net_ckpt}")
@@ -111,14 +90,15 @@ def recenter(rgba: np.ndarray, size: int, border_ratio: float = 0.2) -> np.ndarr
 
 def load_rgba(path: str, size: int | None = None, border_ratio: float = 0.2,
               u2net_ckpt: str | None = None, device="cuda") -> np.ndarray:
-    """A PNG or JPEG as float32 RGBA in [0, 1] at ``size``^2 (or its own
-    size): RGBA and grey+alpha keep their alpha; RGB and grey are matted
-    (``remove_background``) and recentred."""
+    """An image (``read_image``) as float32 RGBA at ``size``^2 (or its own
+    size), divided by 255: 4-channel inputs keep their alpha; RGB and grey are
+    matted (``remove_background``) and recentred."""
     img = read_image(path)
     if img.ndim == 2:
-        img = img[..., None]
-    if img.shape[-1] in (1, 2):                  # grey (+ alpha), as cv2 reads it
-        img = np.concatenate([np.repeat(img[..., :1], 3, axis=-1), img[..., 1:]], axis=-1)
+        img = np.repeat(img[..., None], 3, axis=-1)
+    if img.shape[-1] not in (3, 4):
+        raise ValueError(f"{path}: a {img.shape[-1]}-channel image (3 or 4 are taken, as "
+                         f"the JAX package's colour conversion takes them)")
     if img.shape[-1] == 4:
         rgba = img
     else:

@@ -3,8 +3,14 @@
 Port of ``dreamgaussian_tpu/meshing/mesh.py``: holds vertices/faces,
 optional normals, UVs and an albedo texture; loads OBJ (with mtl+map_Kd),
 PLY and GLB; writes OBJ (+mtl+png), PLY, and GLB (hand-rolled glTF 2.0
-binary with embedded PNG). Textures are encoded and decoded by the port's
-own ``utils/png.py`` (8-bit RGB), not by cv2.
+binary with embedded PNG). Textures are written by the port's own
+``utils/png.py`` (8-bit RGB) and read, in any format the JAX package reads
+them in, by ``utils/imread.py`` as ``cv2.imread``/``cv2.imdecode`` read
+them under ``IMREAD_COLOR`` (grey repeated, alpha dropped, 16-bit samples
+shifted right by 8, the EXIF orientation applied); a GLB image no decoder
+recognises leaves the albedo unset, as cv2's None does in the JAX package,
+and one in a format cv2 reads and the port does not (TIFF, JPEG 2000,
+AVIF) raises NotImplementedError.
 
 Conventions match DreamGaussian's so assets cross-load: ``auto_size``
 normalizes the mesh to max extent 1.2 about its centroid; ``auto_normal``
@@ -24,6 +30,7 @@ import numpy as np
 
 from ..utils import ply as plyio
 from ..utils import png as pngio
+from ..utils.imread import IMREAD_COLOR, decode_image, read_image
 from .uv import unwrap
 
 
@@ -159,7 +166,7 @@ class Mesh:
                 if parts and parts[0] == "map_Kd":
                     tex = os.path.join(os.path.dirname(mtl_path), parts[-1])
                     if os.path.exists(tex):
-                        img = pngio.read_png(tex)[..., :3]
+                        img = read_image(tex, IMREAD_COLOR)
                         albedo = img.astype(np.float32) / 255.0
         return cls(
             v=np.asarray(v, np.float32),
@@ -187,7 +194,7 @@ class Mesh:
     def _load_glb(cls, path: str) -> "Mesh":
         """Minimal glTF 2.0 binary reader: first mesh primitive with
         POSITION (+ optional NORMAL / TEXCOORD_0 / indices / baseColor
-        PNG). Covers our own writer's layout and standard exporters."""
+        image). Covers our own writer's layout and standard exporters."""
         raw = open(path, "rb").read()
         magic, version, _ = struct.unpack("<III", raw[:12])
         if magic != 0x46546C67:
@@ -237,8 +244,17 @@ class Mesh:
             view = gltf["bufferViews"][img_meta["bufferView"]]
             start = view.get("byteOffset", 0)
             png = blob[start : start + view["byteLength"]]
-            albedo = pngio.decode_png(bytes(png))[..., :3].astype(
-                np.float32) / 255.0
+            try:
+                img = decode_image(bytes(png), IMREAD_COLOR)
+            except FileNotFoundError:
+                img = None              # no format cv2 reads: imdecode returns None
+            except ValueError as err:   # a format read here that does not decode
+                print(f"[WARN] {path}: the base colour image does not decode ({err}); "
+                      f"loading the mesh without a texture, as cv2.imdecode returns None "
+                      f"for a malformed file")
+                img = None
+            if img is not None:
+                albedo = img.astype(np.float32) / 255.0
         return cls(
             v=v, f=f, vn=vn, fn=f if vn is not None else None,
             vt=vt, ft=f if vt is not None else None, albedo=albedo,

@@ -1,10 +1,13 @@
 """ctypes loader for the port's host-side native code.
 
-Two sources under ``csrc/``: ``mesh_tools.cpp`` (the port's own copy of
-``dreamgaussian_tpu/native/``'s, wrapped below) and ``image_tools.cpp``
-(the JPEG decoder's pixel work and GrabCut's min-cut, wrapped by
-``utils/jpeg.py`` and ``preprocess/grabcut.py``); ``image_tools()``
-declares the latter's functions. Each shared library is
+Three sources under ``csrc/``: ``mesh_tools.cpp`` (the port's own copy of
+``dreamgaussian_tpu/native/``'s, wrapped below), ``image_tools.cpp`` (the
+JPEG decoder's pixel work and GrabCut's min-cut, wrapped by
+``utils/jpeg.py`` and ``preprocess/grabcut.py``) and ``image_codecs.cpp``
+(PNG's row filters, GIF's LZW, WebP's VP8L, VP8 and alpha planes, wrapped
+by ``utils/png.py``, ``gif.py`` and ``webp.py``); ``image_tools()`` and
+``image_codecs()`` declare every function of theirs, once. Each shared
+library is
 compiled at first use into ``build/native/`` at the root of the checkout,
 under a name that carries the hash of its source and the flags, so an
 edited source is rebuilt. The host compiler is ``g++``; where there is
@@ -27,6 +30,7 @@ import numpy as np
 
 SRC = Path(__file__).resolve().parent / "csrc" / "mesh_tools.cpp"
 IMAGE_TOOLS = SRC.with_name("image_tools.cpp")
+IMAGE_CODECS = SRC.with_name("image_codecs.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 _LOCK = threading.Lock()
@@ -86,6 +90,23 @@ def _declare_image_tools(lib: ctypes.CDLL) -> None:
 def image_tools() -> ctypes.CDLL:
     """``csrc/image_tools.cpp``'s library with its functions declared."""
     return _load(IMAGE_TOOLS, _declare_image_tools)
+
+
+def _declare_image_codecs(lib: ctypes.CDLL) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.dg_png_unfilter.argtypes = [vp, i32, i64, i32, vp]
+    lib.dg_gif_lzw.argtypes = [vp, i64, i32, vp, i64, vp]
+    lib.dg_webp_vp8l.argtypes = [vp, i64, i32, i32, vp]
+    lib.dg_webp_vp8.argtypes = [vp, i64, i32, i32, vp, i32]
+    lib.dg_webp_alpha_unfilter.argtypes = [vp, i32, i32, i32]
+    for fn in (lib.dg_png_unfilter, lib.dg_gif_lzw, lib.dg_webp_vp8l, lib.dg_webp_vp8,
+               lib.dg_webp_alpha_unfilter):
+        fn.restype = ctypes.c_int
+
+
+def image_codecs() -> ctypes.CDLL:
+    """``csrc/image_codecs.cpp``'s library with its functions declared."""
+    return _load(IMAGE_CODECS, _declare_image_codecs)
 
 
 def _declare_mesh_tools(lib: ctypes.CDLL) -> None:

@@ -12,16 +12,21 @@ take its pixel-weighted mean colour.
 
 Pixels are LZW-coded as giflib codes them (8-bit roots, codes of 9 to 12
 bits, a clear code when the table is full); the dictionary walk is a
-Python loop, the bit packing numpy. ``read_gif`` decodes what
-``write_gif`` writes (and other single-image-per-frame GIFs without
-interlacing): it returns the frames as RGB and the delay.
+Python loop, the bit packing numpy. Both readers share one block walker
+and one LZW decoder (``csrc/image_codecs.cpp``): ``read_gif`` decodes what
+``write_gif`` writes (and other GIFs whose frames fill the screen): it
+returns the frames as RGB and the delay. ``imread_gif`` is ``cv2.imread``
+of any GIF: its first frame, by OpenCV's rules.
 """
 
 from __future__ import annotations
 
+import functools
 import struct
 
 import numpy as np
+
+from .. import native
 
 _MIN_CODE = 8
 _CLEAR, _EOI = 1 << _MIN_CODE, (1 << _MIN_CODE) + 1
@@ -138,85 +143,138 @@ def write_gif(path: str, frames, fps: float = 15) -> None:
         fh.write(encode_gif(frames, fps))
 
 
-def _lzw_decode(data: bytes, min_code: int, n: int) -> np.ndarray:
-    clear, eoi = 1 << min_code, (1 << min_code) + 1
-    buf = data + b"\x00\x00\x00"
-    pos, end = 0, len(data) * 8
-    out = bytearray()
-    table: list = []
-    width, prev = min_code + 1, None
-    while pos + width <= end:
-        code = (int.from_bytes(buf[pos >> 3:(pos >> 3) + 3], "little") >> (pos & 7)) & ((1 << width) - 1)
-        pos += width
-        if code == clear:
-            table = [bytes([i]) for i in range(clear)] + [b"", b""]
-            width, prev = min_code + 1, None
-            continue
-        if code == eoi:
-            break
-        if prev is None:
-            entry = table[code]
-        else:
-            entry = table[code] if code < len(table) else prev + prev[:1]
-            if len(table) < 4096:
-                table.append(prev + entry[:1])
-        out += entry
-        prev = entry
-        if len(table) == (1 << width) and width < 12:
-            width += 1
-    return np.frombuffer(bytes(out[:n]), np.uint8)
+def _table(data: bytes, pos: int, packed: int) -> tuple[np.ndarray, int]:
+    """The colour table that ``packed`` announces at ``pos``, padded to 256
+    entries, and the position after it."""
+    n = 2 << (packed & 7)
+    table = np.zeros((256, 3), np.uint8)
+    table[:n] = np.frombuffer(data, np.uint8, 3 * n, pos).reshape(n, 3)
+    return table, pos + 3 * n
+
+
+def _sub_block_data(data: bytes, pos: int) -> tuple[bytes, int]:
+    """The joined sub-blocks at ``pos`` and the position after their terminator."""
+    parts = []
+    while pos < len(data) and data[pos]:
+        parts.append(data[pos + 1:pos + 1 + data[pos]])
+        pos += 1 + data[pos]
+    return b"".join(parts), pos + 1
+
+
+def _indices(codes: bytes, min_code: int, w: int, h: int, interlaced: bool):
+    """An image's LZW codes -> (colour indices uint8 [h, w], how many were
+    decoded before the codes ended); the rows of an interlaced image are put
+    back in order."""
+    idx = np.zeros(w * h, np.uint8)
+    buf = np.frombuffer(codes, np.uint8)
+    done = np.zeros(1, np.int64)
+    if native.image_codecs().dg_gif_lzw(buf.ctypes.data, len(buf), min_code, idx.ctypes.data,
+                                        idx.size, done.ctypes.data):
+        raise ValueError("malformed GIF LZW codes")
+    idx = idx.reshape(h, w)
+    if interlaced:                                          # rows in four passes
+        order = np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8), np.arange(2, h, 4),
+                                np.arange(1, h, 2)])
+        rows = np.empty_like(idx)
+        rows[order] = idx
+        idx = rows
+    return idx, int(done[0])
+
+
+def _walk(data: bytes):
+    """The logical screen of a GIF, ``(width, height, global table or None,
+    background index, blocks)``; ``blocks`` yields ``("gce", packed, delay,
+    transparent index)`` for each graphic control extension and ``("image",
+    left, top, width, height, colour table or None, decode)`` for each image,
+    up to the trailer, where ``decode()`` gives ``_indices`` of its codes."""
+    if data[:6] not in (b"GIF87a", b"GIF89a") or len(data) < 13:
+        raise ValueError("not a GIF file")
+    w, h, packed, bg = struct.unpack_from("<HHBB", data, 6)
+    table, pos = _table(data, 13, packed) if packed & 0x80 else (None, 13)
+
+    def blocks():
+        pos_ = pos
+        while pos_ < len(data) and data[pos_] != 0x3B:
+            kind = data[pos_]
+            if kind == 0x21:                                # extension
+                if data[pos_ + 1] == 0xF9 and pos_ + 7 <= len(data):
+                    yield ("gce", data[pos_ + 3], struct.unpack_from("<H", data, pos_ + 4)[0],
+                           data[pos_ + 6])
+                _, pos_ = _sub_block_data(data, pos_ + 2)
+            elif kind == 0x2C:                              # image
+                left, top, fw, fh, ipacked = struct.unpack_from("<HHHHB", data, pos_ + 1)
+                local, pos_ = (_table(data, pos_ + 10, ipacked) if ipacked & 0x80
+                               else (table, pos_ + 10))
+                min_code = data[pos_]
+                codes, pos_ = _sub_block_data(data, pos_ + 1)
+                yield ("image", left, top, fw, fh, local,
+                       functools.partial(_indices, codes, min_code, fw, fh, ipacked & 0x40))
+            else:
+                raise ValueError(f"an unknown GIF block 0x{kind:02x}")
+
+    return w, h, table, bg, blocks()
 
 
 def decode_gif(data: bytes) -> tuple[np.ndarray, int]:
     """GIF bytes -> (uint8 [frames, H, W, 3], the first frame's delay in
-    centiseconds). Every frame must be a full-size, non-interlaced image."""
-    if data[:6] not in (b"GIF87a", b"GIF89a"):
-        raise ValueError("not a GIF file")
-    w, h, packed = struct.unpack("<HHB", data[6:11])
-    pos = 13
-    global_table = None
-    if packed & 0x80:
-        size = 3 << ((packed & 7) + 1)
-        global_table = np.frombuffer(data[pos:pos + size], np.uint8).reshape(-1, 3)
-        pos += size
+    centiseconds). Every frame must be a full-size image."""
+    w, h, _, _, blocks = _walk(data)
     frames, delay = [], None
-    while pos < len(data):
-        tag = data[pos]
-        if tag == 0x3B:
-            break
-        if tag == 0x21:                               # an extension: skip its blocks
-            if data[pos + 1] == 0xF9 and delay is None:
-                delay = struct.unpack("<H", data[pos + 4:pos + 6])[0]
-            pos += 2
-            while data[pos]:
-                pos += data[pos] + 1
-            pos += 1
+    for block in blocks:
+        if block[0] == "gce":
+            delay = block[2] if delay is None else delay
             continue
-        if tag != 0x2C:
-            raise ValueError(f"unexpected GIF block 0x{tag:02x}")
-        x, y, fw, fh, fpacked = struct.unpack("<HHHHB", data[pos + 1:pos + 10])
-        pos += 10
-        if (x, y, fw, fh) != (0, 0, w, h) or fpacked & 0x40:
-            raise ValueError("read_gif reads full-size, non-interlaced frames only")
-        table = global_table
-        if fpacked & 0x80:
-            size = 3 << ((fpacked & 7) + 1)
-            table = np.frombuffer(data[pos:pos + size], np.uint8).reshape(-1, 3)
-            pos += size
-        min_code = data[pos]
-        pos += 1
-        blocks = bytearray()
-        while data[pos]:
-            blocks += data[pos + 1:pos + 1 + data[pos]]
-            pos += data[pos] + 1
-        pos += 1
-        idx = _lzw_decode(bytes(blocks), min_code, w * h)
-        if idx.size != w * h:
+        _, left, top, fw, fh, table, decode = block
+        if (left, top, fw, fh) != (0, 0, w, h):
+            raise ValueError("read_gif reads full-size frames only")
+        if table is None:
+            raise ValueError("a GIF frame without a colour table")
+        idx, done = decode()
+        if done != w * h:
             raise ValueError("GIF frame data is short")
-        frames.append(table[idx].reshape(h, w, 3))
+        frames.append(table[idx])
     return np.stack(frames), (delay or 0)
 
 
 def read_gif(path: str) -> tuple[np.ndarray, int]:
     with open(path, "rb") as fh:
         return decode_gif(fh.read())
+
+
+def imread_gif(data: bytes) -> np.ndarray:
+    """The first frame of a GIF as ``cv2.imread(..., IMREAD_UNCHANGED)``
+    returns it (OpenCV's own ``grfmt_gif.cpp``), channels in RGB order: 4
+    channels when any graphic control extension of the file sets a
+    transparent index, else 3; the canvas starts as the global table's
+    background colour (black without a global table) with alpha 0, and the
+    frame's pixels, but for its transparent index, are laid on it with alpha
+    255."""
+    w, h, table, bg, blocks = _walk(data)
+    canvas = np.zeros((h, w, 4), np.uint8)
+    if table is not None:
+        if bg >= 2 << (data[10] & 7):
+            raise ValueError("a GIF background index outside its global colour table")
+        canvas[..., :3] = table[bg]
+    any_transparent, transparent, first = False, None, None
+    for block in blocks:
+        if block[0] == "gce":
+            _, flags, _, index = block
+            any_transparent |= bool(flags & 1)
+            if first is None:
+                transparent = index if flags & 1 else None
+            continue
+        if first is not None:
+            continue
+        _, left, top, fw, fh, local, decode = block
+        if not (fw > 0 and fh > 0 and left + fw <= w and top + fh <= h):
+            raise ValueError("a GIF frame outside its canvas")
+        idx, _ = decode()
+        local = np.zeros((256, 3), np.uint8) if local is None else local
+        region = canvas[top:top + fh, left:left + fw]
+        keep = idx != transparent if transparent is not None else np.ones_like(idx, bool)
+        region[keep, :3] = local[idx[keep]]
+        region[keep, 3] = 255
+        first = True
+    if first is None:
+        raise ValueError("a GIF without an image")
+    return np.ascontiguousarray(canvas if any_transparent else canvas[..., :3])

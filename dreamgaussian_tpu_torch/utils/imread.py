@@ -1,0 +1,186 @@
+"""``read_image``: the port's ``cv2.imread``, on the host (no cv2, no PIL).
+
+The decoder follows the file's leading bytes, as ``cv2.imread`` does, and
+the result equals what ``cv2.imread(path, flags)`` returns for
+``IMREAD_UNCHANGED`` (-1) and ``IMREAD_COLOR`` (1) — dtype, channel count
+and values — with the channels in RGB(A) order:
+
+- PNG (``utils/png.py``), JPEG (``utils/jpeg.py``), WebP
+  (``utils/webp.py``), BMP (``utils/bmp.py``), PNM and PAM
+  (``utils/pnm.py``), GIF's first frame (``utils/gif.py``);
+- ``IMREAD_COLOR`` gives 3 channels of uint8 (grey repeated, alpha dropped,
+  16-bit samples shifted right by 8) and applies the EXIF orientation of a
+  JPEG (APP1), a PNG (``eXIf``) or a WebP (``EXIF``), as cv2 does;
+  ``IMREAD_UNCHANGED`` leaves the orientation alone;
+- formats cv2 reads and the port does not (TIFF, JPEG 2000, AVIF, Radiance
+  HDR, PFM, Sun raster) raise NotImplementedError naming the format; bytes
+  no decoder of cv2 recognises raise FileNotFoundError, as the JAX package
+  raises when ``cv2.imread`` returns None; a file of a format read here
+  that does not decode raises ValueError naming the format.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+from .bmp import decode_bmp
+from .gif import imread_gif
+from .jpeg import decode_jpeg
+from .png import imread_png
+from .pnm import decode_pnm
+from .webp import decode_webp
+
+IMREAD_UNCHANGED, IMREAD_COLOR = -1, 1
+
+# Leading bytes of the formats cv2 reads and the port does not.
+_REFUSED = ((b"II*\0", "TIFF"), (b"MM\0*", "TIFF"), (b"II+\0", "BigTIFF"), (b"MM\0+", "BigTIFF"),
+            (b"\xff\x4f\xff\x51", "JPEG 2000"), (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
+            (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
+            (b"\x59\xa6\x6a\x95", "Sun raster"))
+
+
+def _exif_orientation(exif: bytes | None) -> int:
+    """The orientation tag (0x0112) of an EXIF block (a TIFF structure,
+    with or without its ``Exif\\0\\0`` prefix); 1 when absent."""
+    if not exif:
+        return 1
+    if exif.startswith(b"Exif\0\0"):
+        exif = exif[6:]
+    if len(exif) < 8 or exif[:2] not in (b"II", b"MM"):
+        return 1
+    e = "<" if exif[:2] == b"II" else ">"
+    ifd = struct.unpack_from(e + "I", exif, 4)[0]
+    if ifd + 2 > len(exif):
+        return 1
+    for k in range(struct.unpack_from(e + "H", exif, ifd)[0]):
+        at = ifd + 2 + 12 * k
+        if at + 12 > len(exif):
+            break
+        tag, typ = struct.unpack_from(e + "HH", exif, at)
+        if tag == 0x0112 and typ == 3:
+            return struct.unpack_from(e + "H", exif, at + 8)[0]
+    return 1
+
+
+def _jpeg_exif(data: bytes) -> bytes | None:
+    """The first APP1 ``Exif`` segment of a JPEG, before its first scan."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker == 0xFF:
+            pos += 1
+            continue
+        if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
+            pos += 2
+            continue
+        if marker in (0xDA, 0xD9):
+            break
+        length = struct.unpack_from(">H", data, pos + 2)[0]
+        if marker == 0xE1 and data[pos + 4:pos + 10] == b"Exif\0\0":
+            return data[pos + 4:pos + 2 + length]
+        pos += 2 + length
+    return None
+
+
+def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """OpenCV's ApplyExifOrientation."""
+    if orientation in (5, 6, 7, 8):
+        img = img.swapaxes(0, 1)
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
+    for axis in flip:
+        img = np.flip(img, axis)
+    return np.ascontiguousarray(img)
+
+
+def _color(img: np.ndarray) -> np.ndarray:
+    """A decode under IMREAD_UNCHANGED -> IMREAD_COLOR's 3 channels of uint8
+    (libpng's strip_16, gray_to_rgb and strip_alpha; libjpeg's and libwebp's
+    RGB output; OpenCV's BGRA2BGR for a GIF)."""
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3])
+
+
+def _is_avif(data: bytes) -> bool:
+    return data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis")
+
+
+def _format(data: bytes) -> str | None:
+    """The format of the port's decoders that the leading bytes name, else None."""
+    if data.startswith(b"\x89PNG\r\n\x1a\n"):
+        return "PNG"
+    if data.startswith(b"\xff\xd8\xff"):
+        return "JPEG"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return "GIF"
+    if data[:2] == b"BM":
+        return "BMP"
+    if data[:1] == b"P" and data[1:2] in b"1234567" and data[2:3].isspace():
+        return "PNM"
+    return None
+
+
+def _refused(data: bytes) -> str | None:
+    """The format cv2 reads and the port does not that the leading bytes name."""
+    for sig, fmt in _REFUSED:
+        if data.startswith(sig):
+            return fmt
+    if _is_avif(data):
+        return "AVIF"
+    if data[:1] == b"P" and data[1:2] in b"Ff" and data[2:3].isspace():
+        return "PFM"
+    return None
+
+
+def decode_image(data: bytes, flags: int = IMREAD_UNCHANGED, name: str = "") -> np.ndarray:
+    """Image bytes -> ``cv2.imdecode(data, flags)``'s array in RGB(A) order.
+    A file of a format read here that does not decode (where cv2 returns
+    None for a malformed file) raises ValueError naming the format."""
+    if flags not in (IMREAD_UNCHANGED, IMREAD_COLOR):
+        raise ValueError(f"imread flags {flags}: IMREAD_UNCHANGED (-1) or IMREAD_COLOR (1)")
+    fmt = _format(data)
+    if fmt is None:
+        refused = _refused(data)
+        if refused is None:
+            raise FileNotFoundError(name or "image bytes no decoder recognises")
+        raise NotImplementedError(f"{name or 'the image'}: {refused} images are not read by "
+                                  f"the port (PNG, JPEG, WebP, BMP, PNM and GIF are); convert it "
+                                  f"to PNG")
+    exif = None
+    try:
+        if fmt == "BMP":
+            return decode_bmp(data, flags)
+        if fmt == "PNM":
+            return decode_pnm(data, flags)
+        if fmt == "PNG":
+            img, exif = imread_png(data)
+        elif fmt == "JPEG":
+            img, exif = decode_jpeg(data), _jpeg_exif(data)
+        elif fmt == "WebP":
+            img, exif = decode_webp(data)
+        else:
+            img = imread_gif(data)
+    except (ValueError, IndexError, struct.error, zlib.error) as err:
+        raise ValueError(f"{name or 'the image'}: a {fmt} file that does not decode "
+                         f"({err})") from err
+    if flags == IMREAD_COLOR:
+        img = _orient(_color(img), _exif_orientation(exif))
+    return img
+
+
+def read_image(path: str, flags: int = IMREAD_UNCHANGED) -> np.ndarray:
+    """The image at ``path`` as ``cv2.imread(path, flags)`` returns it, with
+    its channels in RGB(A) order."""
+    try:
+        with open(path, "rb") as fh:
+            data = fh.read()
+    except OSError:
+        raise FileNotFoundError(path) from None
+    return decode_image(data, flags, path)

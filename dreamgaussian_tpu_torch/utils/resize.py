@@ -1,7 +1,7 @@
 """Image resizes of the port, equal to OpenCV's (no cv2 on the card machine).
 
 - ``resize_area``: ``cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)``
-  on uint8 images, in both directions, bit for bit:
+  on uint8 and uint16 images, in both directions, bit for bit:
   - both factors integers (a shrink): block sums times ``1.f / area`` in
     float32, rounded half to even, except 2x2 blocks, which OpenCV's
     vector path rounds half up (``(sum + 2) >> 2``);
@@ -11,7 +11,9 @@
   - enlarging (or enlarging one axis): OpenCV's "area" bilinear, whose
     coefficient is ``(d + 1) - (s + 1) / scale`` folded into [0, 1), in
     11-bit fixed point, with the vertical pass of its vector code
-    (``(((D0 >> 4) * b0) >> 16) + (((D1 >> 4) * b1) >> 16) + 2) >> 2``).
+    (``(((D0 >> 4) * b0) >> 16) + (((D1 >> 4) * b1) >> 16) + 2) >> 2``);
+    uint16 images take OpenCV's float path instead: the same coefficients
+    in float32, rows then columns, rounded half to even.
 - ``resize_linear``: ``cv2.INTER_LINEAR`` on float32 maps (half-pixel
   centres, clamped borders), in float64 and returned as float32, as
   OpenCV's IPP path computes it to within 1e-7.
@@ -91,22 +93,44 @@ def _enlarge_area(img: np.ndarray, h: int, w: int) -> np.ndarray:
     return (((rows[y0] >> 4) * b0 >> 16) + ((rows[y1] >> 4) * b1 >> 16) + 2) >> 2
 
 
+def _linear_area_float(src: int, dst: int):
+    """The same coefficients in float32, as OpenCV keeps them for 16-bit
+    images: (first index, second, weight of the first, of the second)."""
+    inv = dst / src
+    d = np.arange(dst)
+    s = np.floor(d * (1.0 / inv)).astype(np.int64)
+    f = ((d + 1) - (s + 1) * inv).astype(np.float32)
+    f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    edge = s >= src - 1
+    f[edge], s[edge] = 0, src - 1
+    return s, np.minimum(s + 1, src - 1), np.float32(1) - f, f
+
+
+def _enlarge_area_float(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    x0, x1, a0, a1 = _linear_area_float(img.shape[1], w)
+    y0, y1, b0, b1 = _linear_area_float(img.shape[0], h)
+    src = img.astype(np.float32)
+    rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
+    return np.rint(rows[y0] * b0[:, None, None] + rows[y1] * b1[:, None, None])
+
+
 def resize_area(img: np.ndarray, h: int, w: int) -> np.ndarray:
-    """uint8 [H, W, C] -> uint8 [h, w, C], as ``cv2.INTER_AREA``."""
-    if img.dtype != np.uint8 or img.ndim != 3:
-        raise ValueError("resize_area takes a uint8 [H, W, C] image")
+    """uint8 or uint16 [H, W, C] -> the same dtype [h, w, C], as ``cv2.INTER_AREA``."""
+    if img.dtype not in (np.uint8, np.uint16) or img.ndim != 3:
+        raise ValueError("resize_area takes a uint8 or uint16 [H, W, C] image")
     sy, sx = 1.0 / (h / img.shape[0]), 1.0 / (w / img.shape[1])
     iy, ix = round(sy), round(sx)
     eps = np.finfo(np.float64).eps
+    top = np.iinfo(img.dtype).max
     if sx < 1 or sy < 1:
-        out = _enlarge_area(img, h, w)
+        out = _enlarge_area(img, h, w) if img.dtype == np.uint8 else _enlarge_area_float(img, h, w)
     elif abs(sx - ix) < eps and abs(sy - iy) < eps:
         sums = img.astype(np.int64).reshape(h, iy, w, ix, -1).sum(axis=(1, 3))
         out = ((sums + 2) >> 2 if (ix, iy) == (2, 2)
                else np.rint(sums.astype(np.float32) * np.float32(1.0 / (ix * iy))))
     else:
         out = _shrink_area(img, h, w)
-    return np.clip(out, 0, 255).astype(np.uint8)
+    return np.clip(out, 0, top).astype(img.dtype)
 
 
 def _linear_coefs(src: int, dst: int):

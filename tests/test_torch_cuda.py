@@ -29,7 +29,7 @@ from dreamgaussian_tpu_torch.ops.rasterize import build_feature_cols, render_gau
 from dreamgaussian_tpu_torch.utils.camera import Camera, orbit_camera
 from torch_cli_cases import disc_png, image_options
 from torch_composite_cases import CASES, composite_case
-from torch_image_cases import JPEG_FIXTURES, SCENES, iou, scene
+from torch_image_cases import IMAGE_FIXTURES, JPEG_FIXTURES, SCENES, iou, scene
 from torch_ztest_cases import CARD_CASES as ZTEST_CASES
 from torch_ztest_cases import ztest_case
 
@@ -1252,4 +1252,87 @@ def test_jpeg_photo_matted_on_card_against_cpu_and_cv2(cuda_device):
     img = read_image(str(JPEG_FIXTURES / "photo_512.jpg"))
     card = grabcut_alpha(img, device="cuda")
     assert iou(card, grabcut_alpha(img, device="cpu")) >= 0.99
-    assert iou(card, read_png(str(JPEG_FIXTURES / "photo_512_alpha.png"))[..., 0]) >= 0.95
+    assert iou(card, read_png(str(JPEG_FIXTURES / "photo_512_alpha.png"))) >= 0.95
+
+
+def _image_digests():
+    with open(IMAGE_FIXTURES / "decodes.json") as fh:
+        return json.load(fh)
+
+
+@pytest.mark.cuda
+def test_image_fixtures_read_on_the_card_machine_as_cv2_read_them(cuda_device):
+    """Every fixture of scripts/port_make_image_fixtures.py under both flags,
+    built from the repo's sources on this machine (no cv2 here): shape,
+    dtype and SHA-256 of cv2's stored decode; the small ones also against
+    their stored arrays."""
+    import hashlib
+
+    from dreamgaussian_tpu_torch.utils.imread import IMREAD_COLOR, IMREAD_UNCHANGED, read_image
+
+    small = np.load(IMAGE_FIXTURES / "small_decodes.npz")
+    for name, entry in sorted(_image_digests().items()):
+        if name.endswith(".glb"):
+            continue
+        for key, flags in (("unchanged", IMREAD_UNCHANGED), ("color", IMREAD_COLOR)):
+            if entry[key] is None:
+                with pytest.raises(NotImplementedError):
+                    read_image(str(IMAGE_FIXTURES / name), flags)
+                continue
+            got = read_image(str(IMAGE_FIXTURES / name), flags)
+            assert [list(got.shape), str(got.dtype)] == [entry[key]["shape"], entry[key]["dtype"]]
+            assert hashlib.sha256(got.tobytes()).hexdigest() == entry[key]["sha256"], (name, key)
+            if key == "unchanged" and name in small.files:
+                np.testing.assert_array_equal(got, small[name])
+
+
+@pytest.mark.cuda
+def test_load_rgba_of_the_webp_photo_on_the_card(cuda_device):
+    """The 512^2 lossy RGBA WebP photo: its alpha is kept (no matting), so
+    the card's load equals the CPU's, and it is cv2's decode divided by 255."""
+    import hashlib
+
+    from dreamgaussian_tpu_torch.cli.process import load_rgba
+
+    path = str(IMAGE_FIXTURES / "photo_512_rgba.webp")
+    card = load_rgba(path, device="cuda")
+    assert card.shape == (512, 512, 4) and card.dtype == np.float32
+    np.testing.assert_array_equal(card, load_rgba(path, device="cpu"))
+    rgba = np.rint(card * 255).astype(np.uint8)
+    assert (hashlib.sha256(rgba.tobytes()).hexdigest()
+            == _image_digests()["photo_512_rgba.webp"]["unchanged"]["sha256"])
+    assert 0.05 < (rgba[..., 3] >= 128).mean() < 0.6
+
+
+@pytest.mark.cuda
+def test_glb_with_a_jpeg_base_colour_renders_through_k3(cuda_device):
+    """A user's GLB with a JPEG base colour, read as cv2 reads it, then
+    rasterised on the card through K3 (one launch) against the plain
+    version: the same winners, barycentrics to 1e-5; the texture sampled
+    at them finite."""
+    import hashlib
+
+    from dreamgaussian_tpu_torch.meshing.mesh import Mesh
+
+    mesh = Mesh.load(str(IMAGE_FIXTURES / "sphere_jpeg.glb"), resize=False)
+    tex = np.rint(mesh.albedo * 255).astype(np.uint8)
+    assert (hashlib.sha256(tex.tobytes()).hexdigest()
+            == _image_digests()["sphere_jpeg.glb"]["color"]["sha256"])
+    size = 256
+    outs = []
+    for dev in ("cpu", cuda_device):
+        before = tzc.LAUNCHES["ztest"]
+        faces = torch.from_numpy(mesh.f).to(dev)
+        rast = tmr.rasterize(_clip_vertices(mesh.v, size, dev), faces, size, size)
+        assert tzc.LAUNCHES["ztest"] - before == (0 if dev == "cpu" else 1)
+        uv = tmr.interpolate(torch.from_numpy(mesh.vt).to(dev), faces, rast)
+        outs.append((rast, uv))
+    (r_cpu, uv_cpu), (r_card, uv_card) = outs
+    assert torch.equal(r_card.tri_id.cpu(), r_cpu.tri_id)
+    assert float((r_card.bary.cpu() - r_cpu.bary).abs().max()) <= 1e-5
+    assert float((uv_card.cpu() - uv_cpu).abs().max()) <= 1e-5
+    covered = r_card.tri_id > 0
+    assert 0.5 < float(covered.float().mean()) < 1.0     # the unit sphere fills most of the view
+    texel = torch.from_numpy(mesh.albedo).to(cuda_device)[
+        (uv_card[..., 1].clamp(0, 1) * 511).long(), (uv_card[..., 0].clamp(0, 1) * 511).long()]
+    assert bool(torch.isfinite(texel[covered]).all())

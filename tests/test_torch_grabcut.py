@@ -195,4 +195,4 @@ def test_stored_matte_is_the_jax_remove_backgrounds(monkeypatch):
     img = tproc.read_image(str(JPEG_FIXTURES / "photo_512.jpg"))
     cv2.setRNGSeed(0)
     ref = jproc.remove_background(img)[..., 3]
-    np.testing.assert_array_equal(read_png(str(JPEG_FIXTURES / "photo_512_alpha.png"))[..., 0], ref)
+    np.testing.assert_array_equal(read_png(str(JPEG_FIXTURES / "photo_512_alpha.png")), ref)

@@ -298,14 +298,22 @@ def test_png_reader_undoes_every_filter(kind):
 
 
 def test_png_rejects_what_it_does_not_read():
+    """Every PNG of the specification is read (16-bit ones too, held in
+    test_torch_image_formats.py); a header outside it is refused, as libpng
+    refuses it, and the writer takes 8-bit RGB(A) only."""
     with pytest.raises(ValueError):
         tpng.decode_png(b"not a png")
     ok, sixteen = cv2.imencode(".png", np.zeros((4, 4, 3), np.uint16))
     assert ok
-    with pytest.raises(ValueError):
-        tpng.decode_png(sixteen.tobytes())
+    data = bytearray(sixteen.tobytes())
+    data[25] = 3                                   # colour type 3 (palette) at 16 bits
+    with pytest.raises(ValueError, match="out of the specification"):
+        tpng.decode_png(bytes(data))
+    assert cv2.imdecode(np.frombuffer(bytes(data), np.uint8), cv2.IMREAD_UNCHANGED) is None
     with pytest.raises(ValueError):
         tpng.encode_png(np.zeros((4, 4), np.uint8))
+    with pytest.raises(ValueError):
+        tpng.encode_png(np.zeros((4, 4, 3), np.uint16))
 
 
 def test_extract_mesh_raises_on_empty_isosurface():

@@ -1,0 +1,628 @@
+"""Writers of image files for the port's reader tests and fixtures
+(``scripts/port_make_image_fixtures.py``): GIF, BMP, PNM/PAM and PNG written
+here from their specifications with numpy, so that every variant the
+readers take (palettes, bit depths, run-length coding, interlacing,
+transparency, 16-bit samples) can be made on purpose; WebP through Pillow
+(libwebp), with a hand-made ``ALPH`` chunk for each alpha filter; EXIF
+orientation added to a JPEG, PNG or WebP file. No cv2 here."""
+
+from __future__ import annotations
+
+import io
+import struct
+import zlib
+
+import numpy as np
+
+
+def photo(h: int, w: int, seed: int, channels: int = 3) -> np.ndarray:
+    """uint8 [h, w, channels] with detail at every scale: waves, edges, noise;
+    a fourth channel is a soft disc with a transparent surround."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([128 + 90 * np.sin(xx / (3.0 + c) + c) * np.cos(yy / 5.0) for c in range(3)], -1)
+    img[(xx // 7 + yy // 5) % 3 == 0] = (250, 20, 90)
+    img = np.clip(img + rng.normal(0, 15, (h, w, 3)), 0, 255)
+    if channels == 4:
+        r = np.hypot((yy - h / 2) / max(h, 1), (xx - w / 2) / max(w, 1))
+        img = np.dstack([img, np.clip((0.45 - r) * 900, 0, 255)])
+    return img.astype(np.uint8)
+
+
+# ------------------------------------------------------------------ GIF
+
+def _lzw(idx: np.ndarray, m: int) -> bytes:
+    """GIF LZW of palette indices with ``m``-bit roots; a clear code when the
+    table nears 4096 entries."""
+    clear, eoi = 1 << m, (1 << m) + 1
+    out, acc, nb, width = bytearray(), 0, 0, m + 1
+
+    def emit(code):
+        nonlocal acc, nb
+        acc |= code << nb
+        nb += width
+        while nb >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nb -= 8
+
+    table = {(i,): i for i in range(clear)}
+    nxt = eoi + 1
+    emit(clear)
+    cur: tuple = ()
+    for c in idx.tolist():
+        ext = cur + (c,)
+        if ext in table:
+            cur = ext
+            continue
+        emit(table[cur])
+        table[ext] = nxt
+        nxt += 1
+        if nxt - 1 >= (1 << width) and width < 12:
+            width += 1
+        if nxt >= 4094:
+            emit(clear)
+            table, nxt, width = {(i,): i for i in range(clear)}, eoi + 1, m + 1
+        cur = (c,)
+    if cur:
+        emit(table[cur])
+    emit(eoi)
+    if nb:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _gif_table(pal: np.ndarray) -> tuple[bytes, int]:
+    n = 2
+    while n < len(pal):
+        n *= 2
+    full = np.zeros((n, 3), np.uint8)
+    full[:len(pal)] = pal
+    return full.tobytes(), n.bit_length() - 2
+
+
+def gif(w: int, h: int, frames: list, palette=None, bg: int = 0) -> bytes:
+    """A GIF89a; each frame a dict: ``idx`` [fh, fw], optional ``left``,
+    ``top``, ``palette`` (local table), ``transparent`` index, ``dispose``,
+    ``interlace``; a graphic control extension precedes a frame that sets a
+    transparent index or a disposal, and every frame of an animation."""
+    out = bytearray(b"GIF89a" + struct.pack("<HHBBB", w, h, 0, bg, 0))
+    if palette is not None:
+        table, size = _gif_table(palette)
+        out[10] = 0x80 | (7 << 4) | size
+        out += table
+    for f in frames:
+        idx = np.asarray(f["idx"])
+        fh, fw = idx.shape
+        if f.get("transparent") is not None or f.get("dispose") or len(frames) > 1:
+            packed = (f.get("dispose", 0) << 2) | (f.get("transparent") is not None)
+            out += b"\x21\xf9\x04" + struct.pack("<BHB", packed, 10, f.get("transparent") or 0) + b"\0"
+        packed, local = 0, b""
+        pal = f.get("palette")
+        if pal is not None:
+            local, size = _gif_table(pal)
+            packed = 0x80 | size
+        rows = idx
+        if f.get("interlace"):
+            packed |= 0x40
+            rows = idx[np.concatenate([np.arange(0, fh, 8), np.arange(4, fh, 8),
+                                       np.arange(2, fh, 4), np.arange(1, fh, 2)])]
+        out += b"\x2c" + struct.pack("<HHHHB", f.get("left", 0), f.get("top", 0), fw, fh, packed)
+        out += local
+        colors = len(pal) if pal is not None else len(palette)
+        m = max(2, (colors - 1).bit_length())
+        codes = _lzw(rows.reshape(-1).astype(np.int64), m)
+        out += bytes([m]) + b"".join(bytes([len(codes[i:i + 255])]) + codes[i:i + 255]
+                                     for i in range(0, len(codes), 255)) + b"\0"
+    return bytes(out + b"\x3b")
+
+
+# ------------------------------------------------------------------ BMP
+
+def _rle_rows(idx: np.ndarray, bpp: int, eol_early: bool) -> bytes:
+    """BI_RLE8/BI_RLE4 codes: runs of repeated pixels and absolute stretches,
+    an end of line per row (after dropping a row's trailing index-0 pixels
+    when ``eol_early``), an end of bitmap."""
+    out = bytearray()
+    for row in idx:
+        row = list(row)
+        if eol_early:
+            while row and row[-1] == 0:
+                row.pop()
+        x = 0
+        while x < len(row):
+            run = 1
+            while x + run < len(row) and run < 255 and row[x + run] == row[x]:
+                run += 1
+            if run >= 3 or len(row) - x < 3:
+                run = max(1, min(run, len(row) - x))
+                out += bytes([run, row[x] if bpp == 8 else row[x] << 4 | row[x]])
+                x += run
+                continue
+            lit = 3
+            while x + lit < len(row) and lit < 255 and not (
+                    x + lit + 2 < len(row) and row[x + lit] == row[x + lit + 1] == row[x + lit + 2]):
+                lit += 1
+            vals = row[x:x + lit]
+            if bpp == 8:
+                body = bytes(vals) + (b"\0" if lit & 1 else b"")
+            else:
+                nib = vals + [0] * (lit & 1)
+                body = bytes(nib[i] << 4 | nib[i + 1] for i in range(0, len(nib), 2))
+                body += b"\0" * (len(body) & 1)
+            out += bytes([0, lit]) + body
+            x += lit
+        out += b"\0\0"
+    return bytes(out + b"\0\1")
+
+
+def bmp(img: np.ndarray, bpp: int, palette=None, header: int = 40, top_down: bool = False,
+        compression: int = 0, masks=None, eol_early: bool = False) -> bytes:
+    """A BMP of ``img`` (palette indices [h, w] when ``bpp`` <= 8, else RGB
+    or RGBA uint8, or uint16 words for 16-bit); ``palette`` RGB [n, 3];
+    ``header`` 12 (OS/2), 40, 108 (V4) or 124 (V5); ``masks`` (R, G, B, A)
+    written for BI_BITFIELDS (after a 40-byte header, inside a V4/V5 one)."""
+    h, w = img.shape[:2]
+    pal = b""
+    if bpp <= 8:
+        p = np.asarray(palette, np.uint8)[:, ::-1]
+        pal = (p.tobytes() if header == 12
+               else np.concatenate([p, np.zeros((len(p), 1), np.uint8)], 1).tobytes())
+    rows = img[::-1] if not top_down else img
+    if compression in (1, 2):
+        pixels = _rle_rows(rows, bpp, eol_early)
+    else:
+        pitch = ((w * bpp + 7) // 8 + 3) & ~3
+        if bpp <= 8:
+            bits = ((rows[..., None] >> np.arange(bpp - 1, -1, -1)) & 1).astype(np.uint8)
+            packed = np.packbits(bits.reshape(h, -1), axis=1)
+        elif bpp == 16:
+            packed = rows.astype("<u2").view(np.uint8).reshape(h, -1)
+        else:
+            packed = rows[..., [2, 1, 0, 3][:rows.shape[-1]]].reshape(h, -1)
+            if bpp == 32 and rows.shape[-1] == 3:
+                packed = np.dstack([rows[..., ::-1], np.full((h, w), 0x55, np.uint8)]).reshape(h, -1)
+        buf = np.zeros((h, pitch), np.uint8)
+        buf[:, :packed.shape[1]] = packed
+        pixels = buf.tobytes()
+    extra = b""
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bpp)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bpp, compression,
+                           len(pixels), 2835, 2835, len(palette) if palette is not None else 0, 0)
+        if header > 40:
+            m = masks or (0, 0, 0, 0)
+            info += struct.pack("<4I", *m) + b"BGRs" + b"\0" * (header - 56 - 4)
+        elif compression == 3:
+            extra = struct.pack("<3I", *masks[:3])
+    offset = 14 + len(info) + len(extra) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", offset + len(pixels), 0, 0, offset) + info + extra
+            + pal + pixels)
+
+
+# ------------------------------------------------------------------ PNM
+
+def pnm(img: np.ndarray, kind: int, maxval: int = 255, comment: bool = False) -> bytes:
+    """P1-P6 of ``img`` ([h, w] or [h, w, 3] samples at ``maxval``; P1/P4 take
+    0/1 with 1 black)."""
+    h, w = img.shape[:2]
+    head = f"P{kind}\n" + ("# made by the tests\n" if comment else "") + f"{w} {h}\n"
+    if kind not in (1, 4):
+        head += f"{maxval}\n"
+    if kind == 1:
+        body = "\n".join(" ".join(str(int(v)) for v in row) for row in img).encode() + b"\n"
+    elif kind in (2, 3):
+        body = "\n".join(" ".join(str(int(v)) for v in row.reshape(-1)) for row in img).encode() + b"\n"
+    elif kind == 4:
+        body = np.packbits(img.astype(np.uint8), axis=1).tobytes()
+    else:
+        body = img.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+    return head.encode() + body
+
+
+def pam(img: np.ndarray, tupltype: str, maxval: int = 255) -> bytes:
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    head = (f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH {c}\nMAXVAL {maxval}\nTUPLTYPE {tupltype}\n"
+            "ENDHDR\n")
+    return head.encode() + img.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+
+
+# ------------------------------------------------------------------ PNG
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
+
+
+def png(samples: np.ndarray, depth: int, ctype: int, palette=None, trns: bytes | None = None,
+        interlace: bool = False, exif: bytes | None = None, seed: int = 0) -> bytes:
+    """A PNG of integer ``samples`` [h, w, c] at ``depth`` bits, colour type
+    ``ctype``; each row gets a filter type drawn from ``seed``."""
+    h, w, c = samples.shape
+    rng = np.random.default_rng(seed)
+    raw = bytearray()
+    for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        bpp = max(1, depth * c // 8)
+        prev = None
+        for row in sub:
+            if depth == 16:
+                line = row.astype(">u2").tobytes()
+            elif depth == 8:
+                line = row.astype(np.uint8).tobytes()
+            else:
+                bits = ((row.reshape(-1)[:, None] >> np.arange(depth - 1, -1, -1)) & 1).astype(np.uint8)
+                line = np.packbits(bits.reshape(-1)).tobytes()
+            cur = np.frombuffer(line, np.uint8).astype(np.int64)
+            up = np.zeros_like(cur) if prev is None else prev
+            a = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])[:len(cur)]
+            cc = np.concatenate([np.zeros(bpp, np.int64), up[:-bpp]])[:len(cur)]
+            p = a + up - cc
+            pa, pb, pc = abs(p - a), abs(p - up), abs(p - cc)
+            paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, up, cc))
+            kind = int(rng.integers(0, 5))
+            filt = (cur - [0 * cur, a, up, (a + up) >> 1, paeth][kind]) & 255
+            raw += bytes([kind]) + filt.astype(np.uint8).tobytes()
+            prev = cur
+    out = b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0,
+                                                                 int(interlace)))
+    if palette is not None:
+        out += _png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += _png_chunk(b"tRNS", trns)
+    if exif is not None:
+        out += _png_chunk(b"eXIf", exif)
+    return out + _png_chunk(b"IDAT", zlib.compress(bytes(raw))) + _png_chunk(b"IEND", b"")
+
+
+# ------------------------------------------------------------------ EXIF, WebP
+
+def exif_orientation(value: int) -> bytes:
+    """A little-endian TIFF block with one IFD entry: Orientation = value."""
+    return b"II*\0" + struct.pack("<IH", 8, 1) + struct.pack("<HHIHH", 0x0112, 3, 1, value, 0) \
+        + struct.pack("<I", 0)
+
+
+def webp(img: np.ndarray, **kw) -> bytes:
+    """Pillow's WebP of RGB or RGBA uint8 ``img``."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "WEBP", **kw)
+    return buf.getvalue()
+
+
+def _riff(chunks: list) -> bytes:
+    body = b"WEBP" + b"".join(t + struct.pack("<I", len(p)) + p + b"\0" * (len(p) & 1)
+                              for t, p in chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def webp_chunks(data: bytes) -> list:
+    out, off = [], 12
+    while off + 8 <= len(data):
+        tag, size = data[off:off + 4], struct.unpack_from("<I", data, off + 4)[0]
+        out.append((tag, data[off + 8:off + 8 + size]))
+        off += 8 + size + (size & 1)
+    return out
+
+
+def filter_alpha(a: np.ndarray, method: int) -> np.ndarray:
+    """An alpha plane filtered as libwebp's encoder does (1 horizontal, 2
+    vertical, 3 gradient); the decoder's inverse is in filters.c."""
+    a = a.astype(np.int64)
+    h, w = a.shape
+    pred = np.zeros_like(a)
+    for y in range(h):
+        for x in range(w):
+            if y == 0:
+                pred[y, x] = a[y, x - 1] if x else 0
+            elif method == 1:
+                pred[y, x] = a[y, x - 1] if x else a[y - 1, 0]
+            elif method == 2:
+                pred[y, x] = a[y - 1, x]
+            else:
+                pred[y, x] = (np.clip(a[y, x - 1] + a[y - 1, x] - a[y - 1, x - 1], 0, 255)
+                              if x else a[y - 1, 0])
+    return ((a - pred) & 255).astype(np.uint8)
+
+
+def webp_with_alph(img: np.ndarray, method: int, compressed: bool, quality: int = 80,
+                   exif: bytes | None = None) -> bytes:
+    """A lossy WebP of RGBA ``img`` whose ALPH chunk is made here: the plane
+    filtered by ``method`` (0-3), stored raw or as a VP8L stream (Pillow's
+    lossless coding of the filtered plane in the green channel)."""
+    h, w = img.shape[:2]
+    plane = filter_alpha(img[..., 3], method) if method else img[..., 3].astype(np.uint8)
+    if compressed:
+        stream = webp_chunks(webp(np.repeat(plane[..., None], 3, -1), lossless=True, exact=True))
+        vp8l = next(p for t, p in stream if t == b"VP8L")
+        payload = bytes([1 | method << 2]) + vp8l[5:]
+    else:
+        payload = bytes([method << 2]) + plane.tobytes()
+    vp8 = next(p for t, p in webp_chunks(webp(np.ascontiguousarray(img[..., :3]), quality=quality))
+               if t == b"VP8 ")
+    flags = 0x10 | (0x08 if exif else 0)
+    head = bytes([flags, 0, 0, 0]) + (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little")
+    chunks = [(b"VP8X", head), (b"ALPH", payload), (b"VP8 ", vp8)]
+    return _riff(chunks + ([(b"EXIF", exif)] if exif else []))
+
+
+def webp_with_exif(data: bytes, exif: bytes) -> bytes:
+    """A single-image WebP wrapped in VP8X with an EXIF chunk."""
+    chunks = webp_chunks(data)
+    if chunks[0][0] == b"VP8X":
+        head = bytes([chunks[0][1][0] | 0x08]) + chunks[0][1][1:]
+        return _riff([(b"VP8X", head)] + chunks[1:] + [(b"EXIF", exif)])
+    tag, payload = chunks[0]
+    if tag == b"VP8L":
+        bits = struct.unpack_from("<I", payload, 1)[0]
+        w, h, alpha = (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1, (bits >> 28) & 1
+    else:
+        w, h = (struct.unpack_from("<H", payload, 6)[0] & 0x3FFF,
+                struct.unpack_from("<H", payload, 8)[0] & 0x3FFF)
+        alpha = 0
+    head = bytes([0x08 | (0x10 if alpha else 0), 0, 0, 0]) + (w - 1).to_bytes(3, "little") \
+        + (h - 1).to_bytes(3, "little")
+    return _riff([(b"VP8X", head), (tag, payload), (b"EXIF", exif)])
+
+
+def jpeg_with_exif(data: bytes, exif: bytes) -> bytes:
+    """A JPEG with an APP1 Exif segment after its SOI."""
+    seg = b"Exif\0\0" + exif
+    return data[:2] + b"\xff\xe1" + struct.pack(">H", len(seg) + 2) + seg + data[2:]
+
+
+# ------------------------------------------------------------------ VP8 header rewrite
+
+def _vp8_table(name: str) -> list:
+    """A table of the port's VP8 decoder, read from its source (the
+    specification's probabilities, which the rewrite below must replay)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(__file__).resolve().parents[1] / "dreamgaussian_tpu_torch" / "csrc"
+           / "image_codecs.cpp").read_text()
+    body = re.search(rf"{name}\[[^\]]*\] = \{{(.*?)\}};", src, re.S).group(1)
+    return [int(v) for v in re.findall(r"\d+", body)]
+
+
+class _BoolDecoder:
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 2
+        self.value = (data[0] << 8 | data[1]) if len(data) > 1 else 0
+        self.range, self.count = 255, 0
+
+    def bit(self, prob: int) -> int:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if self.value >= split << 8:
+            self.range -= split
+            self.value -= split << 8
+            out = 1
+        else:
+            self.range, out = split, 0
+        while self.range < 128:
+            self.value <<= 1
+            self.range <<= 1
+            self.count += 1
+            if self.count == 8:
+                self.count = 0
+                self.value |= self.data[self.pos] if self.pos < len(self.data) else 0
+                self.pos += 1
+        return out
+
+
+class _BoolEncoder:
+    """RFC 6386's boolean encoder (section 7.3)."""
+
+    def __init__(self):
+        self.out, self.range, self.bottom, self.bit_count = bytearray(), 255, 0, 24
+
+    def _carry(self):
+        i = len(self.out) - 1
+        while self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, bit: int, prob: int):
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.bit_count -= 1
+            if not self.bit_count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.bit_count = 8
+
+    def flush(self) -> bytes:
+        c, v = self.bit_count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append(v >> 24)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+_BANDS = (0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0)
+_CATS = ((173, 148, 140), (176, 155, 140, 135), (180, 157, 141, 134, 130),
+         (254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129))
+
+
+def vp8_rewrite(data: bytes, simple: int | None = None, level: int | None = None,
+                sharpness: int | None = None, partitions: int | None = None) -> bytes:
+    """A lossy single-image WebP with its loop-filter type, level and
+    sharpness and its number of token partitions (1, 2, 4 or 8) replaced:
+    every symbol is decoded and coded again with the probabilities it was
+    coded with, the tokens of macroblock row y into partition
+    ``y % partitions``. libwebp's encoder through Pillow offers neither the
+    simple filter nor several partitions."""
+    chunks = webp_chunks(data)
+    vp8 = next(p for t, p in chunks if t == b"VP8 ")
+    tag = vp8[0] | vp8[1] << 8 | vp8[2] << 16
+    size = tag >> 5
+    w = struct.unpack_from("<H", vp8, 6)[0] & 0x3FFF
+    h = struct.unpack_from("<H", vp8, 8)[0] & 0x3FFF
+    dec, enc = _BoolDecoder(vp8[10:10 + size]), _BoolEncoder()
+
+    def bit(prob, value=None, d=None, e=None):
+        v = (d or dec).bit(prob)
+        (e or enc).put(v if value is None else value, prob)
+        return v
+
+    def lit(n, value=None):
+        v = 0
+        for k in range(n - 1, -1, -1):
+            v = v << 1 | bit(128, None if value is None else (value >> k) & 1)
+        return v
+
+    def signed(n):
+        if lit(1):
+            lit(n)
+            lit(1)
+
+    lit(2)                                          # colour space, clamping
+    seg_p, update_map = [255, 255, 255], 0
+    if lit(1):
+        update_map = lit(1)
+        if lit(1):
+            lit(1)
+            for n in [7] * 4 + [6] * 4:
+                signed(n)
+        if update_map:
+            seg_p = [lit(8) if lit(1) else 255 for _ in range(3)]
+    lit(1, simple)
+    lit(6, level)
+    lit(3, sharpness)
+    if lit(1) and lit(1):
+        for _ in range(8):
+            signed(6)
+    old_parts = 1 << lit(2, None if partitions is None else partitions.bit_length() - 1)
+    if old_parts != 1:
+        raise ValueError("vp8_rewrite reads files of one token partition")
+    parts = partitions or 1
+    lit(7)
+    for _ in range(5):
+        signed(4)
+    lit(1)
+    proba = [lit(8) if bit(u) else p0 for u, p0 in zip(_vp8_table("kCoeffsUpdateProba"),
+                                                        _vp8_table("kCoeffsProba0"))]
+    skip_p = lit(8) if lit(1) else None
+    bmodes = _vp8_table("kBModesProba")
+    tree = [0, 1, -1, 2, -2, 3, 4, 6, -3, 5, -4, -5, -6, 7, -7, 8, -8, -9]
+    mb_w, mb_h = (w + 15) >> 4, (h + 15) >> 4
+    tok_dec = _BoolDecoder(vp8[10 + size:])
+    tok_enc = [_BoolEncoder() for _ in range(parts)]
+
+    def coeffs(e, t, ctx, n):                       # libwebp's GetCoeffs, replayed
+        def pr(band, c):
+            at = ((t * 8 + band) * 3 + c) * 11
+            return proba[at:at + 11]
+
+        def tb(prob):
+            return bit(prob, d=tok_dec, e=e)
+
+        p = pr(_BANDS[n], ctx)
+        while n < 16:
+            if not tb(p[0]):
+                return n
+            while not tb(p[1]):
+                n += 1
+                p = pr(_BANDS[n], 0)
+                if n == 16:
+                    return 16
+            if not tb(p[2]):
+                p = pr(_BANDS[n + 1], 1)
+            else:
+                if not tb(p[3]):
+                    if tb(p[4]):
+                        tb(p[5])
+                elif not tb(p[6]):
+                    if not tb(p[7]):
+                        tb(159)
+                    else:
+                        tb(165)
+                        tb(145)
+                else:
+                    b1 = tb(p[8])
+                    for c in _CATS[2 * b1 + tb(p[9 + b1])]:
+                        tb(c)
+                p = pr(_BANDS[n + 1], 2)
+            tb(128)
+            n += 1
+        return 16
+
+    top = [0] * (4 * mb_w)
+    nz_y, nz_u, nz_v, nz_dc = [0] * (4 * mb_w), [0] * (2 * mb_w), [0] * (2 * mb_w), [0] * mb_w
+    for my in range(mb_h):
+        left = [0] * 4
+        l_y, l_u, l_v, l_dc = [0] * 4, [0] * 2, [0] * 2, 0
+        e = tok_enc[my % parts]
+        for mx in range(mb_w):
+            if update_map:
+                bit(seg_p[1]) if not bit(seg_p[0]) else bit(seg_p[2])
+            skip = bit(skip_p) if skip_p is not None else 0
+            i16 = bit(145)
+            if i16:
+                ymode = (1 if bit(128) else 3) if bit(156) else (2 if bit(163) else 0)
+                top[4 * mx:4 * mx + 4] = [ymode] * 4
+                left = [ymode] * 4
+            else:
+                for y in range(4):
+                    mode = left[y]
+                    for x in range(4):
+                        prob = bmodes[(top[4 * mx + x] * 10 + mode) * 9:][:9]
+                        i = tree[bit(prob[0])]
+                        while i > 0:
+                            i = tree[2 * i + bit(prob[i])]
+                        mode = top[4 * mx + x] = -i
+                    left[y] = mode
+            if bit(142) and bit(114):
+                bit(183)
+            if skip:
+                nz_y[4 * mx:4 * mx + 4], l_y = [0] * 4, [0] * 4
+                nz_u[2 * mx:2 * mx + 2], nz_v[2 * mx:2 * mx + 2], l_u, l_v = [0] * 2, [0] * 2, [0] * 2, [0] * 2
+                if i16:
+                    nz_dc[mx] = l_dc = 0
+                continue
+            first, kind = 0, 3
+            if i16:
+                nz_dc[mx] = l_dc = int(coeffs(e, 1, nz_dc[mx] + l_dc, 0) > 0)
+                first, kind = 1, 0
+            for y in range(4):
+                lv = l_y[y]
+                for x in range(4):
+                    lv = nz_y[4 * mx + x] = int(coeffs(e, kind, lv + nz_y[4 * mx + x], first) > first)
+                l_y[y] = lv
+            for tops, lefts in ((nz_u, l_u), (nz_v, l_v)):
+                for y in range(2):
+                    lv = lefts[y]
+                    for x in range(2):
+                        lv = tops[2 * mx + x] = int(coeffs(e, 2, lv + tops[2 * mx + x], 0) > 0)
+                    lefts[y] = lv
+    first = enc.flush()
+    streams = [t.flush() for t in tok_enc]
+    sizes = b"".join(len(s_).to_bytes(3, "little") for s_ in streams[:-1])
+    tag = (tag & 0x1F) | len(first) << 5
+    new = (bytes([tag & 255, tag >> 8 & 255, tag >> 16]) + vp8[3:10] + first + sizes
+           + b"".join(streams))
+    return _riff([(t, new if t == b"VP8 " else p) for t, p in chunks])
