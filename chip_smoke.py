@@ -10,10 +10,13 @@
    ``scripts/port_make_jpeg_fixtures.py``) and holds it bit for bit against
    cv2's decode stored beside it, with the host's decode ms; reads every
    fixture of ``tests/fixtures/port_images/`` (PNG, WebP, BMP, PNM, GIF;
-   ``scripts/port_make_image_fixtures.py``) under IMREAD_UNCHANGED and
+   ``scripts/port_make_image_fixtures.py``) and ``tests/fixtures/port_tiff/``
+   (TIFF: every codec, layout and photometric the port reads;
+   ``scripts/port_make_tiff_fixtures.py``) under IMREAD_UNCHANGED and
    IMREAD_COLOR, and the GLB's and OBJs' textures through ``Mesh.load``,
-   each held bit for bit against cv2's stored decode, with the host's
-   median ms (``check_image_fixtures``); runs GrabCut on
+   each held bit for bit against cv2's stored decode (or refused where cv2
+   returns None), with the host's median ms (``check_image_fixtures``);
+   runs GrabCut on
    the card on the 512^2 photo (device ms of the pixel work under
    torch.profiler, host ms of the min-cuts) and holds its matte against the
    port's CPU run and cv2's stored one (alpha >= 128 IoU); lines
@@ -78,7 +81,9 @@
    photo (its alpha kept: no matting, checked) for a few steps, and
    ``cli.main2`` with ``mesh=`` the GLB fixture whose base colour is a 512^2
    JPEG (read by the port, checked) for the stage-2 steps, 3 K3 launches
-   each;
+   each; the same two with a 512^2 LZW RGBA TIFF (unassociated alpha,
+   premultiplied as cv2 reads it; no matting, checked) and an OBJ sphere
+   whose ``map_Kd`` is a tiled LZW TIFF;
 10. the text day: writes a full-width SD 2.1-base diffusers snapshot (the
    UNet, the KL-VAE, the 23-layer CLIP text tower, a tokenizer) as fp16
    safetensors and a full-width single-file MVDream LDM checkpoint (the
@@ -1643,6 +1648,10 @@ IMAGE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests
                               "port_images")
 PHOTO_WEBP = os.path.join(IMAGE_FIXTURES, "photo_512_rgba.webp")
 SPHERE_GLB = os.path.join(IMAGE_FIXTURES, "sphere_jpeg.glb")
+TIFF_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                             "port_tiff")
+PHOTO_TIFF = os.path.join(TIFF_FIXTURES, "photo_512_rgba.tif")
+SPHERE_TIFF = os.path.join(TIFF_FIXTURES, "sphere_tiff.obj")
 GRABCUT_IOU_CPU = 0.99
 GRABCUT_IOU_CV2 = 0.95
 DECODE_REPS = 5
@@ -1756,11 +1765,14 @@ def run_formats(card: str) -> dict:
 
 
 def check_image_fixtures(card: str) -> dict:
-    """Every fixture of ``scripts/port_make_image_fixtures.py`` read by the
-    port under IMREAD_UNCHANGED and IMREAD_COLOR (``utils/imread.py``), the
-    GLB and the OBJs through ``Mesh.load``, each held bit for bit against
-    cv2's stored decode (shape, dtype, SHA-256; the 83x61 files' arrays
-    too); one line each with the host's median ms of ``DECODE_REPS`` reads."""
+    """Every fixture of ``scripts/port_make_image_fixtures.py`` and
+    ``scripts/port_make_tiff_fixtures.py`` read by the port under
+    IMREAD_UNCHANGED and IMREAD_COLOR (``utils/imread.py``), the GLB and
+    the OBJs through ``Mesh.load``, each held bit for bit against cv2's
+    stored decode (shape, dtype, SHA-256; the 83x61 files' arrays too), or
+    refused where cv2's is undefined (NotImplementedError) or None
+    (ValueError); one line each with the host's median ms of
+    ``DECODE_REPS`` reads."""
     import hashlib
 
     import numpy as np
@@ -1768,23 +1780,9 @@ def check_image_fixtures(card: str) -> dict:
     from dreamgaussian_tpu_torch.meshing.mesh import Mesh
     from dreamgaussian_tpu_torch.utils.imread import IMREAD_COLOR, IMREAD_UNCHANGED, decode_image
 
-    with open(os.path.join(IMAGE_FIXTURES, "decodes.json")) as fh:
-        digests = json.load(fh)
-    small = np.load(os.path.join(IMAGE_FIXTURES, "small_decodes.npz"))
     textures = {"tex_grey.obj": "tex_grey.png", "tex_palette.obj": "tex_palette.png",
-                "tex_exif.obj": "tex_exif.jpg", "sphere_jpeg.glb": "sphere_jpeg.glb"}
-
-    def held(name: str, key: str, got) -> str:
-        want = digests[name][key]
-        digest = hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest()
-        err = (int(np.abs(got.astype(np.int64) - small[name].astype(np.int64)).max())
-               if key == "unchanged" and name in small.files and got.shape == small[name].shape
-               else 0)
-        if ([list(got.shape), str(got.dtype), digest] != [want["shape"], want["dtype"],
-                                                          want["sha256"]] or err):
-            raise RuntimeError(f"{name} ({key}): read {got.dtype} {list(got.shape)} (SHA-256 "
-                               f"{digest[:16]}, max abs err {err}) against cv2's {want}")
-        return digest
+                "tex_exif.obj": "tex_exif.jpg", "sphere_jpeg.glb": "sphere_jpeg.glb",
+                "sphere_tiff.obj": "sphere_tiff.tif"}
 
     def timed(fn):
         times, out = [], None
@@ -1795,35 +1793,61 @@ def check_image_fixtures(card: str) -> dict:
         return out, statistics.median(times)
 
     out = {}
-    for name in sorted(digests):
-        if name.endswith(".glb"):
-            continue
-        with open(os.path.join(IMAGE_FIXTURES, name), "rb") as fh:
-            data = fh.read()
-        parts = []
-        for key, flags in (("unchanged", IMREAD_UNCHANGED), ("color", IMREAD_COLOR)):
-            if digests[name][key] is None:
-                try:
-                    decode_image(data, flags, name)
-                except NotImplementedError:
-                    parts.append(f"{key}: refused as cv2 leaves it in part unwritten")
-                    continue
-                raise RuntimeError(f"{name} ({key}): read where cv2's decode is undefined")
-            got, ms = timed(lambda: decode_image(data, flags, name))
-            digest = held(name, key, got)
-            out[f"{name} {key}"] = ms
-            parts.append(f"{key} {got.dtype} {list(got.shape)} SHA-256 {digest[:16]} in a median "
-                         f"{ms:.2f} ms")
-        print(f"[formats] {name}: equal to cv2's decode bit for bit ({'; '.join(parts)} of "
-              f"{DECODE_REPS} on the host); card '{card}'")
-    for mesh_file, tex in textures.items():
-        mesh, ms = timed(lambda: Mesh.load(os.path.join(IMAGE_FIXTURES, mesh_file), resize=False))
-        albedo = np.rint(mesh.albedo * 255).astype(np.uint8)
-        digest = held(tex, "color", albedo)
-        out[mesh_file] = ms
-        print(f"[formats] {mesh_file}: albedo {list(albedo.shape)} equal to cv2's IMREAD_COLOR "
-              f"decode of {tex} bit for bit (SHA-256 {digest[:16]}), Mesh.load in a median "
-              f"{ms:.2f} ms of {DECODE_REPS}; card '{card}'")
+    for folder, none_means in ((IMAGE_FIXTURES, NotImplementedError), (TIFF_FIXTURES, ValueError)):
+        with open(os.path.join(folder, "decodes.json")) as fh:
+            digests = json.load(fh)
+        small = np.load(os.path.join(folder, "small_decodes.npz"))
+
+        def held(name: str, key: str, got) -> str:
+            want = digests[name][key]
+            digest = hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest()
+            err = (int(np.abs(got.astype(np.int64) - small[name].astype(np.int64)).max())
+                   if key == "unchanged" and name in small.files and got.shape == small[name].shape
+                   else 0)
+            if ([list(got.shape), str(got.dtype), digest] != [want["shape"], want["dtype"],
+                                                              want["sha256"]] or err):
+                raise RuntimeError(f"{name} ({key}): read {got.dtype} {list(got.shape)} (SHA-256 "
+                                   f"{digest[:16]}, max abs err {err}) against cv2's {want}")
+            return digest
+
+        for name in sorted(digests):
+            if name.endswith(".glb"):
+                continue
+            path = os.path.join(folder, name)
+            with open(path, "rb") as fh:
+                data = fh.read()
+            parts = []
+            for key, flags in (("unchanged", IMREAD_UNCHANGED), ("color", IMREAD_COLOR)):
+                if digests[name][key] is None:
+                    try:
+                        decode_image(data, flags, path)
+                    except none_means:
+                        parts.append(f"{key}: refused as cv2 " + (
+                            "leaves it in part unwritten" if none_means is NotImplementedError
+                            else "returns None"))
+                        continue
+                    raise RuntimeError(f"{name} ({key}): read where cv2's decode is "
+                                       f"{'undefined' if none_means is NotImplementedError else 'None'}")
+                got, ms = timed(lambda: decode_image(data, flags, path))
+                digest = held(name, key, got)
+                out[f"{name} {key}"] = ms
+                parts.append(f"{key} {got.dtype} {list(got.shape)} SHA-256 {digest[:16]} in a "
+                             f"median {ms:.2f} ms")
+            print(f"[formats] {name}: equal to cv2's decode bit for bit ({'; '.join(parts)} of "
+                  f"{DECODE_REPS} on the host); card '{card}'")
+        for mesh_file, tex in textures.items():
+            if not os.path.exists(os.path.join(folder, mesh_file)):
+                continue
+            mesh, ms = timed(lambda: Mesh.load(os.path.join(folder, mesh_file), resize=False))
+            albedo = np.rint(mesh.albedo * 255).astype(np.uint8)
+            digest = held(tex, "color", albedo)
+            out[mesh_file] = ms
+            print(f"[formats] {mesh_file}: albedo {list(albedo.shape)} equal to cv2's "
+                  f"IMREAD_COLOR decode of {tex} bit for bit (SHA-256 {digest[:16]}), Mesh.load "
+                  f"in a median {ms:.2f} ms of {DECODE_REPS}; card '{card}'")
+    big = {k: out[k] for k in ("photo_1024x768.webp color", "photo_1024x768_jpeg.tif color")}
+    print(f"[formats] 1024x768 photos, IMREAD_COLOR median host ms: {json.dumps(big)} (the "
+          f"JPEG's is its decode_jpeg line above); card '{card}'")
     return out
 
 
@@ -1845,7 +1869,9 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
     saved, restored, losses = [], [], []
     sai_matte: dict = {}
     webp_matte: dict = {}
+    tiff_matte: dict = {}
     glb_albedo = Mesh.load(SPHERE_GLB, resize=False).albedo
+    tiff_albedo = Mesh.load(SPHERE_TIFF, resize=False).albedo
     os.environ.pop("DG_U2NET_CKPT", None)       # the JPEG is matted by GrabCut
     with tempfile.TemporaryDirectory() as tmp:
         snap = os.path.join(tmp, "zero123-snapshot")
@@ -1891,6 +1917,16 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
                     "save_path=webp", f"iters={SAI_ITERS}", "save_mesh=False"], runs)
             glb = drive_cli("glb stage 2", cli2, webp_argv + [
                 "save_path=glb", f"mesh={SPHERE_GLB}", f"iters_refine={WEIGHTS_REFINE}"], runs)
+            # A cut-out TIFF (LZW, unassociated alpha: premultiplied as cv2
+            # reads it) through stage 1, and an OBJ with a tiled TIFF texture.
+            tiff_argv = ["--config", os.path.join(CONFIGS, "image.yaml"), f"input={PHOTO_TIFF}",
+                         f"outdir={tmp}", f"seed={seed}", f"zero123_ckpt={snap}"]
+            with grabcut_watch(tiff_matte):
+                tiff = drive_cli("tiff stage 1", cli1, tiff_argv + [
+                    "save_path=tiff", f"iters={SAI_ITERS}", "save_mesh=False"], runs)
+            tiff_mesh = drive_cli("tiff stage 2", cli2, tiff_argv + [
+                "save_path=tiffmesh", f"mesh={SPHERE_TIFF}", f"iters_refine={WEIGHTS_REFINE}"],
+                runs)
         n, faces = read_outputs(tmp, "weights", image_options()["texture_size"],
                                 image_options()["capacity"])
     if sai_matte["runs"] != ["cuda:0"] or sai_matte["cuts"] != ITERATIONS:
@@ -1907,10 +1943,19 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
           f"{runs['webp stage 1']['wall_s']:.1f} s; glb mesh {os.path.relpath(SPHERE_GLB)}: its "
           f"512^2 JPEG base colour read by the port, {WEIGHTS_REFINE} stage-2 steps in "
           f"{runs['glb stage 2']['wall_s']:.1f} s (loss {glb['loss']:.5f}); card '{card}'")
-    if (first["step"], resumed["step"], sai["step"], webp["step"]) != (
-            WEIGHTS_STOP, WEIGHTS_ITERS, SAI_ITERS, SAI_ITERS):
+    if tiff_matte["runs"] or tiff_albedo is None or tiff_albedo.shape != (128, 128, 3):
+        raise RuntimeError(f"the TIFF photo was matted ({tiff_matte}) or the OBJ's TIFF texture "
+                           f"was not read ({None if tiff_albedo is None else tiff_albedo.shape})")
+    print(f"[weights] tiff input {os.path.relpath(PHOTO_TIFF)}: an LZW RGBA TIFF decoded by the "
+          f"port (unassociated alpha premultiplied, as cv2 reads it), its alpha kept, "
+          f"{SAI_ITERS} stage-1 steps in {runs['tiff stage 1']['wall_s']:.1f} s; obj mesh "
+          f"{os.path.relpath(SPHERE_TIFF)}: its 128^2 tiled LZW TIFF texture read by the port, "
+          f"{WEIGHTS_REFINE} stage-2 steps in {runs['tiff stage 2']['wall_s']:.1f} s (loss "
+          f"{tiff_mesh['loss']:.5f}); card '{card}'")
+    if (first["step"], resumed["step"], sai["step"], webp["step"], tiff["step"]) != (
+            WEIGHTS_STOP, WEIGHTS_ITERS, SAI_ITERS, SAI_ITERS, SAI_ITERS):
         raise RuntimeError(f"stage-1 runs ended at steps {first['step']}, {resumed['step']}, "
-                           f"{sai['step']}, {webp['step']}")
+                           f"{sai['step']}, {webp['step']}, {tiff['step']}")
     if len(saved) != 1 or len(restored) != 1 or restored[0]["step"] != WEIGHTS_STOP:
         raise RuntimeError(f"expected one checkpoint at step {WEIGHTS_STOP} saved and restored, "
                            f"got {len(saved)} saved, {len(restored)} restored")
@@ -1918,17 +1963,18 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
         torch.equal(v, restored[0][k]) if isinstance(v, torch.Tensor) else v == restored[0][k])]
     if differ:
         raise RuntimeError(f"the resumed trainer's state differs from the saved one in {differ}")
-    n_steps = WEIGHTS_STOP + (WEIGHTS_ITERS - WEIGHTS_STOP) + 2 * SAI_ITERS
-    if len(losses) != n_steps or not all(math.isfinite(x) for x in
-                                         losses + [refined["loss"], glb["loss"]]):
+    n_steps = WEIGHTS_STOP + (WEIGHTS_ITERS - WEIGHTS_STOP) + 3 * SAI_ITERS
+    if len(losses) != n_steps or not all(math.isfinite(x) for x in losses + [
+            refined["loss"], glb["loss"], tiff_mesh["loss"]]):
         raise RuntimeError(f"stage-1 losses {losses}, stage-2 losses {refined['loss']}, "
-                           f"{glb['loss']}")
+                           f"{glb['loss']}, {tiff_mesh['loss']}")
     launches = {k: v["launches"] for k, v in runs.items()}
     k1k2 = ("composite_fwd", "composite_bwd")
     if (any(launches[k][name] < 1 for k in launches if "stage 1" in k for name in k1k2)
             or launches["stage 1 resumed, export"]["ztest"] != 26
             or launches["stage 2"]["ztest"] != 3 * WEIGHTS_REFINE
-            or launches["glb stage 2"]["ztest"] != 3 * WEIGHTS_REFINE):
+            or launches["glb stage 2"]["ztest"] != 3 * WEIGHTS_REFINE
+            or launches["tiff stage 2"]["ztest"] != 3 * WEIGHTS_REFINE):
         raise RuntimeError(f"the weights-day runs did not go through the kernels: {launches}")
     walls = {k: v["wall_s"] for k, v in runs.items()}
     print(f"[weights] checkpoint at step {WEIGHTS_STOP} restored bit for bit "

@@ -5,11 +5,14 @@ Port of ``dreamgaussian_tpu/cli/process.py``:
 - ``read_image`` (``utils/imread.py``) is the port's ``cv2.imread(path,
   cv2.IMREAD_UNCHANGED)``, channels in RGB(A) order, bit for bit: PNG (every
   colour type and bit depth, Adam7, ``tRNS``), JPEG, WebP (lossless, lossy,
-  alpha, an animation's first frame), BMP, PNM/PAM and GIF by the file's
-  leading bytes; TIFF, JPEG 2000, AVIF, Radiance HDR, PFM and Sun raster
+  alpha, an animation's first frame), BMP, PNM/PAM, GIF and TIFF (strips
+  and tiles, every codec cv2's libtiff decodes but SGILog, NeXT and
+  ThunderScan; unassociated alpha premultiplied as cv2 gives it) by the
+  file's leading bytes; JPEG 2000, AVIF, Radiance HDR, PFM and Sun raster
   files, which cv2 reads, raise NotImplementedError naming the format; a
-  file no decoder recognises raises FileNotFoundError, as the JAX function
-  does when ``cv2.imread`` returns None;
+  file no decoder recognises, or one that does not decode (where
+  ``cv2.imread`` returns None), raises FileNotFoundError in ``load_rgba``,
+  as the JAX function does;
 - the steps after the decode are the JAX function's: grey becomes RGB,
   4-channel inputs keep their alpha (the reference's own inputs are RGBA),
   and the values are divided by 255 whatever the dtype, so a 16-bit input
@@ -92,8 +95,13 @@ def load_rgba(path: str, size: int | None = None, border_ratio: float = 0.2,
               u2net_ckpt: str | None = None, device="cuda") -> np.ndarray:
     """An image (``read_image``) as float32 RGBA at ``size``^2 (or its own
     size), divided by 255: 4-channel inputs keep their alpha; RGB and grey are
-    matted (``remove_background``) and recentred."""
-    img = read_image(path)
+    matted (``remove_background``) and recentred. A file that does not
+    decode, where ``cv2.imread`` returns None, raises FileNotFoundError as
+    the JAX function does."""
+    try:
+        img = read_image(path)
+    except ValueError as err:
+        raise FileNotFoundError(f"{path}: {err}") from err
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=-1)
     if img.shape[-1] not in (3, 4):

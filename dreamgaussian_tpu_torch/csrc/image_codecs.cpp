@@ -1,9 +1,9 @@
 // Host-side image codecs of the port, beside image_tools.cpp: the pixel
-// work of the PNG, GIF and WebP readers (utils/png.py, utils/gif.py,
-// utils/webp.py parse the containers and call these). Built and loaded by
-// dreamgaussian_tpu_torch/native.py, exposed through a plain C ABI for
-// ctypes. Each function returns 0 on success and a positive code on a
-// malformed stream.
+// work of the PNG, GIF, WebP and TIFF readers (utils/png.py, utils/gif.py,
+// utils/webp.py, utils/tiff.py parse the containers and call these).
+// Built and loaded by dreamgaussian_tpu_torch/native.py, exposed through a
+// plain C ABI for ctypes. Each function returns 0 on success and a positive
+// code on a malformed stream.
 //
 //  - dg_png_unfilter: the five PNG row filters undone (None, Sub, Up,
 //    Average, Paeth) over one pass of rows;
@@ -20,7 +20,13 @@
 //    WebPDecodeRGB(A): its "fancy" chroma upsampling (upsampling.c) and its
 //    14-bit fixed-point YUV->RGB (yuv.h);
 //  - dg_webp_alpha_unfilter: the ALPH chunk's horizontal, vertical and
-//    gradient filters undone (filters.c), in place.
+//    gradient filters undone (filters.c), in place;
+//  - dg_tiff_decompress: a TIFF strip or tile's LZW, PackBits or CCITT
+//    (Modified Huffman, T.4 1-D and 2-D, T.6) data as libtiff's tif_lzw.c,
+//    tif_packbits.c and tif_fax3.c decode it (utils/tiff.py parses the
+//    container);
+//  - dg_tiff_unpredict: TIFF's horizontal and floating-point predictors
+//    undone (tif_predict.c), in place.
 // The probability and quantiser tables are those of the VP8 specification
 // (RFC 6386), in libwebp's order of the intra 4x4 modes.
 
@@ -1319,6 +1325,469 @@ int vp8_decode(const uint8_t* data, size_t size, int want_w, int want_h, uint8_t
   return 0;
 }
 
+
+// ---------------------------------------------------------------- TIFF CCITT
+// The T.4 / T.6 codes (ITU-T T.4 tables 1-3 and 4), as (bits, run) pairs;
+// the decoder below reads them as libtiff's tif_fax3.c does.
+
+struct FaxCode {
+  const char* bits;
+  int run;
+};
+
+const FaxCode kWhiteCodes[] = {
+    {"00110101", 0}, {"000111", 1}, {"0111", 2}, {"1000", 3}, {"1011", 4}, {"1100", 5},
+    {"1110", 6}, {"1111", 7}, {"10011", 8}, {"10100", 9}, {"00111", 10}, {"01000", 11},
+    {"001000", 12}, {"000011", 13}, {"110100", 14}, {"110101", 15}, {"101010", 16},
+    {"101011", 17}, {"0100111", 18}, {"0001100", 19}, {"0001000", 20}, {"0010111", 21},
+    {"0000011", 22}, {"0000100", 23}, {"0101000", 24}, {"0101011", 25}, {"0010011", 26},
+    {"0100100", 27}, {"0011000", 28}, {"00000010", 29}, {"00000011", 30}, {"00011010", 31},
+    {"00011011", 32}, {"00010010", 33}, {"00010011", 34}, {"00010100", 35}, {"00010101", 36},
+    {"00010110", 37}, {"00010111", 38}, {"00101000", 39}, {"00101001", 40}, {"00101010", 41},
+    {"00101011", 42}, {"00101100", 43}, {"00101101", 44}, {"00000100", 45}, {"00000101", 46},
+    {"00001010", 47}, {"00001011", 48}, {"01010010", 49}, {"01010011", 50}, {"01010100", 51},
+    {"01010101", 52}, {"00100100", 53}, {"00100101", 54}, {"01011000", 55}, {"01011001", 56},
+    {"01011010", 57}, {"01011011", 58}, {"01001010", 59}, {"01001011", 60}, {"00110010", 61},
+    {"00110011", 62}, {"00110100", 63},
+    {"11011", 64}, {"10010", 128}, {"010111", 192}, {"0110111", 256}, {"00110110", 320},
+    {"00110111", 384}, {"01100100", 448}, {"01100101", 512}, {"01101000", 576},
+    {"01100111", 640}, {"011001100", 704}, {"011001101", 768}, {"011010010", 832},
+    {"011010011", 896}, {"011010100", 960}, {"011010101", 1024}, {"011010110", 1088},
+    {"011010111", 1152}, {"011011000", 1216}, {"011011001", 1280}, {"011011010", 1344},
+    {"011011011", 1408}, {"010011000", 1472}, {"010011001", 1536}, {"010011010", 1600},
+    {"011000", 1664}, {"010011011", 1728}};
+
+const FaxCode kBlackCodes[] = {
+    {"0000110111", 0}, {"010", 1}, {"11", 2}, {"10", 3}, {"011", 4}, {"0011", 5}, {"0010", 6},
+    {"00011", 7}, {"000101", 8}, {"000100", 9}, {"0000100", 10}, {"0000101", 11},
+    {"0000111", 12}, {"00000100", 13}, {"00000111", 14}, {"000011000", 15},
+    {"0000010111", 16}, {"0000011000", 17}, {"0000001000", 18}, {"00001100111", 19},
+    {"00001101000", 20}, {"00001101100", 21}, {"00000110111", 22}, {"00000101000", 23},
+    {"00000010111", 24}, {"00000011000", 25}, {"000011001010", 26}, {"000011001011", 27},
+    {"000011001100", 28}, {"000011001101", 29}, {"000001101000", 30}, {"000001101001", 31},
+    {"000001101010", 32}, {"000001101011", 33}, {"000011010010", 34}, {"000011010011", 35},
+    {"000011010100", 36}, {"000011010101", 37}, {"000011010110", 38}, {"000011010111", 39},
+    {"000001101100", 40}, {"000001101101", 41}, {"000011011010", 42}, {"000011011011", 43},
+    {"000001010100", 44}, {"000001010101", 45}, {"000001010110", 46}, {"000001010111", 47},
+    {"000001100100", 48}, {"000001100101", 49}, {"000001010010", 50}, {"000001010011", 51},
+    {"000000100100", 52}, {"000000110111", 53}, {"000000111000", 54}, {"000000100111", 55},
+    {"000000101000", 56}, {"000001011000", 57}, {"000001011001", 58}, {"000000101011", 59},
+    {"000000101100", 60}, {"000001011010", 61}, {"000001100110", 62}, {"000001100111", 63},
+    {"0000001111", 64}, {"000011001000", 128}, {"000011001001", 192}, {"000001011011", 256},
+    {"000000110011", 320}, {"000000110100", 384}, {"000000110101", 448},
+    {"0000001101100", 512}, {"0000001101101", 576}, {"0000001001010", 640},
+    {"0000001001011", 704}, {"0000001001100", 768}, {"0000001001101", 832},
+    {"0000001110010", 896}, {"0000001110011", 960}, {"0000001110100", 1024},
+    {"0000001110101", 1088}, {"0000001110110", 1152}, {"0000001110111", 1216},
+    {"0000001010010", 1280}, {"0000001010011", 1344}, {"0000001010100", 1408},
+    {"0000001010101", 1472}, {"0000001011010", 1536}, {"0000001011011", 1600},
+    {"0000001100100", 1664}, {"0000001100101", 1728}};
+
+// Make-up codes of 1792 to 2560, common to both colours.
+const FaxCode kExtendedCodes[] = {
+    {"00000001000", 1792}, {"00000001100", 1856}, {"00000001101", 1920},
+    {"000000010010", 1984}, {"000000010011", 2048}, {"000000010100", 2112},
+    {"000000010101", 2176}, {"000000010110", 2240}, {"000000010111", 2304},
+    {"000000011100", 2368}, {"000000011101", 2432}, {"000000011110", 2496},
+    {"000000011111", 2560}};
+
+enum FaxState { S_Null, S_Pass, S_Horiz, S_V0, S_VR, S_VL, S_Ext, S_TermW, S_TermB,
+                S_MakeUpW, S_MakeUpB, S_MakeUp, S_EOL };
+
+struct FaxEntry {
+  uint8_t state, width;
+  int32_t param;
+};
+
+// A table indexed by the next ``bits`` bits of the stream, first bit in bit 0.
+struct FaxTable {
+  int bits;
+  std::vector<FaxEntry> e;
+  explicit FaxTable(int b) : bits(b), e((size_t)1 << b, FaxEntry{S_Null, 0, 0}) {}
+  void add(const char* code, uint8_t state, int32_t param) {
+    const int len = (int)std::strlen(code);
+    uint32_t idx = 0;
+    for (int i = 0; i < len; ++i)
+      if (code[i] == '1') idx |= 1u << i;
+    for (uint32_t rest = 0; rest < (1u << (bits - len)); ++rest)
+      e[idx | (rest << len)] = FaxEntry{state, (uint8_t)len, param};
+  }
+};
+
+struct FaxTables {
+  FaxTable white{12}, black{13}, main{7};
+  FaxTables() {
+    for (const FaxCode& c : kWhiteCodes) white.add(c.bits, c.run < 64 ? S_TermW : S_MakeUpW, c.run);
+    for (const FaxCode& c : kBlackCodes) black.add(c.bits, c.run < 64 ? S_TermB : S_MakeUpB, c.run);
+    for (const FaxCode& c : kExtendedCodes) {
+      white.add(c.bits, S_MakeUp, c.run);
+      black.add(c.bits, S_MakeUp, c.run);
+    }
+    white.add("00000000000", S_EOL, 0);     // an EOL's first 11 bits, as libtiff's tables
+    black.add("00000000000", S_EOL, 0);     // hold it: SYNC_EOL then reads its 1 bit
+    main.add("0001", S_Pass, 0);
+    main.add("001", S_Horiz, 0);
+    main.add("1", S_V0, 0);
+    main.add("011", S_VR, 1);
+    main.add("000011", S_VR, 2);
+    main.add("0000011", S_VR, 3);
+    main.add("010", S_VL, 1);
+    main.add("000010", S_VL, 2);
+    main.add("0000010", S_VL, 3);
+    main.add("0000001", S_Ext, 0);
+    main.add("0000000", S_EOL, 0);
+  }
+};
+
+const FaxTables& fax_tables() {
+  static const FaxTables t;
+  return t;
+}
+
+uint8_t reverse_bits(uint8_t b) {
+  b = (uint8_t)((b & 0xF0) >> 4 | (b & 0x0F) << 4);
+  b = (uint8_t)((b & 0xCC) >> 2 | (b & 0x33) << 2);
+  return (uint8_t)((b & 0xAA) >> 1 | (b & 0x55) << 1);
+}
+
+// libtiff's bit accumulator (tif_fax3.h NeedBits8/NeedBits16/GetBits/
+// ClrBits): bits enter at the top of ``acc`` a byte at a time, so the
+// count of bits held, which the word alignment of compression 32771 reads,
+// is the one libtiff holds.
+struct FaxBits {
+  const uint8_t* p;
+  int64_t n, pos = 0;
+  bool msb_first;
+  uint32_t acc = 0;
+  int avail = 0;
+  uint32_t byte() { const uint8_t b = p[pos++]; return msb_first ? reverse_bits(b) : b; }
+  bool need8(int k) {
+    if (avail < k) {
+      if (pos >= n) {
+        if (avail == 0) return false;
+        avail = k;
+      } else {
+        acc |= byte() << avail;
+        avail += 8;
+      }
+    }
+    return true;
+  }
+  bool need16(int k) {
+    if (avail < k) {
+      if (pos >= n) {
+        if (avail == 0) return false;
+        avail = k;
+      } else {
+        acc |= byte() << avail;
+        if ((avail += 8) < k) {
+          if (pos >= n) {
+            avail = k;
+          } else {
+            acc |= byte() << avail;
+            avail += 8;
+          }
+        }
+      }
+    }
+    return true;
+  }
+  uint32_t get(int k) const { return acc & ((1u << k) - 1); }
+  void clr(int k) { acc >>= k; avail -= k; }
+};
+
+// One strip or tile of CCITT data (libtiff's Fax3DecodeRLE, Fax3Decode1D,
+// Fax3Decode2D and Fax4Decode) into ``rows`` packed rows of ``width`` bits,
+// black runs as 1 bits. ``kind``: 2 Modified Huffman (rows byte-aligned),
+// 32771 the same word-aligned (``odd`` the parity of the data's offset in
+// the file, which libtiff's alignment test reads), 3 T.4 (``two_d`` from
+// T4Options bit 0), 4 T.6. Returns the rows decoded in full.
+int fax_decode(const uint8_t* data, int64_t len, int kind, bool two_d, bool msb_first, bool odd,
+               int width, int rows, uint8_t* out) {
+  const FaxTables& T = fax_tables();
+  FaxBits B{data, len, 0, msb_first};
+  const int64_t rowbytes = (width + 7) / 8;
+  std::vector<int32_t> cur((size_t)2 * width + 8), ref((size_t)2 * width + 8);
+  ref[0] = width;
+  ref[1] = 0;
+  size_t nref = 2;
+  bool eol_seen = false;
+  std::memset(out, 0, (size_t)rowbytes * rows);
+  for (int row = 0; row < rows; ++row) {
+    int a0 = 0, run_length = 0;
+    size_t pa = 0;
+    bool eof = false;
+    auto setvalue = [&](int x) {
+      if (pa < cur.size()) cur[pa++] = run_length + x;
+      a0 += x;
+      run_length = 0;
+    };
+    // One run of ``table``'s colour with its make-up codes; false at a bad
+    // code, an EOL or the end of the data.
+    auto run = [&](const FaxTable& table, uint8_t term, uint8_t makeup, bool* eol) -> bool {
+      for (;;) {
+        if (!B.need16(table.bits)) { eof = true; return false; }
+        const FaxEntry& t = table.e[B.get(table.bits)];
+        B.clr(t.width);
+        if (t.state == term) { setvalue(t.param); return true; }
+        if (t.state == makeup || t.state == S_MakeUp) {
+          a0 += t.param;
+          run_length += t.param;
+          continue;
+        }
+        if (t.state == S_EOL && eol) *eol = true;
+        return false;
+      }
+    };
+    auto sync_eol = [&]() -> bool {       // SYNC_EOL
+      if (!eol_seen) {
+        for (;;) {
+          if (!B.need16(11)) return false;
+          if (B.get(11) == 0) break;
+          B.clr(1);
+        }
+      }
+      for (;;) {
+        if (!B.need8(8)) return false;
+        if (B.get(8)) break;
+        B.clr(8);
+      }
+      while (B.get(1) == 0) B.clr(1);
+      B.clr(1);
+      eol_seen = false;
+      return true;
+    };
+    auto expand_1d = [&]() {
+      for (;;) {
+        bool eol = false;
+        if (!run(T.white, S_TermW, S_MakeUpW, &eol)) { eol_seen = eol; return; }
+        if (a0 >= width) return;
+        if (!run(T.black, S_TermB, S_MakeUpB, &eol)) { eol_seen = eol; return; }
+        if (a0 >= width) return;
+        if (pa >= 2 && cur[pa - 1] == 0 && cur[pa - 2] == 0) pa -= 2;
+      }
+    };
+    auto expand_2d = [&]() {
+      size_t pb = 0;
+      int b1 = ref[pb++];
+      auto check_b1 = [&]() -> bool {
+        if (pa != 0)
+          while (b1 <= a0 && b1 < width) {
+            if (pb + 1 >= nref) return false;
+            b1 += ref[pb] + ref[pb + 1];
+            pb += 2;
+          }
+        return true;
+      };
+      while (a0 < width) {
+        if (!B.need8(7)) { eof = true; return; }
+        const FaxEntry& t = T.main.e[B.get(7)];
+        B.clr(t.width);
+        switch (t.state) {
+          case S_Pass:
+            if (!check_b1() || pb + 1 >= nref) return;
+            b1 += ref[pb++];
+            run_length += b1 - a0;
+            a0 = b1;
+            b1 += ref[pb++];
+            break;
+          case S_Horiz: {
+            const bool black_first = (pa & 1) != 0;
+            const FaxTable& first = black_first ? T.black : T.white;
+            const FaxTable& second = black_first ? T.white : T.black;
+            if (!run(first, black_first ? S_TermB : S_TermW, black_first ? S_MakeUpB : S_MakeUpW,
+                     nullptr) ||
+                !run(second, black_first ? S_TermW : S_TermB, black_first ? S_MakeUpW : S_MakeUpB,
+                     nullptr))
+              return;
+            if (!check_b1()) return;
+            break;
+          }
+          case S_V0:
+            if (!check_b1()) return;
+            setvalue(b1 - a0);
+            if (pb >= nref) return;
+            b1 += ref[pb++];
+            break;
+          case S_VR:
+            if (!check_b1()) return;
+            setvalue(b1 - a0 + t.param);
+            if (pb >= nref) return;
+            b1 += ref[pb++];
+            break;
+          case S_VL:
+            if (!check_b1()) return;
+            if (b1 < a0 + t.param) return;
+            setvalue(b1 - a0 - t.param);
+            if (pb == 0) return;
+            b1 -= ref[--pb];
+            break;
+          case S_EOL:
+            if (pa < cur.size()) cur[pa++] = width - a0;
+            if (!B.need8(4)) { eof = true; return; }
+            B.clr(4);
+            eol_seen = true;
+            return;
+          default:
+            return;
+        }
+      }
+      if (run_length) {
+        if (run_length + a0 < width) {
+          if (!B.need8(1)) { eof = true; return; }
+          if (!B.get(1)) return;
+          B.clr(1);
+        }
+        setvalue(0);
+      }
+    };
+    bool one_d = true;
+    if (kind == 3) {
+      if (!sync_eol()) return row;
+      if (two_d) {
+        if (!B.need8(1)) return row;
+        one_d = B.get(1) != 0;
+        B.clr(1);
+      }
+    } else if (kind == 4) {
+      one_d = false;
+    }
+    if (one_d) expand_1d(); else expand_2d();
+    if (eof) return row;
+    // CLEANUP_RUNS: the row's runs made to sum to its width.
+    if (run_length) setvalue(0);
+    if (a0 != width) {
+      while (a0 > width && pa > 0) a0 -= cur[--pa];
+      if (a0 < width) {
+        if (a0 < 0) a0 = 0;
+        if (pa & 1) setvalue(0);
+        setvalue(width - a0);
+      } else if (a0 > width) {
+        setvalue(width);
+        setvalue(0);
+      }
+    }
+    // _TIFFFax3fillruns: black runs (odd positions) as 1 bits.
+    uint8_t* dst = out + (size_t)row * rowbytes;
+    int x = 0;
+    for (size_t i = 0; i < pa && x < width; ++i) {
+      int r = cur[i];
+      if (r > width - x || r < 0) r = width - x;
+      if (i & 1)
+        for (int k = x; k < x + r; ++k) dst[k >> 3] |= (uint8_t)(0x80 >> (k & 7));
+      x += r;
+    }
+    if (kind == 2 || kind == 32771) {
+      if (kind == 2) {
+        B.clr(B.avail - (B.avail & ~7));
+      } else {
+        B.clr(B.avail - (B.avail & ~15));
+        if (B.avail == 0 && ((B.pos + (odd ? 1 : 0)) & 1)) ++B.pos;
+      }
+    }
+    if (kind == 3 || kind == 4) {
+      if (pa < cur.size()) cur[pa++] = 0;         // the imaginary change closing the reference
+      std::swap(cur, ref);
+      nref = pa;
+    }
+    if (kind == 4 && eol_seen) return row + 1;
+  }
+  return rows;
+}
+
+// TIFF LZW (libtiff's LZWDecode): MSB-first codes of 9 to 12 bits, the
+// width raised when the next free entry reaches 2^width - 1; 256 clears,
+// 257 ends. Decodes until ``out`` holds ``cap`` bytes or the codes end.
+int64_t tiff_lzw(const uint8_t* data, int64_t len, uint8_t* out, int64_t cap) {
+  std::vector<int32_t> prefix(4096 + 1024, -1), length(4096 + 1024, 0);
+  std::vector<uint8_t> suffix(4096 + 1024), first(4096 + 1024);
+  for (int i = 0; i < 256; ++i) {
+    suffix[i] = first[i] = (uint8_t)i;
+    length[i] = 1;
+  }
+  int width = 9, next = 258, prev = -1;
+  uint64_t acc = 0;
+  int nb = 0;
+  int64_t pos = 0, o = 0;
+  auto read = [&](int* code) {
+    while (nb < width && pos < len) {
+      acc = (acc << 8) | data[pos++];
+      nb += 8;
+    }
+    if (nb < width) return false;
+    nb -= width;
+    *code = (int)((acc >> nb) & ((1u << width) - 1));
+    return true;
+  };
+  std::vector<uint8_t> stack(4096 + 1024);
+  while (o < cap) {
+    int code;
+    if (!read(&code) || code == 257) break;
+    if (code == 256) {
+      width = 9;
+      next = 258;
+      do {
+        if (!read(&code)) return o;
+      } while (code == 256);
+      if (code == 257) break;
+      if (code > 256) return -1;
+      out[o++] = (uint8_t)code;
+      prev = code;
+      continue;
+    }
+    if (prev < 0) {           // no clear code first: the table as after one
+      if (code > 255) return -1;
+      out[o++] = (uint8_t)code;
+      prev = code;
+      continue;
+    }
+    if (code > next || next >= (int)prefix.size()) return -1;
+    const int base = code < next ? code : prev;
+    prefix[next] = prev;
+    suffix[next] = first[base];
+    first[next] = first[prev];
+    length[next] = length[prev] + 1;
+    ++next;
+    if (next > (1 << width) - 2 && width < 12) ++width;
+    int n = 0;
+    for (int e = code; e >= 0 && n < (int)stack.size(); e = prefix[e]) stack[n++] = suffix[e];
+    while (n > 0 && o < cap) out[o++] = stack[--n];
+    prev = code;
+  }
+  return o;
+}
+
+// PackBits (libtiff's PackBitsDecode) until ``out`` holds ``cap`` bytes.
+int64_t tiff_packbits(const uint8_t* data, int64_t len, uint8_t* out, int64_t cap) {
+  int64_t pos = 0, o = 0;
+  while (pos < len && o < cap) {
+    int n = data[pos++];
+    if (n >= 128) n -= 256;
+    if (n < 0) {
+      if (n == -128) continue;
+      int64_t k = std::min<int64_t>(1 - n, cap - o);
+      if (pos >= len) break;
+      const uint8_t b = data[pos++];
+      std::memset(out + o, b, (size_t)k);
+      o += k;
+    } else {
+      int64_t k = std::min<int64_t>(n + 1, cap - o);
+      if (len - pos < k) break;
+      std::memcpy(out + o, data + pos, (size_t)k);
+      o += k;
+      pos += k;
+    }
+  }
+  return o;
+}
+
+template <typename T>
+void horizontal_acc(uint8_t* row, int64_t row_bytes, int stride) {
+  T* p = reinterpret_cast<T*>(row);
+  const int64_t n = row_bytes / (int64_t)sizeof(T);
+  for (int64_t i = stride; i < n; ++i) p[i] = (T)(p[i] + p[i - stride]);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1450,6 +1919,65 @@ int dg_webp_alpha_unfilter(uint8_t* a, int32_t w, int32_t h, int32_t method) {
         top_left = top;
         row[x] = left;
       }
+    }
+  }
+  return 0;
+}
+
+// A TIFF strip or tile decompressed into ``out`` (``cap`` bytes, the rest
+// left as it is): ``compression`` 5 LZW, 32773 PackBits, or CCITT 2, 3, 4,
+// 32771 (then ``width`` x ``rows`` bits, ``options`` bit 0 T.4's 2-D coding,
+// bit 1 FillOrder 2, bit 2 an odd offset of the data in the file).
+// ``*n_done`` receives the bytes (LZW, PackBits) or rows (CCITT) decoded.
+int dg_tiff_decompress(const uint8_t* data, int64_t len, int32_t compression, uint8_t* out,
+                       int64_t cap, int32_t width, int32_t rows, int32_t options,
+                       int64_t* n_done) {
+  if (compression == 5) {
+    *n_done = tiff_lzw(data, len, out, cap);
+    return *n_done < 0 ? 1 : 0;
+  }
+  if (compression == 32773) {
+    *n_done = tiff_packbits(data, len, out, cap);
+    return 0;
+  }
+  if (compression == 2 || compression == 3 || compression == 4 || compression == 32771) {
+    if ((int64_t)(width + 7) / 8 * rows > cap) return 2;
+    *n_done = fax_decode(data, len, compression, (options & 1) != 0, (options & 2) == 0,
+                         (options & 4) != 0, width, rows, out);
+    return 0;
+  }
+  return 3;
+}
+
+// TIFF's predictors undone in place over ``rows`` rows of ``row_bytes``
+// bytes: 2 horizontal differences of ``bits``-bit samples (8, 16, 32, 64;
+// native byte order) ``stride`` samples apart; 3 the floating-point
+// predictor (libtiff's fpAcc): each row's bytes summed ``stride`` apart,
+// then gathered from byte planes (most significant first) into
+// little-endian samples of ``bits`` / 8 bytes.
+int dg_tiff_unpredict(uint8_t* buf, int64_t rows, int64_t row_bytes, int32_t predictor,
+                      int32_t bits, int32_t stride) {
+  const int bytes = bits / 8;
+  if (bytes < 1 || row_bytes % ((int64_t)bytes * stride) != 0) return 1;
+  std::vector<uint8_t> tmp(predictor == 3 ? (size_t)row_bytes : 0);
+  for (int64_t y = 0; y < rows; ++y) {
+    uint8_t* row = buf + y * row_bytes;
+    if (predictor == 2) {
+      switch (bits) {
+        case 8: horizontal_acc<uint8_t>(row, row_bytes, stride); break;
+        case 16: horizontal_acc<uint16_t>(row, row_bytes, stride); break;
+        case 32: horizontal_acc<uint32_t>(row, row_bytes, stride); break;
+        case 64: horizontal_acc<uint64_t>(row, row_bytes, stride); break;
+        default: return 2;
+      }
+    } else if (predictor == 3) {
+      for (int64_t i = stride; i < row_bytes; ++i) row[i] = (uint8_t)(row[i] + row[i - stride]);
+      std::memcpy(tmp.data(), row, (size_t)row_bytes);
+      const int64_t wc = row_bytes / bytes;
+      for (int64_t c = 0; c < wc; ++c)
+        for (int b = 0; b < bytes; ++b) row[bytes * c + b] = tmp[(bytes - b - 1) * wc + c];
+    } else {
+      return 3;
     }
   }
   return 0;

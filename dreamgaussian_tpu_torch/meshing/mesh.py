@@ -7,10 +7,12 @@ binary with embedded PNG). Textures are written by the port's own
 ``utils/png.py`` (8-bit RGB) and read, in any format the JAX package reads
 them in, by ``utils/imread.py`` as ``cv2.imread``/``cv2.imdecode`` read
 them under ``IMREAD_COLOR`` (grey repeated, alpha dropped, 16-bit samples
-shifted right by 8, the EXIF orientation applied); a GLB image no decoder
-recognises leaves the albedo unset, as cv2's None does in the JAX package,
-and one in a format cv2 reads and the port does not (TIFF, JPEG 2000,
-AVIF) raises NotImplementedError.
+shifted right by 8, the EXIF or TIFF orientation applied; a TIFF through
+libtiff's RGBA interface, as cv2 reads it); a GLB image that no decoder
+recognises or that does not decode (a float TIFF among them) leaves the
+albedo unset, as cv2's None does in the JAX package, an OBJ's such
+texture raises, and one in a format cv2 reads and the port does not (JPEG
+2000, AVIF) raises NotImplementedError.
 
 Conventions match DreamGaussian's so assets cross-load: ``auto_size``
 normalizes the mesh to max extent 1.2 about its centroid; ``auto_normal``

@@ -4,8 +4,9 @@ Three sources under ``csrc/``: ``mesh_tools.cpp`` (the port's own copy of
 ``dreamgaussian_tpu/native/``'s, wrapped below), ``image_tools.cpp`` (the
 JPEG decoder's pixel work and GrabCut's min-cut, wrapped by
 ``utils/jpeg.py`` and ``preprocess/grabcut.py``) and ``image_codecs.cpp``
-(PNG's row filters, GIF's LZW, WebP's VP8L, VP8 and alpha planes, wrapped
-by ``utils/png.py``, ``gif.py`` and ``webp.py``); ``image_tools()`` and
+(PNG's row filters, GIF's LZW, WebP's VP8L, VP8 and alpha planes, TIFF's
+LZW, PackBits, CCITT and predictors, wrapped by ``utils/png.py``,
+``gif.py``, ``webp.py`` and ``tiff.py``); ``image_tools()`` and
 ``image_codecs()`` declare every function of theirs, once. Each shared
 library is
 compiled at first use into ``build/native/`` at the root of the checkout,
@@ -99,8 +100,10 @@ def _declare_image_codecs(lib: ctypes.CDLL) -> None:
     lib.dg_webp_vp8l.argtypes = [vp, i64, i32, i32, vp]
     lib.dg_webp_vp8.argtypes = [vp, i64, i32, i32, vp, i32]
     lib.dg_webp_alpha_unfilter.argtypes = [vp, i32, i32, i32]
+    lib.dg_tiff_decompress.argtypes = [vp, i64, i32, vp, i64, i32, i32, i32, vp]
+    lib.dg_tiff_unpredict.argtypes = [vp, i64, i64, i32, i32, i32]
     for fn in (lib.dg_png_unfilter, lib.dg_gif_lzw, lib.dg_webp_vp8l, lib.dg_webp_vp8,
-               lib.dg_webp_alpha_unfilter):
+               lib.dg_webp_alpha_unfilter, lib.dg_tiff_decompress, lib.dg_tiff_unpredict):
         fn.restype = ctypes.c_int
 
 

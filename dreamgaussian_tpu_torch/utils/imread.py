@@ -7,12 +7,15 @@ and values — with the channels in RGB(A) order:
 
 - PNG (``utils/png.py``), JPEG (``utils/jpeg.py``), WebP
   (``utils/webp.py``), BMP (``utils/bmp.py``), PNM and PAM
-  (``utils/pnm.py``), GIF's first frame (``utils/gif.py``);
+  (``utils/pnm.py``), GIF's first frame (``utils/gif.py``), TIFF and
+  BigTIFF's first page (``utils/tiff.py``, which follows cv2's own TIFF
+  rules: its orientation under both flags, its channel counts, libtiff's
+  conversions; SGILog, NeXT and ThunderScan raise NotImplementedError);
 - ``IMREAD_COLOR`` gives 3 channels of uint8 (grey repeated, alpha dropped,
   16-bit samples shifted right by 8) and applies the EXIF orientation of a
   JPEG (APP1), a PNG (``eXIf``) or a WebP (``EXIF``), as cv2 does;
   ``IMREAD_UNCHANGED`` leaves the orientation alone;
-- formats cv2 reads and the port does not (TIFF, JPEG 2000, AVIF, Radiance
+- formats cv2 reads and the port does not (JPEG 2000, AVIF, Radiance
   HDR, PFM, Sun raster) raise NotImplementedError naming the format; bytes
   no decoder of cv2 recognises raise FileNotFoundError, as the JAX package
   raises when ``cv2.imread`` returns None; a file of a format read here
@@ -31,13 +34,13 @@ from .gif import imread_gif
 from .jpeg import decode_jpeg
 from .png import imread_png
 from .pnm import decode_pnm
+from .tiff import decode_tiff, orient
 from .webp import decode_webp
 
 IMREAD_UNCHANGED, IMREAD_COLOR = -1, 1
 
 # Leading bytes of the formats cv2 reads and the port does not.
-_REFUSED = ((b"II*\0", "TIFF"), (b"MM\0*", "TIFF"), (b"II+\0", "BigTIFF"), (b"MM\0+", "BigTIFF"),
-            (b"\xff\x4f\xff\x51", "JPEG 2000"), (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
+_REFUSED = ((b"\xff\x4f\xff\x51", "JPEG 2000"), (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
             (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
             (b"\x59\xa6\x6a\x95", "Sun raster"))
 
@@ -85,16 +88,6 @@ def _jpeg_exif(data: bytes) -> bytes | None:
     return None
 
 
-def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
-    """OpenCV's ApplyExifOrientation."""
-    if orientation in (5, 6, 7, 8):
-        img = img.swapaxes(0, 1)
-    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
-    for axis in flip:
-        img = np.flip(img, axis)
-    return np.ascontiguousarray(img)
-
-
 def _color(img: np.ndarray) -> np.ndarray:
     """A decode under IMREAD_UNCHANGED -> IMREAD_COLOR's 3 channels of uint8
     (libpng's strip_16, gray_to_rgb and strip_alpha; libjpeg's and libwebp's
@@ -122,6 +115,8 @@ def _format(data: bytes) -> str | None:
         return "GIF"
     if data[:2] == b"BM":
         return "BMP"
+    if data[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
+        return "TIFF"
     if data[:1] == b"P" and data[1:2] in b"1234567" and data[2:3].isspace():
         return "PNM"
     return None
@@ -140,9 +135,11 @@ def _refused(data: bytes) -> str | None:
 
 
 def decode_image(data: bytes, flags: int = IMREAD_UNCHANGED, name: str = "") -> np.ndarray:
-    """Image bytes -> ``cv2.imdecode(data, flags)``'s array in RGB(A) order.
-    A file of a format read here that does not decode (where cv2 returns
-    None for a malformed file) raises ValueError naming the format."""
+    """Image bytes -> ``cv2.imdecode(data, flags)``'s array in RGB(A) order
+    (with a ``name``, ``cv2.imread(name, flags)``'s: they differ for one
+    rare TIFF layout). A file of a format read here that does not decode
+    (where cv2 returns None for a malformed file) raises ValueError naming
+    the format."""
     if flags not in (IMREAD_UNCHANGED, IMREAD_COLOR):
         raise ValueError(f"imread flags {flags}: IMREAD_UNCHANGED (-1) or IMREAD_COLOR (1)")
     fmt = _format(data)
@@ -151,14 +148,16 @@ def decode_image(data: bytes, flags: int = IMREAD_UNCHANGED, name: str = "") -> 
         if refused is None:
             raise FileNotFoundError(name or "image bytes no decoder recognises")
         raise NotImplementedError(f"{name or 'the image'}: {refused} images are not read by "
-                                  f"the port (PNG, JPEG, WebP, BMP, PNM and GIF are); convert it "
-                                  f"to PNG")
+                                  f"the port (PNG, JPEG, WebP, BMP, PNM, GIF and TIFF are); "
+                                  f"convert it to PNG")
     exif = None
     try:
         if fmt == "BMP":
             return decode_bmp(data, flags)
         if fmt == "PNM":
             return decode_pnm(data, flags)
+        if fmt == "TIFF":
+            return decode_tiff(data, flags, imread=bool(name))
         if fmt == "PNG":
             img, exif = imread_png(data)
         elif fmt == "JPEG":
@@ -171,7 +170,7 @@ def decode_image(data: bytes, flags: int = IMREAD_UNCHANGED, name: str = "") -> 
         raise ValueError(f"{name or 'the image'}: a {fmt} file that does not decode "
                          f"({err})") from err
     if flags == IMREAD_COLOR:
-        img = _orient(_color(img), _exif_orientation(exif))
+        img = orient(_color(img), _exif_orientation(exif))
     return img
 
 

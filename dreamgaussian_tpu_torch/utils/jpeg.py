@@ -10,7 +10,9 @@ steps is integer arithmetic, so the result equals what ``cv2.imread(path,
 cv2.IMREAD_UNCHANGED)`` (libjpeg-turbo) gives, channels in RGB order, bit
 for bit.
 
-Covered: SOF0, SOF1 and SOF2 with 8-bit samples; 1, 3 or 4 components
+A JPEG-compressed TIFF's strips and tiles come here too
+(``utils/tiff.py`` splices its JPEGTables in front and names the colour
+conversion). Covered: SOF0, SOF1 and SOF2 with 8-bit samples; 1, 3 or 4 components
 (YCbCr or RGB by the JFIF/Adobe markers and the component ids as libjpeg
 decides; CMYK and YCCK by Adobe's APP14 marker, turned into RGB as cv2
 turns them into BGR); any integral sampling factors; restart intervals;
@@ -75,8 +77,11 @@ def _color_transform(comps, jfif: bool, adobe: int | None) -> int:
     raise NotImplementedError(f"a JPEG with {n} components (1, 3 or 4 are read)")
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> uint8 [H, W] (one component) or [H, W, 3] RGB."""
+def decode_jpeg(data: bytes, transform: int | None = None) -> np.ndarray:
+    """JPEG bytes -> uint8 [H, W] (one component) or [H, W, 3] RGB.
+    ``transform`` overrides the colour conversion the markers name (1
+    YCbCr to RGB, 2 the components as stored), as libtiff sets libjpeg's
+    colour spaces for a JPEG-compressed TIFF."""
     buf = np.frombuffer(data, np.uint8)
     if len(buf) < 4 or buf[0] != 0xFF or buf[1] != 0xD8:
         raise ValueError("not a JPEG file (no SOI marker)")
@@ -208,7 +213,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     if frame is None:
         raise ValueError("a JPEG without a frame header")
     height, width, _, max_h, max_v, _, _ = frame
-    transform = _color_transform(comps, jfif, adobe)
+    if transform is None or len(comps) != 3:
+        transform = _color_transform(comps, jfif, adobe)
     desc = np.array([x for c in comps for x in (c.h, c.v, c.stride, c.bw, c.bh,
                                                 int(c.quant is not None))], np.int32)
     q = np.stack([c.quant if c.quant is not None else np.zeros(64, np.uint16) for c in comps])

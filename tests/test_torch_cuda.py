@@ -29,7 +29,7 @@ from dreamgaussian_tpu_torch.ops.rasterize import build_feature_cols, render_gau
 from dreamgaussian_tpu_torch.utils.camera import Camera, orbit_camera
 from torch_cli_cases import disc_png, image_options
 from torch_composite_cases import CASES, composite_case
-from torch_image_cases import IMAGE_FIXTURES, JPEG_FIXTURES, SCENES, iou, scene
+from torch_image_cases import IMAGE_FIXTURES, JPEG_FIXTURES, SCENES, TIFF_FIXTURES, iou, scene
 from torch_ztest_cases import CARD_CASES as ZTEST_CASES
 from torch_ztest_cases import ztest_case
 
@@ -1287,6 +1287,33 @@ def test_image_fixtures_read_on_the_card_machine_as_cv2_read_them(cuda_device):
 
 
 @pytest.mark.cuda
+def test_tiff_fixtures_read_on_the_card_machine_as_cv2_read_them(cuda_device):
+    """Every fixture of scripts/port_make_tiff_fixtures.py under both flags,
+    its codecs built from the repo's sources on this machine (no cv2, no
+    libtiff here): shape, dtype and SHA-256 of cv2's stored decode, the
+    small ones also against their stored arrays; ValueError where cv2
+    returned None."""
+    import hashlib
+
+    from dreamgaussian_tpu_torch.utils.imread import IMREAD_COLOR, IMREAD_UNCHANGED, read_image
+
+    with open(TIFF_FIXTURES / "decodes.json") as fh:
+        digests = json.load(fh)
+    small = np.load(TIFF_FIXTURES / "small_decodes.npz")
+    for name, entry in sorted(digests.items()):
+        for key, flags in (("unchanged", IMREAD_UNCHANGED), ("color", IMREAD_COLOR)):
+            if entry[key] is None:
+                with pytest.raises(ValueError, match="TIFF"):
+                    read_image(str(TIFF_FIXTURES / name), flags)
+                continue
+            got = read_image(str(TIFF_FIXTURES / name), flags)
+            assert [list(got.shape), str(got.dtype)] == [entry[key]["shape"], entry[key]["dtype"]]
+            assert hashlib.sha256(got.tobytes()).hexdigest() == entry[key]["sha256"], (name, key)
+            if key == "unchanged" and name in small.files:
+                np.testing.assert_array_equal(got, small[name])
+
+
+@pytest.mark.cuda
 def test_load_rgba_of_the_webp_photo_on_the_card(cuda_device):
     """The 512^2 lossy RGBA WebP photo: its alpha is kept (no matting), so
     the card's load equals the CPU's, and it is cv2's decode divided by 255."""
@@ -1302,6 +1329,44 @@ def test_load_rgba_of_the_webp_photo_on_the_card(cuda_device):
     assert (hashlib.sha256(rgba.tobytes()).hexdigest()
             == _image_digests()["photo_512_rgba.webp"]["unchanged"]["sha256"])
     assert 0.05 < (rgba[..., 3] >= 128).mean() < 0.6
+
+
+@pytest.mark.cuda
+def test_load_rgba_of_the_tiff_photo_on_the_card_and_a_stage1_step(cuda_device):
+    """The 512^2 LZW RGBA TIFF with unassociated alpha: read on the card
+    machine as cv2 reads it (premultiplied colours, the alpha kept, no
+    matting), the card's load equal to the CPU's and to the stored decode
+    divided by 255; one Stage1Trainer step on it at 64^2 with the fake
+    Zero123, every K1 and K2 call held against the plain versions with
+    chip_smoke.py's gates."""
+    import hashlib
+
+    from chip_smoke import hold_composite_calls, tapped
+    from dreamgaussian_tpu_torch.cli.process import load_rgba
+    from dreamgaussian_tpu_torch.guidance.fake import fake_zero123_guidance
+    from dreamgaussian_tpu_torch.ops import rasterize
+    from dreamgaussian_tpu_torch.train import Stage1Trainer
+    from dreamgaussian_tpu_torch.utils.config import Config
+
+    path = str(TIFF_FIXTURES / "photo_512_rgba.tif")
+    card = load_rgba(path, device="cuda")
+    assert card.shape == (512, 512, 4) and card.dtype == np.float32
+    np.testing.assert_array_equal(card, load_rgba(path, device="cpu"))
+    with open(TIFF_FIXTURES / "decodes.json") as fh:
+        want = json.load(fh)["photo_512_rgba.tif"]["unchanged"]["sha256"]
+    assert hashlib.sha256(np.rint(card * 255).astype(np.uint8).tobytes()).hexdigest() == want
+    ref = load_rgba(path, size=64, device="cuda")
+    opt = Config(dict(iters=4, ref_size=64, num_pts=512, novel_resolutions=[64, 64, 64]))
+    g = fake_zero123_guidance(device="cuda")
+    tr = Stage1Trainer(opt, ref_rgb=np.ascontiguousarray(ref[..., :3]),
+                       ref_mask=np.ascontiguousarray(ref[..., 3]), capacity=1024, seed=3,
+                       guidance_fns=((1.0, g.guidance_fn()),), device="cuda")
+    fwd, bwd = [], []
+    with (tapped(rasterize, "composite_forward", fwd, tcu.LAST_GRID, "composite_fwd"),
+          tapped(rasterize, "composite_backward", bwd, tcu.LAST_GRID, "composite_bwd")):
+        loss = float(tr.train_step())
+    assert math.isfinite(loss) and len(fwd) >= 1 and len(bwd) >= 1
+    hold_composite_calls("TIFF stage-1 step", fwd, bwd)
 
 
 @pytest.mark.cuda

@@ -139,11 +139,12 @@ def test_glb_image_that_does_not_decode_leaves_no_albedo_and_warns(tmp_path, cap
 
 
 def test_glb_image_in_a_refused_format_raises_by_name(tmp_path):
-    """cv2 reads a TIFF base colour; the port refuses it rather than drop it."""
-    tiff = cv2.imencode(".tiff", F.photo(16, 16, 1))[1].tobytes()
-    path = _glb_with_image(tmp_path, tiff)
-    assert JMesh.load(path, resize=False).albedo.shape == (16, 16, 3)
-    with pytest.raises(NotImplementedError, match="TIFF"):
+    """cv2 reads a JPEG 2000 base colour; the port refuses it rather than
+    drop it (a TIFF one, read since, is in test_torch_tiff.py)."""
+    jp2 = cv2.imencode(".jp2", F.photo(64, 64, 1))[1].tobytes()
+    path = _glb_with_image(tmp_path, jp2)
+    assert JMesh.load(path, resize=False).albedo.shape == (64, 64, 3)
+    with pytest.raises(NotImplementedError, match="JPEG 2000"):
         TMesh.load(path, resize=False)
 
 
@@ -205,7 +206,7 @@ def test_16bit_rgb_without_weights_raises_as_jax(monkeypatch, name):
 
 # ------------------------------------------------------------------ refusals
 
-REFUSED = {"TIFF": ".tiff", "JPEG 2000": ".jp2", "JPEG 2000 codestream": ".jp2", "AVIF": ".avif",
+REFUSED = {"SGILog": ".tiff", "JPEG 2000": ".jp2", "JPEG 2000 codestream": ".jp2", "AVIF": ".avif",
            "Radiance HDR": ".hdr", "PFM": ".pfm", "Sun raster": ".ras"}
 
 
@@ -213,8 +214,11 @@ REFUSED = {"TIFF": ".tiff", "JPEG 2000": ".jp2", "JPEG 2000 codestream": ".jp2",
 def test_formats_cv2_reads_and_the_port_does_not_are_refused_by_name(tmp_path, kind):
     img = F.photo(64, 64, 2)
     ext = REFUSED[kind]
-    data = cv2.imencode(ext, img.astype(np.float32) / 255 if ext in (".hdr", ".pfm") else img)[1]
-    data = data.tobytes()
+    if kind == "SGILog":                            # a TIFF codec cv2 reads and the port does not
+        data = F.sgilog_tiff(img[..., 0].astype(np.uint16) * 100 + 1000)
+    else:
+        data = cv2.imencode(ext, img.astype(np.float32) / 255 if ext in (".hdr", ".pfm")
+                            else img)[1].tobytes()
     if kind.endswith("codestream"):                 # the jp2c box's J2K codestream alone
         data = data[data.index(b"\xff\x4f\xff\x51"):]
     assert _cv2(data, IMREAD_UNCHANGED) is not None          # readable: not a missing file

@@ -141,10 +141,12 @@ def test_twelve_bit_samples_are_refused():
         decode_jpeg(bytes(data))
 
 
-@pytest.mark.parametrize("ext,name", [(".tiff", "TIFF"), (".jp2", "JPEG 2000"), (".ras", "Sun raster")])
+@pytest.mark.parametrize("ext,name", [(".hdr", "Radiance HDR"), (".jp2", "JPEG 2000"),
+                                      (".ras", "Sun raster")])
 def test_other_formats_cv2_writes_are_refused_by_name(tmp_path, ext, name):
-    """Formats cv2 writes and reads that the port does not read (WebP and
-    BMP, once here, are read now: test_torch_image_formats.py)."""
+    """Formats cv2 writes and reads that the port does not read (WebP, BMP
+    and TIFF, once here, are read now: test_torch_image_formats.py,
+    test_torch_tiff.py)."""
     path = str(tmp_path / f"x{ext}")
     assert cv2.imwrite(path, _image(64, 64, seed=2))
     assert cv2.imread(path, cv2.IMREAD_UNCHANGED) is not None

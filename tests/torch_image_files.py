@@ -626,3 +626,317 @@ def vp8_rewrite(data: bytes, simple: int | None = None, level: int | None = None
     new = (bytes([tag & 255, tag >> 8 & 255, tag >> 16]) + vp8[3:10] + first + sizes
            + b"".join(streams))
     return _riff([(t, new if t == b"VP8 " else p) for t, p in chunks])
+
+
+# ------------------------------------------------------------------ TIFF
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF LZW (as libtiff's encoder writes it): MSB-first codes from 9 to
+    12 bits, the width raised one code early, a clear code first and when
+    the table fills, an end-of-information code last."""
+    out, acc, nb = bytearray(), 0, 0
+    width = 9
+
+    def emit(code):
+        nonlocal acc, nb
+        acc = (acc << width) | code
+        nb += width
+        while nb >= 8:
+            nb -= 8
+            out.append((acc >> nb) & 255)
+
+    def reset():
+        return {bytes([i]): i for i in range(256)}, 258
+
+    emit(256)
+    table, free = reset()
+    cur = b""
+    for byte in data:
+        ext = cur + bytes([byte])
+        if ext in table:
+            cur = ext
+            continue
+        emit(table[cur])
+        table[ext] = free
+        free += 1
+        if free == 4094:
+            emit(256)
+            table, free = reset()
+            width = 9
+        elif free > (1 << width) - 1:
+            width += 1
+        cur = bytes([byte])
+    if cur:
+        emit(table[cur])
+        free += 1
+        if free == 4094:
+            emit(256)
+            width = 9
+        elif free > (1 << width) - 1:
+            width += 1
+    emit(257)
+    if nb:
+        out.append((acc << (8 - nb)) & 255)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits (Apple's run-length code): literal runs and repeats of at
+    most 128 bytes."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([257 - (j - i + 1), data[i]])
+            i = j + 1
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (j + 1 < n and data[j + 1] == data[j]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _pack_bits(samples: np.ndarray, bps: int) -> bytes:
+    """Rows of ``bps``-bit samples (< 8) packed MSB first, each row padded
+    to a byte."""
+    rows = samples.reshape(samples.shape[0], -1).astype(np.uint8)
+    per = 8 // bps
+    pad = -rows.shape[1] % per
+    rows = np.pad(rows, ((0, 0), (0, pad))).reshape(rows.shape[0], -1, per)
+    shifts = (8 - bps * (np.arange(per) + 1)).astype(np.uint8)
+    return np.bitwise_or.reduce(rows << shifts, axis=2).astype(np.uint8).tobytes()
+
+
+def _predict(raw: np.ndarray, predictor: int, spp: int) -> bytes:
+    """Predictor 2 (horizontal differences of samples, per row) or 3 (the
+    floating-point predictor: each row's bytes split into planes, most
+    significant first, then differenced) of ``raw`` [rows, width, spp]."""
+    if predictor == 2:
+        uint = raw.dtype.newbyteorder("=").str.replace("i", "u").replace("f", "u")
+        ints = raw.view(raw.dtype.str[0] + uint[1:]).astype(uint)
+        d = ints.copy()
+        d[:, 1:] = ints[:, 1:] - ints[:, :-1]
+        return d.astype(raw.dtype.str[0] + uint[1:]).tobytes()
+    rows, width = raw.shape[:2]
+    size = raw.dtype.itemsize
+    be = raw.astype(raw.dtype.newbyteorder(">")).view(np.uint8).reshape(rows, width * spp, size)
+    planes = be.transpose(0, 2, 1).reshape(rows, -1)
+    d = planes.copy()
+    d[:, spp:] = planes[:, spp:] - planes[:, :-spp]
+    return d.tobytes()
+
+
+TIFF_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i",
+              10: "ii", 11: "f", 12: "d", 16: "Q", 17: "q", 18: "Q"}
+
+
+def _ifd(entries: dict, e: str, big: bool, base: int) -> tuple[bytes, bytes]:
+    """An IFD whose out-of-line values follow it; ``base`` is its offset.
+    Returns (directory with a zero next-IFD link, values)."""
+    count_fmt, off_fmt, inline = ("Q", "Q", 8) if big else ("I", "I", 4)
+    head = struct.pack(e + ("Q" if big else "H"), len(entries))
+    dir_size = len(head) + len(entries) * (20 if big else 12) + (8 if big else 4)
+    body, extra = bytearray(head), bytearray()
+    for tag in sorted(entries):
+        typ, values = entries[tag]
+        if typ in (2, 7) and isinstance(values, (bytes, str)):
+            blob = values if isinstance(values, bytes) else values.encode() + b"\0"
+            count = len(blob)
+        else:
+            values = np.atleast_1d(np.asarray(values))
+            fmt = TIFF_TYPES[typ]
+            count = len(values) // len(fmt)
+            blob = values.astype(e + fmt[0]).tobytes()
+        body += struct.pack(e + "HH" + count_fmt, tag, typ, count)
+        if len(blob) <= inline:
+            body += blob.ljust(inline, b"\0")
+        else:
+            at = base + dir_size + len(extra)
+            body += struct.pack(e + off_fmt, at)
+            extra += blob + b"\0" * (len(blob) & 1)
+    body += b"\0" * (8 if big else 4)
+    return bytes(body), bytes(extra)
+
+
+def tiff(samples, bps: int, photometric: int, *, sample_format: int = 1, compression: int = 1,
+         predictor: int = 1, rows_per_strip: int | None = None, tile: tuple | None = None,
+         planar: int = 1, big_endian: bool = False, bigtiff: bool = False, extra_samples=None,
+         colormap=None, tags: dict | None = None, fill_order: int = 1, chunks=None,
+         pages: list | None = None, gap: int = 0) -> bytes:
+    """A TIFF written from the TIFF 6.0 specification (and the BigTIFF
+    extension): ``samples`` [H, W, S] (S samples per pixel of ``bps`` bits)
+    in strips of ``rows_per_strip`` rows or in ``tile`` = (height, width)
+    tiles (edge tiles padded), planar configuration 1 or 2, either byte
+    order, compression 1 (none), 5 (LZW), 8 or 32946 (Deflate) or 32773
+    (PackBits) with ``predictor`` 1, 2 or 3, a colormap, and any further
+    ``tags`` {tag: (type, values)}. ``chunks`` gives the strips or tiles
+    already coded (JPEG, CCITT, YCbCr blocks) in place of ``samples``'
+    coding; ``pages`` appends further IFDs, each a dict of keyword
+    arguments for another call; ``gap`` puts that many bytes before each
+    chunk (odd offsets)."""
+    e = ">" if big_endian else "<"
+    big = bigtiff
+    head = (b"MM" if big_endian else b"II") + (struct.pack(e + "HHHQ", 43, 8, 0, 16) if big
+                                               else struct.pack(e + "HI", 42, 8))
+    out = bytearray(head)
+    ifd_links = []
+    for page in [dict(samples=samples, bps=bps, photometric=photometric,
+                      sample_format=sample_format, compression=compression, predictor=predictor,
+                      rows_per_strip=rows_per_strip, tile=tile, planar=planar,
+                      extra_samples=extra_samples, colormap=colormap, tags=tags,
+                      fill_order=fill_order, chunks=chunks)] + list(pages or []):
+        out, link = _tiff_page(out, e, big, gap, **page)
+        ifd_links.append(link)
+    # Link each IFD from the header or the IFD before it.
+    link_at = 8 if big else 4
+    for ifd_at, next_at in ifd_links:
+        struct.pack_into(e + ("Q" if big else "I"), out, link_at, ifd_at)
+        link_at = next_at
+    return bytes(out)
+
+
+def _tiff_page(out: bytearray, e: str, big: bool, gap: int, samples, bps, photometric,
+               sample_format=1, compression=1, predictor=1, rows_per_strip=None, tile=None,
+               planar=1, extra_samples=None, colormap=None, tags=None, fill_order=1,
+               chunks=None):
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[..., None]
+    h, w, spp = samples.shape
+    if chunks is None:
+        dtype = {8: "u1", 16: "u2", 32: "u4", 64: "u8"}.get(bps, "u1")
+        if sample_format == 2:
+            dtype = dtype.replace("u", "i")
+        elif sample_format == 3:
+            dtype = {16: "f2", 32: "f4", 64: "f8"}[bps]
+        arr = samples.astype(e + dtype) if bps >= 8 else samples.astype(np.uint8)
+        th, tw = tile if tile else (rows_per_strip or h, w)
+        planes = [arr] if planar == 1 else [arr[..., s:s + 1] for s in range(spp)]
+        chunks = []
+        for plane in planes:
+            for y in range(0, h, th):
+                for x in range(0, w, tw if tile else w):
+                    part = plane[y:y + th, x:x + tw]
+                    if tile:
+                        part = np.pad(part, ((0, th - part.shape[0]), (0, tw - part.shape[1]),
+                                             (0, 0)))
+                    if predictor > 1:
+                        raw = _predict(part, predictor, part.shape[2])
+                    elif bps < 8:
+                        raw = _pack_bits(part, bps)
+                    else:
+                        raw = part.tobytes()
+                    raw = {1: lambda r: r, 5: tiff_lzw, 8: zlib.compress, 32946: zlib.compress,
+                           32773: packbits}[compression](raw)
+                    if fill_order == 2:         # the coded bytes' bits reversed
+                        raw = bytes(_REVERSED[np.frombuffer(raw, np.uint8)])
+                    chunks.append(raw)
+    offsets, counts = [], []
+    for c in chunks:
+        out += b"\0" * gap
+        offsets.append(len(out))
+        counts.append(len(c))
+        out += c
+    out += b"\0" * (len(out) & 1)
+    long_type = 16 if big else 4
+    entries = {256: (4, w), 257: (4, h), 258: (3, [bps] * spp), 259: (3, compression),
+               262: (3, photometric), 277: (3, spp), 284: (3, planar)}
+    if tile:
+        entries.update({322: (4, tile[1]), 323: (4, tile[0]), 324: (long_type, offsets),
+                        325: (long_type, counts)})
+    else:
+        entries.update({273: (long_type, offsets), 278: (4, rows_per_strip or h),
+                        279: (long_type, counts)})
+    if predictor > 1:
+        entries[317] = (3, predictor)
+    if sample_format != 1:
+        entries[339] = (3, [sample_format] * spp)
+    if extra_samples is not None:
+        entries[338] = (3, list(extra_samples))
+    if colormap is not None:
+        entries[320] = (3, np.asarray(colormap, np.int64).T.reshape(-1))
+    if fill_order != 1:
+        entries[266] = (3, fill_order)
+    entries.update(tags or {})
+    at = len(out)
+    body, extra = _ifd(entries, e, big, at)
+    out += body + extra
+    next_at = at + len(body) - (8 if big else 4)
+    return out, (at, next_at)
+
+
+_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+def ycbcr_chunks(ycc: np.ndarray, hs: int, vs: int, rows: int, compress=lambda b: b) -> list:
+    """Strips of ``rows`` rows of uint8 [H, W, 3] Y, Cb, Cr in TIFF's
+    subsampled blocks: hs x vs luma samples then the block's Cb and Cr (the
+    chroma of its top-left pixel), blocks padded at the edges."""
+    h, w = ycc.shape[:2]
+    out = []
+    for y0 in range(0, h, rows):
+        part = ycc[y0:y0 + rows]
+        ph = -(-part.shape[0] // vs) * vs
+        pw = -(-w // hs) * hs
+        part = np.pad(part, ((0, ph - part.shape[0]), (0, pw - w), (0, 0)), mode="edge")
+        bh, bw = ph // vs, pw // hs
+        luma = part[..., 0].reshape(bh, vs, bw, hs).transpose(0, 2, 1, 3).reshape(bh, bw, -1)
+        chroma = part[::vs, ::hs, 1:]
+        out.append(compress(np.concatenate([luma, chroma], -1).astype(np.uint8).tobytes()))
+    return out
+
+
+def _jpeg_segments(data: bytes) -> list:
+    """A JPEG's marker segments up to its first SOS: (marker, bytes)."""
+    out, at = [], 2
+    while data[at + 1] != 0xDA:
+        length = struct.unpack_from(">H", data, at + 2)[0]
+        out.append((data[at + 1], data[at:at + 2 + length]))
+        at += 2 + length
+    return out + [(0xDA, data[at:])]
+
+
+def jpeg_tiff_chunks(img: np.ndarray, rows: int | None = None, tile: tuple | None = None,
+                     **kw) -> tuple[list, bytes]:
+    """JPEG-in-TIFF (compression 7) strips of ``rows`` rows or ``tile``
+    tiles (padded to full size) of uint8 ``img``, each coded by Pillow's
+    libjpeg with ``kw`` (quality, subsampling, keep_rgb) and stripped to an
+    abbreviated stream; returns (chunks, JPEGTables): SOI, the shared DQT
+    and DHT segments, EOI."""
+    from PIL import Image
+
+    h, w = img.shape[:2]
+    th, tw = tile if tile else (rows or h, w)
+    chunks, tables = [], None
+    for y in range(0, h, th):
+        for x in range(0, w, tw):
+            part = img[y:y + th, x:x + tw]
+            if tile:
+                part = np.pad(part, ((0, th - part.shape[0]), (0, tw - part.shape[1]))
+                              + ((0, 0),) * (img.ndim - 2), mode="edge")
+            buf = io.BytesIO()
+            Image.fromarray(part).save(buf, "JPEG", **kw)
+            segs = _jpeg_segments(buf.getvalue())
+            shared = b"".join(s for m, s in segs if m in (0xDB, 0xC4))
+            tables = tables or b"\xff\xd8" + shared + b"\xff\xd9"
+            chunks.append(b"\xff\xd8" + b"".join(s for m, s in segs if m not in (0xDB, 0xC4)
+                                                 and not 0xE0 <= m <= 0xEF))
+    return chunks, tables
+
+
+def sgilog_tiff(lum: np.ndarray) -> bytes:
+    """A LogL TIFF (photometric 32844, SGILog compression 34676) of uint16
+    [H, W] log-luminance codes: each row's high then low bytes, as
+    literal runs of at most 127 (libtiff's tif_luv.c LogL16Decode)."""
+    rows = []
+    for row in lum.astype(np.uint16):
+        for shift in (8, 0):
+            plane = ((row >> shift) & 255).astype(np.uint8).tobytes()
+            for at in range(0, len(plane), 127):
+                part = plane[at:at + 127]
+                rows.append(bytes([len(part)]) + part)
+    return tiff(lum, 16, 32844, chunks=[b"".join(rows)], tags={259: (3, 34676)})
