@@ -10,9 +10,12 @@
    ``scripts/port_make_jpeg_fixtures.py``) and holds it bit for bit against
    cv2's decode stored beside it, with the host's decode ms; reads every
    fixture of ``tests/fixtures/port_images/`` (PNG, WebP, BMP, PNM, GIF;
-   ``scripts/port_make_image_fixtures.py``) and ``tests/fixtures/port_tiff/``
+   ``scripts/port_make_image_fixtures.py``), ``tests/fixtures/port_tiff/``
    (TIFF: every codec, layout and photometric the port reads;
-   ``scripts/port_make_tiff_fixtures.py``) under IMREAD_UNCHANGED and
+   ``scripts/port_make_tiff_fixtures.py``) and ``tests/fixtures/port_jp2/``
+   (JPEG 2000: JP2 and J2K, 5/3 and 9/7, every progression order, tiles,
+   tile-parts, palettes, channel definitions and colour spaces;
+   ``scripts/port_make_jp2_fixtures.py``) under IMREAD_UNCHANGED and
    IMREAD_COLOR, and the GLB's and OBJs' textures through ``Mesh.load``,
    each held bit for bit against cv2's stored decode (or refused where cv2
    returns None), with the host's median ms (``check_image_fixtures``);
@@ -83,7 +86,9 @@
    JPEG (read by the port, checked) for the stage-2 steps, 3 K3 launches
    each; the same two with a 512^2 LZW RGBA TIFF (unassociated alpha,
    premultiplied as cv2 reads it; no matting, checked) and an OBJ sphere
-   whose ``map_Kd`` is a tiled LZW TIFF;
+   whose ``map_Kd`` is a tiled LZW TIFF; and the same two with a 512^2
+   lossless RGBA JPEG 2000 cut-out and an OBJ sphere whose ``map_Kd`` is a
+   JP2 in 32^2 tiles (``jp2 stage 1``, ``jp2 stage 2``);
 10. the text day: writes a full-width SD 2.1-base diffusers snapshot (the
    UNet, the KL-VAE, the 23-layer CLIP text tower, a tokenizer) as fp16
    safetensors and a full-width single-file MVDream LDM checkpoint (the
@@ -1652,6 +1657,10 @@ TIFF_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"
                              "port_tiff")
 PHOTO_TIFF = os.path.join(TIFF_FIXTURES, "photo_512_rgba.tif")
 SPHERE_TIFF = os.path.join(TIFF_FIXTURES, "sphere_tiff.obj")
+JP2_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                            "port_jp2")
+PHOTO_JP2 = os.path.join(JP2_FIXTURES, "photo_512_rgba.jp2")
+SPHERE_JP2 = os.path.join(JP2_FIXTURES, "sphere_jp2.obj")
 GRABCUT_IOU_CPU = 0.99
 GRABCUT_IOU_CV2 = 0.95
 DECODE_REPS = 5
@@ -1765,8 +1774,9 @@ def run_formats(card: str) -> dict:
 
 
 def check_image_fixtures(card: str) -> dict:
-    """Every fixture of ``scripts/port_make_image_fixtures.py`` and
-    ``scripts/port_make_tiff_fixtures.py`` read by the port under
+    """Every fixture of ``scripts/port_make_image_fixtures.py``,
+    ``scripts/port_make_tiff_fixtures.py`` and
+    ``scripts/port_make_jp2_fixtures.py`` read by the port under
     IMREAD_UNCHANGED and IMREAD_COLOR (``utils/imread.py``), the GLB and
     the OBJs through ``Mesh.load``, each held bit for bit against cv2's
     stored decode (shape, dtype, SHA-256; the 83x61 files' arrays too), or
@@ -1782,7 +1792,7 @@ def check_image_fixtures(card: str) -> dict:
 
     textures = {"tex_grey.obj": "tex_grey.png", "tex_palette.obj": "tex_palette.png",
                 "tex_exif.obj": "tex_exif.jpg", "sphere_jpeg.glb": "sphere_jpeg.glb",
-                "sphere_tiff.obj": "sphere_tiff.tif"}
+                "sphere_tiff.obj": "sphere_tiff.tif", "sphere_jp2.obj": "sphere_jp2.jp2"}
 
     def timed(fn):
         times, out = [], None
@@ -1793,7 +1803,8 @@ def check_image_fixtures(card: str) -> dict:
         return out, statistics.median(times)
 
     out = {}
-    for folder, none_means in ((IMAGE_FIXTURES, NotImplementedError), (TIFF_FIXTURES, ValueError)):
+    for folder, none_means in ((IMAGE_FIXTURES, NotImplementedError), (TIFF_FIXTURES, ValueError),
+                               (JP2_FIXTURES, ValueError)):
         with open(os.path.join(folder, "decodes.json")) as fh:
             digests = json.load(fh)
         small = np.load(os.path.join(folder, "small_decodes.npz"))
@@ -1845,7 +1856,9 @@ def check_image_fixtures(card: str) -> dict:
             print(f"[formats] {mesh_file}: albedo {list(albedo.shape)} equal to cv2's "
                   f"IMREAD_COLOR decode of {tex} bit for bit (SHA-256 {digest[:16]}), Mesh.load "
                   f"in a median {ms:.2f} ms of {DECODE_REPS}; card '{card}'")
-    big = {k: out[k] for k in ("photo_1024x768.webp color", "photo_1024x768_jpeg.tif color")}
+    big = {k: out[k] for k in ("photo_1024x768.webp color", "photo_1024x768_jpeg.tif color",
+                               "photo_1024x768_lossy.jp2 color",
+                               "photo_1024x768_lossless.jp2 color")}
     print(f"[formats] 1024x768 photos, IMREAD_COLOR median host ms: {json.dumps(big)} (the "
           f"JPEG's is its decode_jpeg line above); card '{card}'")
     return out
@@ -1870,8 +1883,10 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
     sai_matte: dict = {}
     webp_matte: dict = {}
     tiff_matte: dict = {}
+    jp2_matte: dict = {}
     glb_albedo = Mesh.load(SPHERE_GLB, resize=False).albedo
     tiff_albedo = Mesh.load(SPHERE_TIFF, resize=False).albedo
+    jp2_albedo = Mesh.load(SPHERE_JP2, resize=False).albedo
     os.environ.pop("DG_U2NET_CKPT", None)       # the JPEG is matted by GrabCut
     with tempfile.TemporaryDirectory() as tmp:
         snap = os.path.join(tmp, "zero123-snapshot")
@@ -1927,6 +1942,16 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
             tiff_mesh = drive_cli("tiff stage 2", cli2, tiff_argv + [
                 "save_path=tiffmesh", f"mesh={SPHERE_TIFF}", f"iters_refine={WEIGHTS_REFINE}"],
                 runs)
+            # A lossless RGBA JP2 cut-out through stage 1, and an OBJ whose
+            # texture is a JP2 in 32^2 tiles.
+            jp2_argv = ["--config", os.path.join(CONFIGS, "image.yaml"), f"input={PHOTO_JP2}",
+                        f"outdir={tmp}", f"seed={seed}", f"zero123_ckpt={snap}"]
+            with grabcut_watch(jp2_matte):
+                jp2 = drive_cli("jp2 stage 1", cli1, jp2_argv + [
+                    "save_path=jp2", f"iters={SAI_ITERS}", "save_mesh=False"], runs)
+            jp2_mesh = drive_cli("jp2 stage 2", cli2, jp2_argv + [
+                "save_path=jp2mesh", f"mesh={SPHERE_JP2}", f"iters_refine={WEIGHTS_REFINE}"],
+                runs)
         n, faces = read_outputs(tmp, "weights", image_options()["texture_size"],
                                 image_options()["capacity"])
     if sai_matte["runs"] != ["cuda:0"] or sai_matte["cuts"] != ITERATIONS:
@@ -1952,10 +1977,19 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
           f"{os.path.relpath(SPHERE_TIFF)}: its 128^2 tiled LZW TIFF texture read by the port, "
           f"{WEIGHTS_REFINE} stage-2 steps in {runs['tiff stage 2']['wall_s']:.1f} s (loss "
           f"{tiff_mesh['loss']:.5f}); card '{card}'")
-    if (first["step"], resumed["step"], sai["step"], webp["step"], tiff["step"]) != (
-            WEIGHTS_STOP, WEIGHTS_ITERS, SAI_ITERS, SAI_ITERS, SAI_ITERS):
+    if jp2_matte["runs"] or jp2_albedo is None or jp2_albedo.shape != (128, 128, 3):
+        raise RuntimeError(f"the JP2 photo was matted ({jp2_matte}) or the OBJ's JP2 texture "
+                           f"was not read ({None if jp2_albedo is None else jp2_albedo.shape})")
+    print(f"[weights] jp2 input {os.path.relpath(PHOTO_JP2)}: a lossless RGBA JPEG 2000 decoded "
+          f"by the port, its alpha kept, {SAI_ITERS} stage-1 steps in "
+          f"{runs['jp2 stage 1']['wall_s']:.1f} s; obj mesh {os.path.relpath(SPHERE_JP2)}: its "
+          f"128^2 JP2 texture in 32^2 tiles read by the port, {WEIGHTS_REFINE} stage-2 steps in "
+          f"{runs['jp2 stage 2']['wall_s']:.1f} s (loss {jp2_mesh['loss']:.5f}); card '{card}'")
+    if (first["step"], resumed["step"], sai["step"], webp["step"], tiff["step"],
+            jp2["step"]) != (WEIGHTS_STOP, WEIGHTS_ITERS, SAI_ITERS, SAI_ITERS, SAI_ITERS,
+                             SAI_ITERS):
         raise RuntimeError(f"stage-1 runs ended at steps {first['step']}, {resumed['step']}, "
-                           f"{sai['step']}, {webp['step']}, {tiff['step']}")
+                           f"{sai['step']}, {webp['step']}, {tiff['step']}, {jp2['step']}")
     if len(saved) != 1 or len(restored) != 1 or restored[0]["step"] != WEIGHTS_STOP:
         raise RuntimeError(f"expected one checkpoint at step {WEIGHTS_STOP} saved and restored, "
                            f"got {len(saved)} saved, {len(restored)} restored")
@@ -1963,18 +1997,19 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
         torch.equal(v, restored[0][k]) if isinstance(v, torch.Tensor) else v == restored[0][k])]
     if differ:
         raise RuntimeError(f"the resumed trainer's state differs from the saved one in {differ}")
-    n_steps = WEIGHTS_STOP + (WEIGHTS_ITERS - WEIGHTS_STOP) + 3 * SAI_ITERS
+    n_steps = WEIGHTS_STOP + (WEIGHTS_ITERS - WEIGHTS_STOP) + 4 * SAI_ITERS
     if len(losses) != n_steps or not all(math.isfinite(x) for x in losses + [
-            refined["loss"], glb["loss"], tiff_mesh["loss"]]):
+            refined["loss"], glb["loss"], tiff_mesh["loss"], jp2_mesh["loss"]]):
         raise RuntimeError(f"stage-1 losses {losses}, stage-2 losses {refined['loss']}, "
-                           f"{glb['loss']}, {tiff_mesh['loss']}")
+                           f"{glb['loss']}, {tiff_mesh['loss']}, {jp2_mesh['loss']}")
     launches = {k: v["launches"] for k, v in runs.items()}
     k1k2 = ("composite_fwd", "composite_bwd")
     if (any(launches[k][name] < 1 for k in launches if "stage 1" in k for name in k1k2)
             or launches["stage 1 resumed, export"]["ztest"] != 26
             or launches["stage 2"]["ztest"] != 3 * WEIGHTS_REFINE
             or launches["glb stage 2"]["ztest"] != 3 * WEIGHTS_REFINE
-            or launches["tiff stage 2"]["ztest"] != 3 * WEIGHTS_REFINE):
+            or launches["tiff stage 2"]["ztest"] != 3 * WEIGHTS_REFINE
+            or launches["jp2 stage 2"]["ztest"] != 3 * WEIGHTS_REFINE):
         raise RuntimeError(f"the weights-day runs did not go through the kernels: {launches}")
     walls = {k: v["wall_s"] for k, v in runs.items()}
     print(f"[weights] checkpoint at step {WEIGHTS_STOP} restored bit for bit "
@@ -3166,15 +3201,17 @@ def smoke(args, load_alone: subprocess.Popen, mvdream_alone: subprocess.Popen,
     t_start = t0 = time.perf_counter()
     # One compiler per library, all at once: the kernels, K3 without the
     # sift (which check_ztest times against the shipped build), and the
-    # host tools (g++): the mesh tools and the image tools.
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+    # host tools (g++): the mesh tools, the image tools, the image codecs
+    # and the JPEG 2000 decoder.
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
         builds = [pool.submit(cuda_build.build, ["composite_fwd", "composite_bwd", "ztest"], True),
                   pool.submit(cuda_build.build, ["ztest"], True, ("-DZTEST_SIFT=0",)),
                   pool.submit(native.build), pool.submit(native.build, native.IMAGE_TOOLS),
-                  pool.submit(native.build, native.IMAGE_CODECS)]
+                  pool.submit(native.build, native.IMAGE_CODECS),
+                  pool.submit(native.build, native.JPEG2000)]
         libs = [b.result() for b in builds]
-    print(f"[build] kernels, {libs[2].name}, {libs[3].name} and {libs[4].name} ready in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[build] kernels, {libs[2].name}, {libs[3].name}, {libs[4].name} and {libs[5].name} "
+          f"ready in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     formats = run_formats(card)

@@ -9,10 +9,10 @@ them in, by ``utils/imread.py`` as ``cv2.imread``/``cv2.imdecode`` read
 them under ``IMREAD_COLOR`` (grey repeated, alpha dropped, 16-bit samples
 shifted right by 8, the EXIF or TIFF orientation applied; a TIFF through
 libtiff's RGBA interface, as cv2 reads it); a GLB image that no decoder
-recognises or that does not decode (a float TIFF among them) leaves the
-albedo unset, as cv2's None does in the JAX package, an OBJ's such
-texture raises, and one in a format cv2 reads and the port does not (JPEG
-2000, AVIF) raises NotImplementedError.
+recognises or that does not decode (a float TIFF or a signed JPEG 2000
+among them) leaves the albedo unset, as cv2's None does in the JAX
+package, an OBJ's such texture raises, and one in a format cv2 reads and
+the port does not (AVIF) raises NotImplementedError.
 
 Conventions match DreamGaussian's so assets cross-load: ``auto_size``
 normalizes the mesh to max extent 1.2 about its centroid; ``auto_normal``

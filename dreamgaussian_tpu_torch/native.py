@@ -1,20 +1,23 @@
 """ctypes loader for the port's host-side native code.
 
-Three sources under ``csrc/``: ``mesh_tools.cpp`` (the port's own copy of
+Four sources under ``csrc/``: ``mesh_tools.cpp`` (the port's own copy of
 ``dreamgaussian_tpu/native/``'s, wrapped below), ``image_tools.cpp`` (the
 JPEG decoder's pixel work and GrabCut's min-cut, wrapped by
-``utils/jpeg.py`` and ``preprocess/grabcut.py``) and ``image_codecs.cpp``
+``utils/jpeg.py`` and ``preprocess/grabcut.py``), ``image_codecs.cpp``
 (PNG's row filters, GIF's LZW, WebP's VP8L, VP8 and alpha planes, TIFF's
 LZW, PackBits, CCITT and predictors, wrapped by ``utils/png.py``,
-``gif.py``, ``webp.py`` and ``tiff.py``); ``image_tools()`` and
-``image_codecs()`` declare every function of theirs, once. Each shared
-library is
+``gif.py``, ``webp.py`` and ``tiff.py``) and ``jpeg2000.cpp`` (the JPEG
+2000 codestream decoder, wrapped by ``utils/jpeg2000.py``);
+``image_tools()``, ``image_codecs()`` and ``jpeg2000()`` declare every
+function of theirs, once. Each shared library is
 compiled at first use into ``build/native/`` at the root of the checkout,
 under a name that carries the hash of its source and the flags, so an
 edited source is rebuilt. The host compiler is ``g++``; where there is
 none, the same file goes through ``nvcc``, which drives its own host
 compiler. The flags name no machine-specific instruction set (no
-``-march=native``). A failed build raises.
+``-march=native``); ``jpeg2000.cpp`` adds ``-ffp-contract=off``, since its
+float32 wavelet and colour transform must round as OpenJPEG's do, with no
+fused multiply-add. A failed build raises.
 """
 
 from __future__ import annotations
@@ -32,25 +35,29 @@ import numpy as np
 SRC = Path(__file__).resolve().parent / "csrc" / "mesh_tools.cpp"
 IMAGE_TOOLS = SRC.with_name("image_tools.cpp")
 IMAGE_CODECS = SRC.with_name("image_codecs.cpp")
+JPEG2000 = SRC.with_name("jpeg2000.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+SOURCE_FLAGS = {"jpeg2000.cpp": ("-ffp-contract=off",)}
 _LOCK = threading.Lock()
 _LIBS: dict[Path, ctypes.CDLL] = {}
 
 
 def _compile_command(src: Path, out: Path) -> list[str]:
+    extra = SOURCE_FLAGS.get(src.name, ())
     gxx = shutil.which("g++")
     if gxx:
-        return [gxx, *CXX_FLAGS, str(src), "-o", str(out)]
+        return [gxx, *CXX_FLAGS, *extra, str(src), "-o", str(out)]
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if os.path.exists(nvcc):
         return [nvcc, "-x", "c++", "-O3", "-std=c++17", "-shared", "-Xcompiler",
-                "-fPIC", str(src), "-o", str(out)]
+                ",".join(("-fPIC", *extra)), str(src), "-o", str(out)]
     raise RuntimeError(f"neither g++ nor nvcc found: cannot build {src.name}")
 
 
 def library_path(src: Path = SRC) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode())
+    flags = (*CXX_FLAGS, *SOURCE_FLAGS.get(src.name, ()))
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -110,6 +117,19 @@ def _declare_image_codecs(lib: ctypes.CDLL) -> None:
 def image_codecs() -> ctypes.CDLL:
     """``csrc/image_codecs.cpp``'s library with its functions declared."""
     return _load(IMAGE_CODECS, _declare_image_codecs)
+
+
+def _declare_jpeg2000(lib: ctypes.CDLL) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.dg_j2k_info.argtypes = [vp, i64, vp, i32, vp, i32]
+    lib.dg_j2k_decode.argtypes = [vp, i64, vp, vp, i32]
+    for fn in (lib.dg_j2k_info, lib.dg_j2k_decode):
+        fn.restype = ctypes.c_int
+
+
+def jpeg2000() -> ctypes.CDLL:
+    """``csrc/jpeg2000.cpp``'s library with its functions declared."""
+    return _load(JPEG2000, _declare_jpeg2000)
 
 
 def _declare_mesh_tools(lib: ctypes.CDLL) -> None:

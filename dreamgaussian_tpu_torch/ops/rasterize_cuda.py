@@ -69,20 +69,20 @@ _ARGTYPES = {
 # ---------------------------------------------------------------------------
 
 
-def _tile_centers(num_tiles, grid_x, tile, device, tile_offset=0):
+def _tile_centers(num_tiles, grid_x, tile, device, tile_offset=0, dtype=torch.float32):
     """Centres of the tiles ``tile_offset .. tile_offset + num_tiles - 1`` of
     a frame ``grid_x`` tiles wide (a tile-sharded render's local slab)."""
     tid = torch.arange(num_tiles, device=device) + tile_offset
     ty = tid // grid_x
     tx = tid - ty * grid_x
     half = (tile - 1) / 2.0
-    return ((tx * tile).float() + half)[:, None], ((ty * tile).float() + half)[:, None]
+    return (tx * tile).to(dtype)[:, None] + half, (ty * tile).to(dtype)[:, None] + half
 
 
-def _pixel_coords(tile, device):
+def _pixel_coords(tile, device, dtype=torch.float32):
     pid = torch.arange(tile * tile, device=device)
     half = (tile - 1) / 2.0
-    return (pid % tile).float() - half, (pid // tile).float() - half
+    return (pid % tile).to(dtype) - half, (pid // tile).to(dtype) - half
 
 
 def _chunk_features(dup_feat, chunk_starts, n_chunks, j, chunk):
@@ -156,13 +156,14 @@ def composite_backward_ref(dup_feat, chunk_starts, n_chunks, fwd_out, g_out, *,
     """Plain PyTorch K2: per-duplicate feature gradients [FEAT_ROWS, K].
 
     Slots outside every tile's chunk range get zero (under tile sharding,
-    the slots of other ranks' tiles among them)."""
-    dev = dup_feat.device
-    d_feat = torch.zeros((FEAT_ROWS, dup_feat.shape[1]), dtype=torch.float32, device=dev)
+    the slots of other ranks' tiles among them). It computes in the dtype
+    of its inputs (float32 as K2 does; float64 gives the tests an oracle)."""
+    dev, dt = dup_feat.device, dup_feat.dtype
+    d_feat = torch.zeros((FEAT_ROWS, dup_feat.shape[1]), dtype=dt, device=dev)
     if num_tiles == 0:
         return d_feat
-    cx, cy = _tile_centers(num_tiles, grid_x, tile, dev, tile_offset)
-    x, y = _pixel_coords(tile, dev)
+    cx, cy = _tile_centers(num_tiles, grid_x, tile, dev, tile_offset, dt)
+    x, y = _pixel_coords(tile, dev, dt)
     p6 = torch.stack([torch.ones_like(x), x, y, x * x, x * y, y * y])   # [6, PIX]
     sub = torch.arange(chunk, device=dev)
     t_final = fwd_out[:, 4]

@@ -10,13 +10,17 @@ and values — with the channels in RGB(A) order:
   (``utils/pnm.py``), GIF's first frame (``utils/gif.py``), TIFF and
   BigTIFF's first page (``utils/tiff.py``, which follows cv2's own TIFF
   rules: its orientation under both flags, its channel counts, libtiff's
-  conversions; SGILog, NeXT and ThunderScan raise NotImplementedError);
+  conversions; SGILog, NeXT and ThunderScan raise NotImplementedError),
+  JPEG 2000 as JP2 files and raw J2K codestreams (``utils/jpeg2000.py``,
+  with cv2's own JPEG 2000 rules for depth, channels and colour spaces;
+  HTJ2K, Part 2 and the Part-1 coding options that it does not decode
+  raise NotImplementedError naming them);
 - ``IMREAD_COLOR`` gives 3 channels of uint8 (grey repeated, alpha dropped,
   16-bit samples shifted right by 8) and applies the EXIF orientation of a
   JPEG (APP1), a PNG (``eXIf``) or a WebP (``EXIF``), as cv2 does;
   ``IMREAD_UNCHANGED`` leaves the orientation alone;
-- formats cv2 reads and the port does not (JPEG 2000, AVIF, Radiance
-  HDR, PFM, Sun raster) raise NotImplementedError naming the format; bytes
+- formats cv2 reads and the port does not (AVIF, Radiance HDR, PFM, Sun
+  raster) raise NotImplementedError naming the format; bytes
   no decoder of cv2 recognises raise FileNotFoundError, as the JAX package
   raises when ``cv2.imread`` returns None; a file of a format read here
   that does not decode raises ValueError naming the format.
@@ -32,6 +36,7 @@ import numpy as np
 from .bmp import decode_bmp
 from .gif import imread_gif
 from .jpeg import decode_jpeg
+from .jpeg2000 import J2K_SIGNATURE, JP2_SIGNATURE, decode_jpeg2000
 from .png import imread_png
 from .pnm import decode_pnm
 from .tiff import decode_tiff, orient
@@ -40,8 +45,7 @@ from .webp import decode_webp
 IMREAD_UNCHANGED, IMREAD_COLOR = -1, 1
 
 # Leading bytes of the formats cv2 reads and the port does not.
-_REFUSED = ((b"\xff\x4f\xff\x51", "JPEG 2000"), (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
-            (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
+_REFUSED = ((b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
             (b"\x59\xa6\x6a\x95", "Sun raster"))
 
 
@@ -119,6 +123,8 @@ def _format(data: bytes) -> str | None:
         return "TIFF"
     if data[:1] == b"P" and data[1:2] in b"1234567" and data[2:3].isspace():
         return "PNM"
+    if data.startswith(JP2_SIGNATURE) or data.startswith(J2K_SIGNATURE):
+        return "JPEG 2000"
     return None
 
 
@@ -148,8 +154,8 @@ def decode_image(data: bytes, flags: int = IMREAD_UNCHANGED, name: str = "") -> 
         if refused is None:
             raise FileNotFoundError(name or "image bytes no decoder recognises")
         raise NotImplementedError(f"{name or 'the image'}: {refused} images are not read by "
-                                  f"the port (PNG, JPEG, WebP, BMP, PNM, GIF and TIFF are); "
-                                  f"convert it to PNG")
+                                  f"the port (PNG, JPEG, WebP, BMP, PNM, GIF, TIFF and "
+                                  f"JPEG 2000 are); convert it to PNG")
     exif = None
     try:
         if fmt == "BMP":
@@ -158,6 +164,8 @@ def decode_image(data: bytes, flags: int = IMREAD_UNCHANGED, name: str = "") -> 
             return decode_pnm(data, flags)
         if fmt == "TIFF":
             return decode_tiff(data, flags, imread=bool(name))
+        if fmt == "JPEG 2000":
+            return decode_jpeg2000(data, flags)
         if fmt == "PNG":
             img, exif = imread_png(data)
         elif fmt == "JPEG":

@@ -139,12 +139,13 @@ def test_glb_image_that_does_not_decode_leaves_no_albedo_and_warns(tmp_path, cap
 
 
 def test_glb_image_in_a_refused_format_raises_by_name(tmp_path):
-    """cv2 reads a JPEG 2000 base colour; the port refuses it rather than
-    drop it (a TIFF one, read since, is in test_torch_tiff.py)."""
-    jp2 = cv2.imencode(".jp2", F.photo(64, 64, 1))[1].tobytes()
-    path = _glb_with_image(tmp_path, jp2)
+    """cv2 reads an AVIF base colour; the port refuses it rather than drop
+    it (TIFF and JPEG 2000 ones, read since, are in test_torch_tiff.py and
+    test_torch_jp2.py)."""
+    avif = cv2.imencode(".avif", F.photo(64, 64, 1))[1].tobytes()
+    path = _glb_with_image(tmp_path, avif)
     assert JMesh.load(path, resize=False).albedo.shape == (64, 64, 3)
-    with pytest.raises(NotImplementedError, match="JPEG 2000"):
+    with pytest.raises(NotImplementedError, match="AVIF"):
         TMesh.load(path, resize=False)
 
 
@@ -219,8 +220,9 @@ def test_formats_cv2_reads_and_the_port_does_not_are_refused_by_name(tmp_path, k
     else:
         data = cv2.imencode(ext, img.astype(np.float32) / 255 if ext in (".hdr", ".pfm")
                             else img)[1].tobytes()
-    if kind.endswith("codestream"):                 # the jp2c box's J2K codestream alone
-        data = data[data.index(b"\xff\x4f\xff\x51"):]
+    if kind.startswith("JPEG 2000"):                # read now, but not with vertically causal
+        cs = F.j2k_set_cod(F.jp2_codestream(data), 8, 0x08)    # code-blocks, which cv2 reads
+        data = cs if kind.endswith("codestream") else F.jp2_rebuild(data, codestream=cs)
     assert _cv2(data, IMREAD_UNCHANGED) is not None          # readable: not a missing file
     path = str(tmp_path / "x.img")
     with open(path, "wb") as fh:

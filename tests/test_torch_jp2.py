@@ -1,0 +1,502 @@
+"""The port's JPEG 2000 reader (``utils/jpeg2000.py`` over
+``csrc/jpeg2000.cpp``) against cv2 (OpenCV 5.0 over OpenJPEG 2.5), and what
+reads through it against the JAX package: ``load_rgba`` and the textures of
+``Mesh.load``.
+
+Tolerance: every decode equal to cv2's bit for bit (dtype, shape, values;
+channels in RGB order) under ``IMREAD_UNCHANGED`` and ``IMREAD_COLOR``, on
+the checked-in fixtures of ``scripts/port_make_jp2_fixtures.py`` (and their
+stored digests) and on files written here from numpy seeds by Pillow's
+OpenJPEG encoder and rewritten by ``tests/torch_image_files.py``; where cv2
+returns None the port raises ValueError naming JPEG 2000, and the features
+it does not decode raise NotImplementedError naming them. ``load_rgba`` of
+a 4-channel JP2 equal to the JAX package's exactly, of an RGB one matted by
+the same random U2Net at ``test_torch_image_formats.py``'s tolerances (RGB
+equal, alpha within 1/255); ``Mesh.load`` albedos equal exactly."""
+
+import hashlib
+import json
+
+import cv2
+import numpy as np
+import pytest
+
+import torch_image_files as F
+from dreamgaussian_tpu.cli import process as jproc
+from dreamgaussian_tpu.meshing.mesh import Mesh as JMesh
+from dreamgaussian_tpu_torch.cli import process as tproc
+from dreamgaussian_tpu_torch.meshing.mesh import Mesh as TMesh
+from dreamgaussian_tpu_torch.utils.imread import IMREAD_COLOR, IMREAD_UNCHANGED, decode_image
+from test_torch_image_formats import _glb_with_image, u2net_at_64  # noqa: F401
+from test_torch_process import u2net_files  # noqa: F401
+from torch_cpu_cases import one_torch_thread  # noqa: F401
+from torch_image_cases import JP2_FIXTURES
+
+DIGESTS = json.loads((JP2_FIXTURES / "decodes.json").read_text())
+IMAGES = sorted(DIGESTS)
+FLAGS = {"unchanged": IMREAD_UNCHANGED, "color": IMREAD_COLOR}
+IMG = F.photo(45, 70, 3)
+RGBA = F.photo(45, 70, 4, channels=4)
+
+
+def _rgb(img):
+    if img is not None and img.ndim == 3 and img.shape[2] in (3, 4):
+        img = np.ascontiguousarray(img[..., [2, 1, 0, 3][:img.shape[2]]])
+    return img
+
+
+def _same_as_cv2(data: bytes, path=None, none=None):
+    """Both flags: the port's decode equals cv2.imdecode's (with ``path``,
+    also read_image against cv2.imread of that file), or both give none.
+    ``none`` (a tuple of flags) asserts where cv2 gives none."""
+    for f in (IMREAD_UNCHANGED, IMREAD_COLOR):
+        cases = [(_rgb(cv2.imdecode(np.frombuffer(data, np.uint8), f)),
+                  lambda: decode_image(data, f))]
+        if path is not None:
+            path.write_bytes(data)
+            cases.append((_rgb(cv2.imread(str(path), f)), lambda: tproc.read_image(str(path), f)))
+        for want, read in cases:
+            if none is not None:
+                assert (want is None) == (f in none), f
+            if want is None:
+                with pytest.raises(ValueError, match="JPEG 2000"):
+                    read()
+                continue
+            got = read()
+            assert got.dtype == want.dtype and got.shape == want.shape
+            np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------------------------ fixtures
+
+@pytest.mark.parametrize("key", list(FLAGS))
+@pytest.mark.parametrize("name", IMAGES)
+def test_fixture_reads_as_cv2_read_it(name, key):
+    path = JP2_FIXTURES / name
+    want = DIGESTS[name][key]
+    live = _rgb(cv2.imread(str(path), FLAGS[key]))
+    if want is None:
+        assert live is None
+        with pytest.raises(ValueError, match="JPEG 2000"):
+            tproc.read_image(str(path), FLAGS[key])
+        return
+    got = tproc.read_image(str(path), FLAGS[key])
+    assert [list(got.shape), str(got.dtype)] == [want["shape"], want["dtype"]]
+    assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"]
+    np.testing.assert_array_equal(got, live)
+    if key == "unchanged":
+        with np.load(JP2_FIXTURES / "small_decodes.npz") as small:
+            if name in small.files:
+                np.testing.assert_array_equal(got, small[name])
+
+
+def test_fixture_directory_stays_small():
+    assert sum(f.stat().st_size for f in JP2_FIXTURES.iterdir()) < 3 * 2**20
+
+
+def test_cv2_rules_the_fixtures_pin():
+    """The rules the fixtures pin, spelled out: lossless files give the
+    source back; LA gives no image under IMREAD_UNCHANGED and its grey
+    repeated under IMREAD_COLOR; 16-bit grey shifts right by 8 there; a
+    12-bit file is uint16 unshifted; a 20-bit one is none unchanged; a
+    palette gives its colours under IMREAD_COLOR and their grey under
+    IMREAD_UNCHANGED; a greyscale colr repeats the first component."""
+    import sys
+
+    sys.path.insert(0, str(JP2_FIXTURES.parents[2] / "scripts"))
+    from port_make_image_fixtures import toy_alpha
+    from port_make_jpeg_fixtures import photo
+
+    rgb = photo(61, 83, seed=1)
+
+    def read(name, f=IMREAD_UNCHANGED):
+        return tproc.read_image(str(JP2_FIXTURES / name), f)
+
+    np.testing.assert_array_equal(read("jp2_rgb_53.jp2"), rgb)
+    np.testing.assert_array_equal(read("jp2_rgba_53.jp2"), np.dstack([rgb, toy_alpha(61, 83)]))
+    with pytest.raises(ValueError, match="two channels"):
+        read("jp2_la_53.jp2")
+    la = read("jp2_la_53.jp2", IMREAD_COLOR)
+    np.testing.assert_array_equal(la, np.repeat(read("jp2_l_53.jp2")[..., None], 3, -1))
+    i16 = read("jp2_i16_53.jp2")
+    assert i16.dtype == np.uint16
+    np.testing.assert_array_equal(read("jp2_i16_53.jp2", IMREAD_COLOR)[..., 0], i16 >> 8)
+    p12 = read("jp2_prec12.jp2")
+    assert p12.dtype == np.uint16 and p12.max() <= 4095
+    with pytest.raises(ValueError, match="20-bit"):
+        read("jp2_prec20.jp2")
+    pal = read("jp2_palette.jp2", IMREAD_COLOR).astype(np.int64)
+    grey = read("jp2_palette.jp2")
+    np.testing.assert_array_equal(grey, (pal[..., 2] * 3735 + pal[..., 1] * 19235
+                                         + pal[..., 0] * 9798 + 16384) >> 15)
+    np.testing.assert_array_equal(read("jp2_colr_grey.jp2"),
+                                  np.repeat(read("jp2_rgb_rct.jp2")[..., :1], 3, -1))
+
+
+# ------------------------------------------------------------------ seeded files
+
+PILLOW_CASES = {
+    "lossless": {}, "irreversible": dict(irreversible=True),
+    "rct": dict(mct=1), "ict": dict(mct=1, irreversible=True),
+    "rates": dict(mct=1, irreversible=True, quality_mode="rates", quality_layers=[50, 20, 6]),
+    "db": dict(irreversible=True, quality_mode="dB", quality_layers=[28, 36, 44]),
+    "lossless_layers": dict(quality_mode="rates", quality_layers=[16, 4]),
+    "res1": dict(num_resolutions=1), "res2": dict(num_resolutions=2),
+    "res6": dict(num_resolutions=6, irreversible=True),
+    "cblk4x64": dict(codeblock_size=(4, 64)), "cblk32x8": dict(codeblock_size=(32, 8)),
+    "precincts16": dict(precinct_size=(16, 16), codeblock_size=(4, 4), num_resolutions=3),
+    "tiles16": dict(tile_size=(16, 16), mct=1, irreversible=True),
+    "tiles40x24": dict(tile_size=(40, 24), num_resolutions=4),
+    "tiles32_res6": dict(tile_size=(32, 32), num_resolutions=6, quality_mode="rates",
+                         quality_layers=[30, 8], irreversible=True),
+    "plt": dict(plt=True), "comment": dict(comment="seeded"),
+    "codestream": dict(no_jp2=True),
+}
+PILLOW_CASES.update({
+    f"{order.lower()}_{n}x{layers}": dict(
+        progression=order, num_resolutions=n, quality_mode="rates",
+        quality_layers=[30, 10, 3][:layers], mct=1,
+        precinct_size=(16, 16) if n == 3 else None, tile_size=(48, 32) if n == 4 else None)
+    for order in ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL")
+    for n, layers in ((2, 1), (3, 2), (4, 3))})
+
+
+@pytest.mark.parametrize("mode", ["L", "RGB", "RGBA"])
+@pytest.mark.parametrize("case", list(PILLOW_CASES))
+def test_pillow_files_read_as_cv2_reads_them(tmp_path, case, mode):
+    kw = {k: v for k, v in PILLOW_CASES[case].items() if v is not None}
+    img = RGBA if mode == "RGBA" else IMG
+    grey_codestream = mode == "L" and case == "codestream"     # sRGB to cv2: none in colour
+    _same_as_cv2(F.jp2_pillow(img, mode=mode if mode == "L" else None, **kw), tmp_path / "x.jp2",
+                 none=(IMREAD_COLOR,) if grey_codestream else ())
+
+
+@pytest.mark.parametrize("kw", [{}, dict(irreversible=True), dict(no_jp2=True)],
+                         ids=["53", "97", "codestream"])
+def test_sixteen_bit_and_grey_alpha_files(kw):
+    """I;16 (uint16 unchanged, >> 8 under IMREAD_COLOR) and LA (none
+    unchanged; under IMREAD_COLOR its grey repeated from a JP2, none from a
+    bare codestream, which cv2 takes as sRGB)."""
+    deep = (IMG[..., 0].astype(np.uint16) * 251 + 7).astype(np.uint16)
+    _same_as_cv2(F.jp2_pillow(deep, **kw), none=() if "no_jp2" not in kw else (IMREAD_COLOR,))
+    la = F.jp2_pillow(RGBA, mode="LA", **kw)
+    _same_as_cv2(la, none=(IMREAD_UNCHANGED,) if "no_jp2" not in kw else (IMREAD_UNCHANGED,
+                                                                          IMREAD_COLOR))
+    _same_as_cv2(F.jp2_pillow(IMG, mode="L", **kw),
+                 none=() if "no_jp2" not in kw else (IMREAD_COLOR,))
+
+
+def test_cinema_profiles_and_their_poc():
+    """Pillow's digital-cinema profiles: 2K, and 4K with its POC marker
+    (two progression volumes), also moved into the tile-part headers."""
+    _same_as_cv2(F.jp2_pillow(IMG, cinema_mode="cinema2k-24"), none=())
+    c4k = F.jp2_pillow(F.photo(64, 96, 9), cinema_mode="cinema4k-24")
+    assert b"\xff\x5f" in F.jp2_codestream(c4k)[:400]
+    _same_as_cv2(c4k, none=())
+    _same_as_cv2(F.jp2_rebuild(c4k, codestream=F.j2k_poc_in_tiles(F.jp2_codestream(c4k))), none=())
+
+
+@pytest.mark.parametrize("kw", [dict(mct=1), dict(tile_size=(32, 32), num_resolutions=3,
+                                                  progression="RPCL", precinct_size=(16, 16),
+                                                  quality_mode="rates", quality_layers=[20, 5])],
+                         ids=["one_tile", "tiles_rpcl"])
+def test_tile_parts_tlm_sop_coc_qcc(kw):
+    """Rewrites of a Pillow codestream that keep its decode: every tile over
+    two tile-parts (with a TLM marker), SOP before every packet, COC and QCC
+    in the main and the tile-part headers."""
+    d = F.jp2_pillow(IMG, plt=True, **kw)
+    cs = F.jp2_codestream(d)
+    for out in (F.j2k_split_tile_parts(cs), F.j2k_split_tile_parts(cs, tlm=True),
+                F.j2k_with_sop(cs), F.j2k_per_component_markers(cs, "main"),
+                F.j2k_per_component_markers(cs, "tile")):
+        _same_as_cv2(F.jp2_rebuild(d, codestream=out), none=())
+        _same_as_cv2(out, none=())
+
+
+@pytest.mark.parametrize("precs", [[16], [12], [9], [20], [8], [7], [24], [12, 8, 8], [8, 8, 10],
+                                   [10, 10, 10], [17, 8, 8]])
+def test_siz_precisions(precs):
+    """Every precision against cv2: below 8 none, 9 to 16 uint16, above 16
+    none unchanged and shifted to 8 bits under IMREAD_COLOR; mixed ones
+    follow the largest; the data of 5/3 and 9/7 files alike."""
+    src = (IMG[..., 0].astype(np.uint16) * 257) if len(precs) == 1 else IMG
+    for kw in ({}, dict(irreversible=True)):
+        d = F.jp2_pillow(src, **kw)
+        _same_as_cv2(F.jp2_rebuild(d, codestream=F.j2k_set_precision(F.jp2_codestream(d), precs)))
+
+
+@pytest.mark.parametrize("enumcs", [16, 17, 18, 12, 24, 14, 99, 0])
+@pytest.mark.parametrize("mode", ["L", "RGB", "RGBA", "I16"])
+def test_colour_spaces(enumcs, mode):
+    """colr's enumerations: sRGB, greyscale (the first component repeated),
+    sYCC (cv2's YUV2BGR, at 8 and 16 bits), CMYK and e-sYCC (none), CIELab
+    and unknown ones taken as sRGB; and an ICC profile."""
+    if mode == "I16":
+        d = F.jp2_pillow(IMG[..., 0].astype(np.uint16) * 256 + 128)
+    else:
+        d = F.jp2_pillow(RGBA if mode == "RGBA" else IMG, mode=mode if mode == "L" else None)
+    _same_as_cv2(F.jp2_rebuild(d, F.jp2_header_with(F.jp2_colr(enumcs))))
+    _same_as_cv2(F.jp2_rebuild(d, F.jp2_header_with(F.jp2_colr(icc=bytes(64)))))
+
+
+def test_sycc_at_sixteen_bits():
+    d = F.jp2_pillow(IMG, mct=1)
+    cs = F.j2k_set_precision(F.jp2_codestream(d), [12, 12, 12])
+    _same_as_cv2(F.jp2_rebuild(d, F.jp2_header_with(F.jp2_colr(18)), codestream=cs), none=())
+
+
+CDEFS = {
+    "standard": [(0, 0, 1), (1, 0, 2), (2, 0, 3), (3, 1, 0)],
+    "bgr": [(0, 0, 3), (1, 0, 2), (2, 0, 1), (3, 1, 0)],
+    "rotated": [(3, 0, 1), (0, 0, 2), (1, 0, 3), (2, 1, 0)],
+    "alpha_first": [(0, 1, 0), (1, 0, 1), (2, 0, 2), (3, 0, 3)],
+    "premultiplied": [(0, 0, 1), (1, 0, 2), (2, 0, 3), (3, 2, 0)],
+    "unspecified": [(0, 0, 1), (1, 0, 2), (2, 0, 3), (3, 65535, 65535)],
+    "swap_last": [(0, 0, 4), (1, 0, 2), (2, 0, 3), (3, 0, 1)],
+    "incomplete": [(0, 0, 1), (1, 0, 2), (2, 0, 3)],
+    "bad_association": [(0, 0, 1), (1, 0, 2), (2, 0, 3), (3, 1, 5)],
+    "bad_channel": [(0, 0, 1), (1, 0, 2), (2, 0, 3), (4, 1, 0)],
+}
+
+
+@pytest.mark.parametrize("name", list(CDEFS))
+def test_channel_definitions(name):
+    """cdef as OpenJPEG applies it (colour channels swapped to their
+    association in the box's order; cv2 never reads the alpha flags) and
+    checks it (every channel defined, every index in range)."""
+    for img, drop in ((RGBA, (b"cdef",)), (IMG, ())):
+        entries = [e for e in CDEFS[name] if img.shape[2] == 4 or max(e[0], e[2] - 1) < 3]
+        d = F.jp2_pillow(img)
+        _same_as_cv2(F.jp2_rebuild(d, F.jp2_header_with(drop=drop, extra=[(b"cdef",
+                                                                           F.jp2_cdef(entries))])))
+
+
+PALETTES = {
+    "rgb": ([8, 8, 8], [(0, 1, 0), (0, 1, 1), (0, 1, 2)], 16),
+    "rgba": ([8, 8, 8, 8], [(0, 1, 0), (0, 1, 1), (0, 1, 2), (0, 1, 3)], 16),
+    "deep": ([16, 12, 10], [(0, 1, 0), (0, 1, 1), (0, 1, 2)], 16),
+    "grey_space": ([8, 8, 8], [(0, 1, 0), (0, 1, 1), (0, 1, 2)], 17),
+    "sycc_space": ([8, 8, 8], [(0, 1, 0), (0, 1, 1), (0, 1, 2)], 18),
+    "one_column": ([8], [(0, 1, 0)], 17),
+    "direct_first": ([8, 8, 8], [(0, 0, 0), (0, 1, 1), (0, 1, 2)], 16),
+    "unmapped": ([8, 8, 8], [(0, 0, 0), (0, 0, 0), (0, 1, 2)], 16),
+    "swapped": ([8, 8, 8], [(0, 1, 2), (0, 1, 1), (0, 1, 0)], 16),
+    "bad_component": ([8, 8, 8], [(1, 1, 0), (0, 1, 1), (0, 1, 2)], 16),
+    "no_cmap": ([8, 8, 8], None, 16),
+}
+
+
+@pytest.mark.parametrize("entries", [32, 256])
+@pytest.mark.parametrize("name", list(PALETTES))
+def test_palettes(name, entries):
+    """pclr and cmap over an 8-bit index codestream (a palette shorter than
+    the indices clamps them), and a 16-bit one."""
+    rng = np.random.default_rng(entries)
+    depths, cmap, enumcs = PALETTES[name]
+    pal = np.stack([rng.integers(0, 1 << d, entries) for d in depths], 1)
+    boxes = [(b"pclr", F.jp2_pclr(pal, depths))] + ([(b"cmap", F.jp2_cmap(cmap))] if cmap else [])
+    for index in (IMG[..., 1], IMG[..., 1].astype(np.uint16) * 3):
+        d = F.jp2_pillow(index)
+        _same_as_cv2(F.jp2_rebuild(d, F.jp2_header_with(F.jp2_colr(enumcs), extra=boxes)))
+
+
+# ------------------------------------------------------------------ broken and refused
+
+def test_truncated_and_corrupted_streams_raise_value_error(tmp_path):
+    """Cut short anywhere, with a SIZ that lies, a tile-part longer than the
+    file, or a marker where a segment should be: cv2 gives none and the
+    port raises ValueError naming JPEG 2000."""
+    d = F.jp2_pillow(IMG, tile_size=(32, 32), mct=1)
+    cs = F.jp2_codestream(d)
+    broken = [d[:n] for n in (40, 100, len(d) // 3, len(d) // 2, len(d) - 300, len(d) - 2)]
+    broken += [cs[:n] for n in (20, len(cs) // 2, len(cs) - 1, len(cs) - 2)]
+    broken += [cs[:4] + b"\0\x05" + cs[6:],                       # Lsiz
+               cs[:42] + b"\x80" + cs[43:],                       # signed precision
+               cs.replace(b"\xff\x90\x00\x0a\x00\x01", b"\xff\x90\x00\x0a\x00\x09", 1),
+               cs[:-2] + b"junkjunk", cs.replace(b"\xff\x5c", b"\xff\x30", 1)]
+    for i, data in enumerate(broken):
+        for f in (IMREAD_UNCHANGED, IMREAD_COLOR):
+            assert cv2.imdecode(np.frombuffer(data, np.uint8), f) is None, i
+            with pytest.raises(ValueError, match="JPEG 2000"):
+                decode_image(data, f)
+        (tmp_path / "x.jp2").write_bytes(data)
+        with pytest.raises(FileNotFoundError):
+            tproc.load_rgba(str(tmp_path / "x.jp2"), device="cpu")
+
+
+@pytest.mark.parametrize("tnsot", [1, 0])
+def test_the_codestreams_end_as_openjpeg_reads_it(tnsot):
+    """What may follow the last tile-part: EOC (and anything after it), any
+    two bytes (with some TNsot unknown, OpenJPEG then decodes the last
+    tile alone), nothing when some TNsot is unknown; a missing tile is left
+    zero. Each against cv2, none included."""
+    cs = F.jp2_codestream(F.jp2_pillow(IMG, tile_size=(32, 32), mct=1))
+    main, parts = F.j2k_parse(cs)
+    parts = [(i, tp, tnsot, s, x) for i, tp, _, s, x in parts]
+    full = F.j2k_build(main, parts)
+    for data in (full, full + b"junk", full[:-2], full[:-2] + b"\xff", full[:-2] + b"\0\0",
+                 full[:-2] + b"\xff\xd8", full[:-2] + b"junkjunk", full[:-2] + b"\xff\x90\0",
+                 F.j2k_build(main, parts[:-1]), F.j2k_build(main, parts[:-1])[:-2]):
+        _same_as_cv2(data)
+
+
+CORRUPTED_BASES = {
+    "jp2_53": dict(mct=1),
+    "jp2_97_tiles": dict(irreversible=True, tile_size=(16, 16), mct=1),
+    "j2k_rpcl_layers": dict(progression="RPCL", precinct_size=(16, 16), num_resolutions=3,
+                            quality_mode="rates", quality_layers=[20, 5], no_jp2=True),
+}
+
+
+@pytest.mark.parametrize("base", list(CORRUPTED_BASES))
+def test_corrupted_streams_read_as_cv2_reads_them(base):
+    """Seeded corruptions (bytes overwritten, cut out, put in) anywhere in
+    the file: the port's decode equals cv2's, or both give none. Corrupt
+    coded data decodes to the same pixels; the headers fail where
+    OpenJPEG's do (an unknown marker is skipped to the next known one, a
+    jp2c box runs to the end whatever its length, the JP2 ihdr must agree
+    with SIZ, a tile short of its TNsot is decoded with what it has)."""
+    rng = np.random.default_rng(sorted(CORRUPTED_BASES).index(base))
+    src = F.jp2_pillow(F.photo(40, 50, 1), **CORRUPTED_BASES[base])
+    for _ in range(40):
+        d = bytearray(src)
+        for _ in range(int(rng.integers(1, 4))):
+            at, kind = int(rng.integers(0, len(d))), int(rng.integers(0, 3))
+            if kind == 0:
+                d[at] = int(rng.integers(0, 256))
+            elif kind == 1:
+                del d[at:at + int(rng.integers(1, 40))]
+            else:
+                d[at:at] = rng.integers(0, 256, int(rng.integers(1, 12))).astype(np.uint8).tobytes()
+        data = bytes(d)
+        for f in (IMREAD_UNCHANGED, IMREAD_COLOR):
+            want = _rgb(cv2.imdecode(np.frombuffer(data, np.uint8), f))
+            try:
+                got = decode_image(data, f)
+            except NotImplementedError:            # a feature the port refuses, by name
+                continue
+            except (ValueError, FileNotFoundError):   # FileNotFoundError: no signature left
+                assert want is None
+                continue
+            assert want is not None and got.dtype == want.dtype and got.shape == want.shape
+            np.testing.assert_array_equal(got, want)
+
+
+REFUSED = {
+    "selective arithmetic coding bypass": ("cod", 8, 0x01),
+    "reset of context probabilities": ("cod", 8, 0x02),
+    "termination on each coding pass": ("cod", 8, 0x04),
+    "vertically causal context formation": ("cod", 8, 0x08),
+    "predictable termination": ("cod", 8, 0x10),
+    "segmentation symbols": ("cod", 8, 0x20),
+    "HTJ2K": ("cod", 8, 0x40),
+    "EPH markers": ("cod", 0, 0x04),
+    "Part 2 arbitrary wavelet": ("cod", 9, 0x02),
+    "region of interest": ("marker", 0xFF5E, b"\0\0\x05"),
+    "PPM marker": ("marker", 0xFF60, b"\0\0\0\0\0"),
+    "PPT marker": ("tile", 0xFF61, b"\0"),
+    "multi-component transform": ("marker", 0xFF74, b"\0\0\0\0\0"),
+    "CAP marker": ("marker", 0xFF50, b"\0\x02\0\0\0\0"),
+}
+
+
+@pytest.mark.parametrize("feature", list(REFUSED))
+def test_features_not_read_are_refused_by_name(tmp_path, feature):
+    """Each coding option the port does not decode raises
+    NotImplementedError naming it, from a JP2 and a bare codestream; the
+    code-block styles' files are ones cv2 reads (Pillow writes none of
+    these: the port decodes nothing it could not hold against cv2)."""
+    d = F.jp2_pillow(IMG, mct=1)
+    cs = F.jp2_codestream(d)
+    kind, a, b = REFUSED[feature]
+    if kind == "cod":
+        main, parts = F.j2k_parse(cs)
+        cod = next(p for m, p in main if m == 0xFF52)
+        out = F.j2k_set_cod(cs, a, cod[a] | b)
+    elif kind == "marker":
+        main, parts = F.j2k_parse(cs)
+        out = F.j2k_build(main + [(a, b)], parts)
+    else:
+        main, parts = F.j2k_parse(cs)
+        out = F.j2k_build(main, [(i, tp, tn, [(a, b)] + s, x) for i, tp, tn, s, x in parts])
+    if feature.startswith(("selective", "reset", "termination", "vertically", "predictable",
+                           "segmentation")):
+        assert cv2.imdecode(np.frombuffer(out, np.uint8), IMREAD_UNCHANGED) is not None
+    for data in (out, F.jp2_rebuild(d, codestream=out)):
+        for f in (IMREAD_UNCHANGED, IMREAD_COLOR):
+            with pytest.raises(NotImplementedError, match=feature.split()[0]):
+                decode_image(data, f)
+    (tmp_path / "x.jp2").write_bytes(out)
+    with pytest.raises(NotImplementedError, match="JPEG 2000"):
+        tproc.load_rgba(str(tmp_path / "x.jp2"), device="cpu")
+
+
+# ------------------------------------------------------------------ load_rgba and Mesh.load
+
+@pytest.mark.parametrize("name", ["jp2_rgba_53.jp2", "jp2_rgba_97.jp2", "jp2_tiles32.jp2",
+                                  "jp2_cdef_alpha_first.jp2"])
+def test_load_rgba_of_a_four_channel_jp2_matches_jax(name):
+    path = str(JP2_FIXTURES / name)
+    ref = jproc.load_rgba(path, size=64)
+    got = tproc.load_rgba(path, size=64, device="cpu")
+    assert got.dtype == np.float32 and got.shape == ref.shape == (64, 64, 4)
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("name", ["jp2_rgb_ict_layers.jp2", "jp2_raw.j2k", "jp2_l_97.jp2",
+                                  "jp2_palette.jp2"])
+def test_load_rgba_of_an_rgb_or_grey_jp2_matches_jax(name, u2net_files, u2net_at_64):  # noqa: F811
+    path = str(JP2_FIXTURES / name)
+    ref = jproc.load_rgba(path, size=48, u2net_ckpt=u2net_files["small"])
+    got = tproc.load_rgba(path, size=48, u2net_ckpt=u2net_files["small"], device="cpu")
+    assert got.dtype == np.float32 and got.shape == ref.shape == (48, 48, 4)
+    np.testing.assert_array_equal(got[..., :3], ref[..., :3])
+    np.testing.assert_allclose(got[..., 3], ref[..., 3], atol=1 / 255 + 1e-7)
+
+
+@pytest.mark.parametrize("name", ["jp2_la_53.jp2", "jp2_signed.jp2", "jp2_prec20.jp2",
+                                  "jp2_tiles32_offset.jp2", "jp2_colr_cmyk.jp2"])
+def test_load_rgba_where_cv2_reads_none_is_a_missing_file_on_both_sides(name):
+    path = str(JP2_FIXTURES / name)
+    for load in (jproc.load_rgba, lambda p: tproc.load_rgba(p, device="cpu")):
+        with pytest.raises(FileNotFoundError):
+            load(path)
+
+
+def test_jp2_textured_obj_matches_jax():
+    path = str(JP2_FIXTURES / "sphere_jp2.obj")
+    ref = JMesh.load(path, resize=False)
+    got = TMesh.load(path, resize=False)
+    assert ref.albedo is not None and got.albedo.shape == ref.albedo.shape == (128, 128, 3)
+    np.testing.assert_array_equal(got.albedo, ref.albedo)
+    np.testing.assert_array_equal(np.asarray(got.v), np.asarray(ref.v))
+
+
+@pytest.mark.parametrize("name", ["jp2_rgb_ict_layers.jp2", "jp2_raw.j2k", "jp2_la_97.jp2",
+                                  "jp2_cdef_bgr.jp2"])
+def test_glb_with_a_jp2_image_matches_jax(tmp_path, name):
+    path = _glb_with_image(tmp_path, (JP2_FIXTURES / name).read_bytes())
+    ref = JMesh.load(path, resize=False).albedo
+    got = TMesh.load(path, resize=False).albedo
+    assert ref is not None and got.shape == ref.shape == (61, 83, 3)
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_jp2_texture_cv2_reads_none_of_raises_and_a_glb_keeps_no_albedo(tmp_path, capsys):
+    """cv2.imread of a signed JP2 is None: the JAX Mesh.load raises in
+    cv2.cvtColor for an OBJ, and leaves a GLB's albedo unset; the port
+    raises ValueError naming JPEG 2000, and leaves it unset."""
+    tex = (JP2_FIXTURES / "jp2_signed.jp2").read_bytes()
+    (tmp_path / "f.jp2").write_bytes(tex)
+    (tmp_path / "m.mtl").write_text("newmtl m\nmap_Kd f.jp2\n")
+    (tmp_path / "m.obj").write_text("mtllib m.mtl\nusemtl m\nv 0 0 0\nv 1 0 0\nv 0 1 0\n"
+                                    "vt 0 0\nvt 1 0\nvt 0 1\nf 1/1 2/2 3/3\n")
+    with pytest.raises(cv2.error):
+        JMesh.load(str(tmp_path / "m.obj"), resize=False)
+    with pytest.raises(ValueError, match="JPEG 2000"):
+        TMesh.load(str(tmp_path / "m.obj"), resize=False)
+    glb = _glb_with_image(tmp_path, tex)
+    assert JMesh.load(glb, resize=False).albedo is None
+    capsys.readouterr()
+    assert TMesh.load(glb, resize=False).albedo is None
+    assert "does not decode" in capsys.readouterr().out

@@ -144,11 +144,19 @@ def test_twelve_bit_samples_are_refused():
 @pytest.mark.parametrize("ext,name", [(".hdr", "Radiance HDR"), (".jp2", "JPEG 2000"),
                                       (".ras", "Sun raster")])
 def test_other_formats_cv2_writes_are_refused_by_name(tmp_path, ext, name):
-    """Formats cv2 writes and reads that the port does not read (WebP, BMP
-    and TIFF, once here, are read now: test_torch_image_formats.py,
-    test_torch_tiff.py)."""
-    path = str(tmp_path / f"x{ext}")
-    assert cv2.imwrite(path, _image(64, 64, seed=2))
+    """Formats cv2 writes and reads that the port does not read (WebP, BMP,
+    TIFF and JPEG 2000, once here, are read now: test_torch_image_formats.py,
+    test_torch_tiff.py, test_torch_jp2.py; cv2's JPEG 2000 is refused here
+    with a code-block style the port does not decode, set in its COD)."""
+    import torch_image_files as F
+
+    path = tmp_path / f"x{ext}"
+    assert cv2.imwrite(str(path), _image(64, 64, seed=2))
+    if ext == ".jp2":
+        data = path.read_bytes()
+        cs = F.j2k_set_cod(F.jp2_codestream(data), 8, 0x01)
+        path.write_bytes(F.jp2_rebuild(data, codestream=cs))
+    path = str(path)
     assert cv2.imread(path, cv2.IMREAD_UNCHANGED) is not None
     with pytest.raises(NotImplementedError, match=name):
         tproc.read_image(path)

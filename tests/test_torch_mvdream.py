@@ -316,5 +316,51 @@ def test_load_mvdream_matches_jax(mv_file):
                                    [prompt], "cpu")
     assert torch.equal(tokens[0], tg.emb["pos"])
     images = np.random.default_rng(8).uniform(size=(4, 64, 64, 3)).astype(np.float32)
+    og = tloader.load_mvdream(mv_file, prompt, neg, image_size=IMAGE, device="cpu",
+                              dtype=torch.float64)
     _hold_sds(jg.guidance_fn(), tg.guidance_fn(), images, {"poses": _poses(1, 4)}, 0.6,
-              jax.random.PRNGKey(9), tg, 1e-4, 2e-4)
+              jax.random.PRNGKey(9), tg, 1e-4, SDS_UNITS, oracle=functools.partial(_sds_f64, og))
+
+
+# Units of float32 rounding per unit of _sds_f64's scale that each float32
+# SDS gradient may stand off the float64 one (seen up to 5.0 for JAX and 3.8
+# for the port on one AVX-512 machine).
+SDS_UNITS = 16.0
+
+
+def _sds_f64(og, images, cond, ratio, draw):
+    """MVDream's SDS image gradient in float64 (``og``, the port's guidance
+    loaded in float64, with the same draws), and the scale of a float32
+    evaluation's forward error per image element: the float64 sum of the
+    absolute terms of the latent gradient (latents - (latents - (eps_u +
+    s (eps_c - eps_u) - noise))) / B, carried back to the image through the
+    absolute values of the encoder's Jacobian. Every rounding inside the nets
+    is taken as relative to their outputs' magnitudes."""
+    f64 = torch.float64
+    seen = {}
+
+    def draw64(name, shape, dist, *args):
+        v = draw(name, shape, dist, *args)
+        if name == "sds_noise":
+            seen["noise"] = v = v.to(f64)
+        return v
+
+    x = torch.from_numpy(images).to(f64).requires_grad_(True)
+    hook = og.unet.register_forward_hook(lambda mod, args, out: seen.__setitem__("eps", out))
+    try:
+        og.guidance_fn()(x, {k: torch.from_numpy(np.asarray(v)).to(f64) for k, v in cond.items()},
+                         ratio, draw64).backward()
+    finally:
+        hook.remove()
+    encode = lambda im: og.vae.encode(tsds._resize(im, og.image_size) * 2.0 - 1.0)  # noqa: E731
+    eps_cond, eps_uncond = seen["eps"].detach().chunk(2)
+    s = og.guidance_scale
+    with torch.no_grad():
+        latents = encode(x)
+    terms = (2 * latents.abs() + seen["noise"].abs() + (1 + s) * eps_uncond.abs()
+             + s * eps_cond.abs()) / len(x)
+    scale = torch.empty_like(x)
+    for v in range(len(x)):
+        jac = torch.func.jacrev(encode)(x[v:v + 1].detach()).reshape(terms[v].numel(), -1)
+        scale[v] = (jac.abs().T @ terms[v].reshape(-1)).reshape(x.shape[1:])
+    return x.grad.numpy(), scale.numpy()

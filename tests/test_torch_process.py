@@ -96,7 +96,7 @@ def test_process_main_writes_rgba(tmp_path, u2net_files):
 
 
 def test_missing_weights_and_formats_raise(tmp_path, monkeypatch):
-    """What still raises since JPEGs, GrabCut, WebP and TIFF are ported: a named
+    """What still raises since JPEGs, GrabCut, WebP, TIFF and JPEG 2000 are ported: a named
     U2Net file that is missing (the JAX package falls back to GrabCut
     silently) and the formats cv2 reads that the port does not."""
     monkeypatch.delenv("DG_U2NET_CKPT", raising=False)
@@ -107,11 +107,14 @@ def test_missing_weights_and_formats_raise(tmp_path, monkeypatch):
     monkeypatch.setenv("DG_U2NET_CKPT", str(tmp_path / "none.pth"))
     with pytest.raises(FileNotFoundError, match="U2Net"):
         tproc.load_rgba(path, device="cpu")
-    for ext, name in ((".jp2", "JPEG 2000"), (".avif", "AVIF")):
-        other = str(tmp_path / f"x{ext}")
-        Image.fromarray(_photo(16, 16, 1)).save(other)
-        with pytest.raises(NotImplementedError, match=name):
-            tproc.load_rgba(other, device="cpu")
+    other = str(tmp_path / "x.avif")
+    Image.fromarray(_photo(16, 16, 1)).save(other)
+    with pytest.raises(NotImplementedError, match="AVIF"):
+        tproc.load_rgba(other, device="cpu")
+    rgb_jp2 = str(tmp_path / "x.jp2")                # read now: matted, by the missing U2Net
+    Image.fromarray(_photo(16, 16, 1)).save(rgb_jp2)
+    with pytest.raises(FileNotFoundError, match="U2Net"):
+        tproc.load_rgba(rgb_jp2, device="cpu")
 
 
 def test_process_needs_a_card_unless_cpu(tmp_path, u2net_files):

@@ -7,6 +7,7 @@ skip without a card."""
 
 import functools
 import os
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -152,18 +153,106 @@ def test_composite_cases_match_pallas(case):
     for s, n in zip(cs, nc):
         covered[s * CHUNK:(s + n) * CHUNK] = True
     assert not t_d[:, ~covered].any()
-    # Sums over the tile's pixels in another order, T rebuilt from a suffix
-    # product instead of exp(sum log). Each gradient row is held to its own
-    # scale (the conic rows carry squared offsets): relative 1e-4 plus 1e-5
-    # of the row's largest. Under the opaque lattice 1 - alpha is 0.01, which
-    # magnifies the rounding of alpha a hundredfold in every T rebuilt
-    # through such a pair, differently in the two schemes: ten times the
-    # tolerance there.
-    loose = 10.0 if case == "quadrant_stops_early" else 1.0
-    for row, (t_row, j_row) in enumerate(zip(t_d[:10, covered], j_d[:10, covered])):
-        np.testing.assert_allclose(t_row, j_row, rtol=1e-4 * loose,
-                                   atol=1e-5 * loose * np.abs(j_row).max(), err_msg=f"row {row}")
+    # Each float32 gradient (Pallas and port alike) is held to the float64
+    # evaluation of the same function, within K2_UNITS units of float32
+    # rounding times a forward-error scale that _k2_oracle derives from it.
+    want, scale = _k2_oracle(c, j_out, g_out)
+    for name, got in (("pallas", j_d), ("port", t_d)):
+        err = np.abs(got[:10, covered] - want[:10, covered])
+        units = err / (F32_EPS * scale[:10, covered] + 1e-300)
+        rows = np.unique(np.nonzero(units > K2_UNITS)[0])
+        assert units.max() <= K2_UNITS, (f"{name}: rows {rows} off the float64 result by up "
+                                         f"to {units.max():.2f} units of rounding")
     assert not t_d[10:].any()
+
+
+F32_EPS = float(np.finfo(np.float32).eps)
+# Units of float32 rounding allowed per unit of _k2_oracle's scale. Seen on
+# one AVX-512 machine: up to 5.8 (Pallas) and 5.7 (port), both in the
+# colour rows of quadrant_stops_early, where 1 - alpha is 0.01.
+K2_UNITS = 16.0
+
+
+def _k2_oracle(c, fwd_out, g_out):
+    """K2 of a case in float64, and the scale of its float32 forward error.
+
+    The oracle is the port's plain K2 run on the float64 casts of the same
+    inputs, with the pair-skip and 0.99-clamp branches taken as float32
+    takes them (at those branches the function jumps, and a gaussian centred
+    on a pixel sits exactly on one). The scale of each gradient entry has
+    two parts: the summation's, the float64 sum over the pixels (and the
+    six moments of the conic rows) of the absolute terms; and the terms'
+    own, the root sum of squares over the pixels (whose roundings are
+    independent) of each pixel's term times its condition: 4, plus the
+    magnitudes of its exponent's terms (exp's relative error), plus, over
+    the pairs its T is rebuilt through, 1 + alpha / (1 - alpha)."""
+    f64 = torch.float64
+    feat, cs, nc = _np(c["feat"]).to(f64), _np(c["chunk_starts"]), _np(c["n_chunks"])
+    fwd, g = _np(fwd_out).to(f64), _np(g_out).to(f64)
+    geo = c["geo"]
+    plain_alpha = tcu._chunk_alpha
+
+    def branches_of_f32(f, cx, cy, x, y):
+        a32, raw32, _ = plain_alpha(f.float(), cx.float(), cy.float(), x.float(), y.float())
+        _, raw, cols = plain_alpha(f, cx, cy, x, y)
+        alpha = torch.where(a32 == 0, 0.0, torch.where(raw32 > tcu.ALPHA_MAX, tcu.ALPHA_MAX, raw))
+        return alpha, raw, cols
+
+    with mock.patch.object(tcu, "_chunk_alpha", branches_of_f32):
+        want = tcu.composite_backward_ref(feat, cs, nc, fwd, g, **geo).numpy()
+    summed, rss = torch.zeros_like(feat), torch.zeros_like(feat)
+    tile, chunk = geo["tile"], geo["chunk"]
+    cx, cy = tcu._tile_centers(geo["num_tiles"], geo["grid_x"], tile, "cpu", 0, f64)
+    x, y = tcu._pixel_coords(tile, "cpu", f64)
+    p6 = torch.stack([torch.ones_like(x), x, y, x * x, x * y, y * y])
+    sub = torch.arange(chunk)
+    gd, kt = g[:, 0:4], (g[:, 4] * fwd[:, 4])[:, None]
+    t_run = fwd[:, 4]
+    s_run, sa_run, k_run = (torch.zeros_like(t_run) for _ in range(3))
+    flip_cumsum = lambda v: torch.flip(torch.cumsum(torch.flip(v, [1]), 1), [1])  # noqa: E731
+    col = lambda v: v[:, :, None]  # noqa: E731
+    for j in reversed(range(int(nc.max()))):
+        f, active, cols = tcu._chunk_features(feat, cs, nc, j, chunk)
+        live = active & (j * chunk < fwd[:, 5].amax(1))
+        alpha, raw, (mx, my, qx, qy) = branches_of_f32(f, cx, cy, x, y)
+        m = ((j * chunk + sub).to(f64)[None, :, None] < fwd[:, 5][:, None]) \
+            & (alpha > 0) & live[:, None, None]
+        am = alpha * m
+        one_m = 1.0 - am
+        t_g = t_run[:, None] / torch.flip(torch.cumprod(torch.flip(one_m, [1]), 1), [1])
+        ca, cb, cc = f[2], f[3], f[4]
+        q0 = -0.5 * (mx * qx + my * qy) + f[5]
+        k_g = k_run[:, None] + flip_cumsum((1.0 + am / one_m) * m)
+        k_run = k_g[:, 0]
+        cond = 4.0 + k_g + (col(q0).abs() + (col(qx) * x).abs() + (col(qy) * y).abs()
+                            + (col(ca) * 0.5 * x * x).abs() + (col(cb) * x * y).abs()
+                            + (col(cc) * 0.5 * y * y).abs())
+        w = am * t_g
+        e = torch.einsum("ktc,tkp->tcp", f[6:10], gd)
+        e_abs = torch.einsum("ktc,tkp->tcp", f[6:10].abs(), gd.abs())
+        u, u_abs = w * e, w * e_abs
+        s_g = s_run[:, None] + flip_cumsum(u) - u
+        sa_g = sa_run[:, None] + flip_cumsum(u_abs) - u_abs
+        d_powero = torch.where(m, raw * (e * t_g - (s_g + kt) / one_m), 0.0)
+        d_abs = torch.where(m, raw * (e_abs * t_g + (sa_g + kt.abs()) / one_m), 0.0)
+        zero = torch.zeros_like(ca)
+        coef = [[-qx, ca, cb], [-qy, cb, cc], [-0.5 * mx * mx, mx, zero, zero - 0.5],
+                [-mx * my, my, mx, zero, zero - 1.0], [-0.5 * my * my, zero, my, zero, zero, zero - 0.5],
+                [zero + 1.0]]
+        rows_sum, rows_rss = [], []
+        for row in coef:
+            term = sum(col(a) * p6[k] for k, a in enumerate(row)) * d_powero
+            rows_sum.append((sum(col(a).abs() * p6[k].abs() for k, a in enumerate(row))
+                             * d_abs).sum(-1))
+            rows_rss.append((cond * term).square().sum(-1).sqrt())
+        for q in range(4):
+            rows_sum.append((w * gd[:, q].abs()[:, None, :]).sum(-1))
+            rows_rss.append((cond * w * gd[:, q][:, None, :]).square().sum(-1).sqrt())
+        at = cols[active].reshape(-1)
+        summed[:10, at] = torch.stack(rows_sum)[:, active].reshape(10, -1)
+        rss[:10, at] = torch.stack(rows_rss)[:, active].reshape(10, -1)
+        t_run, s_run, sa_run = t_g[:, 0], s_g[:, 0] + u[:, 0], sa_g[:, 0] + u_abs[:, 0]
+    return want, (summed + rss).numpy()
 
 
 def _render_pair(args, cam, size, tile, weights):

@@ -289,8 +289,14 @@ def _sd_guidances(emb):
     return jg, tg
 
 
-def _hold_sds(jfn, tfn, images, cond, ratio, key, tg, l_tol, g_tol):
-    """SDS loss and image gradient of both packages with JAX's draws injected."""
+def _hold_sds(jfn, tfn, images, cond, ratio, key, tg, l_tol, g_tol, oracle=None):
+    """SDS loss and image gradient of both packages with JAX's draws injected.
+
+    The gradients: without an ``oracle``, the port's within ``g_tol`` of
+    JAX's largest entry. With one (``oracle(images, cond, ratio, draw) ->
+    (gradient, scale)``, the same function in float64 and the per-element
+    scale of its float32 forward error), each package's within ``g_tol``
+    units of float32 rounding times that scale of the float64 gradient."""
     k_t, k_n = jax.random.split(key)
     draws = []
 
@@ -309,8 +315,16 @@ def _hold_sds(jfn, tfn, images, cond, ratio, key, tg, l_tol, g_tol):
     tl.backward()
     jgrad = np.asarray(jgrad)
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=l_tol)
-    np.testing.assert_allclose(x.grad.numpy(), jgrad, atol=g_tol * np.abs(jgrad).max(), rtol=0)
-    return draws
+    if oracle is None:
+        np.testing.assert_allclose(x.grad.numpy(), jgrad, atol=g_tol * np.abs(jgrad).max(), rtol=0)
+        return draws
+    names = list(draws)
+    want, scale = oracle(images, cond, ratio, draw)
+    unit = np.finfo(np.float32).eps * scale
+    off = {name: (np.abs(got.astype(np.float64) - want) / unit).max()
+           for name, got in (("jax", jgrad), ("port", x.grad.numpy()))}
+    assert max(off.values()) <= g_tol, f"gradients off the float64 one by {off} units"
+    return names
 
 
 # float32, CFG 100: the nets' summation order differs at 1e-6 of a value and

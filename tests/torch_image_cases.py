@@ -10,6 +10,7 @@ from chip_smoke import alpha_iou as iou  # noqa: F401  (the card run's measure)
 JPEG_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_jpeg"
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_images"
 TIFF_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_tiff"
+JP2_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_jp2"
 
 # GrabCut's test photos: an object on a background that differs from it.
 SCENES = ("disc", "ellipse", "box", "textured")

@@ -940,3 +940,222 @@ def sgilog_tiff(lum: np.ndarray) -> bytes:
                 part = plane[at:at + 127]
                 rows.append(bytes([len(part)]) + part)
     return tiff(lum, 16, 32844, chunks=[b"".join(rows)], tags={259: (3, 34676)})
+
+
+# ------------------------------------------------------------------ JPEG 2000
+
+def jp2_pillow(img: np.ndarray, **kw) -> bytes:
+    """A JP2 file (or with ``no_jp2=True`` a raw codestream) written by
+    Pillow's OpenJPEG encoder; ``img`` uint8 L/RGB/RGBA (LA with
+    ``mode="LA"``) or uint16 I;16."""
+    from PIL import Image
+
+    mode = kw.pop("mode", None)
+    pil = Image.fromarray(img)
+    if mode is not None:
+        pil = pil.convert(mode)
+    buf = io.BytesIO()
+    pil.save(buf, "JPEG2000", **kw)
+    return buf.getvalue()
+
+
+def jp2_boxes(data: bytes) -> list:
+    """The top-level (or a super box's) boxes as (type, payload) pairs."""
+    out, pos = [], 0
+    while pos < len(data):
+        length, kind = struct.unpack_from(">I4s", data, pos)
+        length = length or len(data) - pos
+        out.append((kind, data[pos + 8:pos + length]))
+        pos += length
+    return out
+
+
+def jp2_box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I4s", 8 + len(payload), kind) + payload
+
+
+def jp2_rebuild(data: bytes, header=None, codestream: bytes | None = None) -> bytes:
+    """A JP2 file with its jp2h sub-boxes passed through ``header(list) ->
+    list`` and its codestream replaced."""
+    out = b""
+    for kind, payload in jp2_boxes(data):
+        if kind == b"jp2h" and header is not None:
+            payload = b"".join(jp2_box(k, p) for k, p in header(jp2_boxes(payload)))
+        if kind == b"jp2c" and codestream is not None:
+            payload = codestream
+        out += jp2_box(kind, payload)
+    return out
+
+
+def jp2_codestream(data: bytes) -> bytes:
+    return dict(jp2_boxes(data))[b"jp2c"]
+
+
+def jp2_colr(enumcs: int | None = None, icc: bytes | None = None) -> bytes:
+    if icc is not None:
+        return b"\x02\0\0" + icc
+    return b"\x01\0\0" + struct.pack(">I", enumcs)
+
+
+def jp2_cdef(entries) -> bytes:
+    return struct.pack(">H", len(entries)) + b"".join(struct.pack(">HHH", *e) for e in entries)
+
+
+def jp2_pclr(entries: np.ndarray, depths) -> bytes:
+    """A palette box: entries [NE, NPC], each column of its bit depth."""
+    out = struct.pack(">HB", *entries.shape) + bytes(d - 1 for d in depths)
+    for row in entries:
+        out += b"".join(int(v).to_bytes((d + 7) // 8, "big") for v, d in zip(row, depths))
+    return out
+
+
+def jp2_cmap(entries) -> bytes:
+    return b"".join(struct.pack(">HBB", *e) for e in entries)
+
+
+def jp2_header_with(colr: bytes | None = None, drop=(), extra=()):
+    """A ``header`` for jp2_rebuild: colr replaced, boxes dropped, added."""
+    def edit(sub):
+        out = [(k, colr if k == b"colr" and colr is not None else p) for k, p in sub
+               if k not in drop]
+        return out + list(extra)
+    return edit
+
+
+def j2k_parse(cs: bytes) -> tuple[list, list]:
+    """A codestream -> (main header segments [(marker, payload)], tile-parts
+    [(Isot, TPsot, TNsot, header segments, data)]); SOC, SIZ first, EOC
+    last."""
+    pos, main = 2, []
+    while True:
+        m = struct.unpack_from(">H", cs, pos)[0]
+        if m == 0xFF90:
+            break
+        length = struct.unpack_from(">H", cs, pos + 2)[0]
+        main.append((m, cs[pos + 4:pos + 2 + length]))
+        pos += 2 + length
+    parts = []
+    while struct.unpack_from(">H", cs, pos)[0] == 0xFF90:
+        isot, psot, tpsot, tnsot = struct.unpack_from(">HIBB", cs, pos + 4)
+        end = pos + psot if psot else len(cs) - 2
+        at, segs = pos + 12, []
+        while struct.unpack_from(">H", cs, at)[0] != 0xFF93:
+            m, length = struct.unpack_from(">HH", cs, at)
+            segs.append((m, cs[at + 4:at + 2 + length]))
+            at += 2 + length
+        parts.append((isot, tpsot, tnsot, segs, cs[at + 2:end]))
+        pos = end
+    return main, parts
+
+
+def j2k_build(main: list, parts: list) -> bytes:
+    out = b"\xff\x4f"
+    for m, p in main:
+        out += struct.pack(">HH", m, len(p) + 2) + p
+    for isot, tpsot, tnsot, segs, data in parts:
+        head = b"".join(struct.pack(">HH", m, len(p) + 2) + p for m, p in segs)
+        psot = 12 + len(head) + 2 + len(data)
+        sot = struct.pack(">HHHIBB", 0xFF90, 10, isot, psot, tpsot, tnsot)
+        out += sot + head + b"\xff\x93" + data
+    return out + b"\xff\xd9"
+
+
+def j2k_set_precision(cs: bytes, precs) -> bytes:
+    """SIZ's component precisions set (None keeps one); the coded data is
+    unchanged, so the DC shift, clamp and (9/7) step sizes follow."""
+    cs = bytearray(cs)
+    for i, p in enumerate(precs):
+        if p is not None:
+            cs[42 + 3 * i] = (cs[42 + 3 * i] & 0x80) | (p - 1)
+    return bytes(cs)
+
+
+def j2k_set_cod(cs: bytes, at: int, value: int) -> bytes:
+    """One byte of the main header's COD payload replaced (0 Scod, 1
+    progression, 4 MCT, 8 code-block style, ...)."""
+    main, parts = j2k_parse(cs)
+    main = [(m, p[:at] + bytes([value]) + p[at + 1:] if m == 0xFF52 else p) for m, p in main]
+    return j2k_build(main, parts)
+
+
+def _plt_lengths(segs: list) -> list:
+    out, v = [], 0
+    for m, p in segs:
+        if m != 0xFF58:
+            continue
+        for b in p[1:]:
+            v = (v << 7) | (b & 0x7F)
+            if not b & 0x80:
+                out.append(v)
+                v = 0
+    return out
+
+
+def j2k_split_tile_parts(cs: bytes, tlm: bool = False) -> bytes:
+    """Every tile's packets over two tile-parts, split at the middle packet
+    (the codestream needs PLT markers: Pillow's ``plt=True``); PLT dropped;
+    with ``tlm``, a TLM marker in the main header giving every tile-part's
+    length."""
+    main, parts = j2k_parse(cs)
+    out = []
+    for isot, _, _, segs, data in parts:
+        lengths = _plt_lengths(segs)
+        cut = sum(lengths[:len(lengths) // 2])
+        rest = [(m, p) for m, p in segs if m != 0xFF58]
+        out += [(isot, 0, 2, rest, data[:cut]), (isot, 1, 2, [], data[cut:])]
+    if tlm:
+        body = j2k_build([], out)[2:-2]
+        lens, pos = [], 0
+        while pos < len(body):
+            psot = struct.unpack_from(">I", body, pos + 6)[0]
+            lens.append((struct.unpack_from(">H", body, pos + 4)[0], psot))
+            pos += psot
+        tlm = bytes([0, 0x60]) + b"".join(struct.pack(">HI", t, n) for t, n in lens)
+        main = main + [(0xFF55, tlm)]
+    return j2k_build(main, out)
+
+
+def j2k_per_component_markers(cs: bytes, where: str = "main") -> bytes:
+    """COC and QCC markers for every component that repeat COD's and QCD's
+    values (the decode is the same), in the main header or in each tile's
+    first tile-part header (there with a tile COD and QCD too)."""
+    main, parts = j2k_parse(cs)
+    cod = next(p for m, p in main if m == 0xFF52)
+    qcd = next(p for m, p in main if m == 0xFF5C)
+    ncomp = struct.unpack_from(">H", dict(main)[0xFF51], 34)[0]
+    extra = []
+    for c in range(ncomp):
+        extra += [(0xFF53, bytes([c, cod[0] & 1]) + cod[5:]), (0xFF5D, bytes([c]) + qcd)]
+    if where == "main":
+        return j2k_build(main + extra, parts)
+    parts = [(i, tp, tn, ([(0xFF52, cod), (0xFF5C, qcd)] + extra if tp == 0 else []) + segs, d)
+             for i, tp, tn, segs, d in parts]
+    return j2k_build(main, parts)
+
+
+def j2k_with_sop(cs: bytes) -> bytes:
+    """An SOP marker segment before every packet, numbered from 0 in each
+    tile, and COD's SOP flag set (the codestream needs PLT markers: Pillow's
+    ``plt=True``); PLT dropped."""
+    main, parts = j2k_parse(cs)
+    main = [(m, bytes([p[0] | 2]) + p[1:] if m == 0xFF52 else p) for m, p in main]
+    out, count = [], {}
+    for isot, tpsot, tnsot, segs, data in parts:
+        body, at = b"", 0
+        for n in _plt_lengths(segs):
+            k = count.get(isot, 0)
+            count[isot] = k + 1
+            body += struct.pack(">HHH", 0xFF91, 4, k % 65536) + data[at:at + n]
+            at += n
+        out.append((isot, tpsot, tnsot, [(m, p) for m, p in segs if m != 0xFF58], body + data[at:]))
+    return j2k_build(main, out)
+
+
+def j2k_poc_in_tiles(cs: bytes) -> bytes:
+    """The main header's POC marker moved into every tile's first tile-part
+    header (the same progression, read from the tile)."""
+    main, parts = j2k_parse(cs)
+    poc = [(m, p) for m, p in main if m == 0xFF5F]
+    main = [(m, p) for m, p in main if m != 0xFF5F]
+    parts = [(i, tp, tn, (poc if tp == 0 else []) + segs, d) for i, tp, tn, segs, d in parts]
+    return j2k_build(main, parts)
