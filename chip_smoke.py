@@ -14,7 +14,9 @@
    (TIFF: every codec, layout and photometric the port reads;
    ``scripts/port_make_tiff_fixtures.py``) and ``tests/fixtures/port_jp2/``
    (JPEG 2000: JP2 and J2K, 5/3 and 9/7, every progression order, tiles,
-   tile-parts, palettes, channel definitions and colour spaces;
+   tile-parts, palettes, channel definitions and colour spaces) and
+   ``tests/fixtures/port_jp2_archival/`` (SOP/EPH markers, the six
+   code-block styles, ROI, PPM/PPT packed packet headers;
    ``scripts/port_make_jp2_fixtures.py``) under IMREAD_UNCHANGED and
    IMREAD_COLOR, and the GLB's and OBJs' textures through ``Mesh.load``,
    each held bit for bit against cv2's stored decode (or refused where cv2
@@ -87,8 +89,10 @@
    each; the same two with a 512^2 LZW RGBA TIFF (unassociated alpha,
    premultiplied as cv2 reads it; no matting, checked) and an OBJ sphere
    whose ``map_Kd`` is a tiled LZW TIFF; and the same two with a 512^2
-   lossless RGBA JPEG 2000 cut-out and an OBJ sphere whose ``map_Kd`` is a
-   JP2 in 32^2 tiles (``jp2 stage 1``, ``jp2 stage 2``);
+   lossless RGBA JPEG 2000 cut-out as archives write it (SOP and EPH
+   markers, RESET|RESTART|CAUSAL|ERTERM|SEGMARK code-blocks) and an OBJ
+   sphere whose ``map_Kd`` is a BYPASS-coded JP2 in 32^2 tiles with PPT
+   markers and an RGN marker (``jp2 stage 1``, ``jp2 stage 2``);
 10. the text day: writes a full-width SD 2.1-base diffusers snapshot (the
    UNet, the KL-VAE, the 23-layer CLIP text tower, a tokenizer) as fp16
    safetensors and a full-width single-file MVDream LDM checkpoint (the
@@ -1659,8 +1663,10 @@ PHOTO_TIFF = os.path.join(TIFF_FIXTURES, "photo_512_rgba.tif")
 SPHERE_TIFF = os.path.join(TIFF_FIXTURES, "sphere_tiff.obj")
 JP2_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                             "port_jp2")
-PHOTO_JP2 = os.path.join(JP2_FIXTURES, "photo_512_rgba.jp2")
-SPHERE_JP2 = os.path.join(JP2_FIXTURES, "sphere_jp2.obj")
+JP2_ARCHIVAL_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                     "fixtures", "port_jp2_archival")
+PHOTO_JP2 = os.path.join(JP2_ARCHIVAL_FIXTURES, "photo_512_rgba_archival.jp2")
+SPHERE_JP2 = os.path.join(JP2_ARCHIVAL_FIXTURES, "sphere_jp2_archival.obj")
 GRABCUT_IOU_CPU = 0.99
 GRABCUT_IOU_CV2 = 0.95
 DECODE_REPS = 5
@@ -1776,7 +1782,7 @@ def run_formats(card: str) -> dict:
 def check_image_fixtures(card: str) -> dict:
     """Every fixture of ``scripts/port_make_image_fixtures.py``,
     ``scripts/port_make_tiff_fixtures.py`` and
-    ``scripts/port_make_jp2_fixtures.py`` read by the port under
+    ``scripts/port_make_jp2_fixtures.py`` (both of its sets) read by the port under
     IMREAD_UNCHANGED and IMREAD_COLOR (``utils/imread.py``), the GLB and
     the OBJs through ``Mesh.load``, each held bit for bit against cv2's
     stored decode (shape, dtype, SHA-256; the 83x61 files' arrays too), or
@@ -1792,7 +1798,8 @@ def check_image_fixtures(card: str) -> dict:
 
     textures = {"tex_grey.obj": "tex_grey.png", "tex_palette.obj": "tex_palette.png",
                 "tex_exif.obj": "tex_exif.jpg", "sphere_jpeg.glb": "sphere_jpeg.glb",
-                "sphere_tiff.obj": "sphere_tiff.tif", "sphere_jp2.obj": "sphere_jp2.jp2"}
+                "sphere_tiff.obj": "sphere_tiff.tif", "sphere_jp2.obj": "sphere_jp2.jp2",
+                "sphere_jp2_archival.obj": "sphere_jp2_archival.jp2"}
 
     def timed(fn):
         times, out = [], None
@@ -1804,7 +1811,7 @@ def check_image_fixtures(card: str) -> dict:
 
     out = {}
     for folder, none_means in ((IMAGE_FIXTURES, NotImplementedError), (TIFF_FIXTURES, ValueError),
-                               (JP2_FIXTURES, ValueError)):
+                               (JP2_FIXTURES, ValueError), (JP2_ARCHIVAL_FIXTURES, ValueError)):
         with open(os.path.join(folder, "decodes.json")) as fh:
             digests = json.load(fh)
         small = np.load(os.path.join(folder, "small_decodes.npz"))
@@ -1858,6 +1865,7 @@ def check_image_fixtures(card: str) -> dict:
                   f"in a median {ms:.2f} ms of {DECODE_REPS}; card '{card}'")
     big = {k: out[k] for k in ("photo_1024x768.webp color", "photo_1024x768_jpeg.tif color",
                                "photo_1024x768_lossy.jp2 color",
+                               "photo_1024x768_bypass.jp2 color",
                                "photo_1024x768_lossless.jp2 color")}
     print(f"[formats] 1024x768 photos, IMREAD_COLOR median host ms: {json.dumps(big)} (the "
           f"JPEG's is its decode_jpeg line above); card '{card}'")
@@ -1942,8 +1950,9 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
             tiff_mesh = drive_cli("tiff stage 2", cli2, tiff_argv + [
                 "save_path=tiffmesh", f"mesh={SPHERE_TIFF}", f"iters_refine={WEIGHTS_REFINE}"],
                 runs)
-            # A lossless RGBA JP2 cut-out through stage 1, and an OBJ whose
-            # texture is a JP2 in 32^2 tiles.
+            # A lossless RGBA JP2 cut-out with archival coding options
+            # through stage 1, and an OBJ whose texture is a BYPASS-coded
+            # JP2 in 32^2 tiles with PPT and RGN markers.
             jp2_argv = ["--config", os.path.join(CONFIGS, "image.yaml"), f"input={PHOTO_JP2}",
                         f"outdir={tmp}", f"seed={seed}", f"zero123_ckpt={snap}"]
             with grabcut_watch(jp2_matte):
@@ -1980,11 +1989,13 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
     if jp2_matte["runs"] or jp2_albedo is None or jp2_albedo.shape != (128, 128, 3):
         raise RuntimeError(f"the JP2 photo was matted ({jp2_matte}) or the OBJ's JP2 texture "
                            f"was not read ({None if jp2_albedo is None else jp2_albedo.shape})")
-    print(f"[weights] jp2 input {os.path.relpath(PHOTO_JP2)}: a lossless RGBA JPEG 2000 decoded "
-          f"by the port, its alpha kept, {SAI_ITERS} stage-1 steps in "
+    print(f"[weights] jp2 input {os.path.relpath(PHOTO_JP2)}: a lossless RGBA JPEG 2000 with "
+          f"SOP/EPH markers and RESET|RESTART|CAUSAL|ERTERM|SEGMARK code-blocks decoded by the "
+          f"port, its alpha kept, {SAI_ITERS} stage-1 steps in "
           f"{runs['jp2 stage 1']['wall_s']:.1f} s; obj mesh {os.path.relpath(SPHERE_JP2)}: its "
-          f"128^2 JP2 texture in 32^2 tiles read by the port, {WEIGHTS_REFINE} stage-2 steps in "
-          f"{runs['jp2 stage 2']['wall_s']:.1f} s (loss {jp2_mesh['loss']:.5f}); card '{card}'")
+          f"128^2 BYPASS-coded JP2 texture in 32^2 tiles with PPT and RGN markers read by the "
+          f"port, {WEIGHTS_REFINE} stage-2 steps in {runs['jp2 stage 2']['wall_s']:.1f} s (loss "
+          f"{jp2_mesh['loss']:.5f}); card '{card}'")
     if (first["step"], resumed["step"], sai["step"], webp["step"], tiff["step"],
             jp2["step"]) != (WEIGHTS_STOP, WEIGHTS_ITERS, SAI_ITERS, SAI_ITERS, SAI_ITERS,
                              SAI_ITERS):

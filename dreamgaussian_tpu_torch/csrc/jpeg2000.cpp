@@ -75,12 +75,27 @@ struct Poc {                           // one progression volume of a POC marker
     int rs, cs, lye, re, ce, order;
 };
 
+// Packed packet headers: the segments of PPM (main header) or PPT (a
+// tile's headers) by their index Z, each read once.
+struct Packed {
+    std::vector<std::vector<uint8_t>> parts;
+    void add(Reader& r, int64_t end, const char* name) {
+        if (end - r.pos < 2) bad(std::string(name) + " marker too short");
+        uint32_t z = r.u8();
+        if (parts.size() <= z) parts.resize(z + 1);
+        if (!parts[z].empty()) bad(std::string(name) + " index read twice");
+        parts[z].assign(r.p + r.pos, r.p + end);
+    }
+};
+
 struct TileCoding {                    // COD's progression fields and per-component state
     int order = 0, layers = 1, mct = 0, sop = 0, eph = 0;
     std::vector<Poc> pocs;
     std::vector<Coding> coding;
     std::vector<Quant> quant;
+    std::vector<int> roishift;         // RGN's maxshift per component
     std::vector<int> coc_set, qcc_set; // 1 when a COC/QCC of this tile's header set it
+    Packed ppt;
 };
 
 struct Header {
@@ -90,6 +105,8 @@ struct Header {
     TileCoding main;
     int have_cod = 0, have_qcd = 0;
     int ntx = 0, nty = 0;
+    Packed ppm;
+    std::vector<uint8_t> ppm_headers;  // the PPM data without its Nppm fields
 };
 
 void read_coding_style(Reader& r, int64_t end, Coding& c, int scod) {
@@ -136,14 +153,14 @@ void read_quant(Reader& r, int64_t end, Quant& q) {
     if (q.expn.empty()) bad("quantization marker without step sizes");
 }
 
+// Code-block style flags (Table A.19); all six of Part 1 are decoded.
+enum {
+    LAZY = 0x01, RESET = 0x02, TERMALL = 0x04, VSC = 0x08, PTERM = 0x10, SEGSYM = 0x20,
+    HT = 0x40,
+};
+
 void check_cblk_style(int st) {
-    static const char* names[] = {
-        "selective arithmetic coding bypass", "reset of context probabilities",
-        "termination on each coding pass", "vertically causal context formation",
-        "predictable termination", "segmentation symbols"};
-    if (st & 0x40) refuse("HTJ2K (Part 15) high-throughput code-blocks");
-    for (int b = 0; b < 6; ++b)
-        if (st & (1 << b)) refuse(std::string("code-block style: ") + names[b]);
+    if (st & HT) refuse("HTJ2K (Part 15) high-throughput code-blocks");
     if (st & ~0x7f) bad("code-block style " + std::to_string(st));
 }
 
@@ -194,7 +211,15 @@ void read_marker(Header& h, TileCoding& t, Reader& r, uint32_t m, int64_t end, b
         t.qcc_set[ci] = 1;
         break;
     }
-    case 0xFF5E: refuse("region of interest (RGN marker)");
+    case 0xFF5E: {  // RGN: OpenJPEG reads its maxshift whatever Srgn says
+        int room = nc <= 256 ? 1 : 2;
+        if (end - r.pos != 2 + room) bad("RGN length");
+        int ci = room == 1 ? r.u8() : r.u16();
+        r.u8();
+        if (ci >= nc) bad("RGN of a component that does not exist");
+        t.roishift[ci] = r.u8();
+        break;
+    }
     case 0xFF5F: {  // POC: volumes appended to those of the main header
         int wide = nc >= 257 ? 2 : 1;
         int entry = 5 + 2 * wide;
@@ -213,8 +238,11 @@ void read_marker(Header& h, TileCoding& t, Reader& r, uint32_t m, int64_t end, b
         }
         break;
     }
-    case 0xFF60: refuse("packed packet headers (PPM marker)");
-    case 0xFF61: refuse("packed packet headers (PPT marker)");
+    case 0xFF60: h.ppm.add(r, end, "PPM"); break;
+    case 0xFF61:
+        if (!h.ppm.parts.empty()) bad("PPT marker after a PPM marker");
+        t.ppt.add(r, end, "PPT");
+        break;
     case 0xFF50: refuse("HTJ2K (Part 15) capabilities (CAP marker)");
     case 0xFF59: refuse("JPEG 2000 Part 2 (CPF marker)");
     case 0xFF74: case 0xFF75: case 0xFF77: case 0xFF78:
@@ -223,6 +251,35 @@ void read_marker(Header& h, TileCoding& t, Reader& r, uint32_t m, int64_t end, b
         break;  // COM, TLM, PLM, PLT, CRG and unknown segments carry nothing decoded
     }
     r.pos = end;
+}
+
+// OpenJPEG's opj_j2k_merge_ppm: the PPM segments in Zppm order as one
+// stream of packet headers, each Nppm field dropped (a field's bytes may run
+// on into the next segment); its tile-part boundaries are not kept.
+void merge_ppm(Header& h) {
+    if (h.ppm.parts.empty()) return;
+    uint64_t left = 0;
+    std::vector<uint8_t>& out = h.ppm_headers;
+    for (const auto& seg : h.ppm.parts) {
+        size_t at = 0, n = seg.size();
+        if (n == 0) continue;
+        size_t take = size_t(std::min<uint64_t>(left, n));
+        out.insert(out.end(), seg.begin(), seg.begin() + take);
+        at = take;
+        left -= take;
+        while (at < n) {
+            if (n - at < 4) bad("not enough bytes to read Nppm");
+            uint64_t nppm = (uint64_t(seg[at]) << 24) | (seg[at + 1] << 16) | (seg[at + 2] << 8)
+                            | seg[at + 3];
+            at += 4;
+            take = size_t(std::min<uint64_t>(nppm, n - at));
+            out.insert(out.end(), seg.begin() + at, seg.begin() + at + take);
+            at += take;
+            left = nppm - take;
+        }
+    }
+    if (left) bad("corrupted PPM markers");
+    if (out.empty()) bad("PPM markers without packet headers");   // OpenJPEG's malloc(0) fails
 }
 
 // Where OpenJPEG 2.5 takes each marker it knows: the main header (1), a
@@ -303,6 +360,7 @@ Header parse_main(Reader& r) {
     h.main.quant.assign(nc, Quant());
     h.main.coc_set.assign(nc, 0);
     h.main.qcc_set.assign(nc, 0);
+    h.main.roishift.assign(nc, 0);
     for (;;) {
         uint32_t m = next_marker(r, IN_MAIN, 0xFF90);
         if (m == 0xFF90) { r.pos -= 2; break; }
@@ -314,6 +372,7 @@ Header parse_main(Reader& r) {
     }
     if (!h.have_cod) bad("no COD marker in the main header");
     if (!h.have_qcd) bad("no QCD marker in the main header");
+    merge_ppm(h);
     h.main.coc_set.assign(nc, 0);
     h.main.qcc_set.assign(nc, 0);
     for (int i = 0; i < nc; ++i) check_cblk_style(h.main.coding[i].style);
@@ -326,6 +385,7 @@ struct TileData {
     TileCoding coding;
     std::vector<uint8_t> bytes;
     int parts_seen = 0, parts_total = 0, started = 0;
+    int ready = 0;                     // when its last tile-part by TNsot came (1, 2, ...)
 };
 
 // Walks the tile-parts; returns per tile its coding and its packet bytes
@@ -337,6 +397,7 @@ struct TileData {
 std::vector<TileData> parse_tiles(Header& h, Reader& r) {
     std::vector<TileData> tiles(size_t(h.ntx) * h.nty);
     int nc = int(h.comps.size());
+    int readied = 0;
     auto counted = [&]() {            // every tile has all its tile-parts, by TNsot
         for (auto& td : tiles)
             if (!td.parts_total || td.parts_seen != td.parts_total) return false;
@@ -369,6 +430,7 @@ std::vector<TileData> parse_tiles(Header& h, Reader& r) {
         }
         bool first = td.parts_seen == 0;
         td.parts_seen++;
+        if (td.parts_total && td.parts_seen == td.parts_total && !td.ready) td.ready = ++readied;
         int64_t part_end = psot ? sot_at + psot : -1;
         if (psot && psot < 14) bad("Psot below 14");
         if (psot && part_end > r.n) bad("codestream truncated inside a tile-part");
@@ -415,7 +477,6 @@ std::vector<TileData> parse_tiles(Header& h, Reader& r) {
         TileData& td = tiles[t];
         if (!td.started) continue;
         for (int i = 0; i < nc; ++i) check_cblk_style(td.coding.coding[i].style);
-        if (td.coding.eph) refuse("EPH markers in packets");
     }
     return tiles;
 }
@@ -443,10 +504,22 @@ struct Bits {
         for (int i = n - 1; i >= 0; --i) v |= bit() << i;
         return v;
     }
-    void align() {
-        if ((buf & 0xff) == 0xff) byte_in();
+    // OpenJPEG's opj_bio_inalign: false when a stuffed byte lies past the end.
+    bool align() {
+        bool ok = true;
+        if ((buf & 0xff) == 0xff) {
+            ok = pos < end;
+            byte_in();
+        }
         ct = 0;
+        return ok;
     }
+};
+
+// A run of bytes being read: a tile's packets, or packed packet headers.
+struct Stream {
+    const uint8_t* p;
+    int64_t pos, end;
 };
 
 struct TagTree {
@@ -492,16 +565,27 @@ struct TagTree {
     }
 };
 
-// Passes per codeword segment: with no code-block style flag, OpenJPEG
-// ends a segment after 109 (more than a 30-plane block has), and its MQ
-// decoder starts afresh on the next.
-constexpr int SEGMENT_PASSES = 109;
+// A codeword segment: its most passes, the passes and bytes it has.
+struct Segment {
+    int most, passes = 0, bytes = 0;
+};
 
 struct Block {
     int x0, y0, x1, y1;      // band coordinates
     int included = 0, numbps = 0, lenbits = 3;
     std::vector<uint8_t> data;
-    std::vector<int> seg_passes, seg_bytes;
+    std::vector<Segment> segs;
+    // OpenJPEG's opj_t2_init_seg: one pass a segment when each pass is
+    // terminated; with the bypass, 10 passes (the MQ-coded cleanup and the
+    // three bit-planes below it), then 2 raw (significance, refinement)
+    // and 1 MQ (cleanup) in turn; else 109, more than a 30-plane block has.
+    void new_segment(int style) {
+        int most = 109;
+        if (style & TERMALL) most = 1;
+        else if ((style & LAZY) && segs.empty()) most = 10;
+        else if (style & LAZY) most = segs.back().most == 1 || segs.back().most == 10 ? 2 : 1;
+        segs.push_back({most});
+    }
 };
 
 struct Band {
@@ -644,16 +728,25 @@ int floorlog2(uint32_t v) {
     return l;
 }
 
-// One packet: its header, then its body appended to the included blocks.
-void read_packet(const uint8_t* d, int64_t& pos, int64_t end, Resolution& R, int prec_no,
-                 int layer, int sop) {
+// One packet as OpenJPEG 2.5's opj_t2_read_packet_header and _data read
+// it: an SOP marker is stepped over where there is one (a missing one is no
+// error); the header comes from ``packed`` (PPM or PPT) or else from the
+// packets' own bytes, and must end with an EPH marker when COD says so
+// (OpenJPEG fails the tile without it); then the body is appended to the
+// included blocks.
+void read_packet(Stream& body, Stream* packed, Resolution& R, int prec_no, int layer,
+                 const TileCoding& tcod, int style) {
     if (R.pw == 0 || R.ph == 0) return;
     Precinct& P = R.precincts[prec_no];
-    if (sop && pos + 6 <= end && d[pos] == 0xFF && d[pos + 1] == 0x91) pos += 6;
-    Bits bits(d, pos, end);
-    struct Inc { Block* k; int seg, passes, len; };
+    const uint8_t* d = body.p;
+    if (tcod.sop && body.end - body.pos >= 6 && d[body.pos] == 0xFF && d[body.pos + 1] == 0x91)
+        body.pos += 6;
+    Stream& head = packed ? *packed : body;
+    Bits bits(head.p, head.pos, head.end);
+    struct Inc { Block* k; int seg, len; };
     std::vector<Inc> incs;
-    if (bits.bit()) {
+    bool present = bits.bit();
+    if (present) {
         for (int b = 0; b < R.nbands; ++b) {
             Band& B = R.bands[b];
             if (B.x0 >= B.x1 || B.y0 >= B.y1) continue;
@@ -676,33 +769,34 @@ void read_packet(const uint8_t* d, int64_t& pos, int64_t end, Resolution& R, int
                 }
                 int np = num_passes(bits);
                 while (bits.bit()) k.lenbits++;
-                if (k.seg_passes.empty() || k.seg_passes.back() == SEGMENT_PASSES) {
-                    k.seg_passes.push_back(0);
-                    k.seg_bytes.push_back(0);
-                }
+                if (k.segs.empty() || k.segs.back().passes == k.segs.back().most) k.new_segment(style);
                 // A length per segment the new passes reach.
-                for (int seg = int(k.seg_passes.size()) - 1; np > 0; ++seg) {
-                    if (seg == int(k.seg_passes.size())) {
-                        k.seg_passes.push_back(0);
-                        k.seg_bytes.push_back(0);
-                    }
-                    int take = std::min(SEGMENT_PASSES - k.seg_passes[seg], np);
+                for (int seg = int(k.segs.size()) - 1;; ++seg) {
+                    Segment& sg = k.segs[seg];
+                    int take = std::min(sg.most - sg.passes, np);
                     int nbits = k.lenbits + floorlog2(uint32_t(take));
                     if (nbits > 32) bad("code-block length field above 32 bits");
-                    incs.push_back({&k, seg, take, int(bits.read(nbits))});
-                    k.seg_passes[seg] += take;
+                    incs.push_back({&k, seg, int(bits.read(nbits))});
+                    sg.passes += take;
                     np -= take;
+                    if (np <= 0) break;
+                    k.new_segment(style);
                 }
             }
         }
     }
-    bits.align();
-    pos = bits.pos;
+    if (!bits.align() && present) bad("packet header ends inside a stuffed byte");
+    head.pos = bits.pos;
+    if (tcod.eph) {
+        if (head.end - head.pos < 2) bad("no room for the EPH marker after a packet header");
+        if (head.p[head.pos] != 0xFF || head.p[head.pos + 1] != 0x92) bad("expected an EPH marker");
+        head.pos += 2;
+    }
     for (auto& in : incs) {
-        if (pos + in.len > end) bad("codestream truncated inside a packet body");
-        in.k->data.insert(in.k->data.end(), d + pos, d + pos + in.len);
-        in.k->seg_bytes[in.seg] += in.len;
-        pos += in.len;
+        if (body.pos + in.len > body.end) bad("codestream truncated inside a packet body");
+        in.k->data.insert(in.k->data.end(), d + body.pos, d + body.pos + in.len);
+        in.k->segs[in.seg].bytes += in.len;
+        body.pos += in.len;
     }
 }
 
@@ -740,6 +834,28 @@ struct MQ {
     void reset_contexts() {
         for (int i = 0; i < 19; ++i) { st[i] = 0; mps[i] = 0; }
         st[0] = 4; st[17] = 3; st[18] = 46;
+    }
+    // A raw (bypass) segment, OpenJPEG's opj_mqc_raw_init_dec: ``a`` is
+    // kept, as there.
+    void raw_start(const uint8_t* d) {
+        bp = d;
+        c = 0;
+        ct = 0;
+    }
+    // One raw bit (opj_mqc_raw_decode): after 0xFF the next byte gives 7
+    // bits, and a byte above 0x8F there ends the data (ones follow).
+    int raw() {
+        if (ct == 0) {
+            if (c == 0xFF) {
+                if (*bp > 0x8F) { c = 0xFF; ct = 8; }
+                else { c = *bp++; ct = 7; }
+            } else {
+                c = *bp++;
+                ct = 8;
+            }
+        }
+        --ct;
+        return (c >> ct) & 1;
     }
     // ``d`` holds the segment followed by two 0xFF bytes.
     void start(const uint8_t* d, size_t len) {
@@ -835,30 +951,41 @@ struct Luts {
 const Luts LUT;
 
 // Decodes one code-block's passes into ``out`` (w*h, values 2x the
-// magnitude plus the half-step, signed) as OpenJPEG's T1 does.
-void decode_block(const Block& k, int orient, std::vector<int32_t>& out, std::vector<uint8_t>& seg,
-                  std::vector<uint32_t>& f) {
+// magnitude plus the half-step, signed) as OpenJPEG's T1 does
+// (opj_t1_decode_cblk), with the code-block style flags and the ROI shift:
+// the planes count from roishift + numbps; a segment that starts on a
+// significance or refinement pass at or below plane numbps - 4 is raw when
+// the bypass is on (OpenJPEG does not count the ROI shift there); RESET
+// sets the contexts back after each MQ pass; with VSC a sample turning
+// significant on a stripe's first row tells the row above nothing; SEGSYM
+// reads four symbols after each cleanup; ERTERM changes nothing decoded
+// (OpenJPEG only warns). Then magnitudes at or above 1 << roishift are
+// shifted down (opj_t1_clbl_decode_processor).
+void decode_block(const Block& k, int orient, int style, int roishift, std::vector<int32_t>& out,
+                  std::vector<uint8_t>& seg, std::vector<uint32_t>& f) {
     int w = k.x1 - k.x0, h = k.y1 - k.y0;
     out.assign(size_t(w) * h, 0);
-    if (k.seg_passes.empty() || w <= 0 || h <= 0) return;
-    int bpno = k.numbps;
+    int bpno = roishift + k.numbps;
     if (bpno >= 31) bad("more than 30 bit-planes in a code-block");
-    if (bpno <= 0) return;
+    if (k.segs.empty() || w <= 0 || h <= 0 || bpno <= 0) return;
     MQ mq;
     const int fw = w + 2;
     f.assign(size_t(fw) * (h + 2), 0);
     uint32_t* base = f.data() + fw + 1;           // sample (0, 0)
     const uint8_t* zc = LUT.zc[orient];
+    const bool vsc = style & VSC;
     auto sign_ctx = [](uint32_t g) { return ((g >> 4) & 0xF) | (((g >> 12) & 0xF) << 4); };
-    auto set_sig = [&](uint32_t* g, int neg) {
+    auto set_sig = [&](uint32_t* g, int neg, int y) {
         uint32_t n = neg ? ~0u : 0u;
         *g |= SIG | (n & NEG);
-        g[-fw] |= S_SIG | (n & S_NEG);
-        g[fw] |= N_SIG | (n & N_NEG);
         g[-1] |= E_SIG | (n & E_NEG);
         g[1] |= W_SIG | (n & W_NEG);
-        g[-fw - 1] |= SE_SIG;
-        g[-fw + 1] |= SW_SIG;
+        if (!vsc || (y & 3)) {
+            g[-fw] |= S_SIG | (n & S_NEG);
+            g[-fw - 1] |= SE_SIG;
+            g[-fw + 1] |= SW_SIG;
+        }
+        g[fw] |= N_SIG | (n & N_NEG);
         g[fw - 1] |= NE_SIG;
         g[fw + 1] |= NW_SIG;
     };
@@ -868,84 +995,95 @@ void decode_block(const Block& k, int orient, std::vector<int32_t>& out, std::ve
     };
     // Each segment's bytes with two 0xFF after them; the contexts carry on.
     mq.reset_contexts();
-    size_t sg = 0, seg_at = 0;
-    int left = 0, passes = 0;
-    for (int n : k.seg_passes) passes += n;
+    size_t seg_at = 0;
     int pass_type = 2;
-    for (int p = 0; p < passes && bpno >= 1; ++p) {
-        while (left == 0) {
-            seg.assign(k.data.begin() + seg_at, k.data.begin() + seg_at + k.seg_bytes[sg]);
-            seg.push_back(0xFF);
-            seg.push_back(0xFF);
-            mq.start(seg.data(), size_t(k.seg_bytes[sg]));
-            seg_at += k.seg_bytes[sg];
-            left = k.seg_passes[sg++];
-        }
-        --left;
-        int32_t one = int32_t(1) << bpno, half = one >> 1, oneplushalf = one | half;
-        if (pass_type == 0) {          // significance propagation
-            for (int y0 = 0; y0 < h; y0 += 4) {
-                int y1 = std::min(y0 + 4, h);
-                for (int x = 0; x < w; ++x)
-                    for (int y = y0; y < y1; ++y) {
-                        uint32_t* g = base + y * fw + x;
-                        if ((*g & SIG) || !(*g & NEIGHBOURS)) continue;
-                        if (mq.decode(zc[(*g >> 4) & 0xFF])) {
-                            int s = decode_sign(*g);
-                            out[size_t(y) * w + x] = s ? -oneplushalf : oneplushalf;
-                            set_sig(g, s);
+    for (const Segment& sgm : k.segs) {
+        bool raw = (style & LAZY) && bpno <= k.numbps - 4 && pass_type < 2;
+        seg.assign(k.data.begin() + seg_at, k.data.begin() + seg_at + sgm.bytes);
+        seg.push_back(0xFF);
+        seg.push_back(0xFF);
+        if (raw) mq.raw_start(seg.data());
+        else mq.start(seg.data(), size_t(sgm.bytes));
+        seg_at += sgm.bytes;
+        for (int p = 0; p < sgm.passes && bpno >= 1; ++p) {
+            int32_t one = int32_t(1) << bpno, half = one >> 1, oneplushalf = one | half;
+            if (pass_type == 0) {          // significance propagation
+                for (int y0 = 0; y0 < h; y0 += 4) {
+                    int y1 = std::min(y0 + 4, h);
+                    for (int x = 0; x < w; ++x)
+                        for (int y = y0; y < y1; ++y) {
+                            uint32_t* g = base + y * fw + x;
+                            if ((*g & SIG) || !(*g & NEIGHBOURS)) continue;
+                            if (raw ? mq.raw() : mq.decode(zc[(*g >> 4) & 0xFF])) {
+                                int s = raw ? mq.raw() : decode_sign(*g);
+                                out[size_t(y) * w + x] = s ? -oneplushalf : oneplushalf;
+                                set_sig(g, s, y);
+                            }
+                            *g |= VISIT;
                         }
-                        *g |= VISIT;
-                    }
-            }
-        } else if (pass_type == 1) {   // magnitude refinement
-            for (int y0 = 0; y0 < h; y0 += 4) {
-                int y1 = std::min(y0 + 4, h);
-                for (int x = 0; x < w; ++x)
-                    for (int y = y0; y < y1; ++y) {
-                        uint32_t* g = base + y * fw + x;
-                        if ((*g & (SIG | VISIT)) != SIG) continue;
-                        int cx = (*g & REFINED) ? 16 : ((*g & NEIGHBOURS) ? 15 : 14);
-                        int bit = mq.decode(cx);
-                        int32_t& v = out[size_t(y) * w + x];
-                        int32_t t = bit ? half : -half;
-                        v += v < 0 ? -t : t;
-                        *g |= REFINED;
-                    }
-            }
-        } else {                       // cleanup
-            for (int y0 = 0; y0 < h; y0 += 4) {
-                int y1 = std::min(y0 + 4, h);
-                for (int x = 0; x < w; ++x) {
-                    int y = y0;
-                    uint32_t* g0 = base + y0 * fw + x;
-                    const uint32_t busy = SIG | VISIT | NEIGHBOURS;
-                    if (y1 - y0 == 4 && !(g0[0] & busy) && !(g0[fw] & busy) &&
-                        !(g0[2 * fw] & busy) && !(g0[3 * fw] & busy)) {
-                        if (!mq.decode(17)) continue;
-                        int r = mq.decode(18) << 1;
-                        r |= mq.decode(18);
-                        y = y0 + r;
-                        uint32_t* g = base + y * fw + x;
-                        int s = decode_sign(*g);
-                        out[size_t(y) * w + x] = s ? -oneplushalf : oneplushalf;
-                        set_sig(g, s);
-                        ++y;
-                    }
-                    for (; y < y1; ++y) {
-                        uint32_t* g = base + y * fw + x;
-                        if (*g & (SIG | VISIT)) continue;
-                        if (mq.decode(zc[(*g >> 4) & 0xFF])) {
+                }
+            } else if (pass_type == 1) {   // magnitude refinement
+                for (int y0 = 0; y0 < h; y0 += 4) {
+                    int y1 = std::min(y0 + 4, h);
+                    for (int x = 0; x < w; ++x)
+                        for (int y = y0; y < y1; ++y) {
+                            uint32_t* g = base + y * fw + x;
+                            if ((*g & (SIG | VISIT)) != SIG) continue;
+                            int bit;
+                            if (raw) bit = mq.raw();
+                            else bit = mq.decode((*g & REFINED) ? 16 : ((*g & NEIGHBOURS) ? 15 : 14));
+                            int32_t& v = out[size_t(y) * w + x];
+                            int32_t t = bit ? half : -half;
+                            v += v < 0 ? -t : t;
+                            *g |= REFINED;
+                        }
+                }
+            } else {                       // cleanup
+                for (int y0 = 0; y0 < h; y0 += 4) {
+                    int y1 = std::min(y0 + 4, h);
+                    for (int x = 0; x < w; ++x) {
+                        int y = y0;
+                        uint32_t* g0 = base + y0 * fw + x;
+                        const uint32_t busy = SIG | VISIT | NEIGHBOURS;
+                        if (y1 - y0 == 4 && !(g0[0] & busy) && !(g0[fw] & busy) &&
+                            !(g0[2 * fw] & busy) && !(g0[3 * fw] & busy)) {
+                            if (!mq.decode(17)) continue;
+                            int r = mq.decode(18) << 1;
+                            r |= mq.decode(18);
+                            y = y0 + r;
+                            uint32_t* g = base + y * fw + x;
                             int s = decode_sign(*g);
                             out[size_t(y) * w + x] = s ? -oneplushalf : oneplushalf;
-                            set_sig(g, s);
+                            set_sig(g, s, y);
+                            ++y;
+                        }
+                        for (; y < y1; ++y) {
+                            uint32_t* g = base + y * fw + x;
+                            if (*g & (SIG | VISIT)) continue;
+                            if (mq.decode(zc[(*g >> 4) & 0xFF])) {
+                                int s = decode_sign(*g);
+                                out[size_t(y) * w + x] = s ? -oneplushalf : oneplushalf;
+                                set_sig(g, s, y);
+                            }
                         }
                     }
                 }
+                for (auto& g : f) g &= ~VISIT;
+                if (style & SEGSYM)
+                    for (int i = 0; i < 4; ++i) mq.decode(18);
             }
-            for (auto& g : f) g &= ~VISIT;
+            if ((style & RESET) && !raw) mq.reset_contexts();
+            if (++pass_type == 3) { pass_type = 0; --bpno; }
         }
-        if (++pass_type == 3) { pass_type = 0; --bpno; }
+    }
+    if (roishift >= 31) {
+        std::fill(out.begin(), out.end(), 0);
+    } else if (roishift) {
+        int32_t thresh = int32_t(1) << roishift;
+        for (int32_t& v : out) {
+            int32_t mag = v < 0 ? -v : v;
+            if (mag >= thresh) v = v < 0 ? -(mag >> roishift) : mag >> roishift;
+        }
     }
 }
 
@@ -1168,33 +1306,46 @@ void parallel_for(int n, Fn fn, bool threaded = true) {
 
 // ---------------------------------------------------------------- tile decode
 
-// One tile into ``out``; ``threaded`` spreads its code-blocks and its
-// components over threads (the caller spreads the tiles instead when there
-// are several).
-void decode_tile(const Header& h, TileData& td, int tile_no, int32_t* out, int64_t img_w,
-                 int64_t img_h, bool threaded) {
+// Tier 2 of one tile into ``tcs``: its packets in their order, their
+// headers from ``ppm`` (the codestream's PPM data, read on from one tile to
+// the next in OpenJPEG's decode order) or from the tile's PPT data or else
+// from the packets.
+void tile_tier2(const Header& h, TileData& td, int tile_no, std::vector<TileComp>& tcs, Stream* ppm) {
+    // OpenJPEG keeps no buffer for a tile whose tile-parts hold no byte
+    // after SOD (all its headers packed, no SOP), and fails its decode.
+    if (td.bytes.empty()) bad("a tile with no bytes after its SOD markers");
     int nc = int(h.comps.size());
     int p = tile_no % h.ntx, q = tile_no / h.ntx;
     int64_t tx0 = std::max(h.xt0 + p * h.xt, h.x0), ty0 = std::max(h.yt0 + q * h.yt, h.y0);
     int64_t tx1 = std::min(h.xt0 + (p + 1) * h.xt, h.xsiz), ty1 = std::min(h.yt0 + (q + 1) * h.yt, h.ysiz);
     TileCoding& tcod = td.coding;
-    std::vector<TileComp> tcs(nc);
+    tcs.assign(nc, TileComp());
     for (int c = 0; c < nc; ++c) {
         const Coding& cod = tcod.coding[c];
         if (cod.wavelet > 1) refuse("JPEG 2000 Part 2 arbitrary wavelet kernels");
         build_tile_comp(cod, tcod.quant[c], h.comps[c], tx0, ty0, tx1, ty1, tcs[c]);
     }
-    // Tier 2: the packets in their order.
-    std::vector<PacketId> order = packet_order(h, tcod, tcs, tx0, ty0);
-    int64_t pos = 0, end = int64_t(td.bytes.size());
-    for (const PacketId& id : order) {
-        read_packet(td.bytes.data(), pos, end, tcs[id.comp].res[id.res], id.prec, id.layer,
-                    tcod.sop);
-    }
+    std::vector<uint8_t> ppt;
+    for (const auto& part : tcod.ppt.parts) ppt.insert(ppt.end(), part.begin(), part.end());
+    Stream ppt_stream{ppt.data(), 0, int64_t(ppt.size())};
+    Stream* packed = ppm ? ppm : (ppt.empty() ? nullptr : &ppt_stream);
+    Stream body{td.bytes.data(), 0, int64_t(td.bytes.size())};
+    for (const PacketId& id : packet_order(h, tcod, tcs, tx0, ty0))
+        read_packet(body, packed, tcs[id.comp].res[id.res], id.prec, id.layer, tcod,
+                    tcod.coding[id.comp].style);
+}
+
+// Tier 1 onwards of one tile into ``out``; ``threaded`` spreads its
+// code-blocks and its components over threads (the caller spreads the tiles
+// instead when there are several).
+void tile_finish(const Header& h, TileData& td, std::vector<TileComp>& tcs, int32_t* out,
+                 int64_t img_w, int64_t img_h, bool threaded) {
+    int nc = int(h.comps.size());
+    TileCoding& tcod = td.coding;
     // Tier 1 and dequantization, the code-blocks spread over threads (each
     // writes its own part of its component's buffer), then the inverse
     // transform, one component per thread.
-    struct Job { TileComp* tc; const Band* band; const Block* block; int64_t offx, offy; bool rev; };
+    struct Job { TileComp* tc; const Band* band; const Block* block; int64_t offx, offy; int comp; };
     std::vector<Job> jobs;
     for (int c = 0; c < nc; ++c) {
         TileComp& tc = tcs[c];
@@ -1213,7 +1364,7 @@ void decode_tile(const Header& h, TileData& td, int tile_no, int32_t* out, int64
                     if (B.orient & 1) offx = tc.res[r - 1].x1 - tc.res[r - 1].x0;
                     if (B.orient & 2) offy = tc.res[r - 1].y1 - tc.res[r - 1].y0;
                 }
-                for (const Block& k : R.blocks[b]) jobs.push_back({&tc, &B, &k, offx, offy, rev});
+                for (const Block& k : R.blocks[b]) jobs.push_back({&tc, &B, &k, offx, offy, c});
             }
         }
     }
@@ -1228,13 +1379,15 @@ void decode_tile(const Header& h, TileData& td, int tile_no, int32_t* out, int64
             TileComp& tc = *job.tc;
             int64_t tw = tc.x1 - tc.x0;
             float step = 0.5f * B.step;
-            decode_block(k, B.orient, cb, seg, flags);
+            bool rev = tcod.coding[job.comp].wavelet == 1;
+            decode_block(k, B.orient, tcod.coding[job.comp].style, tcod.roishift[job.comp], cb, seg,
+                         flags);
             int w = k.x1 - k.x0, hh = k.y1 - k.y0;
             for (int y = 0; y < hh; ++y)
                 for (int x = 0; x < w; ++x) {
                     int64_t at = (k.y0 - B.y0 + job.offy + y) * tw + (k.x0 - B.x0 + job.offx + x);
                     int32_t v = cb[size_t(y) * w + x];
-                    if (job.rev) tc.idata[at] = v / 2;
+                    if (rev) tc.idata[at] = v / 2;
                     else tc.fdata[at] = float(v) * step;
                 }
         }
@@ -1354,9 +1507,24 @@ int dg_j2k_decode(const uint8_t* cs, int64_t n, int32_t* out, char* msg, int32_t
         for (size_t t = 0; t < tiles.size(); ++t)
             if (tiles[t].started) todo.push_back(int(t));
         bool one = todo.size() == 1;
+        std::vector<std::vector<TileComp>> tcs(todo.size());
+        if (!h.ppm_headers.empty()) {
+            // The PPM headers are read tile after tile as OpenJPEG decodes
+            // them: each tile when its last tile-part by TNsot comes, then
+            // at the end of the codestream the others by index.
+            std::vector<int> order(todo.size());
+            for (size_t i = 0; i < order.size(); ++i) order[i] = int(i);
+            auto when = [&](int i) { int r = tiles[todo[i]].ready; return r ? r : INT32_MAX; };
+            std::stable_sort(order.begin(), order.end(), [&](int a, int b) { return when(a) < when(b); });
+            Stream ppm{h.ppm_headers.data(), 0, int64_t(h.ppm_headers.size())};
+            for (int i : order) tile_tier2(h, tiles[todo[i]], todo[i], tcs[i], &ppm);
+        }
         parallel_for(int(todo.size()), [&](int first, int end) {
-            for (int i = first; i < end; ++i)
-                decode_tile(h, tiles[todo[i]], todo[i], out, h.xsiz, h.ysiz, one);
+            for (int i = first; i < end; ++i) {
+                if (h.ppm_headers.empty()) tile_tier2(h, tiles[todo[i]], todo[i], tcs[i], nullptr);
+                tile_finish(h, tiles[todo[i]], tcs[i], out, h.xsiz, h.ysiz, one);
+                tcs[i] = std::vector<TileComp>();
+            }
         });
         return 0;
     } catch (const Fail& f) {

@@ -22,10 +22,13 @@ them, and then cv2's own rules (``grfmt_jpeg2000_openjpeg.cpp``):
   no image;
 - samples are cast to the output type, not saturated.
 
-Where cv2 returns None the port raises ValueError naming JPEG 2000;
-features that the port does not decode (HTJ2K, Part 2, the code-block
-style flags, EPH markers, ROI, packed packet headers) raise
-NotImplementedError naming them.
+The codestream is read in all of Part 1 as OpenJPEG 2.5 decodes it: SOP
+and EPH markers, the six code-block styles (bypass, reset, termination on
+each pass, vertically causal contexts, predictable termination,
+segmentation symbols), ROI by maxshift (RGN) and packed packet headers
+(PPM, PPT). Where cv2 returns None the port raises ValueError naming
+JPEG 2000; what the port does not decode, HTJ2K (Part 15) and Part 2,
+raises NotImplementedError naming it.
 """
 
 from __future__ import annotations

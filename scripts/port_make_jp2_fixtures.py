@@ -1,7 +1,9 @@
 """Writes the JPEG 2000 fixtures of the port's reader into
-``tests/fixtures/port_jp2/``, with cv2's decodes of them beside.
+``tests/fixtures/port_jp2/`` and ``tests/fixtures/port_jp2_archival/``,
+with cv2's decodes of them beside.
 
     python scripts/port_make_jp2_fixtures.py [--out tests/fixtures/port_jp2]
+        [--archival-out tests/fixtures/port_jp2_archival]
 
 Needs cv2 (OpenCV 5.0 over OpenJPEG 2.5), which makes the reference, and
 Pillow (its OpenJPEG encoder), which writes the codestreams: it is run where
@@ -36,6 +38,29 @@ of ``scripts/port_make_jpeg_fixtures.py``:
   ``cv2.imread`` under ``IMREAD_UNCHANGED`` and ``IMREAD_COLOR``, channels
   in RGB order, or null where cv2 returns None; ``small_decodes.npz``: the
   83x61 files' 8-bit ``IMREAD_UNCHANGED`` arrays.
+
+The archival set (``--archival-out``, its own ``decodes.json`` and
+``small_decodes.npz``) is written by OpenJPEG's own encoder through
+``tests/torch_image_files.py`` ``jp2_openjpeg`` (the library Pillow
+bundles), with the coding options archives and fast encoders turn on:
+
+- at 83x61: EPH markers, with and without SOP; each code-block style alone
+  (BYPASS, RESET, RESTART, CAUSAL, ERTERM, SEGMARK), the error-resilient
+  five together and all six (``opj_compress -M 63``); BYPASS on grey; ROI
+  (RGN) in the main header, in the tile-part headers, and with a shift
+  past 30 bit-planes (null); packed packet headers in PPM markers and in
+  PPT markers, and a raw codestream with BYPASS, PPT and RGN;
+- ``photo_512_rgba_archival.jp2``: the 512^2 cut-out lossless (5/3, RCT)
+  with SOP, EPH and RESET|RESTART|CAUSAL|ERTERM|SEGMARK;
+  ``photo_1024x768_bypass.jp2``: the 1024x768 photo with the 9/7 and the
+  ICT in three layers as ``photo_1024x768_lossy.jp2``, BYPASS-coded, the
+  host's decode time;
+- ``sphere_jp2_archival.obj``, ``.mtl`` and ``.jp2``: the UV sphere with a
+  128^2 RGB texture in 32^2 tiles, BYPASS-coded, its packet headers in PPT
+  markers and an RGN marker on component 0 (OpenJPEG's encoder writes the
+  marker and codes the data unshifted, and its decoder takes BYPASS's raw
+  passes of that component for MQ-coded ones: cv2's decode has noise in
+  the red channel's low bits, and the port's equals it).
 """
 
 from __future__ import annotations
@@ -50,6 +75,7 @@ import numpy as np
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 OUT = os.path.normpath(os.path.join(ROOT, "tests", "fixtures", "port_jp2"))
+ARCHIVAL_OUT = os.path.normpath(os.path.join(ROOT, "tests", "fixtures", "port_jp2_archival"))
 SMALL = (61, 83)            # height, width
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -60,6 +86,7 @@ from port_make_image_fixtures import toy_alpha           # noqa: E402
 from port_make_jpeg_fixtures import photo                # noqa: E402
 from port_make_tiff_fixtures import rgb_decode_file, sphere_obj  # noqa: E402
 
+MODES = {"bypass": 1, "reset": 2, "restart": 4, "causal": 8, "erterm": 16, "segmark": 32}
 ORDERS = {"LRCP": (1, 1), "RLCP": (3, 2), "RPCL": (6, 3), "PCRL": (4, 3), "CPRL": (5, 2)}
 
 
@@ -133,15 +160,56 @@ def small_files() -> dict:
     return files
 
 
-def main(argv=None) -> None:
-    import cv2     # the reference; the port itself never imports it
+def archival_small_files() -> dict:
+    h, w = SMALL
+    rgb = photo(h, w, seed=1)
+    rgba = np.dstack([rgb, toy_alpha(h, w)])
+    lossy = dict(irreversible=True, rates=(20, 5))
+    files = {
+        "jp2_eph.jp2": F.jp2_openjpeg(rgb, csty=4),
+        "jp2_sop_eph_layers.jp2": F.jp2_openjpeg(rgba, csty=6, irreversible=True,
+                                                 rates=(30, 12, 4)),
+        "jp2_mode_archival.jp2": F.jp2_openjpeg(rgb, csty=6, mode=62),
+        "jp2_mode_all.jp2": F.jp2_openjpeg(rgba, mode=63, tile=(32, 32), rates=(20, 5)),
+        "jp2_mode_bypass_grey.jp2": F.jp2_openjpeg(rgb[..., 1], mode=1),
+        "jp2_rgn_main.jp2": F.jp2_openjpeg(rgb, roi=(0, 6), **lossy),
+    }
+    for name, mode in MODES.items():
+        files[f"jp2_mode_{name}.jp2"] = F.jp2_openjpeg(rgb, mode=mode, **lossy)
+    tiled = F.jp2_openjpeg(rgba, tile=(32, 32), rates=(20, 5))
+    files["jp2_rgn_tiles.jp2"] = F.jp2_rebuild(
+        tiled, codestream=F.j2k_rgn(F.jp2_codestream(tiled), 3, 9, "tile"))
+    files["jp2_rgn_past.jp2"] = F.jp2_rebuild(
+        tiled, codestream=F.j2k_rgn(F.jp2_codestream(tiled), 0, 40))
+    marked = F.jp2_openjpeg(rgb, csty=6, tile=(32, 32), rates=(20, 5))
+    files["jp2_ppm.jp2"] = F.jp2_rebuild(
+        marked, codestream=F.j2k_packed_headers(F.jp2_codestream(marked), "ppm", chunk=200))
+    marked = F.jp2_openjpeg(rgba, csty=6, irreversible=True, rates=(30, 12, 4))
+    files["jp2_ppt.jp2"] = F.jp2_rebuild(marked, codestream=F.j2k_packed_headers(
+        F.jp2_codestream(marked), "ppt", eph=False, sop=False))
+    files["jp2_ppt_bypass_rgn.j2k"] = F.j2k_packed_headers(
+        F.jp2_openjpeg(rgb, csty=6, mode=1, roi=(0, 3), jp2=False, **lossy), "ppt", sop=False)
+    return files
 
-    from port_make_image_fixtures import rgb_decode
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", default=OUT)
-    args = ap.parse_args(argv)
-    os.makedirs(args.out, exist_ok=True)
+
+def archival_files() -> tuple[dict, set]:
+    files = archival_small_files()
+    small = set(files)
+    p512 = np.dstack([photo(512, 512, seed=2), toy_alpha(512, 512)])
+    files["photo_512_rgba_archival.jp2"] = F.jp2_openjpeg(p512, csty=6, mode=62)
+    files["photo_1024x768_bypass.jp2"] = F.jp2_openjpeg(
+        photo(768, 1024, seed=3), mode=1, irreversible=True, rates=(40, 20, 10))
+    tex = F.jp2_openjpeg(photo(128, 128, seed=4), csty=6, mode=1, roi=(0, 4), tile=(32, 32),
+                         mct=0)
+    files["sphere_jp2_archival.jp2"] = F.jp2_rebuild(
+        tex, codestream=F.j2k_packed_headers(F.jp2_codestream(tex), "ppt", sop=False))
+    files["sphere_jp2_archival.obj"], files["sphere_jp2_archival.mtl"] = sphere_obj(
+        "sphere_jp2_archival", "sphere_jp2_archival.jp2")
+    return files, small
+
+
+def base_files() -> tuple[dict, set]:
     files = small_files()
     small = set(files)
     p512 = photo(512, 512, seed=2)
@@ -153,9 +221,17 @@ def main(argv=None) -> None:
     files["photo_1024x768_lossless.jp2"] = F.jp2_pillow(big, mct=1)
     files["sphere_jp2.jp2"] = F.jp2_pillow(photo(128, 128, seed=4), tile_size=(32, 32), mct=1)
     files["sphere_jp2.obj"], files["sphere_jp2.mtl"] = sphere_obj("sphere_jp2", "sphere_jp2.jp2")
+    return files, small
+
+
+def write_set(cv2, out: str, files: dict, small: set) -> None:
+    """The files, their cv2 decodes' digests and the small ones' arrays."""
+    from port_make_image_fixtures import rgb_decode
+
+    os.makedirs(out, exist_ok=True)
     digests, arrays = {}, {}
     for name, data in sorted(files.items()):
-        path = os.path.join(args.out, name)
+        path = os.path.join(out, name)
         with open(path, "wb") as fh:
             fh.write(data)
         if name.endswith((".obj", ".mtl")):
@@ -173,12 +249,23 @@ def main(argv=None) -> None:
             if name in small and key == "unchanged" and img.dtype == np.uint8:
                 arrays[name] = img
         digests[name] = entry
-    np.savez_compressed(os.path.join(args.out, "small_decodes.npz"), **arrays)
-    with open(os.path.join(args.out, "decodes.json"), "w") as fh:
+    np.savez_compressed(os.path.join(out, "small_decodes.npz"), **arrays)
+    with open(os.path.join(out, "decodes.json"), "w") as fh:
         json.dump(digests, fh, indent=1, sort_keys=True)
         fh.write("\n")
-    total = sum(os.path.getsize(os.path.join(args.out, f)) for f in os.listdir(args.out))
-    print(f"[fixtures] {len(files)} files, {total} bytes in {args.out}")
+    total = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+    print(f"[fixtures] {len(files)} files, {total} bytes in {out}")
+
+
+def main(argv=None) -> None:
+    import cv2     # the reference; the port itself never imports it
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=OUT)
+    ap.add_argument("--archival-out", default=ARCHIVAL_OUT)
+    args = ap.parse_args(argv)
+    write_set(cv2, args.out, *base_files())
+    write_set(cv2, args.archival_out, *archival_files())
 
 
 if __name__ == "__main__":

@@ -29,7 +29,8 @@ from dreamgaussian_tpu_torch.ops.rasterize import build_feature_cols, render_gau
 from dreamgaussian_tpu_torch.utils.camera import Camera, orbit_camera
 from torch_cli_cases import disc_png, image_options
 from torch_composite_cases import CASES, composite_case
-from torch_image_cases import (IMAGE_FIXTURES, JP2_FIXTURES, JPEG_FIXTURES, SCENES, TIFF_FIXTURES,
+from torch_image_cases import (IMAGE_FIXTURES, JP2_ARCHIVAL_FIXTURES, JP2_FIXTURES, JPEG_FIXTURES,
+                               SCENES, TIFF_FIXTURES,
                                iou, scene)
 from torch_ztest_cases import CARD_CASES as ZTEST_CASES
 from torch_ztest_cases import ztest_case
@@ -1316,35 +1317,40 @@ def test_tiff_fixtures_read_on_the_card_machine_as_cv2_read_them(cuda_device):
 
 @pytest.mark.cuda
 def test_jp2_fixtures_read_on_the_card_machine_as_cv2_read_them(cuda_device):
-    """Every fixture of scripts/port_make_jp2_fixtures.py under both flags,
-    the decoder built from the repo's sources on this machine (no cv2, no
-    OpenJPEG here): shape, dtype and SHA-256 of cv2's stored decode, the
-    small ones also against their stored arrays; ValueError where cv2
-    returned None; and the 512^2 cut-out's load_rgba on the card equal to
-    the CPU's."""
+    """Every fixture of scripts/port_make_jp2_fixtures.py (both sets: the
+    archival one's SOP/EPH markers, code-block styles, ROI and PPM/PPT)
+    under both flags, the decoder built from the repo's sources on this
+    machine (no cv2, no OpenJPEG here): shape, dtype and SHA-256 of cv2's
+    stored decode, the small ones also against their stored arrays;
+    ValueError where cv2 returned None; and the 512^2 cut-outs' load_rgba
+    on the card equal to the CPU's."""
     import hashlib
 
     from dreamgaussian_tpu_torch.cli.process import load_rgba
     from dreamgaussian_tpu_torch.utils.imread import IMREAD_COLOR, IMREAD_UNCHANGED, read_image
 
-    with open(JP2_FIXTURES / "decodes.json") as fh:
-        digests = json.load(fh)
-    small = np.load(JP2_FIXTURES / "small_decodes.npz")
-    for name, entry in sorted(digests.items()):
-        for key, flags in (("unchanged", IMREAD_UNCHANGED), ("color", IMREAD_COLOR)):
-            if entry[key] is None:
-                with pytest.raises(ValueError, match="JPEG 2000"):
-                    read_image(str(JP2_FIXTURES / name), flags)
-                continue
-            got = read_image(str(JP2_FIXTURES / name), flags)
-            assert [list(got.shape), str(got.dtype)] == [entry[key]["shape"], entry[key]["dtype"]]
-            assert hashlib.sha256(got.tobytes()).hexdigest() == entry[key]["sha256"], (name, key)
-            if key == "unchanged" and name in small.files:
-                np.testing.assert_array_equal(got, small[name])
-    path = str(JP2_FIXTURES / "photo_512_rgba.jp2")
-    card = load_rgba(path, device="cuda")
-    assert card.shape == (512, 512, 4)
-    np.testing.assert_array_equal(card, load_rgba(path, device="cpu"))
+    for folder in (JP2_FIXTURES, JP2_ARCHIVAL_FIXTURES):
+        with open(folder / "decodes.json") as fh:
+            digests = json.load(fh)
+        small = np.load(folder / "small_decodes.npz")
+        for name, entry in sorted(digests.items()):
+            for key, flags in (("unchanged", IMREAD_UNCHANGED), ("color", IMREAD_COLOR)):
+                if entry[key] is None:
+                    with pytest.raises(ValueError, match="JPEG 2000"):
+                        read_image(str(folder / name), flags)
+                    continue
+                got = read_image(str(folder / name), flags)
+                assert [list(got.shape), str(got.dtype)] == [entry[key]["shape"],
+                                                             entry[key]["dtype"]]
+                assert hashlib.sha256(got.tobytes()).hexdigest() == entry[key]["sha256"], (name,
+                                                                                          key)
+                if key == "unchanged" and name in small.files:
+                    np.testing.assert_array_equal(got, small[name])
+    for path in (str(JP2_FIXTURES / "photo_512_rgba.jp2"),
+                 str(JP2_ARCHIVAL_FIXTURES / "photo_512_rgba_archival.jp2")):
+        card = load_rgba(path, device="cuda")
+        assert card.shape == (512, 512, 4)
+        np.testing.assert_array_equal(card, load_rgba(path, device="cpu"))
 
 
 @pytest.mark.cuda

@@ -220,8 +220,8 @@ def test_formats_cv2_reads_and_the_port_does_not_are_refused_by_name(tmp_path, k
     else:
         data = cv2.imencode(ext, img.astype(np.float32) / 255 if ext in (".hdr", ".pfm")
                             else img)[1].tobytes()
-    if kind.startswith("JPEG 2000"):                # read now, but not with vertically causal
-        cs = F.j2k_set_cod(F.jp2_codestream(data), 8, 0x08)    # code-blocks, which cv2 reads
+    if kind.startswith("JPEG 2000"):        # Part 1 is read in full; a codestream whose Rsiz
+        cs = F.j2k_set_rsiz(F.jp2_codestream(data), 0x8000)  # claims Part 2 is refused (cv2 reads it)
         data = cs if kind.endswith("codestream") else F.jp2_rebuild(data, codestream=cs)
     assert _cv2(data, IMREAD_UNCHANGED) is not None          # readable: not a missing file
     path = str(tmp_path / "x.img")

@@ -7,15 +7,20 @@ Tolerance: every decode equal to cv2's bit for bit (dtype, shape, values;
 channels in RGB order) under ``IMREAD_UNCHANGED`` and ``IMREAD_COLOR``, on
 the checked-in fixtures of ``scripts/port_make_jp2_fixtures.py`` (and their
 stored digests) and on files written here from numpy seeds by Pillow's
-OpenJPEG encoder and rewritten by ``tests/torch_image_files.py``; where cv2
-returns None the port raises ValueError naming JPEG 2000, and the features
-it does not decode raise NotImplementedError naming them. ``load_rgba`` of
+OpenJPEG encoder, by OpenJPEG's own encoder called through ``ctypes`` (the
+coding options Pillow does not pass on: SOP/EPH markers, the six
+code-block styles, ROI) and rewritten by ``tests/torch_image_files.py``
+(RGN markers moved, packet headers packed into PPM/PPT markers); where
+cv2 returns None the port raises ValueError naming JPEG 2000, and the
+features it does not decode (HTJ2K, Part 2) raise NotImplementedError
+naming them. ``load_rgba`` of
 a 4-channel JP2 equal to the JAX package's exactly, of an RGB one matted by
 the same random U2Net at ``test_torch_image_formats.py``'s tolerances (RGB
 equal, alpha within 1/255); ``Mesh.load`` albedos equal exactly."""
 
 import hashlib
 import json
+import struct
 
 import cv2
 import numpy as np
@@ -30,10 +35,11 @@ from dreamgaussian_tpu_torch.utils.imread import IMREAD_COLOR, IMREAD_UNCHANGED,
 from test_torch_image_formats import _glb_with_image, u2net_at_64  # noqa: F401
 from test_torch_process import u2net_files  # noqa: F401
 from torch_cpu_cases import one_torch_thread  # noqa: F401
-from torch_image_cases import JP2_FIXTURES
+from torch_image_cases import JP2_ARCHIVAL_FIXTURES, JP2_FIXTURES
 
 DIGESTS = json.loads((JP2_FIXTURES / "decodes.json").read_text())
 IMAGES = sorted(DIGESTS)
+ARCHIVAL_DIGESTS = json.loads((JP2_ARCHIVAL_FIXTURES / "decodes.json").read_text())
 FLAGS = {"unchanged": IMREAD_UNCHANGED, "color": IMREAD_COLOR}
 IMG = F.photo(45, 70, 3)
 RGBA = F.photo(45, 70, 4, channels=4)
@@ -69,11 +75,9 @@ def _same_as_cv2(data: bytes, path=None, none=None):
 
 # ------------------------------------------------------------------ fixtures
 
-@pytest.mark.parametrize("key", list(FLAGS))
-@pytest.mark.parametrize("name", IMAGES)
-def test_fixture_reads_as_cv2_read_it(name, key):
-    path = JP2_FIXTURES / name
-    want = DIGESTS[name][key]
+def _fixture_as_cv2_read_it(folder, digests, name, key):
+    path = folder / name
+    want = digests[name][key]
     live = _rgb(cv2.imread(str(path), FLAGS[key]))
     if want is None:
         assert live is None
@@ -85,13 +89,61 @@ def test_fixture_reads_as_cv2_read_it(name, key):
     assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"]
     np.testing.assert_array_equal(got, live)
     if key == "unchanged":
-        with np.load(JP2_FIXTURES / "small_decodes.npz") as small:
+        with np.load(folder / "small_decodes.npz") as small:
             if name in small.files:
                 np.testing.assert_array_equal(got, small[name])
 
 
+@pytest.mark.parametrize("key", list(FLAGS))
+@pytest.mark.parametrize("name", IMAGES)
+def test_fixture_reads_as_cv2_read_it(name, key):
+    _fixture_as_cv2_read_it(JP2_FIXTURES, DIGESTS, name, key)
+
+
+@pytest.mark.parametrize("key", list(FLAGS))
+@pytest.mark.parametrize("name", sorted(ARCHIVAL_DIGESTS))
+def test_archival_fixture_reads_as_cv2_read_it(name, key):
+    """The fixtures OpenJPEG's own encoder wrote: SOP/EPH, the code-block
+    styles, ROI, packed packet headers (``tests/fixtures/port_jp2_archival/``)."""
+    _fixture_as_cv2_read_it(JP2_ARCHIVAL_FIXTURES, ARCHIVAL_DIGESTS, name, key)
+
+
 def test_fixture_directory_stays_small():
     assert sum(f.stat().st_size for f in JP2_FIXTURES.iterdir()) < 3 * 2**20
+
+
+def test_archival_fixture_directory_stays_small():
+    assert sum(f.stat().st_size for f in JP2_ARCHIVAL_FIXTURES.iterdir()) < 3 * 2**20
+
+
+def test_the_archival_fixtures_carry_what_they_are_named_for():
+    """Each archival fixture's codestream holds the markers and flags its
+    name says, as the library wrote them (so the cases above cover them)."""
+    def main_of(name):
+        data = (JP2_ARCHIVAL_FIXTURES / name).read_bytes()
+        cs = data if name.endswith(".j2k") else F.jp2_codestream(data)
+        return F.j2k_parse(cs)
+
+    def cod(name):
+        return dict(main_of(name)[0])[0xFF52]
+
+    assert cod("jp2_eph.jp2")[0] == 4 and cod("jp2_sop_eph_layers.jp2")[0] == 6
+    for name, style in (("bypass", 1), ("reset", 2), ("restart", 4), ("causal", 8),
+                        ("erterm", 16), ("segmark", 32), ("archival", 62), ("all", 63),
+                        ("bypass_grey", 1)):
+        assert cod(f"jp2_mode_{name}.jp2")[8] == style, name
+    assert (cod("photo_512_rgba_archival.jp2")[0], cod("photo_512_rgba_archival.jp2")[8]) == (6, 62)
+    assert cod("photo_1024x768_bypass.jp2")[8] == 1
+    assert dict(main_of("jp2_rgn_main.jp2")[0])[0xFF5E] == bytes([0, 0, 6])
+    main, parts = main_of("jp2_rgn_tiles.jp2")
+    assert 0xFF5E not in dict(main) and all((0xFF5E, bytes([3, 0, 9])) in segs
+                                            for _, tp, _, segs, _ in parts if tp == 0)
+    assert 0xFF60 in dict(main_of("jp2_ppm.jp2")[0])
+    for name in ("jp2_ppt.jp2", "jp2_ppt_bypass_rgn.j2k", "sphere_jp2_archival.jp2"):
+        main, parts = main_of(name)
+        assert all(0xFF61 in dict(segs) for _, _, _, segs, _ in parts), name
+    main, parts = main_of("sphere_jp2_archival.jp2")
+    assert dict(main)[0xFF52][8] == 1 and dict(main)[0xFF5E] == bytes([0, 0, 4]) and len(parts) == 16
 
 
 def test_cv2_rules_the_fixtures_pin():
@@ -300,6 +352,170 @@ def test_palettes(name, entries):
         _same_as_cv2(F.jp2_rebuild(d, F.jp2_header_with(F.jp2_colr(enumcs), extra=boxes)))
 
 
+# ------------------------------------------------------------------ OpenJPEG's own encoder
+
+def test_openjpeg_parameter_layout():
+    """The ctypes layout of ``opj_cparameters_t``: the library's defaults
+    land on the fields named, and each field set comes back in the markers
+    the library writes (COD's Scod, progression, layers, MCT, levels,
+    code-block size and style, transform; SIZ's tile size; RGN; and the
+    Part 2 custom MCT's Rsiz and MCT/MCC/MCO markers)."""
+    p = F.openjpeg_defaults()
+    assert (p.numresolution, p.cblockw_init, p.cblockh_init, p.prog_order, p.roi_compno,
+            p.subsampling_dx, p.subsampling_dy, p.decod_format, p.cod_format, p.tcp_numlayers,
+            p.rsiz, p.tcp_mct) == (6, 64, 64, 0, -1, 1, 1, -1, -1, 0, 0, b"\0")
+    d = F.jp2_openjpeg(IMG, csty=6, mode=0x3F, roi=(1, 9), irreversible=True, rates=(30, 10),
+                       tile=(32, 16), resolutions=4, cblk=(32, 16), order="RPCL", mct=1)
+    main, parts = F.j2k_parse(F.jp2_codestream(d))
+    cod = dict(main)[0xFF52]
+    assert tuple(cod[:10]) == (6, 2, 0, 2, 1, 3, 3, 2, 0x3F, 0)
+    assert struct.unpack_from(">II", dict(main)[0xFF51], 18) == (32, 16)
+    assert dict(main)[0xFF5E] == bytes([1, 0, 9]) and len(parts) == 3 * 3
+    custom = F.jp2_openjpeg(IMG, matrix=np.eye(3)[[2, 0, 1]] * 0.5 + 0.1, mct=2)
+    main, _ = F.j2k_parse(F.jp2_codestream(custom))
+    assert struct.unpack_from(">H", dict(main)[0xFF51])[0] & 0x8100 == 0x8100
+    assert {0xFF74, 0xFF75, 0xFF77} <= set(dict(main))
+    # OpenJPEG 2.5 does not read its own custom MCT back (COD's MCT field 2
+    # is refused), so cv2 gives none; the port refuses Part 2 by name.
+    assert cv2.imdecode(np.frombuffer(custom, np.uint8), IMREAD_UNCHANGED) is None
+    with pytest.raises(NotImplementedError, match="Part 2"):
+        decode_image(custom)
+
+
+MODES = {"bypass": 1, "reset": 2, "restart": 4, "causal": 8, "erterm": 16, "segmark": 32,
+         "reset_restart_causal_erterm_segmark": 62, "all_six": 63}
+SETTINGS = {"53": {}, "97_layers": dict(irreversible=True, rates=(40, 10, 5)),
+            "tiles_layers": dict(tile=(32, 32), rates=(20, 5))}
+CHANNELS = {"L": IMG[..., 0], "RGB": IMG, "RGBA": RGBA}
+
+
+@pytest.mark.parametrize("channels", list(CHANNELS))
+@pytest.mark.parametrize("setting", list(SETTINGS))
+@pytest.mark.parametrize("mode", list(MODES))
+def test_code_block_styles_read_as_cv2_reads_them(mode, setting, channels):
+    """Each code-block style flag alone, the error-resilient five
+    together and all six, as OpenJPEG's encoder writes them: raw (bypass)
+    passes, contexts reset after each pass, a segment per pass, vertically
+    causal contexts, predictable termination, segmentation symbols."""
+    _same_as_cv2(F.jp2_openjpeg(CHANNELS[channels], mode=MODES[mode], **SETTINGS[setting]),
+                 none=())
+
+
+@pytest.mark.parametrize("channels", list(CHANNELS))
+@pytest.mark.parametrize("setting", list(SETTINGS))
+@pytest.mark.parametrize("markers", ["eph", "sop_eph"])
+def test_eph_markers_read_as_cv2_reads_them(markers, setting, channels):
+    _same_as_cv2(F.jp2_openjpeg(CHANNELS[channels], csty=6 if markers == "sop_eph" else 4,
+                                **SETTINGS[setting]), none=())
+
+
+@pytest.mark.parametrize("where", ["main", "tile"])
+@pytest.mark.parametrize("shift", [1, 7, 20, 40])
+@pytest.mark.parametrize("channels", list(CHANNELS))
+def test_roi_shifts_read_as_cv2_reads_them(channels, shift, where):
+    """A maxshift RGN marker on the first or the last component, in the
+    main header or the tile-part headers, over 5/3, 9/7 and tiled layered
+    data: the planes start ``shift`` higher and the magnitudes at or above
+    ``1 << shift`` come down; 20 lies past every block's bit-plane count
+    (and past 30 planes with some 9/7 blocks', where OpenJPEG fails the
+    block: none), 40 past 30 planes with every block's."""
+    img = CHANNELS[channels]
+    comps = img.shape[2] if img.ndim == 3 else 1
+    for k, setting in enumerate(SETTINGS.values()):
+        d = F.jp2_openjpeg(img, **setting)
+        cs = F.j2k_rgn(F.jp2_codestream(d), (comps - 1) * (k % 2), shift, where)
+        none = {40: (IMREAD_UNCHANGED, IMREAD_COLOR), 20: None}.get(shift, ())
+        _same_as_cv2(F.jp2_rebuild(d, codestream=cs), none=none)
+    _same_as_cv2(F.jp2_openjpeg(img, roi=(0, min(shift, 30)), mode=1, rates=(20, 5)))
+
+
+PACKED = {"eph_sop": (True, True), "eph": (True, False), "sop": (False, True),
+          "bare": (False, False)}
+
+
+@pytest.mark.parametrize("channels", list(CHANNELS))
+@pytest.mark.parametrize("headers", list(PACKED))
+@pytest.mark.parametrize("where", ["ppm", "ppt"])
+def test_packed_packet_headers_read_as_cv2_reads_them(where, headers, channels):
+    """Packet headers moved into PPM markers (an Nppm per tile-part) or PPT
+    markers, with and without EPH markers in them and SOP markers before
+    the bodies, in one marker per tile-part and spread over several (an
+    Nppm's bytes running on into the next PPM marker), also with each tile
+    over a tile-part per resolution."""
+    eph, sop = PACKED[headers]
+    for setting in [*SETTINGS.values(), dict(tile=(32, 32), rates=(20, 5), order="RPCL",
+                                              tile_parts="R")]:
+        d = F.jp2_openjpeg(CHANNELS[channels], csty=6, **setting)
+        for chunk in (65532, 37):
+            cs = F.j2k_packed_headers(F.jp2_codestream(d), where, eph, sop, chunk)
+            assert (0xFF60 in dict(F.j2k_parse(cs)[0])) == (where == "ppm")
+            _same_as_cv2(F.jp2_rebuild(d, codestream=cs), none=())
+
+
+def _malformed_packed() -> dict:
+    d = F.jp2_openjpeg(IMG, csty=6, tile=(32, 32), rates=(20, 5))
+    ppm = F.j2k_packed_headers(F.jp2_codestream(d), "ppm")
+    ppt = F.j2k_packed_headers(F.jp2_codestream(d), "ppt", chunk=20)
+    main, parts = F.j2k_parse(ppm)
+    ppm_at = next(i for i, (m, _) in enumerate(main) if m == 0xFF60)
+    seg = main[ppm_at][1]
+    nppm = struct.unpack_from(">I", seg, 1)[0]
+
+    def with_ppm(*payloads):
+        return F.j2k_build(main[:ppm_at] + [(0xFF60, p) for p in payloads] + main[ppm_at + 1:],
+                           parts)
+
+    tmain, tparts = F.j2k_parse(ppt)
+
+    def with_ppt(edit):
+        return F.j2k_build(tmain, [(i, tp, tn, edit(segs), x) for i, tp, tn, segs, x in tparts])
+
+    return {
+        "nppm_past_the_data": with_ppm(seg[:1] + struct.pack(">I", nppm + 9) + seg[5:]),
+        "nppm_field_split": with_ppm(seg[:3], b"\1" + seg[3:]),
+        "nppm_zero": with_ppm(b"\0" + bytes(4)),
+        "zppm_twice": with_ppm(seg, seg),
+        "zppm_gap": with_ppm(b"\2" + seg[1:]),
+        "headers_cut": with_ppm(seg[:1] + struct.pack(">I", nppm - 7) + seg[5:5 + nppm - 7]
+                                + seg[5 + nppm:]),
+        "ppt_with_ppm": F.j2k_build(main, [(i, tp, tn, segs + [(0xFF61, b"\0\0")], x)
+                                           for i, tp, tn, segs, x in parts]),
+        "zppt_twice": with_ppt(lambda segs: segs + [s for s in segs if s[0] == 0xFF61][:1]),
+        "zppt_reversed": with_ppt(lambda segs: segs[::-1]),
+        "zppt_renumbered": with_ppt(lambda segs: [(m, bytes([2 * p[0] + 1]) + p[1:])
+                                                  if m == 0xFF61 else (m, p) for m, p in segs]),
+        "ppt_short": with_ppt(lambda segs: segs + [(0xFF61, b"\x7f")]),
+        "ppt_dropped": with_ppt(lambda segs: [s for s in segs if s[0] != 0xFF61][:1]
+                                + [s for s in segs if s[0] == 0xFF61][1:]),
+        "no_byte_after_sod": _empty_packets(b""),
+        "one_byte_after_sod": _empty_packets(b"\0"),
+    }
+
+
+def _empty_packets(body: bytes) -> bytes:
+    """Every packet empty (header 0x00 in PPT markers, no EPH or SOP), and
+    ``body`` as each tile-part's data: OpenJPEG fails a tile with no byte
+    after SOD, and reads one with any."""
+    d = F.jp2_openjpeg(IMG, csty=6, tile=(32, 32), rates=(20, 5))
+    main, parts = F.j2k_parse(F.jp2_codestream(d))
+    main = [(m, bytes([p[0] & ~6]) + p[1:] if m == 0xFF52 else p) for m, p in main]
+    return F.j2k_build(main, [(i, tp, tn, segs + [(0xFF61, bytes(1 + len(F.j2k_packets(x))))], body)
+                              for i, tp, tn, segs, x in parts])
+
+
+MALFORMED_PACKED = _malformed_packed()
+
+
+@pytest.mark.parametrize("case", list(MALFORMED_PACKED))
+def test_malformed_packed_headers_as_cv2_reads_them(case):
+    """PPM and PPT markers that lie: Nppm past the data, an Nppm field
+    split over two markers, no headers, an index read twice, a gap in the
+    indices, headers cut short, PPT beside PPM, markers out of order or
+    missing; tiles of empty packets with no byte or one after SOD. Equal to
+    cv2's decode, or both give none."""
+    _same_as_cv2(MALFORMED_PACKED[case])
+
+
 # ------------------------------------------------------------------ broken and refused
 
 def test_truncated_and_corrupted_streams_raise_value_error(tmp_path):
@@ -357,7 +573,10 @@ def test_corrupted_streams_read_as_cv2_reads_them(base):
     jp2c box runs to the end whatever its length, the JP2 ihdr must agree
     with SIZ, a tile short of its TNsot is decoded with what it has)."""
     rng = np.random.default_rng(sorted(CORRUPTED_BASES).index(base))
-    src = F.jp2_pillow(F.photo(40, 50, 1), **CORRUPTED_BASES[base])
+    _corrupted_as_cv2(F.jp2_pillow(F.photo(40, 50, 1), **CORRUPTED_BASES[base]), rng)
+
+
+def _corrupted_as_cv2(src: bytes, rng) -> None:
     for _ in range(40):
         d = bytearray(src)
         for _ in range(int(rng.integers(1, 4))):
@@ -382,33 +601,54 @@ def test_corrupted_streams_read_as_cv2_reads_them(base):
             np.testing.assert_array_equal(got, want)
 
 
+def _archival_corruption_base(kind: str) -> bytes:
+    img = F.photo(40, 50, 1)
+    if kind == "eph":
+        return F.jp2_openjpeg(img, csty=6, mode=62, rates=(20, 5), irreversible=True)
+    if kind == "bypass":
+        return F.jp2_openjpeg(img, mode=1, rates=(20, 5), tile=(32, 32))
+    d = F.jp2_openjpeg(img, csty=6, mode=1, rates=(20, 5), tile=(16, 16), resolutions=3)
+    return F.jp2_rebuild(d, codestream=F.j2k_packed_headers(F.jp2_codestream(d), "ppt"))
+
+
+@pytest.mark.parametrize("base", ["eph", "ppt", "bypass"])
+def test_corrupted_archival_streams_read_as_cv2_reads_them(base):
+    """The seeded corruptions above on files with SOP and EPH markers and
+    RESET|RESTART|CAUSAL|ERTERM|SEGMARK blocks (a missing EPH fails the
+    tile in OpenJPEG 2.5, a missing SOP, a failed ERTERM check or a bad
+    segmentation symbol does not), with BYPASS-coded blocks, and with
+    packet headers in PPT markers: equal to cv2's decode, or both give
+    none."""
+    _corrupted_as_cv2(_archival_corruption_base(base),
+                      np.random.default_rng(100 + ["eph", "ppt", "bypass"].index(base)))
+
+
 REFUSED = {
+    "HTJ2K": ("cod", 8, 0x40),
+    "Part 2 arbitrary wavelet": ("cod", 9, 0x02),
+    "multi-component transform": ("marker", 0xFF74, b"\0\0\0\0\0"),
+    "CAP marker": ("marker", 0xFF50, b"\0\x02\0\0\0\0"),
+}
+READ_NOW = {                    # refused by name before the port read them
     "selective arithmetic coding bypass": ("cod", 8, 0x01),
     "reset of context probabilities": ("cod", 8, 0x02),
     "termination on each coding pass": ("cod", 8, 0x04),
     "vertically causal context formation": ("cod", 8, 0x08),
     "predictable termination": ("cod", 8, 0x10),
     "segmentation symbols": ("cod", 8, 0x20),
-    "HTJ2K": ("cod", 8, 0x40),
     "EPH markers": ("cod", 0, 0x04),
-    "Part 2 arbitrary wavelet": ("cod", 9, 0x02),
     "region of interest": ("marker", 0xFF5E, b"\0\0\x05"),
     "PPM marker": ("marker", 0xFF60, b"\0\0\0\0\0"),
     "PPT marker": ("tile", 0xFF61, b"\0"),
-    "multi-component transform": ("marker", 0xFF74, b"\0\0\0\0\0"),
-    "CAP marker": ("marker", 0xFF50, b"\0\x02\0\0\0\0"),
 }
 
 
-@pytest.mark.parametrize("feature", list(REFUSED))
-def test_features_not_read_are_refused_by_name(tmp_path, feature):
-    """Each coding option the port does not decode raises
-    NotImplementedError naming it, from a JP2 and a bare codestream; the
-    code-block styles' files are ones cv2 reads (Pillow writes none of
-    these: the port decodes nothing it could not hold against cv2)."""
+def _flag_rewritten(feature: str) -> tuple[bytes, bytes]:
+    """A Pillow file (and its codestream) with one coding option switched on
+    by rewriting its headers: the coded data is not recoded for it."""
     d = F.jp2_pillow(IMG, mct=1)
     cs = F.jp2_codestream(d)
-    kind, a, b = REFUSED[feature]
+    kind, a, b = {**REFUSED, **READ_NOW}[feature]
     if kind == "cod":
         main, parts = F.j2k_parse(cs)
         cod = next(p for m, p in main if m == 0xFF52)
@@ -419,10 +659,29 @@ def test_features_not_read_are_refused_by_name(tmp_path, feature):
     else:
         main, parts = F.j2k_parse(cs)
         out = F.j2k_build(main, [(i, tp, tn, [(a, b)] + s, x) for i, tp, tn, s, x in parts])
+    return out, F.jp2_rebuild(d, codestream=out)
+
+
+@pytest.mark.parametrize("feature", list(READ_NOW))
+def test_features_once_refused_read_as_cv2_reads_them(tmp_path, feature):
+    """The flag-rewritten files that were refused by name (the six styles
+    read by cv2 as the flag says whatever the data, EPH without its
+    markers, an RGN marker, a PPM marker without headers, a PPT marker
+    too short): equal to cv2's decode, or both give none."""
+    out, jp2 = _flag_rewritten(feature)
     if feature.startswith(("selective", "reset", "termination", "vertically", "predictable",
-                           "segmentation")):
+                           "segmentation", "region")):
         assert cv2.imdecode(np.frombuffer(out, np.uint8), IMREAD_UNCHANGED) is not None
-    for data in (out, F.jp2_rebuild(d, codestream=out)):
+    _same_as_cv2(out, tmp_path / "x.j2k")
+    _same_as_cv2(jp2, tmp_path / "x.jp2")
+
+
+@pytest.mark.parametrize("feature", list(REFUSED))
+def test_features_not_read_are_refused_by_name(tmp_path, feature):
+    """Each coding option the port does not decode (HTJ2K, Part 2) raises
+    NotImplementedError naming it, from a JP2 and a bare codestream."""
+    out, jp2 = _flag_rewritten(feature)
+    for data in (out, jp2):
         for f in (IMREAD_UNCHANGED, IMREAD_COLOR):
             with pytest.raises(NotImplementedError, match=feature.split()[0]):
                 decode_image(data, f)
@@ -500,3 +759,55 @@ def test_jp2_texture_cv2_reads_none_of_raises_and_a_glb_keeps_no_albedo(tmp_path
     capsys.readouterr()
     assert TMesh.load(glb, resize=False).albedo is None
     assert "does not decode" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------------ archival files through the apps
+
+@pytest.mark.parametrize("name", ["photo_512_rgba_archival.jp2", "jp2_sop_eph_layers.jp2",
+                                  "jp2_mode_all.jp2", "jp2_rgn_tiles.jp2", "jp2_ppt.jp2"])
+def test_load_rgba_of_a_four_channel_archival_jp2_matches_jax(name):
+    path = str(JP2_ARCHIVAL_FIXTURES / name)
+    ref = jproc.load_rgba(path, size=64)
+    got = tproc.load_rgba(path, size=64, device="cpu")
+    assert got.dtype == np.float32 and got.shape == ref.shape == (64, 64, 4)
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("name", ["jp2_ppm.jp2", "jp2_ppt_bypass_rgn.j2k",
+                                  "jp2_mode_bypass_grey.jp2", "photo_1024x768_bypass.jp2"])
+def test_load_rgba_of_an_rgb_or_grey_archival_jp2_matches_jax(name, u2net_files,  # noqa: F811
+                                                              u2net_at_64):  # noqa: F811
+    path = str(JP2_ARCHIVAL_FIXTURES / name)
+    ref = jproc.load_rgba(path, size=48, u2net_ckpt=u2net_files["small"])
+    got = tproc.load_rgba(path, size=48, u2net_ckpt=u2net_files["small"], device="cpu")
+    assert got.dtype == np.float32 and got.shape == ref.shape == (48, 48, 4)
+    np.testing.assert_array_equal(got[..., :3], ref[..., :3])
+    np.testing.assert_allclose(got[..., 3], ref[..., 3], atol=1 / 255 + 1e-7)
+
+
+def test_load_rgba_of_an_archival_jp2_cv2_reads_none_of_is_a_missing_file_on_both_sides():
+    path = str(JP2_ARCHIVAL_FIXTURES / "jp2_rgn_past.jp2")
+    for load in (jproc.load_rgba, lambda p: tproc.load_rgba(p, device="cpu")):
+        with pytest.raises(FileNotFoundError):
+            load(path)
+
+
+def test_archival_jp2_textured_obj_matches_jax():
+    """The sphere whose texture is BYPASS-coded in 32^2 tiles with PPT
+    markers and an RGN marker on component 0."""
+    path = str(JP2_ARCHIVAL_FIXTURES / "sphere_jp2_archival.obj")
+    ref = JMesh.load(path, resize=False)
+    got = TMesh.load(path, resize=False)
+    assert ref.albedo is not None and got.albedo.shape == ref.albedo.shape == (128, 128, 3)
+    np.testing.assert_array_equal(got.albedo, ref.albedo)
+    np.testing.assert_array_equal(np.asarray(got.v), np.asarray(ref.v))
+
+
+@pytest.mark.parametrize("name", ["jp2_mode_archival.jp2", "jp2_ppt.jp2",
+                                  "jp2_ppt_bypass_rgn.j2k", "jp2_rgn_main.jp2"])
+def test_glb_with_an_archival_jp2_image_matches_jax(tmp_path, name):
+    path = _glb_with_image(tmp_path, (JP2_ARCHIVAL_FIXTURES / name).read_bytes())
+    ref = JMesh.load(path, resize=False).albedo
+    got = TMesh.load(path, resize=False).albedo
+    assert ref is not None and got.shape == ref.shape == (61, 83, 3)
+    np.testing.assert_array_equal(got, ref)

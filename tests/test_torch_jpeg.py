@@ -146,15 +146,16 @@ def test_twelve_bit_samples_are_refused():
 def test_other_formats_cv2_writes_are_refused_by_name(tmp_path, ext, name):
     """Formats cv2 writes and reads that the port does not read (WebP, BMP,
     TIFF and JPEG 2000, once here, are read now: test_torch_image_formats.py,
-    test_torch_tiff.py, test_torch_jp2.py; cv2's JPEG 2000 is refused here
-    with a code-block style the port does not decode, set in its COD)."""
+    test_torch_tiff.py, test_torch_jp2.py; cv2's JPEG 2000, whose Part 1 is
+    read in full, is refused here with SIZ's Rsiz claiming Part 2
+    extensions, which cv2 reads and the port refuses by name)."""
     import torch_image_files as F
 
     path = tmp_path / f"x{ext}"
     assert cv2.imwrite(str(path), _image(64, 64, seed=2))
     if ext == ".jp2":
         data = path.read_bytes()
-        cs = F.j2k_set_cod(F.jp2_codestream(data), 8, 0x01)
+        cs = F.j2k_set_rsiz(F.jp2_codestream(data), 0x8000)
         path.write_bytes(F.jp2_rebuild(data, codestream=cs))
     path = str(path)
     assert cv2.imread(path, cv2.IMREAD_UNCHANGED) is not None

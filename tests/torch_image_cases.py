@@ -11,6 +11,7 @@ JPEG_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_jpeg"
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_images"
 TIFF_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_tiff"
 JP2_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_jp2"
+JP2_ARCHIVAL_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_jp2_archival"
 
 # GrabCut's test photos: an object on a background that differs from it.
 SCENES = ("disc", "ellipse", "box", "textured")

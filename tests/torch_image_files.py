@@ -4,12 +4,18 @@ here from their specifications with numpy, so that every variant the
 readers take (palettes, bit depths, run-length coding, interlacing,
 transparency, 16-bit samples) can be made on purpose; WebP through Pillow
 (libwebp), with a hand-made ``ALPH`` chunk for each alpha filter; EXIF
-orientation added to a JPEG, PNG or WebP file. No cv2 here."""
+orientation added to a JPEG, PNG or WebP file; JPEG 2000 through Pillow and
+through the OpenJPEG library Pillow bundles, called with ``ctypes`` for the
+coding options Pillow does not pass on. No cv2 here."""
 
 from __future__ import annotations
 
+import ctypes
+import glob
 import io
+import os
 import struct
+import tempfile
 import zlib
 
 import numpy as np
@@ -1070,6 +1076,12 @@ def j2k_set_precision(cs: bytes, precs) -> bytes:
     return bytes(cs)
 
 
+def j2k_set_rsiz(cs: bytes, value: int) -> bytes:
+    """SIZ's capabilities field (Rsiz) set: bit 15 claims Part 2
+    extensions, bit 14 HTJ2K."""
+    return cs[:6] + struct.pack(">H", value) + cs[8:]
+
+
 def j2k_set_cod(cs: bytes, at: int, value: int) -> bytes:
     """One byte of the main header's COD payload replaced (0 Scod, 1
     progression, 4 MCT, 8 code-block style, ...)."""
@@ -1159,3 +1171,271 @@ def j2k_poc_in_tiles(cs: bytes) -> bytes:
     main = [(m, p) for m, p in main if m != 0xFF5F]
     parts = [(i, tp, tn, (poc if tp == 0 else []) + segs, d) for i, tp, tn, segs, d in parts]
     return j2k_build(main, parts)
+
+
+# ------------------------------------------------------------------ OpenJPEG through ctypes
+#
+# OpenJPEG 2.5's public structures, from its ``openjpeg.h`` (no header is
+# needed: ctypes lays them out as the C compiler does). The layout is held
+# by the tests: the library's own defaults land on the fields named here,
+# and every field set below comes back in the markers it writes.
+
+_U32, _I32 = ctypes.c_uint32, ctypes.c_int
+_PROG_ORDERS = {"LRCP": 0, "RLCP": 1, "RPCL": 2, "PCRL": 3, "CPRL": 4}
+
+
+class OpjPoc(ctypes.Structure):
+    _fields_ = ([(n, _U32) for n in ("resno0", "compno0", "layno1", "resno1", "compno1",
+                                     "layno0", "precno0", "precno1")]
+                + [("prg1", _I32), ("prg", _I32), ("progorder", ctypes.c_char * 5),
+                   ("tile", _U32)]
+                + [(n, _U32) for n in ("tx0", "tx1", "ty0", "ty1", "layS", "resS", "compS",
+                                       "prcS", "layE", "resE", "compE", "prcE", "txS", "txE",
+                                       "tyS", "tyE", "dx", "dy", "lay_t", "res_t", "comp_t",
+                                       "prc_t", "tx0_t", "ty0_t")])
+
+
+class OpjCParameters(ctypes.Structure):
+    """opj_cparameters_t (with the JPWL fields, present whether or not the
+    library was built with JPWL)."""
+    _fields_ = ([(n, _I32) for n in ("tile_size_on", "cp_tx0", "cp_ty0", "cp_tdx", "cp_tdy",
+                                     "cp_disto_alloc", "cp_fixed_alloc", "cp_fixed_quality")]
+                + [("cp_matrice", ctypes.POINTER(_I32)), ("cp_comment", ctypes.c_char_p),
+                   ("csty", _I32), ("prog_order", _I32), ("POC", OpjPoc * 32),
+                   ("numpocs", _U32), ("tcp_numlayers", _I32),
+                   ("tcp_rates", ctypes.c_float * 100), ("tcp_distoratio", ctypes.c_float * 100)]
+                + [(n, _I32) for n in ("numresolution", "cblockw_init", "cblockh_init", "mode",
+                                       "irreversible", "roi_compno", "roi_shift", "res_spec")]
+                + [("prcw_init", _I32 * 33), ("prch_init", _I32 * 33),
+                   ("infile", ctypes.c_char * 4096), ("outfile", ctypes.c_char * 4096),
+                   ("index_on", _I32), ("index", ctypes.c_char * 4096)]
+                + [(n, _I32) for n in ("image_offset_x0", "image_offset_y0", "subsampling_dx",
+                                       "subsampling_dy", "decod_format", "cod_format",
+                                       "jpwl_epc_on", "jpwl_hprot_MH")]
+                + [(n, _I32 * 16) for n in ("jpwl_hprot_TPH_tileno", "jpwl_hprot_TPH",
+                                            "jpwl_pprot_tileno", "jpwl_pprot_packno",
+                                            "jpwl_pprot")]
+                + [(n, _I32) for n in ("jpwl_sens_size", "jpwl_sens_addr", "jpwl_sens_range",
+                                       "jpwl_sens_MH")]
+                + [("jpwl_sens_TPH_tileno", _I32 * 16), ("jpwl_sens_TPH", _I32 * 16),
+                   ("cp_cinema", _I32), ("max_comp_size", _I32), ("cp_rsiz", _I32),
+                   ("tp_on", ctypes.c_char), ("tp_flag", ctypes.c_char),
+                   ("tcp_mct", ctypes.c_char), ("jpip_on", _I32), ("mct_data", ctypes.c_void_p),
+                   ("max_cs_size", _I32), ("rsiz", ctypes.c_uint16)])
+
+
+class OpjComponentParameters(ctypes.Structure):
+    _fields_ = [(n, _U32) for n in ("dx", "dy", "w", "h", "x0", "y0", "prec", "bpp", "sgnd")]
+
+
+class OpjImageComponent(ctypes.Structure):
+    _fields_ = ([(n, _U32) for n in ("dx", "dy", "w", "h", "x0", "y0", "prec", "bpp", "sgnd",
+                                     "resno_decoded", "factor")]
+                + [("data", ctypes.POINTER(_I32)), ("alpha", ctypes.c_uint16)])
+
+
+class OpjImage(ctypes.Structure):
+    _fields_ = ([(n, _U32) for n in ("x0", "y0", "x1", "y1", "numcomps")]
+                + [("color_space", _I32), ("comps", ctypes.POINTER(OpjImageComponent)),
+                   ("icc_profile_buf", ctypes.c_void_p), ("icc_profile_len", _U32)])
+
+
+_OPENJPEG = []
+
+
+def openjpeg() -> ctypes.CDLL:
+    """The ``libopenjp2`` that Pillow bundles (``pillow.libs/``), its
+    encoder's functions declared."""
+    if not _OPENJPEG:
+        import PIL
+
+        found = sorted(glob.glob(os.path.join(os.path.dirname(PIL.__file__), "..", "pillow.libs",
+                                              "libopenjp2-*.so*")))
+        if not found:
+            raise FileNotFoundError("no libopenjp2 beside Pillow")
+        lib = ctypes.CDLL(found[0])
+        p, img = ctypes.POINTER(OpjCParameters), ctypes.POINTER(OpjImage)
+        vp = ctypes.c_void_p
+        for name, res, args in (
+                ("opj_set_default_encoder_parameters", None, [p]),
+                ("opj_set_MCT", _I32, [p, ctypes.POINTER(ctypes.c_float),
+                                       ctypes.POINTER(ctypes.c_int32), _U32]),
+                ("opj_image_create", img, [_U32, ctypes.POINTER(OpjComponentParameters), _I32]),
+                ("opj_image_destroy", None, [img]),
+                ("opj_create_compress", vp, [_I32]),
+                ("opj_setup_encoder", _I32, [vp, p, img]),
+                ("opj_stream_create_default_file_stream", vp, [ctypes.c_char_p, _I32]),
+                ("opj_start_compress", _I32, [vp, img, vp]),
+                ("opj_encode", _I32, [vp, vp]),
+                ("opj_end_compress", _I32, [vp, vp]),
+                ("opj_stream_destroy", None, [vp]),
+                ("opj_destroy_codec", None, [vp])):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = res, args
+        _OPENJPEG.append(lib)
+    return _OPENJPEG[0]
+
+
+def openjpeg_defaults() -> OpjCParameters:
+    params = OpjCParameters()
+    openjpeg().opj_set_default_encoder_parameters(ctypes.byref(params))
+    return params
+
+
+def jp2_openjpeg(img: np.ndarray, *, csty: int = 0, mode: int = 0, roi=None,
+                 irreversible: bool = False, mct: int | None = None, rates=(0,), tile=None,
+                 resolutions: int = 6, cblk=(64, 64), order: str = "LRCP", jp2: bool = True,
+                 tile_parts: str | None = None, matrix=None) -> bytes:
+    """A JP2 file (a raw codestream with ``jp2=False``) written by
+    OpenJPEG's own encoder, as ``opj_compress`` sets it up: ``img`` uint8
+    or uint16 [h, w] or [h, w, C] (the last of 2 or 4 channels is alpha);
+    ``csty`` the COD's Scod bits (2 SOP, 4 EPH), ``mode`` the code-block
+    style (1 BYPASS, 2 RESET, 4 RESTART, 8 CAUSAL, 16 ERTERM, 32 SEGMARK:
+    ``-M``), ``roi`` (component, shift) an RGN marker, ``rates`` the
+    layers' compression ratios (0 lossless), ``tile`` (w, h), ``mct`` the
+    RCT/ICT flag (default on for three or more channels), ``tile_parts``
+    "R", "L" or "C" a tile-part at each new resolution, layer or component
+    of the progression (``-TP``), ``matrix`` a Part 2 custom MCT (C x C)
+    through ``opj_set_MCT``."""
+    lib = openjpeg()
+    params = openjpeg_defaults()
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, n = img.shape
+    prec = 8 if img.dtype == np.uint8 else 16
+    comps = (OpjComponentParameters * n)(
+        *[OpjComponentParameters(1, 1, w, h, 0, 0, prec, prec, 0) for _ in range(n)])
+    image = lib.opj_image_create(n, comps, 1 if n >= 3 else 2)      # sRGB or grey
+    image.contents.x1, image.contents.y1 = w, h
+    for c in range(n):
+        comp = image.contents.comps[c]
+        plane = np.ascontiguousarray(img[..., c], np.int32)
+        ctypes.memmove(comp.data, plane.ctypes.data, plane.nbytes)
+        comp.alpha = int(n in (2, 4) and c == n - 1)
+    params.csty, params.mode, params.irreversible = csty, mode, int(irreversible)
+    if roi is not None:
+        params.roi_compno, params.roi_shift = roi
+    params.tcp_numlayers, params.cp_disto_alloc = len(rates), 1
+    for i, r in enumerate(rates):
+        params.tcp_rates[i] = r
+    params.tcp_mct = bytes([int(n >= 3) if mct is None else mct])
+    if tile is not None:
+        params.tile_size_on, params.cp_tdx, params.cp_tdy = 1, tile[0], tile[1]
+    params.numresolution = resolutions
+    params.cblockw_init, params.cblockh_init = cblk
+    params.prog_order = _PROG_ORDERS[order]
+    if tile_parts is not None:
+        params.tp_on, params.tp_flag = b"\1", tile_parts.encode()
+    if matrix is not None:
+        m = np.ascontiguousarray(matrix, np.float32)
+        dc = (ctypes.c_int32 * n)()
+        lib.opj_set_MCT(ctypes.byref(params), m.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                        dc, n)
+    codec = lib.opj_create_compress(2 if jp2 else 0)                 # OPJ_CODEC_JP2 / J2K
+    try:
+        if not lib.opj_setup_encoder(codec, ctypes.byref(params), image):
+            raise ValueError("OpenJPEG refused the encoder parameters")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "out")
+            stream = lib.opj_stream_create_default_file_stream(path.encode(), 0)
+            ok = (lib.opj_start_compress(codec, image, stream) and lib.opj_encode(codec, stream)
+                  and lib.opj_end_compress(codec, stream))
+            lib.opj_stream_destroy(stream)
+            if not ok:
+                raise ValueError("OpenJPEG failed to encode")
+            with open(path, "rb") as fh:
+                return fh.read()
+    finally:
+        lib.opj_destroy_codec(codec)
+        lib.opj_image_destroy(image)
+
+
+def j2k_rgn(cs: bytes, comp: int, shift: int, where: str = "main") -> bytes:
+    """A maxshift RGN marker (ROI) for ``comp`` set in the main header or in
+    every tile's first tile-part header; RGN markers already there go. The
+    coded data is kept: the decoder's bit-planes start ``shift`` higher and
+    the magnitudes come back down (OpenJPEG's encoder writes the marker and
+    codes the data as it would without it)."""
+    main, parts = j2k_parse(cs)
+    ncomp = struct.unpack_from(">H", dict(main)[0xFF51], 34)[0]
+    rgn = (0xFF5E, (bytes([comp]) if ncomp <= 256 else struct.pack(">H", comp))
+           + bytes([0, shift]))
+    main = [(m, p) for m, p in main if m != 0xFF5E]
+    parts = [(i, tp, tn, [(m, p) for m, p in segs if m != 0xFF5E], d)
+             for i, tp, tn, segs, d in parts]
+    if where == "main":
+        return j2k_build(main + [rgn], parts)
+    return j2k_build(main, [(i, tp, tn, ([rgn] if tp == 0 else []) + segs, d)
+                            for i, tp, tn, segs, d in parts])
+
+
+def j2k_packets(data: bytes) -> list:
+    """A tile-part's packets of an SOP+EPH codestream as (SOP, header,
+    body):
+    each starts at its SOP marker, its header runs through its EPH marker
+    (neither marker can stand inside coded data)."""
+    starts = []
+    at = data.find(b"\xff\x91")
+    while at >= 0:
+        starts.append(at)
+        at = data.find(b"\xff\x91", at + 2)
+    if not starts or starts[0] != 0:
+        raise ValueError("the tile-part does not start with an SOP marker")
+    out = []
+    for s, e in zip(starts, starts[1:] + [len(data)]):
+        eph = data.index(b"\xff\x92", s + 6) + 2
+        out.append((data[s:s + 6], data[s + 6:eph], data[eph:e]))
+    return out
+
+
+def j2k_packed_headers(cs: bytes, where: str = "ppt", eph: bool = True, sop: bool = True,
+                       chunk: int = 65532) -> bytes:
+    """An SOP+EPH codestream (``jp2_openjpeg(csty=6)``) with its packet
+    headers moved out of the packets: into PPT markers in the header of the
+    tile-part they came from (``where="ppt"``), or into PPM markers in the
+    main header with an Nppm field for each tile-part (``"ppm"``).
+    ``eph``: the packed headers keep their EPH markers (else both the
+    markers and COD's EPH flag go); ``sop``: the bodies keep their SOP
+    markers (likewise). ``chunk``: the most header bytes a marker carries
+    (a smaller one spreads the headers, and an Nppm's bytes, over several
+    markers)."""
+    main, parts = j2k_parse(cs)
+    cod = next(p for m, p in main if m == 0xFF52)
+    if cod[0] & 6 != 6:
+        raise ValueError("the codestream lacks SOP and EPH markers")
+    scod = cod[0] & ~((0 if eph else 4) | (0 if sop else 2))
+    main = [(m, bytes([scod]) + p[1:] if m == 0xFF52 else p) for m, p in main]
+    out, ppm, zppt = [], [], {}
+    for isot, tpsot, tnsot, segs, data in parts:
+        heads, bodies = b"", b""
+        for sop_marker, head, body in j2k_packets(data):
+            heads += head if eph else head[:-2]
+            bodies += (sop_marker if sop else b"") + body
+        if where == "ppm":
+            ppm.append(heads)
+            out.append((isot, tpsot, tnsot, segs, bodies))
+            continue
+        markers = []
+        for at in range(0, len(heads), chunk):
+            z = zppt.get(isot, 0)
+            zppt[isot] = z + 1
+            markers.append((0xFF61, bytes([z]) + heads[at:at + chunk]))
+        out.append((isot, tpsot, tnsot, segs + markers, bodies))
+    if where == "ppm":
+        markers, cur = [], b""
+        for heads in ppm:
+            if chunk - len(cur) < 4:
+                markers.append(cur)
+                cur = b""
+            cur += struct.pack(">I", len(heads))
+            rest = heads
+            while rest:
+                room = chunk - len(cur)
+                if room == 0:
+                    markers.append(cur)
+                    cur, room = b"", chunk
+                cur, rest = cur + rest[:room], rest[room:]
+        markers.append(cur)
+        main = main + [(0xFF60, bytes([z]) + m) for z, m in enumerate(markers)]
+    return j2k_build(main, out)
