@@ -1290,6 +1290,8 @@ def hold_composite_calls(phase: str, fwd: list, bwd: list) -> dict:
                     err = float((out - ref).abs().max())
                     ok = grad_rows_agree(out, ref, K2_RTOL, K2_ATOL, verbose=False)
             if not ok:
+                if name == "composite_bwd":         # each row's error beside its tolerance
+                    grad_rows_agree(out, ref, K2_RTOL, K2_ATOL)
                 raise RuntimeError(f"{name} disagrees with its plain version at a {label} "
                                    f"call of {phase}")
             row = rows[name].setdefault(label, {
@@ -1707,9 +1709,11 @@ def grabcut_watch(record: dict):
 
 
 def run_formats(card: str) -> dict:
-    """Every JPEG fixture decoded and held bit for bit against cv2's decode;
-    GrabCut on the 512^2 photo on the card (device ms of the pixel work,
-    host ms of the min-cuts) against the CPU's and cv2's mattes."""
+    """Every JPEG fixture decoded and held bit for bit against cv2's decode
+    (the cut-off ones too; the one cv2 reads as None refused with
+    ValueError), and read under IMREAD_COLOR against cv2's; GrabCut on the
+    512^2 photo on the card (device ms of the pixel work, host ms of the
+    min-cuts) against the CPU's and cv2's mattes."""
     import hashlib
 
     import numpy as np
@@ -1717,6 +1721,7 @@ def run_formats(card: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from dreamgaussian_tpu_torch.preprocess.grabcut import ITERATIONS, grabcut_alpha
+    from dreamgaussian_tpu_torch.utils.imread import IMREAD_COLOR, decode_image
     from dreamgaussian_tpu_torch.utils.jpeg import decode_jpeg
     from dreamgaussian_tpu_torch.utils.png import read_png
 
@@ -1726,6 +1731,21 @@ def run_formats(card: str) -> dict:
     for name, want in sorted(digests.items()):
         with open(os.path.join(JPEG_FIXTURES, name), "rb") as fh:
             data = fh.read()
+        if want["shape"] is None:
+            for read in (lambda: decode_jpeg(data), lambda: decode_image(data, IMREAD_COLOR)):
+                try:
+                    read()
+                except ValueError:
+                    continue
+                raise RuntimeError(f"{name}: decoded where cv2's decode is None")
+            print(f"[formats] {name}: refused (ValueError) under both flags, as cv2 returns "
+                  f"None; card '{card}'")
+            continue
+        colour = decode_image(data, IMREAD_COLOR)
+        digest = hashlib.sha256(np.ascontiguousarray(colour).tobytes()).hexdigest()
+        if [list(colour.shape), digest] != [want["color"]["shape"], want["color"]["sha256"]]:
+            raise RuntimeError(f"{name} (IMREAD_COLOR): read {list(colour.shape)} (SHA-256 "
+                               f"{digest[:16]}) against cv2's {want['color']}")
         times = []
         for _ in range(DECODE_REPS):
             t = time.perf_counter()
@@ -1740,8 +1760,8 @@ def run_formats(card: str) -> dict:
                                f"err {err}) against cv2's {want['shape']} {want['sha256'][:16]}")
         decode_ms[name] = statistics.median(times)
         print(f"[formats] {name} {list(got.shape)}: equal to cv2's decode bit for bit (SHA-256 "
-              f"{digest[:16]}), decoded in a median {decode_ms[name]:.2f} ms of {DECODE_REPS} on "
-              f"the host; card '{card}'")
+              f"{digest[:16]}), and under IMREAD_COLOR, decoded in a median "
+              f"{decode_ms[name]:.2f} ms of {DECODE_REPS} on the host; card '{card}'")
 
     decode_ms.update(check_image_fixtures(card))
 

@@ -168,11 +168,14 @@ def build_mesh(opt):
     return mesh
 
 
-def run(opt) -> dict:
+def run(opt, guidance_fns=None, draw=None) -> dict:
+    """Stage 1 and the export. ``guidance_fns`` (in place of the config's)
+    and ``draw`` (the trainer's random numbers) let a test inject another
+    package's weights and samples; neither is a config key."""
     device = resolve_device(opt.get("device", "cuda"))
     mesh = build_mesh(opt)
     try:
-        return _run(opt, device, mesh)
+        return _run(opt, device, mesh, guidance_fns, draw)
     finally:
         if mesh is not None and mesh.backend is not None:
             import torch.distributed as dist
@@ -180,7 +183,7 @@ def run(opt) -> dict:
             dist.destroy_process_group()
 
 
-def _run(opt, device, mesh) -> dict:
+def _run(opt, device, mesh, guidance_fns=None, draw=None) -> dict:
     from ..train import Stage1Trainer
 
     if mesh is not None:
@@ -188,7 +191,8 @@ def _run(opt, device, mesh) -> dict:
         if mesh.rank == 0:
             print(f"[INFO] training on a {mesh.describe()} device mesh")
     ref_rgb, ref_mask = load_reference(opt, device)
-    guidance_fns = build_guidances(opt, ref_rgb, device)
+    if guidance_fns is None:
+        guidance_fns = build_guidances(opt, ref_rgb, device)
     if mesh is not None and mesh.rank == 0 and mesh.data.size > 1 \
             and any(getattr(fn, "sums_views", False) for _, fn in guidance_fns):
         print(f"[shard] note: Zero123's guidance returns the sum over its views and each data "
@@ -197,7 +201,7 @@ def _run(opt, device, mesh) -> dict:
               "(kept as the JAX package has it)")
     trainer = Stage1Trainer(opt, ref_rgb=ref_rgb, ref_mask=ref_mask,
                             guidance_fns=guidance_fns, capacity=opt.get("capacity", 16384),
-                            seed=opt.get("seed", 0), device=device, mesh=mesh)
+                            seed=opt.get("seed", 0), device=device, mesh=mesh, draw=draw)
     ckpt_dir = opt.get("checkpoint_dir", None)
     if opt.get("resume", False) and ckpt_dir and os.path.exists(ckpt_dir):
         trainer.load_checkpoint(ckpt_dir)

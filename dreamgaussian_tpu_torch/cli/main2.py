@@ -54,13 +54,16 @@ def find_mesh(opt) -> str:
     return default
 
 
-def run(opt) -> dict:
+def run(opt, refiners=None, draw=None) -> dict:
+    """Stage 2. ``refiners`` (``build_refiners``'s pair, in place of the
+    config's) and ``draw`` (the trainer's random numbers) let a test inject
+    another package's weights and samples; neither is a config key."""
     from ..meshing.mesh import Mesh
     from ..train import Stage2Trainer
 
     device = resolve_device(opt.get("device", "cuda"))
     ref_rgb, ref_mask = load_reference(opt)
-    refine_fns, refine_image_size = build_refiners(opt, ref_rgb, device)
+    refine_fns, refine_image_size = refiners or build_refiners(opt, ref_rgb, device)
     mesh = Mesh.load(find_mesh(opt), resize=False)
     if mesh.vt is None:
         mesh.auto_uv()
@@ -69,7 +72,7 @@ def run(opt) -> dict:
         mesh.albedo = np.full((opt.get("texture_size", 1024),) * 2 + (3,), 0.5, np.float32)
     trainer = Stage2Trainer(opt, mesh, ref_rgb=ref_rgb, ref_mask=ref_mask,
                             refine_fns=refine_fns, refine_image_size=refine_image_size,
-                            seed=opt.get("seed", 0), device=device)
+                            seed=opt.get("seed", 0), device=device, draw=draw)
     stats = trainer.train(opt.get("iters_refine", 50))
     print(f"[INFO] stage 2 done: {stats}")
 

@@ -6,8 +6,10 @@
 //  - dg_jpeg_scan: Huffman decoding of one scan into the coefficient
 //    arrays, sequential or progressive (DC/AC first and refinement passes,
 //    EOB runs), with restart markers;
-//  - dg_jpeg_finish: dequantisation, libjpeg's integer "islow" IDCT
-//    (jidctint.c), libjpeg's "fancy" triangular chroma upsampling
+//  - dg_jpeg_finish: libjpeg-turbo's interblock smoothing of unrefined
+//    progressive coefficients (jdcoefct.c), dequantisation, libjpeg's
+//    integer "islow" IDCT (jidctint.c, in the lanes of its x86 SIMD
+//    version), libjpeg's "fancy" triangular chroma upsampling
 //    (jdsample.c: h2v1, h1v2, h2v2; plain replication for other factors and
 //    for components two samples wide or less), the fixed-point YCbCr->RGB
 //    tables (jdcolor.c), YCCK->CMYK, and OpenCV's CMYK->BGR
@@ -75,13 +77,18 @@ bool make_huff(const uint8_t* table, bool dc, Huff* h) {
 
 // Entropy-coded bits, most significant first: 0xFF 0x00 is a data 0xFF,
 // 0xFF fill bytes are skipped, and at a marker (or the end) zeros follow,
-// as libjpeg inserts them.
+// as libjpeg inserts them. A read that takes more bits than the data held
+// sets `insufficient`, as jdhuff.c's jpeg_fill_bit_buffer does when it
+// pads with zeros; the block under way finishes on those zeros and the
+// scan decoders skip every later MCU while the flag is set.
 struct Bits {
   const uint8_t* p;
   const uint8_t* end;
   uint64_t acc = 0;
-  int n = 0;
-  bool at_marker = false;
+  int n = 0;                // bits in acc
+  int real = 0;             // of them, the leading ones read from the data
+  bool at_marker = false;   // p is on the 0xFF before an unread marker's code
+  bool insufficient = false;
 
   void fill() {
     while (n <= 56) {
@@ -98,6 +105,7 @@ struct Bits {
             c = 0;
           }
         }
+        if (!at_marker) real += 8;
       }
       acc |= uint64_t(c) << (56 - n);
       n += 8;
@@ -106,6 +114,8 @@ struct Bits {
   int get(int k) {          // k in 0..16
     if (k == 0) return 0;
     if (n < k) fill();
+    if (k > real) insufficient = true;
+    real = std::max(real - k, 0);
     int v = int(acc >> (64 - k));
     acc <<= k;
     n -= k;
@@ -121,13 +131,44 @@ struct Bits {
     }
     return h.vals[(h.valoffset[l] + code) & 0xFF];
   }
-  // Drop the bits left in the interval and step over its RSTn marker.
-  void restart() {
+  // The unread marker's code; the end of the scan's bytes stands for the
+  // marker that follows them (not an RSTn: Python splits scans there).
+  int marker() const { return p + 1 < end ? p[1] : 0xD9; }
+  // jdmarker.c next_marker: skip to the next marker, over stuffed 0xFF 0x00.
+  void next_marker() {
+    for (;;) {
+      while (p < end && *p != 0xFF) p++;
+      const uint8_t* q = p;
+      while (q < end && *q == 0xFF) q++;
+      if (q < end && *q == 0x00) {
+        p = q + 1;
+        continue;
+      }
+      p = q > p ? q - 1 : p;
+      at_marker = true;
+      return;
+    }
+  }
+  // jdhuff.c/jdphuff.c process_restart: drop the bits left in the interval
+  // and read RSTn (`desired` = n), resynchronising as jdmarker.c
+  // jpeg_resync_to_restart does when another marker stands there; the
+  // out-of-data flag is cleared only when no marker is left unread.
+  void restart(int desired) {
     acc = 0;
     n = 0;
-    at_marker = false;
-    while (p + 1 < end && !(p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7)) p++;
-    if (p + 1 < end) p += 2;
+    real = 0;
+    if (!at_marker) next_marker();
+    for (;;) {
+      int m = marker();
+      if (m < 0xD0 || m > 0xD7) break;        // not an RSTn: left unread, an empty interval
+      int ahead = (m - 0xD0 - desired) & 7;
+      if (ahead == 1 || ahead == 2) break;    // one of the next two RSTn: left unread
+      p += 2;                                 // read it: the one expected, or one too far off
+      at_marker = false;
+      if (ahead < 6) break;
+      next_marker();                          // one of the two before: scan on
+    }
+    if (!at_marker) insufficient = false;
   }
 };
 
@@ -239,85 +280,196 @@ void block_ac_refine(Bits& br, const Huff& ac, Scan& sc, int16_t* blk) {
   }
 }
 
-// ---- IDCT (jidctint.c jpeg_idct_islow) -------------------------------------
+// ---- IDCT (libjpeg-turbo's jsimd_idct_islow) -------------------------------
+//
+// jidctint.c's integer "islow" IDCT in the arithmetic of libjpeg-turbo's
+// x86 SIMD version (jidctint-sse2.asm / -avx2.asm), which cv2's decoder
+// runs: dequantisation and the sums in0 +- in4, in7 + in3 and in5 + in1 in
+// 16-bit lanes that wrap, products and the rest in 32-bit lanes, each pass's
+// output saturated to 16 bits and the samples to 8, and the first pass
+// skipped for the whole block (the DC shifted in 16 bits) when rows 1..7
+// hold no coefficient. On the coefficients of valid data none of that
+// wraps or saturates, and the result is jidctint.c's; it differs on the
+// blocks a corrupt or cut-off file decodes to, and cv2's is this one.
 
-const int64_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196, FIX_0_541196100 = 4433,
+const int32_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196, FIX_0_541196100 = 4433,
               FIX_0_765366865 = 6270, FIX_0_899976223 = 7373, FIX_1_175875602 = 9633,
               FIX_1_501321110 = 12299, FIX_1_847759065 = 15137, FIX_1_961570560 = 16069,
               FIX_2_053119869 = 16819, FIX_2_562915447 = 20995, FIX_3_072711026 = 25172;
 const int CONST_BITS = 13, PASS1_BITS = 2;
 
-inline int64_t descale(int64_t x, int n) { return (x + (int64_t(1) << (n - 1))) >> n; }
-
-// The post-IDCT range limit of jdmaster.c prepare_range_limit_table,
-// indexed by the descaled value & 1023.
-inline uint8_t idct_limit(int64_t x) {
-  int t = int(x & 1023);
-  if (t < 128) return uint8_t(t + 128);
-  if (t < 512) return 255;
-  if (t < 896) return 0;
-  return uint8_t(t - 896);
+inline int16_t wrap16(int32_t x) { return int16_t(uint16_t(uint32_t(x))); }
+inline int32_t add32(int32_t a, int32_t b) { return int32_t(uint32_t(a) + uint32_t(b)); }
+inline int32_t sub32(int32_t a, int32_t b) { return int32_t(uint32_t(a) - uint32_t(b)); }
+inline int32_t madd(int16_t a, int32_t ca, int16_t b, int32_t cb) {   // pmaddwd
+  return add32(int32_t(a) * ca, int32_t(b) * cb);
 }
+inline int16_t sat16(int32_t x) { return int16_t(std::min(std::max(x, -32768), 32767)); }
 
-// One 8x8 block: even and odd parts of one pass over 8 values.
+// One pass over 8 values (in(0..7), int16), out(i, 32-bit sum) before descaling.
 template <typename In, typename Out>
 inline void idct_1d(const In& in, Out out) {
-  int64_t z2 = in(2), z3 = in(6);
-  int64_t z1 = (z2 + z3) * FIX_0_541196100;
-  int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-  int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-  z2 = in(0);
-  z3 = in(4);
-  int64_t tmp0 = (z2 + z3) * (int64_t(1) << CONST_BITS);
-  int64_t tmp1 = (z2 - z3) * (int64_t(1) << CONST_BITS);
-  int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-  int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-  tmp0 = in(7);
-  tmp1 = in(5);
-  tmp2 = in(3);
-  tmp3 = in(1);
-  z1 = tmp0 + tmp3;
-  z2 = tmp1 + tmp2;
-  z3 = tmp0 + tmp2;
-  int64_t z4 = tmp1 + tmp3;
-  int64_t z5 = (z3 + z4) * FIX_1_175875602;
-  tmp0 *= FIX_0_298631336;
-  tmp1 *= FIX_2_053119869;
-  tmp2 *= FIX_3_072711026;
-  tmp3 *= FIX_1_501321110;
-  z1 *= -FIX_0_899976223;
-  z2 *= -FIX_2_562915447;
-  z3 *= -FIX_1_961570560;
-  z4 *= -FIX_0_390180644;
-  z3 += z5;
-  z4 += z5;
-  tmp0 += z1 + z3;
-  tmp1 += z2 + z4;
-  tmp2 += z2 + z3;
-  tmp3 += z1 + z4;
-  out(0, tmp10 + tmp3);
-  out(7, tmp10 - tmp3);
-  out(1, tmp11 + tmp2);
-  out(6, tmp11 - tmp2);
-  out(2, tmp12 + tmp1);
-  out(5, tmp12 - tmp1);
-  out(3, tmp13 + tmp0);
-  out(4, tmp13 - tmp0);
+  int16_t z2 = in(2), z3 = in(6);
+  int32_t tmp3 = madd(z2, FIX_0_541196100 + FIX_0_765366865, z3, FIX_0_541196100);
+  int32_t tmp2 = madd(z2, FIX_0_541196100, z3, FIX_0_541196100 - FIX_1_847759065);
+  int32_t tmp0 = int32_t(uint32_t(int32_t(wrap16(in(0) + in(4)))) << CONST_BITS);
+  int32_t tmp1 = int32_t(uint32_t(int32_t(wrap16(in(0) - in(4)))) << CONST_BITS);
+  int32_t tmp10 = add32(tmp0, tmp3), tmp13 = sub32(tmp0, tmp3);
+  int32_t tmp11 = add32(tmp1, tmp2), tmp12 = sub32(tmp1, tmp2);
+  int16_t i7 = in(7), i5 = in(5), i3 = in(3), i1 = in(1);
+  int16_t s3 = wrap16(i7 + i3), s4 = wrap16(i5 + i1);
+  int32_t z3o = madd(s3, FIX_1_175875602 - FIX_1_961570560, s4, FIX_1_175875602);
+  int32_t z4o = madd(s3, FIX_1_175875602, s4, FIX_1_175875602 - FIX_0_390180644);
+  int32_t o0 = add32(madd(i7, FIX_0_298631336 - FIX_0_899976223, i1, -FIX_0_899976223), z3o);
+  int32_t o3 = add32(madd(i7, -FIX_0_899976223, i1, FIX_1_501321110 - FIX_0_899976223), z4o);
+  int32_t o1 = add32(madd(i5, FIX_2_053119869 - FIX_2_562915447, i3, -FIX_2_562915447), z4o);
+  int32_t o2 = add32(madd(i5, -FIX_2_562915447, i3, FIX_3_072711026 - FIX_2_562915447), z3o);
+  out(0, add32(tmp10, o3));
+  out(7, sub32(tmp10, o3));
+  out(1, add32(tmp11, o2));
+  out(6, sub32(tmp11, o2));
+  out(2, add32(tmp12, o1));
+  out(5, sub32(tmp12, o1));
+  out(3, add32(tmp13, o0));
+  out(4, sub32(tmp13, o0));
 }
 
+inline int16_t descale16(int32_t x, int n) { return sat16(add32(x, 1 << (n - 1)) >> n); }
+
 void idct_islow(const int16_t* coef, const int16_t* q, uint8_t* out, int stride) {
-  int ws[64];
-  for (int c = 0; c < 8; c++) {       // pass 1: columns
-    auto in = [&](int r) { return int64_t(int(coef[r * 8 + c]) * int(q[r * 8 + c])); };
-    // (libjpeg's shortcut for a column or row whose AC terms are all zero
-    // gives the same values as the full pass, so there is none here.)
-    idct_1d(in, [&](int r, int64_t v) { ws[r * 8 + c] = int(descale(v, CONST_BITS - PASS1_BITS)); });
+  int16_t ws[64];
+  bool ac = false;
+  for (int i = 8; i < 64; i++) ac = ac || coef[i] != 0;
+  if (!ac) {                          // pass 1 of a block with row 0 alone
+    for (int c = 0; c < 8; c++) {
+      int16_t dc = wrap16(int32_t(uint32_t(int32_t(wrap16(coef[c] * q[c]))) << PASS1_BITS));
+      for (int r = 0; r < 8; r++) ws[r * 8 + c] = dc;
+    }
+  } else {
+    for (int c = 0; c < 8; c++) {     // pass 1: columns
+      auto in = [&](int r) { return wrap16(coef[r * 8 + c] * q[r * 8 + c]); };
+      idct_1d(in, [&](int r, int32_t v) { ws[r * 8 + c] = descale16(v, CONST_BITS - PASS1_BITS); });
+    }
   }
   for (int r = 0; r < 8; r++) {       // pass 2: rows
-    const int* w = ws + r * 8;
-    auto in = [&](int c) { return int64_t(w[c]); };
+    const int16_t* w = ws + r * 8;
+    auto in = [&](int c) { return w[c]; };
     uint8_t* o = out + size_t(r) * stride;
-    idct_1d(in, [&](int c, int64_t v) { o[c] = idct_limit(descale(v, CONST_BITS + PASS1_BITS + 3)); });
+    idct_1d(in, [&](int c, int32_t v) {
+      int x = descale16(v, CONST_BITS + PASS1_BITS + 3);
+      o[c] = uint8_t(std::min(std::max(x, -128), 127) + 128);
+    });
+  }
+}
+
+// ---- Interblock smoothing (jdcoefct.c decompress_smooth_data) ---------------
+
+// libjpeg-turbo's estimate of one coefficient from the DC neighbourhood:
+// num scaled by the coefficient's quantiser, rounded to nearest, and kept
+// below the precision still unknown (al bits) when al > 0.
+inline int16_t smooth_pred(int64_t num, int64_t q, int al) {
+  int64_t pred = ((q << 7) + (num >= 0 ? num : -num)) / (q << 8);
+  if (al > 0 && pred >= (int64_t(1) << al)) pred = (int64_t(1) << al) - 1;
+  return int16_t(num >= 0 ? pred : -pred);
+}
+
+// One component's blocks with the unrefined low coefficients estimated,
+// as libjpeg-turbo >= 2.1 does for a progressive file. bits[0..9]: the
+// latched coef_bits of the rows read in full; prev[0..9]: those of the
+// scan before, used for iMCU rows past last_good. A coefficient is
+// estimated when it is still zero and its bits are not 0; with no AC bits
+// known at all (change_dc) the 5x5 DC neighbourhood also replaces the DC
+// and estimates four more coefficients.
+void smooth_component(const int16_t* coefs, int stride, int bw, int bh, int v,
+                      int total_rows, int last_good, const int32_t* bits_good,
+                      const int32_t* bits_prev, const uint16_t* q, int16_t* out) {
+  const int64_t Q00 = q[0], Q01 = q[1], Q10 = q[8], Q20 = q[16], Q11 = q[9], Q02 = q[2],
+                Q03 = q[3], Q12 = q[10], Q21 = q[17], Q30 = q[24];
+  const int last_row = total_rows - 1;
+  for (int r = 0; r * v < bh; r++) {
+    const int32_t* bits = r > last_good ? bits_prev : bits_good;
+    bool change_dc = true;
+    for (int i = 1; i < 10; i++) change_dc = change_dc && bits[i] == -1;
+    int block_rows = v;
+    if (r == last_row) {
+      block_rows = bh % v;
+      if (block_rows == 0) block_rows = v;
+    }
+    // (libjpeg-turbo counts the image's block rows with this iMCU row's
+    // count, which differs on a short last row.)
+    int image_rows = block_rows * total_rows;
+    for (int br = 0; br < block_rows; br++) {
+      int by = r * v + br, ib = r * block_rows + br;
+      auto row = [&](int y) { return coefs + int64_t(y) * stride * 64; };
+      const int16_t* cur = row(by);
+      const int16_t* prv = ib > 0 ? row(by - 1) : cur;
+      const int16_t* pp = ib > 1 ? row(by - 2) : prv;
+      const int16_t* nxt = ib < image_rows - 1 ? row(by + 1) : cur;
+      const int16_t* nn = ib < image_rows - 2 ? row(by + 2) : nxt;
+      const int16_t* rows[5] = {pp, prv, cur, nxt, nn};
+      int D[5][5];                 // DC01..DC25, row by row
+      for (int i = 0; i < 5; i++)
+        for (int j = 0; j < 5; j++) D[i][j] = rows[i][0];
+      const int last_col = bw - 1;
+      for (int bx = 0; bx < bw; bx++) {
+        if (bx == 0 && bx < last_col)
+          for (int i = 0; i < 5; i++) D[i][3] = D[i][4] = rows[i][64];
+        if (bx + 1 < last_col)
+          for (int i = 0; i < 5; i++) D[i][4] = rows[i][(bx + 2) * 64];
+        int16_t* w = out + (int64_t(by) * stride + bx) * 64;
+        std::memcpy(w, cur + int64_t(bx) * 64, 64 * sizeof(int16_t));
+        const int DC01 = D[0][0], DC02 = D[0][1], DC03 = D[0][2], DC04 = D[0][3], DC05 = D[0][4],
+                  DC06 = D[1][0], DC07 = D[1][1], DC08 = D[1][2], DC09 = D[1][3], DC10 = D[1][4],
+                  DC11 = D[2][0], DC12 = D[2][1], DC13 = D[2][2], DC14 = D[2][3], DC15 = D[2][4],
+                  DC16 = D[3][0], DC17 = D[3][1], DC18 = D[3][2], DC19 = D[3][3], DC20 = D[3][4],
+                  DC21 = D[4][0], DC22 = D[4][1], DC23 = D[4][2], DC24 = D[4][3], DC25 = D[4][4];
+        int al;
+        if ((al = bits[1]) != 0 && w[1] == 0)
+          w[1] = smooth_pred(Q00 * (change_dc ?
+              (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 + 3 * DC10 -
+               3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 + 13 * DC17 -
+               13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24 + DC25) :
+              (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)), Q01, al);
+        if ((al = bits[2]) != 0 && w[8] == 0)
+          w[8] = smooth_pred(Q00 * (change_dc ?
+              (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 + 38 * DC08 +
+               13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+               3 * DC22 + 3 * DC23 + 3 * DC24 + DC25) :
+              (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)), Q10, al);
+        if ((al = bits[3]) != 0 && w[16] == 0)
+          w[16] = smooth_pred(Q00 * (change_dc ?
+              (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 - 5 * DC14 +
+               2 * DC17 + 7 * DC18 + 2 * DC19 + DC23) :
+              (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)), Q20, al);
+        if ((al = bits[4]) != 0 && w[9] == 0)
+          w[9] = smooth_pred(Q00 * (change_dc ?
+              (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 - DC25) :
+              (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 - DC24 + DC04 - DC06 +
+               10 * DC07 - 10 * DC09)), Q11, al);
+        if ((al = bits[5]) != 0 && w[2] == 0)
+          w[2] = smooth_pred(Q00 * (change_dc ?
+              (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 + 7 * DC14 + DC15 +
+               2 * DC17 - 5 * DC18 + 2 * DC19) :
+              (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)), Q02, al);
+        if (change_dc) {
+          if ((al = bits[6]) != 0 && w[3] == 0)
+            w[3] = smooth_pred(Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19), Q03, al);
+          if ((al = bits[7]) != 0 && w[10] == 0)
+            w[10] = smooth_pred(Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19), Q12, al);
+          if ((al = bits[8]) != 0 && w[17] == 0)
+            w[17] = smooth_pred(Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19), Q21, al);
+          if ((al = bits[9]) != 0 && w[24] == 0)
+            w[24] = smooth_pred(Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19), Q30, al);
+          w[0] = smooth_pred(Q00 * (
+              -2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 + 6 * DC07 +
+              42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 -
+              8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 - 2 * DC21 -
+              6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25), Q00, 0);
+        }
+        for (int i = 0; i < 5; i++)        // slide the window one column right
+          for (int j = 0; j < 4; j++) D[i][j] = D[i][j + 1];
+      }
+    }
   }
 }
 
@@ -387,12 +539,14 @@ extern "C" {
 // 64] array, desc[c*4 ..] = (h, v, stride, unused): blocks per MCU across
 // and down (1, 1 in a scan of one component) and the array's row width in
 // blocks; dc/ac[c*272 ..] its tables (16 counts, 256 symbols; all counts 0
-// where the scan needs none). mcus_x, mcus_y: the scan's MCU grid. Returns
-// 0, or 1 for a table the scan needs that is missing or malformed.
+// where the scan needs none). mcus_x, mcus_y: the scan's MCU grid. Writes
+// to *last_good the last MCU begun with data left (jdcoefct.c's
+// last_good_iMCU_row is its iMCU row).
+// Returns 0, or 1 for a table the scan needs that is missing or malformed.
 int dg_jpeg_scan(const uint8_t* data, int64_t len, int ncomp, int16_t** coefs,
                  const int32_t* desc, const uint8_t* dc, const uint8_t* ac, int mcus_x,
                  int mcus_y, int ss, int se, int ah, int al, int progressive,
-                 int restart_interval) {
+                 int restart_interval, int64_t* last_good) {
   std::vector<Huff> dct(ncomp), act(ncomp);
   for (int c = 0; c < ncomp; c++) {
     if (!make_huff(dc + c * 272, true, &dct[c]) || !make_huff(ac + c * 272, false, &act[c]))
@@ -405,12 +559,17 @@ int dg_jpeg_scan(const uint8_t* data, int64_t len, int ncomp, int16_t** coefs,
   Scan sc{ss, se, ah, al};
   std::vector<int> last_dc(ncomp, 0);
   int64_t n_mcus = int64_t(mcus_x) * mcus_y;
+  int next_rst = 0;
+  *last_good = -1;
   for (int64_t m = 0; m < n_mcus; m++) {
     if (restart_interval && m > 0 && m % restart_interval == 0) {
-      br.restart();
+      br.restart(next_rst);
+      next_rst = (next_rst + 1) & 7;
       std::fill(last_dc.begin(), last_dc.end(), 0);
       sc.eobrun = 0;
     }
+    if (br.insufficient) continue;      // out of data: the MCU is left as it is
+    *last_good = m;
     int mx = int(m % mcus_x), my = int(m / mcus_x);
     for (int c = 0; c < ncomp; c++) {
       int h = desc[c * 4], v = desc[c * 4 + 1], stride = desc[c * 4 + 2];
@@ -440,8 +599,12 @@ int dg_jpeg_scan(const uint8_t* data, int64_t len, int ncomp, int16_t** coefs,
 // height_in_blocks, has_table), q[c*64 ..] its quantisation table in
 // natural order. transform: 0 grey, 1 YCbCr->RGB, 2 RGB as stored,
 // 3 CMYK, 4 YCCK (both then OpenCV's CMYK->BGR, written as RGB).
+// smooth: null, or a progressive file's interblock smoothing:
+// (last_good_row, total_imcu_rows), then per component its ten latched
+// coef_bits and the ten of the scan before (smooth_component).
 int dg_jpeg_finish(int ncomp, int16_t** coefs, const int32_t* desc, const uint16_t* q,
-                   int width, int height, int max_h, int max_v, int transform, uint8_t* out) {
+                   int width, int height, int max_h, int max_v, int transform,
+                   const int32_t* smooth, uint8_t* out) {
   std::vector<std::vector<uint8_t>> planes(ncomp);
   for (int c = 0; c < ncomp; c++) {
     const int32_t* d = desc + c * 6;
@@ -451,10 +614,19 @@ int dg_jpeg_finish(int ncomp, int16_t** coefs, const int32_t* desc, const uint16
     int dh = int((int64_t(height) * v + max_v - 1) / max_v);
     int16_t qt[64];
     for (int i = 0; i < 64; i++) qt[i] = d[5] ? int16_t(q[c * 64 + i]) : 0;
+    const int16_t* src = coefs[c];
+    std::vector<int16_t> smoothed;
+    if (smooth) {
+      smoothed.resize(size_t(bh) * stride * 64);
+      const int32_t* bits = smooth + 2 + c * 20;
+      smooth_component(coefs[c], stride, bw, bh, v, smooth[1], smooth[0], bits, bits + 10,
+                       q + c * 64, smoothed.data());
+      src = smoothed.data();
+    }
     std::vector<uint8_t> samples(size_t(bw) * 8 * bh * 8);
     for (int by = 0; by < bh; by++)
       for (int bx = 0; bx < bw; bx++)
-        idct_islow(coefs[c] + (int64_t(by) * stride + bx) * 64, qt,
+        idct_islow(src + (int64_t(by) * stride + bx) * 64, qt,
                    samples.data() + size_t(by) * 8 * bw * 8 + bx * 8, bw * 8);
     std::vector<uint8_t> crop(size_t(dw) * dh);
     for (int y = 0; y < dh; y++)

@@ -88,8 +88,8 @@ def _load(src: Path, declare) -> ctypes.CDLL:
 def _declare_image_tools(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     lib.dg_jpeg_scan.argtypes = [vp, i64, i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
-                                 i32, i32]
-    lib.dg_jpeg_finish.argtypes = [i32, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+                                 i32, i32, vp]
+    lib.dg_jpeg_finish.argtypes = [i32, vp, vp, vp, i32, i32, i32, i32, i32, vp, vp]
     lib.dg_maxflow.argtypes = [i32, i64, vp, vp, vp, vp, vp, vp, vp, vp]
     for fn in (lib.dg_jpeg_scan, lib.dg_jpeg_finish, lib.dg_maxflow):
         fn.restype = ctypes.c_int

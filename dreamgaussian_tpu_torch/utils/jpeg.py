@@ -4,11 +4,21 @@ Python reads the markers (SOI, APPn and COM skipped, DQT, DHT, SOF, SOS,
 DRI, EOI) and hands each scan's entropy-coded bytes to
 ``csrc/image_tools.cpp`` (built by ``native.py``), which does the Huffman
 decoding (sequential and progressive scans, restart intervals) and, once
-every scan is read, dequantisation, libjpeg's integer IDCT, its "fancy"
-chroma upsampling and its fixed-point colour conversion. Each of those
-steps is integer arithmetic, so the result equals what ``cv2.imread(path,
-cv2.IMREAD_UNCHANGED)`` (libjpeg-turbo) gives, channels in RGB order, bit
-for bit.
+every scan is read, libjpeg-turbo's interblock smoothing of progressive
+coefficients left unrefined, dequantisation, libjpeg's integer IDCT, its
+"fancy" chroma upsampling and its fixed-point colour conversion. Each of
+those steps is integer arithmetic, so the result equals what
+``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` (libjpeg-turbo) gives, channels
+in RGB order, bit for bit.
+
+A file cut off or damaged is read as cv2.imread reads it: where a scan's
+data runs out, the MCU under way finishes on zero bits and later ones are
+left as they are (flat grey in a sequential file) until a restart marker;
+a cut inside a marker segment reads on through the FF D9 pairs
+libjpeg-turbo's source manager hands out past the end, then ends the file;
+a file that ends before its first scan is refused with ValueError, as cv2
+returns None. (cv2.imdecode's memory source does not pad a cut file so,
+and its decode of one differs.)
 
 A JPEG-compressed TIFF's strips and tiles come here too
 (``utils/tiff.py`` splices its JPEGTables in front and names the colour
@@ -19,9 +29,7 @@ turns them into BGR); any integral sampling factors; restart intervals;
 sizes that are not multiples of the MCU. The EXIF orientation is ignored,
 as ``IMREAD_UNCHANGED`` ignores it. Refused with NotImplementedError:
 arithmetic coding (SOF9-SOF15), lossless (SOF3), hierarchical (SOF5-SOF7)
-and 12-bit samples. One known difference: a progressive file whose scans
-leave coefficients unrefined (a truncated download) is decoded without
-libjpeg's interblock smoothing of such coefficients.
+and 12-bit samples.
 """
 
 from __future__ import annotations
@@ -77,6 +85,25 @@ def _color_transform(comps, jfif: bool, adobe: int | None) -> int:
     raise NotImplementedError(f"a JPEG with {n} components (1, 3 or 4 are read)")
 
 
+_SAVED = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24]     # natural positions of zigzag 0..9
+
+
+def _smoothing(comps, frame, coef_bits, prev_bits, scans, last_good):
+    """jdcoefct.c smoothing_ok: the native side's smoothing parameters, or
+    None where libjpeg-turbo does not smooth (a sequential file, a table
+    missing or with a zero among the ten quantisers, a component with no
+    DC yet, or every one of coefficients 1..9 fully known). ``last_good``:
+    the iMCU row after which the rows take the scan before's bits."""
+    if not frame[2] or any(c.quant is None or not c.quant[_SAVED].all() for c in comps):
+        return None
+    if (coef_bits[:, 0] < 0).any() or not coef_bits[:, 1:10].any():
+        return None
+    total_rows = -(-frame[0] // (8 * frame[4]))
+    prev = prev_bits[:, :10] if scans > 1 else np.full_like(prev_bits[:, :10], -1)
+    return np.concatenate([[last_good, total_rows],
+                           np.concatenate([coef_bits[:, :10], prev], 1).ravel()]).astype(np.int32)
+
+
 def decode_jpeg(data: bytes, transform: int | None = None) -> np.ndarray:
     """JPEG bytes -> uint8 [H, W] (one component) or [H, W, 3] RGB.
     ``transform`` overrides the colour conversion the markers name (1
@@ -98,6 +125,8 @@ def decode_jpeg(data: bytes, transform: int | None = None) -> np.ndarray:
     coefs: list[np.ndarray] = []
     frame = None                   # (height, width, progressive, max_h, max_v, mcus_x, mcus_y)
     jfif, adobe, restart = False, None, 0
+    coef_bits = prev_bits = None   # jdphuff.c's coef_bits [components, 64], and before the scan
+    scans, last_good = 0, -1       # last_good: jdcoefct.c's last_good_iMCU_row
     pos = 2
     while True:
         while pos < len(buf) and buf[pos] != 0xFF:     # garbage before a marker: skipped
@@ -112,8 +141,13 @@ def decode_jpeg(data: bytes, transform: int | None = None) -> np.ndarray:
             break
         if 0xD0 <= code <= 0xD7 or code == 0x01:        # RSTn or TEM outside a scan
             continue
-        if pos + 2 > len(buf):
-            raise ValueError("truncated JPEG marker segment")
+        cut = pos + 2 > len(buf) or pos + struct.unpack_from(">H", data, pos)[0] > len(buf)
+        if cut:
+            # The file ends inside this segment. libjpeg's source manager hands out
+            # FF D9 pairs past the end (cv2.imread's and libtiff's alike), so the
+            # segment is read on through them, and then the file has ended.
+            data += b"\xff\xd9" * 32769
+            buf = np.frombuffer(data, np.uint8)
         length = struct.unpack_from(">H", data, pos)[0]
         seg = data[pos + 2:pos + length]
         if len(seg) != length - 2:
@@ -133,15 +167,19 @@ def decode_jpeg(data: bytes, transform: int | None = None) -> np.ndarray:
                 table[_ZIGZAG] = vals
                 quant[tq] = table
                 i += 1 + n
-        elif code == 0xC4:                              # DHT
+        elif code == 0xC4:                              # DHT, with jdmarker.c get_dht's checks
             i = 0
-            while i < len(seg):
+            while len(seg) - i > 16:
                 tc, th = seg[i] >> 4, seg[i] & 15
                 counts = seg[i + 1:i + 17]
                 n = sum(counts)
+                if n > 256 or n > len(seg) - i - 17 or seg[i] & 0xEC:
+                    raise ValueError("a malformed JPEG Huffman table")
                 table = counts + seg[i + 17:i + 17 + n]
                 (ac_tables if tc else dc_tables)[th] = table.ljust(_TABLE_BYTES, b"\0")
                 i += 17 + n
+            if i != len(seg):
+                raise ValueError("a malformed JPEG Huffman table")
         elif code == 0xDD:                              # DRI
             restart = struct.unpack(">H", seg[:2])[0]
         elif code in (0xC0, 0xC1, 0xC2):                # SOF0, SOF1, SOF2
@@ -168,6 +206,8 @@ def decode_jpeg(data: bytes, transform: int | None = None) -> np.ndarray:
                 c.stride = mcus_x * c.h                    # blocks an interleaved MCU row covers
                 coefs.append(np.zeros((mcus_y * c.v, c.stride, 64), np.int16))
             frame = (height, width, code == 0xC2, max_h, max_v, mcus_x, mcus_y)
+            coef_bits = np.full((n, 64), -1, np.int32)
+            prev_bits = np.zeros((n, 64), np.int32)
         elif code in _REFUSED:
             raise NotImplementedError(f"{_REFUSED[code]} is not read")
         elif code == 0xDA:                              # SOS
@@ -187,11 +227,19 @@ def decode_jpeg(data: bytes, transform: int | None = None) -> np.ndarray:
                 raise ValueError("a JPEG scan header out of range")
             after = np.searchsorted(markers, pos)
             end = int(markers[after]) if after < len(markers) else len(buf)
+            if cut:             # the scan's data is the padding up to its first 0xFF
+                end = pos + int(buf[pos] != 0xFF)
             for k in members:
                 c = comps[k]
                 if c.quant is None and c.tq in quant:
                     c.quant = quant[c.tq].copy()
             _, _, progressive, _, _, mcus_x, mcus_y = frame
+            scans += 1
+            if progressive:     # start_pass_phuff_decoder: the whole band counts as read
+                for k in members:
+                    band = slice(min(ss, 1), max(se, 9) + 1)
+                    prev_bits[k, band] = coef_bits[k, band] if scans > 1 else 0
+                    coef_bits[k, ss:se + 1] = al
             if ns == 1:         # one block per MCU over the component's own blocks
                 c = comps[members[0]]
                 desc = [1, 1, c.stride, 0]
@@ -204,23 +252,34 @@ def decode_jpeg(data: bytes, transform: int | None = None) -> np.ndarray:
             ac = np.frombuffer(b"".join(ac_tables.get(t & 15, empty) for t in tables), np.uint8)
             scan = np.ascontiguousarray(buf[pos:end])
             desc = np.array(desc, np.int32)     # every array named: alive through the call
+            decoded = np.zeros(1, np.int64)
             ret = lib.dg_jpeg_scan(
                 _ptr(scan), len(scan), ns, _pointers([coefs[k] for k in members]), _ptr(desc),
-                _ptr(dc), _ptr(ac), grid[0], grid[1], ss, se, ah, al, int(progressive), restart)
+                _ptr(dc), _ptr(ac), grid[0], grid[1], ss, se, ah, al, int(progressive), restart,
+                _ptr(decoded))
             if ret != 0:
                 raise ValueError("a JPEG scan refers to a missing or malformed Huffman table")
+            # The iMCU row of the last MCU begun with data left: the smoothing
+            # takes the scan before's coefficient bits for the rows after it.
+            last_good = int(decoded[0]) // grid[0] // (comps[members[0]].v if ns == 1 else 1)
             pos = end
+        if cut:
+            break
     if frame is None:
         raise ValueError("a JPEG without a frame header")
+    if scans == 0:
+        raise ValueError("a JPEG that ends before its first scan")   # cv2: no image
     height, width, _, max_h, max_v, _, _ = frame
     if transform is None or len(comps) != 3:
         transform = _color_transform(comps, jfif, adobe)
     desc = np.array([x for c in comps for x in (c.h, c.v, c.stride, c.bw, c.bh,
                                                 int(c.quant is not None))], np.int32)
     q = np.stack([c.quant if c.quant is not None else np.zeros(64, np.uint16) for c in comps])
+    smooth = _smoothing(comps, frame, coef_bits, prev_bits, scans, last_good)
     out = np.empty((height, width) if transform == 0 else (height, width, 3), np.uint8)
     if lib.dg_jpeg_finish(len(comps), _pointers(coefs), _ptr(desc), _ptr(q), width, height,
-                          max_h, max_v, transform, _ptr(out)) != 0:
+                          max_h, max_v, transform, None if smooth is None else _ptr(smooth),
+                          _ptr(out)) != 0:
         raise NotImplementedError("a JPEG whose sampling factors are not integral ratios")
     return out
 

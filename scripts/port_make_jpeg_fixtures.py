@@ -18,8 +18,21 @@ cv2 (``chip_smoke.py``'s formats phase) still hold it against cv2. Writes:
   inset by max(4, min(h, w) // 20), 5 iterations, ``GC_INIT_WITH_RECT``,
   then ``cv2.GaussianBlur(alpha, (5, 5), 0)``; cv2's RNG seeded with 0),
   grey PNG;
-- ``decodes.json``: shape and SHA-256 of every file's cv2 decode (the two
-  photos' decodes would take 0.8 and 2.4 MB as ``.npy``).
+- ``small_grey_progressive.jpg``, and cut-off files of the 83x61 photo
+  (``cut_*.jpg``): the baseline (quality 95) file at 30%, 60% and 90% of
+  its bytes, the progressive one at the same three points, the
+  progressive one at the end of its third scan with an EOI appended
+  (unrefined coefficients, no missing data), the ``RST_INTERVAL`` 2 file
+  halfway between two restart markers, the quality 50 one (4:2:0) halfway
+  through its scan's data, the grey progressive one at 60%, and the
+  baseline one before its first scan (inside a DQT segment), whose decode
+  is None; beside each, ``.npy`` of
+  cv2's ``IMREAD_UNCHANGED`` decode of the file (cv2.imread, which reads a
+  cut file on as libjpeg-turbo's stdio source does: cv2.imdecode does
+  not);
+- ``decodes.json``: shape and SHA-256 of every file's cv2 decode under
+  IMREAD_UNCHANGED, and under IMREAD_COLOR (key ``color``), null for
+  None (the two photos' decodes would take 0.8 and 2.4 MB as ``.npy``).
 """
 
 from __future__ import annotations
@@ -65,6 +78,42 @@ def photo(h: int, w: int, seed: int) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
+def markers(data: bytes, code: int) -> list[int]:
+    """Offsets of every 0xFF ``code`` marker (0xD0 for any RSTn)."""
+    if code == 0xD0:
+        return [i for i in range(len(data) - 1) if data[i] == 0xFF and 0xD0 <= data[i + 1] <= 0xD7]
+    return [i for i in range(len(data) - 1) if data[i] == 0xFF and data[i + 1] == code]
+
+
+def cut_files(whole: dict) -> dict:
+    """Cut-off files (name -> bytes) from the whole ones (name -> bytes)."""
+    base, prog = whole["small_q95"], whole["small_progressive"]
+    out = {f"cut_baseline_{p}": base[:len(base) * p // 100] for p in (30, 60, 90)}
+    out.update({f"cut_progressive_{p}": prog[:len(prog) * p // 100] for p in (30, 60, 90)})
+    # The fourth scan's header, with the DHT cv2's encoder puts before it.
+    sos = markers(prog, 0xDA)[3]
+    dht = max(i for i in markers(prog, 0xC4) if i < sos)
+    out["cut_progressive_scan3_eoi"] = prog[:dht] + b"\xff\xd9"
+    rst = markers(whole["small_restart"], 0xD0)
+    mid = len(rst) // 2
+    out["cut_restart"] = whole["small_restart"][:(rst[mid] + rst[mid + 1]) // 2]
+    s420 = whole["small_q50"]           # 4:2:0, cv2's default, as small_q95 and small_s420
+    sos = markers(s420, 0xDA)[0]
+    data_start = sos + 2 + int.from_bytes(s420[sos + 2:sos + 4], "big")
+    out["cut_s420_q50"] = s420[:(data_start + len(s420)) // 2]
+    grey = whole["small_grey_progressive"]
+    out["cut_grey_progressive_60"] = grey[:len(grey) * 60 // 100]
+    out["cut_before_scan"] = base[:len(base) * 5 // 100]
+    return out
+
+
+def cv2_digest(img) -> dict | None:
+    if img is None:
+        return None
+    rgb = np.ascontiguousarray(img if img.ndim == 2 else img[..., ::-1])
+    return {"shape": list(rgb.shape), "sha256": hashlib.sha256(rgb.tobytes()).hexdigest()}
+
+
 def main(argv=None) -> None:
     import cv2     # the reference; the port itself never imports it
 
@@ -87,21 +136,30 @@ def main(argv=None) -> None:
     for name, flags in variants.items():
         files[name] = (small, flags)
     files["small_grey"] = (small[..., 0], [])
+    files["small_grey_progressive"] = (small[..., 0], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     files["photo_512"] = (photo(512, 512, seed=2), [cv2.IMWRITE_JPEG_QUALITY, 90])
     files["photo_1024x768"] = (photo(768, 1024, seed=3), [cv2.IMWRITE_JPEG_QUALITY, 90])
-    digests = {}
+    digests, whole = {}, {}
     for name, (img, flags) in files.items():
         path = os.path.join(args.out, name + ".jpg")
         bgr = img if img.ndim == 2 else img[..., ::-1]
         if not cv2.imwrite(path, np.ascontiguousarray(bgr), flags):
             raise RuntimeError(f"cv2 could not write {path}")
+        with open(path, "rb") as fh:
+            whole[name] = fh.read()
+    for name, data in cut_files(whole).items():
+        with open(os.path.join(args.out, name + ".jpg"), "wb") as fh:
+            fh.write(data)
+    for name in list(files) + list(cut_files(whole)):
+        path = os.path.join(args.out, name + ".jpg")
         dec = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-        rgb = np.ascontiguousarray(dec if dec.ndim == 2 else dec[..., ::-1])
-        digests[name + ".jpg"] = {"shape": list(rgb.shape),
-                                  "sha256": hashlib.sha256(rgb.tobytes()).hexdigest()}
-        if name.startswith("small"):
-            np.save(os.path.join(args.out, name + ".npy"), rgb)
+        digests[name + ".jpg"] = {**(cv2_digest(dec) or {"shape": None, "sha256": None}),
+                                  "color": cv2_digest(cv2.imread(path, cv2.IMREAD_COLOR))}
+        if dec is not None and name.startswith(("small", "cut")):
+            np.save(os.path.join(args.out, name + ".npy"),
+                    np.ascontiguousarray(dec if dec.ndim == 2 else dec[..., ::-1]))
         if name == "photo_512":
+            rgb = np.ascontiguousarray(dec[..., ::-1])
             h, w = rgb.shape[:2]
             mask = np.zeros((h, w), np.uint8)
             margin = max(4, min(h, w) // 20)
@@ -115,7 +173,7 @@ def main(argv=None) -> None:
         json.dump(digests, fh, indent=1, sort_keys=True)
         fh.write("\n")
     total = sum(os.path.getsize(os.path.join(args.out, f)) for f in os.listdir(args.out))
-    print(f"[fixtures] {len(files)} JPEGs, {total} bytes in {args.out}")
+    print(f"[fixtures] {len(digests)} JPEGs, {total} bytes in {args.out}")
 
 
 if __name__ == "__main__":

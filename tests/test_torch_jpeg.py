@@ -3,9 +3,13 @@ against ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` (libjpeg-turbo), and
 ``cli.process.read_image``'s choice of decoder by content.
 
 Tolerance: every decode equal to cv2's bit for bit (channels in RGB order),
-on cv2's and Pillow's files and on the checked-in fixtures of
-``scripts/port_make_jpeg_fixtures.py``. ``load_rgba`` of a JPEG against the
-JAX package's at ``test_torch_process.py``'s tolerances."""
+on cv2's and Pillow's files, on files cut off at every few bytes and on
+files with broken restart intervals (each held against ``cv2.imread`` of
+the file: ``cv2.imdecode`` reads a cut-off file otherwise), and on the
+checked-in fixtures of ``scripts/port_make_jpeg_fixtures.py`` under both
+flags; cv2's None is the port's ValueError. ``load_rgba`` of a JPEG, whole
+or cut off, against the JAX package's at ``test_torch_process.py``'s
+tolerances."""
 
 import hashlib
 import io
@@ -18,6 +22,7 @@ from PIL import Image
 
 from dreamgaussian_tpu.cli import process as jproc
 from dreamgaussian_tpu_torch.cli import process as tproc
+from dreamgaussian_tpu_torch.utils.imread import IMREAD_COLOR, read_image
 from dreamgaussian_tpu_torch.utils.jpeg import decode_jpeg
 from dreamgaussian_tpu_torch.utils.png import write_png
 from test_torch_process import _photo, u2net_files  # noqa: F401
@@ -106,17 +111,107 @@ def test_pillow_jpegs_with_exif_orientation_and_progressive_subsampling():
 FIXTURE_DIGESTS = json.loads((JPEG_FIXTURES / "decodes.json").read_text())
 
 
+def _cv2_read(path, flags=cv2.IMREAD_UNCHANGED):
+    img = cv2.imread(str(path), flags)
+    return img if img is None or img.ndim == 2 else np.ascontiguousarray(img[..., ::-1])
+
+
 @pytest.mark.parametrize("name", sorted(FIXTURE_DIGESTS))
 def test_checked_in_fixtures_decode_as_cv2_decoded_them(name):
+    """Against the stored digest and array, and cv2.imread of the file."""
     data = (JPEG_FIXTURES / name).read_bytes()
-    got = decode_jpeg(data)
     want = FIXTURE_DIGESTS[name]
+    if want["shape"] is None:                  # cv2's None: no scan before the cut
+        assert _cv2_read(JPEG_FIXTURES / name) is None
+        with pytest.raises(ValueError):
+            decode_jpeg(data)
+        return
+    got = decode_jpeg(data)
     assert list(got.shape) == want["shape"]
     assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"]
     npy = JPEG_FIXTURES / name.replace(".jpg", ".npy")
     if npy.exists():
         np.testing.assert_array_equal(got, np.load(npy))
-    np.testing.assert_array_equal(got, _cv2_decode(data))
+    np.testing.assert_array_equal(got, _cv2_read(JPEG_FIXTURES / name))
+
+
+@pytest.mark.parametrize("name", sorted(FIXTURE_DIGESTS))
+def test_checked_in_fixtures_read_in_colour_as_cv2_reads_them(name):
+    """read_image under IMREAD_COLOR against the stored digest and cv2."""
+    path = JPEG_FIXTURES / name
+    want = FIXTURE_DIGESTS[name]["color"]
+    if want is None:
+        assert _cv2_read(path, cv2.IMREAD_COLOR) is None
+        with pytest.raises(ValueError):
+            read_image(str(path), IMREAD_COLOR)
+        return
+    got = read_image(str(path), IMREAD_COLOR)
+    assert [list(got.shape), hashlib.sha256(got.tobytes()).hexdigest()] == [want["shape"],
+                                                                            want["sha256"]]
+    np.testing.assert_array_equal(got, _cv2_read(path, cv2.IMREAD_COLOR))
+
+
+CUT_VARIANTS = {     # flags, image size; each file cut at every STRIDE-th byte
+    "baseline": ([], (61, 83)),
+    "progressive": ([PROG, 1], (61, 83)),
+    "restart": ([RST, 2], (61, 83)),
+    "progressive_restart": ([PROG, 1, RST, 3], (61, 83)),
+    "progressive_s444": ([PROG, 1, SF, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444], (40, 24)),
+    "progressive_s440": ([PROG, 1, SF, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440], (17, 33)),
+    # A last iMCU row of one block row: libjpeg-turbo's smoothing counts the
+    # image's block rows with that row's count.
+    "progressive_short_last_row": ([PROG, 1], (24, 40)),
+    "progressive_q20": ([PROG, 1, Q, 20], (130, 77)),
+}
+STRIDE = 97
+
+
+@pytest.mark.parametrize("grey", [False, True], ids=["colour", "grey"])
+@pytest.mark.parametrize("variant", list(CUT_VARIANTS))
+def test_cut_off_jpegs_decode_as_cv2_imread_reads_them(tmp_path, variant, grey):
+    """libjpeg-turbo's out-of-data rule (the MCU under way finishes on zero
+    bits, later ones stay unset), its interblock smoothing of unrefined
+    progressive coefficients, a cut inside a marker segment read on
+    through the FF D9 pairs its source hands out, and its SIMD IDCT's
+    saturation on the blocks zero bits decode to."""
+    flags, size = CUT_VARIANTS[variant]
+    img = _image(*size, seed=size[0] + size[1])
+    data = _cv2_jpeg(img[..., 1] if grey else img, flags)
+    path = tmp_path / "cut.jpg"
+    for n in range(3, len(data), STRIDE):
+        path.write_bytes(data[:n])
+        want = _cv2_read(path)
+        if want is None:
+            with pytest.raises(ValueError):
+                decode_jpeg(data[:n])
+        else:
+            np.testing.assert_array_equal(decode_jpeg(data[:n]), want, err_msg=f"cut at {n}")
+
+
+def _markers(data: bytes) -> list[int]:
+    return [i for i in range(len(data) - 1) if data[i] == 0xFF and 0xD0 <= data[i + 1] <= 0xD7]
+
+
+@pytest.mark.parametrize("flags", [[RST, 1], [RST, 2, PROG, 1]], ids=["baseline", "progressive"])
+@pytest.mark.parametrize("damage", ["short", "dropped", "far", "earlier", "next"])
+def test_damaged_restart_intervals_decode_as_cv2_reads_them(tmp_path, flags, damage):
+    """An interval whose data runs out before its RSTn (the out-of-data
+    flag, cleared at the marker), a missing RSTn, and one numbered three
+    ahead, one behind or one ahead (jdmarker.c jpeg_resync_to_restart)."""
+    data = _cv2_jpeg(_image(61, 83, seed=9), flags)
+    path = tmp_path / "damaged.jpg"
+    for k in (3, 7, 12):
+        a, b = _markers(data)[k:k + 2]
+        n = data[a + 1] - 0xD0
+        renumber = {"far": 3, "earlier": -1, "next": 1}
+        if damage == "short":
+            bad = data[:a + 2 + (b - a) // 3] + data[b:]
+        elif damage == "dropped":
+            bad = data[:a] + data[a + 2:]
+        else:
+            bad = data[:a + 1] + bytes([0xD0 + ((n + renumber[damage]) & 7)]) + data[a + 2:]
+        path.write_bytes(bad)
+        np.testing.assert_array_equal(decode_jpeg(bad), _cv2_read(path), err_msg=f"RST {k}")
 
 
 def test_fixture_directory_stays_small():
@@ -184,6 +279,22 @@ def test_decoder_follows_content_not_the_name(tmp_path):
     data = _cv2_jpeg(_image(12, 10, seed=6))
     jpeg_named_png.write_bytes(data)
     np.testing.assert_array_equal(tproc.read_image(str(jpeg_named_png)), _cv2_decode(data))
+
+
+@pytest.mark.parametrize("cut", [0.4, 0.75])
+@pytest.mark.parametrize("progressive", [False, True], ids=["baseline", "progressive"])
+def test_load_rgba_of_a_cut_off_jpeg_matches_jax(tmp_path, u2net_files, progressive,  # noqa: F811
+                                                 cut):
+    rgb = _photo(150, 110, 7)
+    data = _cv2_jpeg(rgb, [PROG, 1] if progressive else [])
+    path = str(tmp_path / "cut.jpg")
+    with open(path, "wb") as fh:
+        fh.write(data[:int(len(data) * cut)])
+    ref = jproc.load_rgba(path, size=64, u2net_ckpt=u2net_files["small"])
+    got = tproc.load_rgba(path, size=64, u2net_ckpt=u2net_files["small"], device="cpu")
+    assert got.shape == (64, 64, 4) and got.dtype == np.float32
+    np.testing.assert_array_equal(got[..., :3], ref[..., :3])
+    np.testing.assert_allclose(got[..., 3], ref[..., 3], atol=1 / 255 + 1e-7)
 
 
 @pytest.mark.parametrize("grey", [False, True])

@@ -88,18 +88,74 @@ class JaxDraws:
                      for name, k in ks.items()}
         self.names = []
 
+    def step_key(self):
+        self.key, k_step = jax.random.split(self.key)
+        return k_step
+
+    def densify_key(self):
+        self.key, k_d = jax.random.split(self.key)
+        return k_d
+
     def __call__(self, name, shape, dist):
         self.names.append(name)
         if name in self.init:
             return torch.from_numpy(np.array(self.init[name]))
         if name == "sds_noise":     # step key, then the guidance fn's k_n
-            self.key, k_step = jax.random.split(self.key)
-            key = jax.random.split(k_step)[1]
+            key = jax.random.split(self.step_key())[1]
         elif name == "split":       # densify key
-            self.key, key = jax.random.split(self.key)
+            key = self.densify_key()
         else:
             raise KeyError(name)
         return torch.from_numpy(np.array(jax.random.normal(key, shape)))
+
+
+class JaxTrainDraws(JaxDraws):
+    """JaxDraws for a whole ``train()`` of the JAX trainer, which runs its
+    steps in host-split segments: chunks of at most ``scan_chunk`` steps at
+    one novel-view size, cut after each densify or opacity-reset step. Each
+    segment splits ``sub -> keys[k]`` for its steps, then ``sub -> dkeys[k]``
+    (taken even though densify runs on the host), and each densify step
+    after it splits ``k_d`` (dreamgaussian_tpu/train/stage1.py ``train``,
+    ``train_segment``, ``_scan_segment``)."""
+
+    def __init__(self, seed, num_pts, opt, scan_chunk=50):
+        super().__init__(seed, num_pts)
+        iters = opt.get("iters", 500)
+        ladder = opt.get("novel_resolutions", [128, 256, 512])
+
+        def size(s):
+            ratio = min(1.0, s / iters)
+            return ladder[0] if ratio < 0.3 else (ladder[1] if ratio < 0.6 else ladder[2])
+
+        def flags(s):
+            win = opt.get("density_start_iter", 100) <= s <= opt.get("density_end_iter", 3000)
+            return (win and s % opt.get("densification_interval", 100) == 0,
+                    win and s % opt.get("opacity_reset_interval", 700) == 0)
+
+        self.step_keys, self.densify_keys = [], []
+        step = 0
+        while step < iters:
+            k = 1
+            while k < scan_chunk and step + k < iters and size(step + k + 1) == size(step + 1):
+                k += 1
+            end = step + k
+            while step < end:
+                nxt = step + 1
+                while nxt < end and not any(flags(nxt)):
+                    nxt += 1
+                self.key, sub = jax.random.split(self.key)
+                self.step_keys += list(jax.random.split(sub, nxt - step))
+                self.key, _ = jax.random.split(self.key)       # dkeys
+                step = nxt
+                if flags(step)[0]:
+                    self.key, k_d = jax.random.split(self.key)
+                    self.densify_keys.append(k_d)
+
+    def step_key(self):
+        return self.step_keys.pop(0)
+
+    def densify_key(self):
+        return self.densify_keys.pop(0)
 
 
 def test_train_steps_follow_jax_trainer(tmp_path):

@@ -366,6 +366,21 @@ def test_jpeg_in_tiff_strips_and_tiles(size):
                         tags={347: (7, tables)}))
 
 
+@pytest.mark.parametrize("cut", [0.3, 0.6, 0.9])
+@pytest.mark.parametrize("lay", [{"rows": 16}, {"tile": (32, 32)}], ids=["strips", "tiles"])
+def test_cut_off_jpeg_in_tiff_chunk(tmp_path, lay, cut):
+    """A JPEG strip or tile whose stream stops part-way (the TIFF's byte
+    counts say so): libtiff's source hands libjpeg a fake EOI as cv2.imread's
+    does, so the chunk's MCUs after the data are flat grey before the
+    colour conversion, and cv2.imdecode and cv2.imread agree."""
+    img = F.photo(61, 83, 7)
+    chunks, tables = F.jpeg_tiff_chunks(img, quality=85, subsampling=2, **lay)
+    chunks[1] = chunks[1][:int(len(chunks[1]) * cut)]
+    kw = {"tile": lay["tile"]} if "tile" in lay else {"rows_per_strip": lay["rows"]}
+    _same_as_cv2(F.tiff(img, 8, 6, compression=7, chunks=chunks, tags={347: (7, tables)}, **kw),
+                 tmp_path / "cut.tif")
+
+
 @pytest.mark.parametrize("mode", ["L", "LA", "RGB", "RGBA", "CMYK", "I;16", "F", "I", "LAB", "P",
                                   "1"])
 def test_pillow_and_cv2_writes(mode):
