@@ -37,10 +37,21 @@ Sharding: ``mesh=8``, ``mesh=data8`` or ``mesh=data4xtile2`` trains on a
     torchrun --standalone --nproc-per-node 2 -m dreamgaussian_tpu_torch.cli.main \
         --config configs/image.yaml input=x.png save_path=name mesh=data2 batch_size=2
 
-The mesh's size must equal the number of processes. Ranks share the
-host's cards (``cuda:{LOCAL_RANK % cards}``) or run on the CPU with
-``device=cpu``; rank 0 writes the PLY, the mesh and the checkpoints, and
-the other ranks wait for it at a barrier.
+or over several nodes, one ``torchrun`` per node at one rendezvous:
+
+    torchrun --nnodes 2 --node-rank {0,1} --nproc-per-node 2 --master-addr <node 0> \
+        --master-port <port> -m dreamgaussian_tpu_torch.cli.main ... mesh=data2xtile2
+
+The mesh's size must equal the number of processes; a tile group is a run
+of consecutive ranks, so with ``--nproc-per-node`` a multiple of the tile
+size it stays on one node. Ranks use their node's cards
+(``cuda:{LOCAL_RANK % cards}``) or run on the CPU with ``device=cpu``; the
+backend is NCCL when no two ranks share a card, else gloo
+(``parallel/multihost.py``). Rank 0 writes the PLY, the mesh and the
+checkpoints, and the other ranks wait for it at a barrier. On a mesh,
+``resume=True`` is rank 0's decision: it alone looks for ``checkpoint_dir``
+and reads it, and every rank resumes from its state, so the other nodes
+need no copy of the folder (``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -165,7 +176,35 @@ def build_mesh(opt):
     if mesh.rank == 0:
         print(f"[shard] rank 0 of {world}, backend {backend or 'none (one process)'}, "
               f"device {mesh.device}")
+    if backend is not None:
+        tile = [mesh.data.index * mesh.tile.size + t for t in range(mesh.tile.size)]
+        print(f"[shard] rank {mesh.rank}: node {os.environ.get('GROUP_RANK', 0)}, local rank "
+              f"{os.environ.get('LOCAL_RANK', 0)}, device {mesh.device}, tile group {tile}",
+              flush=True)
     return mesh
+
+
+def resume_checkpoint(opt, trainer) -> bool:
+    """``resume=True``: continue ``trainer`` from ``checkpoint_dir`` when it
+    exists. On a mesh rank 0 alone looks and every rank takes its answer
+    and, through ``load_checkpoint``, its state, whatever the rank's own
+    disk holds (a host without the shared folder). Returns whether the run
+    resumed."""
+    ckpt_dir = opt.get("checkpoint_dir", None)
+    found = bool(opt.get("resume", False) and ckpt_dir and os.path.exists(ckpt_dir))
+    mesh = trainer.mesh
+    if mesh is not None and mesh.backend is not None:
+        import torch
+        import torch.distributed as dist
+
+        flag = torch.tensor([found], dtype=torch.int64, device=mesh.device)
+        dist.broadcast(flag, 0)   # NCCL takes CUDA tensors only, gloo either
+        found = bool(flag.item())
+    if found:
+        trainer.load_checkpoint(ckpt_dir)
+        who = "" if mesh is None else f" (rank {mesh.rank})"
+        print(f"[INFO] resumed from {ckpt_dir} at step {trainer.step}{who}")
+    return found
 
 
 def run(opt, guidance_fns=None, draw=None) -> dict:
@@ -203,9 +242,7 @@ def _run(opt, device, mesh, guidance_fns=None, draw=None) -> dict:
                             guidance_fns=guidance_fns, capacity=opt.get("capacity", 16384),
                             seed=opt.get("seed", 0), device=device, mesh=mesh, draw=draw)
     ckpt_dir = opt.get("checkpoint_dir", None)
-    if opt.get("resume", False) and ckpt_dir and os.path.exists(ckpt_dir):
-        trainer.load_checkpoint(ckpt_dir)
-        print(f"[INFO] resumed from {ckpt_dir} at step {trainer.step}")
+    resume_checkpoint(opt, trainer)
     stats = trainer.train(max(0, opt.get("iters", 500) - trainer.step),
                           checkpoint_every=opt.get("checkpoint_every", 0),
                           checkpoint_dir=ckpt_dir)

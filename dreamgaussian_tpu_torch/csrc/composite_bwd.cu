@@ -33,7 +33,12 @@
 //   patches of a tile.
 // - Each thread rebuilds T from T_final with a reciprocal of (1 - alpha)
 //   per step and keeps the suffix sum of the accumulated colour in
-//   registers (the CUDA reference's scheme). A batch's exponentials and
+//   registers (the CUDA reference's scheme). The reciprocal is refined by
+//   a Newton step (rcp_refined): T goes through up to about 2,000 of them
+//   on a long list, and d_alpha's two terms cancel (by a factor of about
+//   200 under a mask loss), so the drift of the bare one-ulp approximation
+//   showed in the log-opacity row against float64
+//   (scripts/port_k2_hold_sweep.py). A batch's exponentials and
 //   reciprocals, which do not depend on T, are formed together before the
 //   order-dependent part, which has no branch. That gives a warp
 //   independent work where a small frame leaves it alone on its scheduler.
@@ -86,11 +91,14 @@ struct Smem {
   int max_nc;                              // largest n_contrib of the quadrant
 };
 
-// 1 / x to one unit in the last place (one special-function operation).
-__device__ __forceinline__ float rcp_approx(float x) {
+// 1 / x: the one-ulp approximation (one special-function operation) and one
+// Newton step, two fused multiply-adds, which bring it to rounding of the
+// correctly rounded result without __frcp_rn's slow path (x = 1 - alpha lies
+// in [0.01, 1]).
+__device__ __forceinline__ float rcp_refined(float x) {
   float r;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
+  return fmaf(r, fmaf(-x, r, 1.0f), r);
 }
 
 // Sum v[i] over the warp's lanes for all 32 i at once: lane L returns the
@@ -272,7 +280,7 @@ composite_bwd_kernel(const float* __restrict__ feat, int64_t k_total,
               const float raw = expf(po[j][i]);
               alpha_raw[j][i] = ok[j][i] ? raw : 0.0f;
               alpha[j][i] = fminf(alpha_raw[j][i], kAlphaMax);
-              rinv[j][i] = ok[j][i] ? rcp_approx(1.0f - alpha[j][i]) : 1.0f;
+              rinv[j][i] = ok[j][i] ? rcp_refined(1.0f - alpha[j][i]) : 1.0f;
             }
           }
           // The order-dependent part, back to front. The six moments of

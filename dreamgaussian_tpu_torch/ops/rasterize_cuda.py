@@ -151,13 +151,35 @@ def composite_forward_ref(dup_feat, chunk_starts, n_chunks, *, grid_x,
     return out
 
 
+def _chunk_alpha_f32_branches(f, cx, cy, x, y):
+    """``_chunk_alpha`` in the inputs' dtype, with each pair's skip and 0.99
+    clamp decided as float32 decides them: at those branches the function
+    jumps, and a gaussian centred on a pixel sits exactly on one."""
+    a32, raw32, _ = _chunk_alpha(f.float(), cx.float(), cy.float(), x.float(), y.float())
+    _, raw, cols = _chunk_alpha(f, cx, cy, x, y)
+    alpha = torch.where(a32 == 0, 0.0, torch.where(raw32 > ALPHA_MAX, ALPHA_MAX, raw))
+    return alpha, raw, cols
+
+
+def composite_backward_f64(dup_feat, chunk_starts, n_chunks, fwd_out, g_out, **geo):
+    """K2's function in float64 on the float64 casts of the same inputs,
+    with the branches taken as float32 takes them
+    (``_chunk_alpha_f32_branches``): the oracle that K2 and its float32
+    plain version are each held to. Returns float64 [FEAT_ROWS, K]."""
+    f64 = torch.float64
+    return composite_backward_ref(dup_feat.to(f64), chunk_starts, n_chunks, fwd_out.to(f64),
+                                  g_out.to(f64), alpha_fn=_chunk_alpha_f32_branches, **geo)
+
+
 def composite_backward_ref(dup_feat, chunk_starts, n_chunks, fwd_out, g_out, *,
-                           grid_x, num_tiles, chunk, tile=TILE, tile_offset=0):
+                           grid_x, num_tiles, chunk, tile=TILE, tile_offset=0, alpha_fn=None):
     """Plain PyTorch K2: per-duplicate feature gradients [FEAT_ROWS, K].
 
     Slots outside every tile's chunk range get zero (under tile sharding,
     the slots of other ranks' tiles among them). It computes in the dtype
-    of its inputs (float32 as K2 does; float64 gives the tests an oracle)."""
+    of its inputs (float32 as K2 does; float64 through
+    ``composite_backward_f64`` is the oracle). ``alpha_fn`` stands in for
+    ``_chunk_alpha``."""
     dev, dt = dup_feat.device, dup_feat.dtype
     d_feat = torch.zeros((FEAT_ROWS, dup_feat.shape[1]), dtype=dt, device=dev)
     if num_tiles == 0:
@@ -176,7 +198,7 @@ def composite_backward_ref(dup_feat, chunk_starts, n_chunks, fwd_out, g_out, *,
     for j in reversed(range(int(n_chunks.max()))):
         f, active, cols = _chunk_features(dup_feat, chunk_starts, n_chunks, j, chunk)
         live = active & (j * chunk < max_nc)
-        alpha, alpha_raw, (mx_l, my_l, qx_l, qy_l) = _chunk_alpha(f, cx, cy, x, y)
+        alpha, alpha_raw, (mx_l, my_l, qx_l, qy_l) = (alpha_fn or _chunk_alpha)(f, cx, cy, x, y)
         gpos = (j * chunk + sub).float()[None, :, None]
         m = (gpos < ncontrib[:, None]) & (alpha > 0.0) & live[:, None, None]
         am = alpha * m

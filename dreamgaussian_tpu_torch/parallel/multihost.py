@@ -9,12 +9,23 @@ every rank and reduce the gradients and densify statistics before they use
 them, so the parameters stay equal on every rank without any parameter
 traffic.
 
-Backend, by rule:
+Ranks on several hosts (nodes) are started by one ``torchrun`` per node,
+``--nnodes N --node-rank n`` at one rendezvous: each process reads RANK,
+LOCAL_RANK, LOCAL_WORLD_SIZE and GROUP_RANK (its node) as torchrun sets
+them and runs on its node's card ``cuda:{LOCAL_RANK % cards}``.
 
-- ``nccl`` when every rank runs on a card of its own (CUDA, and no more
-  ranks on the host than cards);
-- ``gloo`` when ranks share a card (NCCL refuses two ranks on one device;
-  gloo reduces CUDA tensors through the host) or run on the CPU.
+Backend, by one rule that every rank applies to the same list: before the
+process group exists, each rank posts the card it runs on (the CUDA
+device's UUID, or "cpu") to the rendezvous store and reads every other
+rank's (:func:`agree_backend`). Then
+
+- ``nccl`` when every rank runs on a card and no two ranks anywhere share
+  one;
+- ``gloo`` otherwise: ranks on the CPU, or two ranks on one card (NCCL
+  refuses two ranks on one device; gloo reduces CUDA tensors through the
+  host). Two launchers on one host that both run a rank on its ``cuda:0``
+  see one UUID twice, and hosts with different card counts take the same
+  backend, since nothing is decided from one host's view.
 """
 
 from __future__ import annotations
@@ -33,13 +44,30 @@ def _env_int(name: str, default: int) -> int:
     return int(os.environ.get(name, default))
 
 
-def choose_backend(device: str | torch.device, local_world_size: int) -> str:
-    """``nccl`` when each of the host's ``local_world_size`` ranks has a card
-    of its own, else ``gloo`` (ranks on one card, or on the CPU)."""
+def card_identity(device: str | torch.device) -> str:
+    """The card a rank runs on, comparable across hosts and launchers: the
+    UUID of the CUDA device ``device`` (an index names a card only within
+    one process's view), or "cpu"."""
     dev = torch.device(device)
-    if dev.type == "cuda" and local_world_size <= torch.cuda.device_count():
+    if dev.type != "cuda":
+        return "cpu"
+    return str(torch.cuda.get_device_properties(dev).uuid)
+
+
+def choose_backend(cards: list) -> str:
+    """``nccl`` when every rank's card (``card_identity``, one per rank) is
+    a CUDA device and no two ranks share one, else ``gloo``."""
+    if "cpu" not in cards and len(set(cards)) == len(cards):
         return "nccl"
     return "gloo"
+
+
+def agree_backend(store, rank: int, world_size: int, device: str | torch.device) -> str:
+    """Post this rank's card to ``store`` and read every rank's: the backend
+    of :func:`choose_backend` over all of them, the same on every rank."""
+    cards = dist.PrefixStore("dreamgaussian/cards", store)
+    cards.set(str(rank), card_identity(device))
+    return choose_backend([cards.get(str(r)).decode() for r in range(world_size)])
 
 
 def rank_device(device: str | torch.device = "cuda") -> torch.device:
@@ -67,20 +95,22 @@ def initialize_multihost(init_method: str | None = None, world_size: int | None 
                          device: str | torch.device = "cuda") -> str | None:
     """Join this process to the default process group; a no-op (returns
     None) for one process. Without arguments it reads ``torchrun``'s
-    environment (``env://``: WORLD_SIZE, RANK, LOCAL_WORLD_SIZE,
-    MASTER_ADDR, MASTER_PORT); else give ``init_method`` (for example
-    ``tcp://localhost:<port>``), ``world_size`` and ``rank``. The rank's
-    card (:func:`rank_device`) becomes the current device first; the
-    backend is :func:`choose_backend`'s for ``device`` and the host's ranks
-    (LOCAL_WORLD_SIZE, else the world size). Returns the backend."""
+    environment (``env://``: WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT), on one node or several; else give ``init_method`` (for
+    example ``tcp://localhost:<port>``), ``world_size`` and ``rank``. The
+    rank's card (:func:`rank_device`) becomes the current device first;
+    the ranks then meet at the rendezvous store, agree on the backend
+    there (:func:`agree_backend`) and build the group on that store.
+    Returns the backend."""
     world_size = _env_int("WORLD_SIZE", 1) if world_size is None else world_size
     if world_size <= 1:
         return None
     rank = _env_int("RANK", 0) if rank is None else rank
-    use_rank_device(device)
-    backend = choose_backend(device, _env_int("LOCAL_WORLD_SIZE", world_size))
-    dist.init_process_group(backend, init_method=init_method or "env://",
-                            world_size=world_size, rank=rank)
+    dev = use_rank_device(device)
+    store, rank, world_size = next(dist.rendezvous(init_method or "env://", rank=rank,
+                                                   world_size=world_size))
+    backend = agree_backend(store, rank, world_size, dev)
+    dist.init_process_group(backend, store=store, world_size=world_size, rank=rank)
     return backend
 
 

@@ -125,7 +125,8 @@ def main() -> int:
         ref = rc.composite_forward_ref(dup_feat, cs, nc, **geo)
         g_out = torch.randn(ref.shape, device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(args.seed))
-        d_ref = rc.composite_backward_ref(dup_feat, cs, nc, ref, g_out, **geo)
+        # K2 is held to its plain version in float64, as chip_smoke.py holds it.
+        d_ref = rc.composite_backward_f64(dup_feat, cs, nc, ref, g_out, **geo)
         print(f"[scene] {label}: {int(bins.num_dups)} duplicates, {int(nc.sum())} chunks, "
               f"longest tile {int(nc.max())}, tiles with a list {int((nc > 0).sum())} of "
               f"{geo['num_tiles']}")

@@ -154,6 +154,28 @@ def test_kernels_on_hand_built_tiles(cuda_device, case, tile):
 
 
 @pytest.mark.cuda
+def test_k2_holds_to_float64_on_the_saved_long_chain(cuda_device):
+    """The tile of an ImageDream 128^2 call whose hold against the float32
+    plain version failed on the card (``tests/fixtures/port_k2/``, see
+    ``test_torch_k2_chain.py``): K2 against the plain version in float64
+    on the same inputs, with chip_smoke.py's gate (its absolute part from
+    the whole call's largest |gradient| of each row)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "port_k2",
+                        "imagedream_128_seed0.npz")
+    with np.load(path) as z:
+        c = {k: z[k] for k in z.files}
+    geo = {k: int(c[k]) for k in ("grid_x", "num_tiles", "chunk", "tile", "tile_offset")}
+    args = [torch.from_numpy(c[k]).to(cuda_device)
+            for k in ("dup_feat", "chunk_starts", "n_chunks", "fwd_out", "g_out")]
+    d = tcu.composite_backward(*args, **geo)
+    exact = tcu.composite_backward_f64(*args, **geo)
+    n = c["d_kernel"].shape[1]
+    d, exact = d[:10, :n].double().cpu(), exact[:10, :n].cpu()
+    tol = K2_RTOL * exact.abs() + K2_ATOL * torch.from_numpy(c["row_max"])[:, None]
+    assert bool(((d - exact).abs() <= tol).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("scene", ["cloud", *CASES])
 def test_sift_changes_no_bit(cuda_device, scene, monkeypatch):
     """A warp walks only the gaussians that its sift lets through. The sift
@@ -413,6 +435,48 @@ def test_cli_under_torchrun_on_the_cards(cuda_device, tmp_path):
     params, aux, _ = load_ply(str(tmp_path / "mesh_model.ply"), capacity=2048, device="cpu")
     n = int(aux.alive.sum())
     assert n > 0 and bool(torch.isfinite(params["xyz"][:n]).all())
+
+
+@pytest.mark.cuda
+def test_two_nodes_stop_and_resume_on_the_cards(cuda_device, tmp_path):
+    """Two torchrun launchers of one rank each (``--nnodes 2``, a static
+    rendezvous on localhost) run cli.main with mesh=data2 through
+    chip_smoke.py's ``cli-rank`` (every kernel call held): to step 2 with a
+    checkpoint, then resumed to step 4 with node 1 given a folder that does
+    not exist. On a host of several cards each launcher sees a card of its
+    own (CUDA_VISIBLE_DEVICES), as on two nodes, and the ranks agree on
+    NCCL; on a host of one both share it and agree on gloo. Both ranks
+    resume at step 2 and end with equal states (digests)."""
+    import sys
+
+    from dreamgaussian_tpu_torch.parallel.launch import free_port, run_nodes, torchrun_nodes
+    from torch_shard_cases import REPO
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    png = disc_png(tmp_path / "disc.png")
+    ckpt = {0: str(tmp_path / "ckpt"), 1: str(tmp_path / "node1" / "ckpt")}
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    ranks = {}
+    for leg, extra in (("leg1", ["iters=2", "checkpoint_every=2"]), ("leg2", ["iters=4",
+                                                                           "resume=True"])):
+        work = tmp_path / leg
+        work.mkdir()
+        port = free_port()
+        logs = run_nodes(lambda r: [
+            "env", f"CUDA_VISIBLE_DEVICES={r % cards}", *torchrun_nodes(2, r, 1, port),
+            os.path.join(REPO, "chip_smoke.py"), "cli-rank", str(work), "--config",
+            os.path.join(REPO, "configs", "image.yaml"), f"input={png}", f"outdir={tmp_path}",
+            f"save_path={leg}", "mesh=data2", "batch_size=2", "fake_guidance=True",
+            "ref_size=64", "novel_resolutions=[64,64,64]", "num_pts=1000", "capacity=2048",
+            "save_mesh=False", "final_prune=False", f"checkpoint_dir={ckpt[r]}", *extra],
+            2, timeout=400, env=env)
+        log = "".join(logs)
+        assert f"backend {backend}, device cuda:0" in log, log[-6000:]
+        ranks[leg] = [json.loads((work / f"cli_r{r}.json").read_text()) for r in range(2)]
+        assert ranks[leg][0]["digest"] == ranks[leg][1]["digest"], leg
+    assert [rk["resumed_step"] for rk in ranks["leg2"]] == [2, 2]
+    assert not os.path.exists(ckpt[1])
 
 
 @pytest.mark.cuda

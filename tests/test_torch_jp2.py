@@ -452,6 +452,66 @@ def test_packed_packet_headers_read_as_cv2_reads_them(where, headers, channels):
             _same_as_cv2(F.jp2_rebuild(d, codestream=cs), none=())
 
 
+def _reversed_tiles(parts):
+    return sorted(parts, key=lambda p: -p[0])
+
+
+def _interleaved_tiles(parts):
+    """Each tile's tile-parts in order, the tiles taken round-robin from the
+    last index down: T3.0, T2.0, T1.0, T0.0, T3.1, ..."""
+    by_tile: dict = {}
+    for p in parts:
+        by_tile.setdefault(p[0], []).append(p)
+    tiles = sorted(by_tile, reverse=True)
+    return [by_tile[t][k] for k in range(max(map(len, by_tile.values()))) for t in tiles
+            if k < len(by_tile[t])]
+
+
+def _by_index(heads):
+    return sorted(heads, key=lambda h: h[:2])
+
+
+def _by_completion(heads):
+    """Each tile's headers together, the tiles in the order their last
+    tile-part comes (OpenJPEG's decode order when TNsot is known)."""
+    last = {isot: i for i, (isot, _, _) in enumerate(heads)}
+    return sorted(heads, key=lambda h: (last[h[0]], h[1]))
+
+
+# name: (tile-part order, TNsot, PPM's order)
+PPM_ORDERS = {
+    "reversed": (_reversed_tiles, None, None),
+    "reversed_tnsot_unknown": (_reversed_tiles, 0, None),
+    "reversed_tnsot_unknown_headers_by_index": (_reversed_tiles, 0, _by_index),
+    "interleaved": (_interleaved_tiles, None, None),
+    "interleaved_headers_by_tile": (_interleaved_tiles, None, _by_completion),
+    "interleaved_tnsot_unknown_headers_by_index": (_interleaved_tiles, 0, _by_index),
+}
+
+
+@pytest.mark.parametrize("order", list(PPM_ORDERS))
+def test_ppm_tile_parts_out_of_index_order_read_as_cv2_reads_them(order):
+    """A PPM file whose tile-parts come out of index order (the tiles
+    backwards, or their tile-parts, one per resolution, interleaved
+    backwards), with TNsot as written or 0 (not known), the packed headers
+    laid out tile-part by tile-part as they come or in another order: the
+    decode, or the refusal, as cv2's under both flags. OpenJPEG reads the
+    headers in its decode order (a tile when its last tile-part by TNsot
+    comes, tiles of unknown TNsot by index at the end), so the files whose
+    headers follow that order decode."""
+    fn, tnsot, ppm_order = PPM_ORDERS[order]
+    d = F.jp2_openjpeg(IMG, csty=6, tile=(32, 32), rates=(20, 5),
+                       **({"order": "RPCL", "tile_parts": "R"} if "interleaved" in order else {}))
+    cs = F.j2k_packed_headers(F.jp2_codestream(d), "ppm", order=fn, tnsot=tnsot,
+                              ppm_order=ppm_order)
+    isots = [p[0] for p in F.j2k_parse(cs)[1]]
+    assert isots != sorted(isots)
+    decodes = order in ("reversed", "reversed_tnsot_unknown_headers_by_index",
+                        "interleaved_headers_by_tile", "interleaved_tnsot_unknown_headers_by_index")
+    _same_as_cv2(F.jp2_rebuild(d, codestream=cs),
+                 none=() if decodes else (IMREAD_UNCHANGED, IMREAD_COLOR))
+
+
 def _malformed_packed() -> dict:
     d = F.jp2_openjpeg(IMG, csty=6, tile=(32, 32), rates=(20, 5))
     ppm = F.j2k_packed_headers(F.jp2_codestream(d), "ppm")

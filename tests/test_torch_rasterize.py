@@ -7,7 +7,6 @@ skip without a card."""
 
 import functools
 import os
-from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -190,16 +189,8 @@ def _k2_oracle(c, fwd_out, g_out):
     feat, cs, nc = _np(c["feat"]).to(f64), _np(c["chunk_starts"]), _np(c["n_chunks"])
     fwd, g = _np(fwd_out).to(f64), _np(g_out).to(f64)
     geo = c["geo"]
-    plain_alpha = tcu._chunk_alpha
-
-    def branches_of_f32(f, cx, cy, x, y):
-        a32, raw32, _ = plain_alpha(f.float(), cx.float(), cy.float(), x.float(), y.float())
-        _, raw, cols = plain_alpha(f, cx, cy, x, y)
-        alpha = torch.where(a32 == 0, 0.0, torch.where(raw32 > tcu.ALPHA_MAX, tcu.ALPHA_MAX, raw))
-        return alpha, raw, cols
-
-    with mock.patch.object(tcu, "_chunk_alpha", branches_of_f32):
-        want = tcu.composite_backward_ref(feat, cs, nc, fwd, g, **geo).numpy()
+    branches_of_f32 = tcu._chunk_alpha_f32_branches
+    want = tcu.composite_backward_f64(feat, cs, nc, fwd, g, **geo).numpy()
     summed, rss = torch.zeros_like(feat), torch.zeros_like(feat)
     tile, chunk = geo["tile"], geo["chunk"]
     cx, cy = tcu._tile_centers(geo["num_tiles"], geo["grid_x"], tile, "cpu", 0, f64)

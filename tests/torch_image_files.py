@@ -1390,7 +1390,8 @@ def j2k_packets(data: bytes) -> list:
 
 
 def j2k_packed_headers(cs: bytes, where: str = "ppt", eph: bool = True, sop: bool = True,
-                       chunk: int = 65532) -> bytes:
+                       chunk: int = 65532, order=None, tnsot: int | None = None,
+                       ppm_order=None) -> bytes:
     """An SOP+EPH codestream (``jp2_openjpeg(csty=6)``) with its packet
     headers moved out of the packets: into PPT markers in the header of the
     tile-part they came from (``where="ppt"``), or into PPM markers in the
@@ -1399,8 +1400,19 @@ def j2k_packed_headers(cs: bytes, where: str = "ppt", eph: bool = True, sop: boo
     markers and COD's EPH flag go); ``sop``: the bodies keep their SOP
     markers (likewise). ``chunk``: the most header bytes a marker carries
     (a smaller one spreads the headers, and an Nppm's bytes, over several
-    markers)."""
+    markers). ``order``: a function of the tile-parts [(Isot, TPsot, TNsot,
+    segments, data)] that returns them in the order the codestream is to
+    hold them (the packed headers follow that order, as Part 1 lays PPM's
+    out: tile-part by tile-part as they come); ``tnsot``: every tile-part's
+    TNsot set to it (0: the number of tile-parts is not known);
+    ``ppm_order``: a function of the tile-parts' (Isot, TPsot, headers) in
+    codestream order that returns them in the order PPM is to hold them
+    (OpenJPEG reads them in its decode order)."""
     main, parts = j2k_parse(cs)
+    if order is not None:
+        parts = list(order(parts))
+    if tnsot is not None:
+        parts = [(i, tp, tnsot, segs, data) for i, tp, _, segs, data in parts]
     cod = next(p for m, p in main if m == 0xFF52)
     if cod[0] & 6 != 6:
         raise ValueError("the codestream lacks SOP and EPH markers")
@@ -1413,7 +1425,7 @@ def j2k_packed_headers(cs: bytes, where: str = "ppt", eph: bool = True, sop: boo
             heads += head if eph else head[:-2]
             bodies += (sop_marker if sop else b"") + body
         if where == "ppm":
-            ppm.append(heads)
+            ppm.append((isot, tpsot, heads))
             out.append((isot, tpsot, tnsot, segs, bodies))
             continue
         markers = []
@@ -1424,7 +1436,7 @@ def j2k_packed_headers(cs: bytes, where: str = "ppt", eph: bool = True, sop: boo
         out.append((isot, tpsot, tnsot, segs + markers, bodies))
     if where == "ppm":
         markers, cur = [], b""
-        for heads in ppm:
+        for _, _, heads in (ppm if ppm_order is None else ppm_order(ppm)):
             if chunk - len(cur) < 4:
                 markers.append(cur)
                 cur = b""

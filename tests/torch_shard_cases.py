@@ -273,7 +273,104 @@ def case_trainer(rank, world, workdir, device):
     return out
 
 
-CASES = {"tile_render": case_tile_render, "dp_step": case_dp_step, "trainer": case_trainer}
+def _state(trainer) -> dict:
+    """Every array of a trainer's state, its step and both random states."""
+    import torch
+
+    return {**{f"p_{k}": v for k, v in trainer.params.items()},
+            **{f"mu_{k}": v for k, v in trainer.adam.mu.items()},
+            **{f"nu_{k}": v for k, v in trainer.adam.nu.items()},
+            **{f"aux_{k}": v for k, v in trainer.aux._asdict().items()},
+            "adam_count": np.asarray(int(trainer.adam.count)), "step": np.asarray(trainer.step),
+            "np_rng": np.asarray(json.dumps(trainer.rng.bit_generator.state)),
+            **({"draw": torch.as_tensor(trainer.draw.get_state())}
+               if hasattr(trainer.draw, "get_state") else {})}
+
+
+def case_resume(rank, world, workdir, device):
+    """Resume on a data mesh of every rank with the trainer's own seeded
+    draws (a guidance that draws its noise): the unbroken run of
+    ``options["iters"]`` steps (``w_``); a run saved at ``options["stop"]``
+    (rank 0 writes ``<workdir>/ckpt``) and resumed, through cli.main's
+    ``resume_checkpoint``, by rank 0 from that folder and by the other ranks
+    from a folder that does not exist (``r_``: the state just after the
+    restore; ``f_``: after the remaining steps); and ``resume=True`` where
+    rank 0 finds no folder and the other ranks find the checkpoint
+    (``d_``); and rank 0's folder without a checkpoint file (``e_error``:
+    what each rank raised)."""
+    from dreamgaussian_tpu_torch.cli.main import resume_checkpoint
+    from dreamgaussian_tpu_torch.parallel import make_mesh_2d
+    from dreamgaussian_tpu_torch.train import Stage1Trainer
+    from dreamgaussian_tpu_torch.utils.config import Config
+
+    arrays, opt = _inputs(workdir, device)
+    mesh = make_mesh_2d(world, 1, device=device)
+
+    def trainer():
+        return Stage1Trainer(Config(opt["trainer"]), ref_rgb=arrays["ref_rgb"],
+                             ref_mask=arrays["ref_mask"], guidance_fns=((1.0, noisy_guidance),),
+                             capacity=opt["capacity"], seed=opt["seed"], device=device, mesh=mesh)
+
+    ckpt, iters, stop = os.path.join(workdir, "ckpt"), opt["iters"], opt["stop"]
+    whole = trainer()
+    whole.train(iters, log_every=0)
+    out = {f"w_{k}": v for k, v in _state(whole).items()}
+    trainer().train(stop, log_every=0, checkpoint_every=stop, checkpoint_dir=ckpt)
+    resumed = trainer()
+    found = resume_checkpoint(Config({"resume": True, "checkpoint_dir": ckpt if rank == 0 else
+                                      os.path.join(workdir, f"absent_{rank}")}), resumed)
+    out["r_found"] = np.asarray(found)
+    out.update({f"r_{k}": v for k, v in _state(resumed).items()})
+    resumed.train(iters - resumed.step, log_every=0)
+    out.update({f"f_{k}": v for k, v in _state(resumed).items()})
+    fresh = trainer()
+    found = resume_checkpoint(Config({"resume": True, "checkpoint_dir": ckpt if rank else
+                                      os.path.join(workdir, "absent_0")}), fresh)
+    out["d_found"], out["d_step"] = np.asarray(found), np.asarray(fresh.step)
+    # A folder without the file on rank 0: rank 0 says so and every rank raises.
+    empty = os.path.join(workdir, "empty")
+    os.makedirs(empty, exist_ok=True)
+    try:
+        resume_checkpoint(Config({"resume": True, "checkpoint_dir": empty}), trainer())
+        out["e_error"] = np.asarray("")
+    except RuntimeError as e:
+        out["e_error"] = np.asarray(str(e))
+    return out
+
+
+def case_trainer_leg(rank, world, workdir, device):
+    """One leg of a run switched between meshes: ``Stage1Trainer`` on the
+    mesh of ``options["mesh"]`` with the plain guidance and the given split
+    draws, from the given cloud or restored from ``options["load"]``;
+    ``options["steps"]`` train_steps, then a checkpoint to
+    ``options["save"]`` when given (rank 0 writes it). Returns the losses
+    and the final state."""
+    from dreamgaussian_tpu_torch.parallel import make_mesh_2d
+    from dreamgaussian_tpu_torch.scene import adam_init
+    from dreamgaussian_tpu_torch.train import Stage1Trainer
+    from dreamgaussian_tpu_torch.utils.config import Config
+
+    arrays, opt = _inputs(workdir, device)
+    mesh = make_mesh_2d(*opt["mesh"], device=device)
+    tr = Stage1Trainer(Config(opt["trainer"]), ref_rgb=arrays["ref_rgb"],
+                       ref_mask=arrays["ref_mask"], guidance_fns=((1.0, plain_guidance),),
+                       capacity=opt["capacity"], seed=opt["seed"], device=device,
+                       draw=Injected({"split": arrays["split"]}), mesh=mesh)
+    if opt.get("load"):
+        tr.load_checkpoint(opt["load"])
+    else:
+        tr.params = _group(arrays, "p_", device)
+        tr.aux = tr.aux._replace(**_group(arrays, "aux_", device))
+        tr.adam = adam_init(tr.params)
+    out = {f"loss_{i}": tr.train_step() for i in range(opt["steps"])}
+    if opt.get("save") and tr.is_writer:
+        tr.save_checkpoint(opt["save"])
+    out.update(_state(tr))
+    return out
+
+
+CASES = {"tile_render": case_tile_render, "dp_step": case_dp_step, "trainer": case_trainer,
+         "resume": case_resume, "trainer_leg": case_trainer_leg}
 
 
 def main(argv) -> None:
