@@ -132,9 +132,12 @@
    matte on the card against the CPU's); ``scripts/port_runall.py --video``
    runs stage 1, stage 2 and a 36-frame turntable on a folder with that one
    input (fake guidance, cut in depth: ``APPS_ARGS``); ``cli.render`` makes
-   36-frame 512^2 GIFs of its PLY and OBJ (read back; ms per frame of the
-   renders alone); ``cli.eval`` scores both with a random VGG16 and lpips
-   lins and the CLIP ViT-L/14 of a full-width Zero123 snapshot, on which
+   a 36-frame 512^2 GIF of its PLY and an H.264 MP4 of its OBJ (read back,
+   the MP4's box tree by ``read_mp4``; ms per frame of the renders alone;
+   the MP4's bytes, the host ms per frame of ``encode_mp4`` and its
+   reconstruction's PSNR against the frames, gated at 30 dB); ``cli.eval``
+   scores both with a random VGG16 and lpips lins and the CLIP ViT-L/14 of
+   a full-width Zero123 snapshot, on which
    ``cli.novel_view`` then samples 3 views at 10 steps (UNet calls gated);
    ``cli.serve`` answers ``/``, ``/render`` in its three modes and 10 timed
    renders at 512^2 for the PLY and for the mesh, then trains live on
@@ -2563,18 +2566,20 @@ def run_imagedream_day(seed: int, card: str, load_alone, work: str, text_paths: 
 # The apps day: a photo (the disc without its alpha) matted by a random
 # full-width U2Net through cli.process, then the batch script
 # (scripts/port_runall.py --video: stage 1, stage 2 and a turntable), the
-# turntables of its PLY and OBJ through cli.render (36 frames at 512^2), the
-# metrics (cli.eval) with a random full-width VGG16, lpips lins and the CLIP
-# ViT-L/14 image_encoder/ of a full-width Zero123 snapshot, novel views on that
-# snapshot (cli.novel_view), the viewer on the PLY and on the mesh and live on
-# configs/image.yaml (cli.serve), and a stage-1 and a stage-2 job of the web
-# app (cli.webapp). The batch and web-app runs are cut in depth (APPS_ARGS).
+# turntables of its PLY (a GIF) and OBJ (an H.264 MP4) through cli.render
+# (36 frames at 512^2), the metrics (cli.eval) with a random full-width
+# VGG16, lpips lins and the CLIP ViT-L/14 image_encoder/ of a full-width
+# Zero123 snapshot, novel views on that snapshot (cli.novel_view), the
+# viewer on the PLY and on the mesh and live on configs/image.yaml
+# (cli.serve), and a stage-1 and a stage-2 job of the web app (cli.webapp). The batch and web-app runs are cut in depth (APPS_ARGS).
 APPS_FRAMES, APPS_SIZE, APPS_REF = 36, 512, 256
 APPS_ARGS = ["fake_guidance=True", "iters=12", "iters_refine=2", "density_start_iter=4",
              "densification_interval=4", "density_thresh=0.2", "final_prune=False",
              "mc_resolution=64", "decimate_target=20000", "texture_size=256",
              "bake_resolution=256"]
 RUNALL_VIDEO = (36, 512, 512, 3)      # the batch script's turntable: cli.render's defaults
+APPS_FPS = 15                         # cli.render's default
+MP4_PSNR_DB = 30.0                    # the turntable MP4 in RGB, as tests/test_torch_mp4.py
 NOVEL_HORS, NOVEL_STEPS = ("-60", "60", "180"), 10
 SERVE_REQUESTS, LIVE_STEPS = 10, 5
 U2NET_TOL = 1e-4    # U2Net's matte on the card against the CPU's (float32, TF32 off)
@@ -2698,6 +2703,45 @@ def drive_webapp(data: str, outdir: str, png: str, runs: dict) -> dict:
     return out
 
 
+def check_mp4(path: str, info: dict, frames: list, card: str) -> dict:
+    """The turntable MP4 that cli.render wrote at ``path`` (``info``: its
+    read_mp4) and the encoder on ``frames``, the same views rendered again
+    (the CLI's run loaded the library): the host ms per frame of
+    ``encode_mp4``, the file's bytes, and its
+    reconstruction at the CPU test's PSNR bound (there is no decoder on this
+    machine; tests/test_torch_mp4.py holds the reconstruction against
+    ffmpeg's decode)."""
+    import numpy as np
+
+    from dreamgaussian_tpu_torch.utils import mp4
+
+    imgs = [(np.clip(f, 0, 1) * 255).astype(np.uint8) for f in frames]
+    t0 = time.perf_counter()
+    data, rec = mp4.encode_mp4(imgs, APPS_FPS)
+    ms = 1e3 * (time.perf_counter() - t0) / len(imgs)
+    t0 = time.perf_counter()
+    for f in imgs:
+        mp4.rgb_to_yuv420p(f)
+    yuv_ms = 1e3 * (time.perf_counter() - t0) / len(imgs)
+    rgb = mp4.yuv420p_to_rgb(*rec).astype(np.float64)
+    psnr = [10 * math.log10(255.0 ** 2 / max(np.mean((r - f) ** 2), 1e-12))
+            for r, f in zip(rgb, np.asarray(imgs, np.float64))]
+    size = os.path.getsize(path)
+    raw = len(imgs) * APPS_SIZE * APPS_SIZE * 3 // 2
+    if min(psnr) < MP4_PSNR_DB or size >= raw / 4 or info["profile_idc"] != 66:
+        raise RuntimeError(f"the turntable MP4: PSNR {min(psnr):.2f} dB (gate {MP4_PSNR_DB}), "
+                           f"{size} bytes of {raw} raw, profile {info['profile_idc']}")
+    out = {"bytes": size, "encoded_bytes": len(data), "raw_yuv420p_bytes": raw,
+           "encode_ms_per_frame": ms, "rgb_to_yuv_ms_per_frame": yuv_ms,
+           "min_psnr_db": min(psnr), "level_idc": info["level_idc"]}
+    print(f"[apps] cli.render mesh.mp4: {len(info['sample_sizes'])} samples of "
+          f"{info['width']}x{info['height']} at {APPS_FPS} fps, level_idc {info['level_idc']}, "
+          f"{size} bytes ({size / raw:.4f} of raw yuv420p); host encode_mp4 {ms:.2f} ms per "
+          f"frame (its colour conversion alone {yuv_ms:.2f}); reconstruction PSNR min {min(psnr):.2f} dB (gate {MP4_PSNR_DB}); "
+          f"card '{card}'")
+    return out
+
+
 def run_apps_day(seed: int, card: str, work: str) -> dict:
     """The apps day (see APPS_ARGS); every K1, K2 and K3 call of each run held
     against its plain version right after the run."""
@@ -2713,6 +2757,7 @@ def run_apps_day(seed: int, card: str, work: str) -> dict:
     from dreamgaussian_tpu_torch.guidance.vae import VAEConfig
     from dreamgaussian_tpu_torch.preprocess.u2net import u2net_alpha
     from dreamgaussian_tpu_torch.utils.gif import read_gif
+    from dreamgaussian_tpu_torch.utils.mp4 import read_mp4
     from dreamgaussian_tpu_torch.utils.png import read_png, write_png
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
@@ -2768,22 +2813,34 @@ def run_apps_day(seed: int, card: str, work: str) -> dict:
     if written[0] != obj or video.shape != RUNALL_VIDEO:
         raise RuntimeError(f"port_runall wrote {written}, a {video.shape} turntable")
 
-    # cli.render on the stage-1 PLY and the stage-2 OBJ; the render alone timed apart.
+    # cli.render on the stage-1 PLY (a GIF) and the stage-2 OBJ (an H.264 MP4);
+    # the render alone timed apart.
     fovy = math.radians(49.1)
-    for label, path in (("render gaussians", ply), ("render mesh", obj)):
-        gif = drive_cli(label, render, [path, "--out", os.path.join(tmp, f"{label[7:]}.gif"),
+    for label, path, ext in (("render gaussians", ply, "gif"), ("render mesh", obj, "mp4")):
+        out = drive_cli(label, render, [path, "--out", os.path.join(tmp, f"{label[7:]}.{ext}"),
                                         "--num_frames", str(APPS_FRAMES), "--size",
                                         str(APPS_SIZE)], runs)
         held(label)
-        frames, _ = read_gif(gif)
-        if frames.shape != (APPS_FRAMES, APPS_SIZE, APPS_SIZE, 3) or frames.std() == 0:
-            raise RuntimeError(f"{label} wrote a GIF of {frames.shape}")
+        if ext == "gif":
+            shape = read_gif(out)[0].shape
+        else:
+            info = read_mp4(out)
+            shape = (len(info["sample_sizes"]), info["height"], info["width"], 3)
+            if info["durations"] != [info["timescale"] // APPS_FPS] * APPS_FRAMES:
+                raise RuntimeError(f"{label} wrote samples of {info['durations']} in "
+                                   f"{info['timescale']} a second")
+        if shape != (APPS_FRAMES, APPS_SIZE, APPS_SIZE, 3):
+            raise RuntimeError(f"{label} wrote a {ext} of {shape}")
         with kernel_run(label + " (frames only)", runs):
-            render.orbit_frames(path, APPS_FRAMES, APPS_SIZE, 0.0, 2.0, fovy, "cuda")
+            frames = render.orbit_frames(path, APPS_FRAMES, APPS_SIZE, 0.0, 2.0, fovy, "cuda")
         held(label + " (frames only)")
+        if np.std(frames) == 0:
+            raise RuntimeError(f"{label} rendered flat frames")
         summary[label] = {"s": runs[label]["wall_s"],
                           "ms_per_frame": 1e3 * runs[label + " (frames only)"]["wall_s"]
-                          / APPS_FRAMES, "gif": list(frames.shape)}
+                          / APPS_FRAMES, ext: list(shape)}
+        if ext == "mp4":
+            summary[label]["mp4"] = check_mp4(out, info, frames, card)
 
     # A full-width Zero123 snapshot: novel views on it, its CLIP tower for the metrics.
     snap = os.path.join(tmp, "zero123")
@@ -3379,16 +3436,17 @@ def smoke(args, load_alone: subprocess.Popen, mvdream_alone: subprocess.Popen,
     t_start = t0 = time.perf_counter()
     # One compiler per library, all at once: the kernels, K3 without the
     # sift (which check_ztest times against the shipped build), and the
-    # host tools (g++): the mesh tools, the image tools, the image codecs
-    # and the JPEG 2000 decoder.
-    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+    # host tools (g++): the mesh tools, the image tools, the image codecs,
+    # the JPEG 2000 decoder and the H.264 encoder.
+    with concurrent.futures.ThreadPoolExecutor(7) as pool:
         builds = [pool.submit(cuda_build.build, ["composite_fwd", "composite_bwd", "ztest"], True),
                   pool.submit(cuda_build.build, ["ztest"], True, ("-DZTEST_SIFT=0",)),
                   pool.submit(native.build), pool.submit(native.build, native.IMAGE_TOOLS),
                   pool.submit(native.build, native.IMAGE_CODECS),
-                  pool.submit(native.build, native.JPEG2000)]
+                  pool.submit(native.build, native.JPEG2000),
+                  pool.submit(native.build, native.H264_INTRA)]
         libs = [b.result() for b in builds]
-    print(f"[build] kernels, {libs[2].name}, {libs[3].name}, {libs[4].name} and {libs[5].name} "
+    print(f"[build] kernels, {', '.join(lib.name for lib in libs[2:])} "
           f"ready in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

@@ -4,13 +4,14 @@ Port of ``dreamgaussian_tpu/cli/render.py``: renders a gaussian PLY
 (through the stage-1 renderer, kernel K1 on the card) or a mesh (through
 ``render/mesh_renderer.py``, kernel K3) from ``--num_frames`` azimuths
 evenly spaced from -180 degrees at ``--elevation`` and ``--radius``, and
-saves them as a PNG grid, a GIF (``utils/gif.py``), or for ``.mp4`` the
-GIF beside it with the JAX CLI's ``[WARN] no mp4 backend`` line (the port
-has no video encoder). A mesh without UVs is unwrapped and one without a
-texture is shaded with a 0.7 grey albedo. ``--device`` picks the card
-(default) or the CPU.
+saves them as a PNG grid, a GIF (``utils/gif.py``) or an H.264 MP4
+(``utils/mp4.py``, the port's own intra encoder in ``csrc/h264_intra.cpp``,
+where the JAX CLI goes through imageio and libx264). A mesh without UVs is
+unwrapped and one without a texture is shaded with a 0.7 grey albedo.
+``--device`` picks the card (default) or the CPU.
 
     python -m dreamgaussian_tpu_torch.cli.render logs/name_model.ply --out o.gif
+    python -m dreamgaussian_tpu_torch.cli.render logs/name.obj --out turntable.mp4
     python -m dreamgaussian_tpu_torch.cli.render logs/name.obj --num_frames 8 --out grid.png
 
 The viewer (``cli/serve.py``) and the metrics (``cli/eval.py``) render
@@ -93,9 +94,12 @@ def render_mesh_frames(mesh_path, frames, size, elevation, radius, fovy, device=
 
 
 def save_frames(frames: list, out_path: str, fps: int = 15) -> str:
-    """Frames in [0, 1] as a PNG grid, a GIF, or (``.mp4``) the GIF beside
-    it; returns the path written."""
+    """Frames in [0, 1] as a PNG grid, a GIF or an H.264 MP4 (``.mp4``, at
+    imageio's settings: QP 25, yuv420p, sizes scaled up to multiples of 16);
+    returns the path written. An encoder that does not build or an encode
+    that fails raises: nothing else is written in the MP4's place."""
     from ..utils.gif import write_gif
+    from ..utils.mp4 import write_mp4
     from ..utils.png import write_png
 
     imgs = [(np.clip(f, 0, 1) * 255).astype(np.uint8) for f in frames]
@@ -112,9 +116,7 @@ def save_frames(frames: list, out_path: str, fps: int = 15) -> str:
     elif ext == ".gif":
         write_gif(out_path, imgs, fps=fps)
     elif ext == ".mp4":
-        out_path = os.path.splitext(out_path)[0] + ".gif"
-        print(f"[WARN] no mp4 backend; writing {out_path}")
-        write_gif(out_path, imgs, fps=fps)
+        write_mp4(out_path, imgs, fps)
     else:
         raise ValueError(f"unsupported output format: {ext}")
     return out_path

@@ -1,15 +1,16 @@
 """ctypes loader for the port's host-side native code.
 
-Four sources under ``csrc/``: ``mesh_tools.cpp`` (the port's own copy of
+Five sources under ``csrc/``: ``mesh_tools.cpp`` (the port's own copy of
 ``dreamgaussian_tpu/native/``'s, wrapped below), ``image_tools.cpp`` (the
 JPEG decoder's pixel work and GrabCut's min-cut, wrapped by
 ``utils/jpeg.py`` and ``preprocess/grabcut.py``), ``image_codecs.cpp``
 (PNG's row filters, GIF's LZW, WebP's VP8L, VP8 and alpha planes, TIFF's
 LZW, PackBits, CCITT and predictors, wrapped by ``utils/png.py``,
-``gif.py``, ``webp.py`` and ``tiff.py``) and ``jpeg2000.cpp`` (the JPEG
-2000 codestream decoder, wrapped by ``utils/jpeg2000.py``);
-``image_tools()``, ``image_codecs()`` and ``jpeg2000()`` declare every
-function of theirs, once. Each shared library is
+``gif.py``, ``webp.py`` and ``tiff.py``), ``jpeg2000.cpp`` (the JPEG
+2000 codestream decoder, wrapped by ``utils/jpeg2000.py``) and
+``h264_intra.cpp`` (the H.264 intra encoder, wrapped by ``utils/mp4.py``);
+``image_tools()``, ``image_codecs()``, ``jpeg2000()`` and ``h264_intra()``
+declare every function of theirs, once. Each shared library is
 compiled at first use into ``build/native/`` at the root of the checkout,
 under a name that carries the hash of its source and the flags, so an
 edited source is rebuilt. The host compiler is ``g++``; where there is
@@ -36,6 +37,7 @@ SRC = Path(__file__).resolve().parent / "csrc" / "mesh_tools.cpp"
 IMAGE_TOOLS = SRC.with_name("image_tools.cpp")
 IMAGE_CODECS = SRC.with_name("image_codecs.cpp")
 JPEG2000 = SRC.with_name("jpeg2000.cpp")
+H264_INTRA = SRC.with_name("h264_intra.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 SOURCE_FLAGS = {"jpeg2000.cpp": ("-ffp-contract=off",)}
@@ -130,6 +132,20 @@ def _declare_jpeg2000(lib: ctypes.CDLL) -> None:
 def jpeg2000() -> ctypes.CDLL:
     """``csrc/jpeg2000.cpp``'s library with its functions declared."""
     return _load(JPEG2000, _declare_jpeg2000)
+
+
+def _declare_h264_intra(lib: ctypes.CDLL) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.dg_h264_headers.argtypes = [i32, i32, i32, i32, vp, i32, vp, vp, i32]
+    lib.dg_h264_encode.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp, vp, vp, vp, i64, vp, vp,
+                                   vp, i32]
+    for fn in (lib.dg_h264_headers, lib.dg_h264_encode):
+        fn.restype = ctypes.c_int
+
+
+def h264_intra() -> ctypes.CDLL:
+    """``csrc/h264_intra.cpp``'s library with its functions declared."""
+    return _load(H264_INTRA, _declare_h264_intra)
 
 
 def _declare_mesh_tools(lib: ctypes.CDLL) -> None:

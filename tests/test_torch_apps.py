@@ -36,6 +36,7 @@ from dreamgaussian_tpu_torch.guidance import synthetic
 from dreamgaussian_tpu_torch.guidance.clip import CLIPVisionConfig
 from dreamgaussian_tpu_torch.meshing.mesh import Mesh
 from dreamgaussian_tpu_torch.utils.gif import read_gif
+from dreamgaussian_tpu_torch.utils.mp4 import read_mp4
 from dreamgaussian_tpu_torch.utils.png import decode_png, read_png
 from torch_apps_cases import get, http, port_runall, write_cloud_ply, write_sphere_obj  # noqa: F401
 from torch_cli_cases import disc_png
@@ -98,9 +99,10 @@ def test_save_frames_outputs(tmp_path, capsys):
     trender.save_frames(frames, str(tmp_path / "g.png"))
     assert read_png(str(tmp_path / "g.png")).shape == (16, 24, 3)
     out = trender.save_frames(frames, str(tmp_path / "v.mp4"))
-    assert out == str(tmp_path / "v.gif") and "[WARN] no mp4 backend" in capsys.readouterr().out
-    back, _ = read_gif(out)
-    assert back.shape == (3, 8, 12, 3)
+    assert out == str(tmp_path / "v.mp4") and not (tmp_path / "v.gif").exists()
+    assert "[WARN] no mp4 backend" not in capsys.readouterr().out
+    info = read_mp4(out)
+    assert len(info["sample_sizes"]) == 3 and (info["width"], info["height"]) == (16, 16)
     with pytest.raises(ValueError, match="unsupported"):
         trender.save_frames(frames, str(tmp_path / "x.bmp"))
 
