@@ -17,7 +17,9 @@
    tile-parts, palettes, channel definitions and colour spaces) and
    ``tests/fixtures/port_jp2_archival/`` (SOP/EPH markers, the six
    code-block styles, ROI, PPM/PPT packed packet headers;
-   ``scripts/port_make_jp2_fixtures.py``) under IMREAD_UNCHANGED and
+   ``scripts/port_make_jp2_fixtures.py``), ``tests/fixtures/port_hdr/``
+   (Radiance HDR, PFM, Sun raster) and ``tests/fixtures/port_tiff_codecs/``
+   (SGILog, SGILog24, ThunderScan, NeXT, 10/12/14-bit samples) under IMREAD_UNCHANGED and
    IMREAD_COLOR, and the GLB's and OBJs' textures through ``Mesh.load``,
    each held bit for bit against cv2's stored decode (or refused where cv2
    returns None), with the host's median ms (``check_image_fixtures``);
@@ -94,7 +96,11 @@
    lossless RGBA JPEG 2000 cut-out as archives write it (SOP and EPH
    markers, RESET|RESTART|CAUSAL|ERTERM|SEGMARK code-blocks) and an OBJ
    sphere whose ``map_Kd`` is a BYPASS-coded JP2 in 32^2 tiles with PPT
-   markers and an RGN marker (``jp2 stage 1``, ``jp2 stage 2``);
+   markers and an RGN marker (``jp2 stage 1``, ``jp2 stage 2``); and the
+   same two with the 512^2 JPEG photo's decode written as a 24-bit Sun
+   raster (read back equal to those pixels, matted by GrabCut on the card)
+   and an OBJ sphere whose ``map_Kd`` is a 128^2 RLE Radiance HDR
+   (``ras stage 1``, ``hdr stage 2``);
 10. the text day: writes a full-width SD 2.1-base diffusers snapshot (the
    UNet, the KL-VAE, the 23-layer CLIP text tower, a tokenizer) as fp16
    safetensors and a full-width single-file MVDream LDM checkpoint (the
@@ -1762,6 +1768,11 @@ JP2_ARCHIVAL_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                      "fixtures", "port_jp2_archival")
 PHOTO_JP2 = os.path.join(JP2_ARCHIVAL_FIXTURES, "photo_512_rgba_archival.jp2")
 SPHERE_JP2 = os.path.join(JP2_ARCHIVAL_FIXTURES, "sphere_jp2_archival.obj")
+HDR_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                            "port_hdr")
+SPHERE_HDR = os.path.join(HDR_FIXTURES, "sphere_hdr.obj")
+TIFF_CODEC_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                   "fixtures", "port_tiff_codecs")
 GRABCUT_IOU_CPU = 0.99
 GRABCUT_IOU_CV2 = 0.95
 DECODE_REPS = 5
@@ -1893,8 +1904,9 @@ def run_formats(card: str) -> dict:
 
 
 def check_image_fixtures(card: str) -> dict:
-    """Every fixture of ``scripts/port_make_image_fixtures.py``,
-    ``scripts/port_make_tiff_fixtures.py`` and
+    """Every fixture of ``scripts/port_make_image_fixtures.py`` and
+    ``scripts/port_make_tiff_fixtures.py`` (each with its second set: Radiance
+    HDR, PFM and Sun raster; the TIFF codecs) and
     ``scripts/port_make_jp2_fixtures.py`` (both of its sets) read by the port under
     IMREAD_UNCHANGED and IMREAD_COLOR (``utils/imread.py``), the GLB and
     the OBJs through ``Mesh.load``, each held bit for bit against cv2's
@@ -1912,7 +1924,8 @@ def check_image_fixtures(card: str) -> dict:
     textures = {"tex_grey.obj": "tex_grey.png", "tex_palette.obj": "tex_palette.png",
                 "tex_exif.obj": "tex_exif.jpg", "sphere_jpeg.glb": "sphere_jpeg.glb",
                 "sphere_tiff.obj": "sphere_tiff.tif", "sphere_jp2.obj": "sphere_jp2.jp2",
-                "sphere_jp2_archival.obj": "sphere_jp2_archival.jp2"}
+                "sphere_jp2_archival.obj": "sphere_jp2_archival.jp2",
+                "sphere_hdr.obj": "sphere_hdr.hdr"}
 
     def timed(fn):
         times, out = [], None
@@ -1924,7 +1937,8 @@ def check_image_fixtures(card: str) -> dict:
 
     out = {}
     for folder, none_means in ((IMAGE_FIXTURES, NotImplementedError), (TIFF_FIXTURES, ValueError),
-                               (JP2_FIXTURES, ValueError), (JP2_ARCHIVAL_FIXTURES, ValueError)):
+                               (JP2_FIXTURES, ValueError), (JP2_ARCHIVAL_FIXTURES, ValueError),
+                               (HDR_FIXTURES, ValueError), (TIFF_CODEC_FIXTURES, ValueError)):
         with open(os.path.join(folder, "decodes.json")) as fh:
             digests = json.load(fh)
         small = np.load(os.path.join(folder, "small_decodes.npz"))
@@ -1932,13 +1946,13 @@ def check_image_fixtures(card: str) -> dict:
         def held(name: str, key: str, got) -> str:
             want = digests[name][key]
             digest = hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest()
-            err = (int(np.abs(got.astype(np.int64) - small[name].astype(np.int64)).max())
+            err = (int((got.view(np.uint8) != small[name].view(np.uint8)).sum())
                    if key == "unchanged" and name in small.files and got.shape == small[name].shape
-                   else 0)
+                   and got.dtype == small[name].dtype else 0)
             if ([list(got.shape), str(got.dtype), digest] != [want["shape"], want["dtype"],
                                                               want["sha256"]] or err):
                 raise RuntimeError(f"{name} ({key}): read {got.dtype} {list(got.shape)} (SHA-256 "
-                                   f"{digest[:16]}, max abs err {err}) against cv2's {want}")
+                                   f"{digest[:16]}, {err} bytes differ) against cv2's {want}")
             return digest
 
         for name in sorted(digests):
@@ -1982,7 +1996,36 @@ def check_image_fixtures(card: str) -> dict:
                                "photo_1024x768_lossless.jp2 color")}
     print(f"[formats] 1024x768 photos, IMREAD_COLOR median host ms: {json.dumps(big)} (the "
           f"JPEG's is its decode_jpeg line above); card '{card}'")
+    hdr = {k: out[k] for k in ("env_1024x512.hdr unchanged", "logluv_256.tif unchanged")}
+    print(f"[formats] float decodes, IMREAD_UNCHANGED median host ms of {DECODE_REPS}: the "
+          f"1024x512 RLE Radiance HDR {hdr['env_1024x512.hdr unchanged']:.2f}, the 256^2 SGILog "
+          f"TIFF {hdr['logluv_256.tif unchanged']:.2f}; card '{card}'")
     return out
+
+
+def write_sun_raster(jpeg: str, path: str) -> str:
+    """The JPEG's decode written as a 24-bit RT_STANDARD Sun raster (the
+    32-byte big-endian header, BGR rows padded to 16 bits); the port's read
+    of it must equal those pixels. Returns ``path``."""
+    import struct
+
+    import numpy as np
+
+    from dreamgaussian_tpu_torch.utils.imread import read_image
+    from dreamgaussian_tpu_torch.utils.jpeg import decode_jpeg
+
+    with open(jpeg, "rb") as fh:
+        rgb = decode_jpeg(fh.read())
+    h, w = rgb.shape[:2]
+    rows = rgb[..., ::-1].reshape(h, 3 * w)
+    rows = np.pad(rows, ((0, 0), (0, rows.shape[1] & 1)))
+    with open(path, "wb") as fh:
+        fh.write(struct.pack(">8I", 0x59A66A95, w, h, 24, rows.size, 1, 0, 0) + rows.tobytes())
+    back = read_image(path)
+    if back.shape != rgb.shape or not np.array_equal(back, rgb):
+        raise RuntimeError(f"the Sun raster of {os.path.basename(jpeg)} read back as "
+                           f"{back.dtype} {back.shape}, not its pixels")
+    return path
 
 
 def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
@@ -2005,9 +2048,11 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
     webp_matte: dict = {}
     tiff_matte: dict = {}
     jp2_matte: dict = {}
+    ras_matte: dict = {}
     glb_albedo = Mesh.load(SPHERE_GLB, resize=False).albedo
     tiff_albedo = Mesh.load(SPHERE_TIFF, resize=False).albedo
     jp2_albedo = Mesh.load(SPHERE_JP2, resize=False).albedo
+    hdr_albedo = Mesh.load(SPHERE_HDR, resize=False).albedo
     os.environ.pop("DG_U2NET_CKPT", None)       # the JPEG is matted by GrabCut
     with tempfile.TemporaryDirectory() as tmp:
         snap = os.path.join(tmp, "zero123-snapshot")
@@ -2074,6 +2119,18 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
             jp2_mesh = drive_cli("jp2 stage 2", cli2, jp2_argv + [
                 "save_path=jp2mesh", f"mesh={SPHERE_JP2}", f"iters_refine={WEIGHTS_REFINE}"],
                 runs)
+            # The 512^2 JPEG photo as a 24-bit Sun raster (matted by GrabCut on
+            # the card), and an OBJ whose texture is an RLE Radiance HDR (its
+            # reference view the RGBA WebP's, which needs no second matting).
+            ras = write_sun_raster(PHOTO_512, os.path.join(tmp, "photo_512.ras"))
+            ras_argv = ["--config", os.path.join(CONFIGS, "image.yaml"), f"input={ras}",
+                        f"outdir={tmp}", f"seed={seed}", f"zero123_ckpt={snap}"]
+            with grabcut_watch(ras_matte):
+                ras_run = drive_cli("ras stage 1", cli1, ras_argv + [
+                    "save_path=ras", f"iters={SAI_ITERS}", "save_mesh=False"], runs)
+            hdr_mesh = drive_cli("hdr stage 2", cli2, webp_argv + [
+                "save_path=hdrmesh", f"mesh={SPHERE_HDR}", f"iters_refine={WEIGHTS_REFINE}"],
+                runs)
         n, faces = read_outputs(tmp, "weights", image_options()["texture_size"],
                                 image_options()["capacity"])
     if sai_matte["runs"] != ["cuda:0"] or sai_matte["cuts"] != ITERATIONS:
@@ -2109,11 +2166,26 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
           f"128^2 BYPASS-coded JP2 texture in 32^2 tiles with PPT and RGN markers read by the "
           f"port, {WEIGHTS_REFINE} stage-2 steps in {runs['jp2 stage 2']['wall_s']:.1f} s (loss "
           f"{jp2_mesh['loss']:.5f}); card '{card}'")
+    if ras_matte["runs"] != ["cuda:0"] or ras_matte["cuts"] != ITERATIONS:
+        raise RuntimeError(f"the Sun raster photo was not matted by GrabCut on the card: "
+                           f"{ras_matte}")
+    if hdr_albedo is None or hdr_albedo.shape != (128, 128, 3):
+        raise RuntimeError(f"the OBJ's Radiance HDR texture was not read "
+                           f"({None if hdr_albedo is None else hdr_albedo.shape})")
+    print(f"[weights] ras input: the 512^2 JPEG photo's decode written as a 24-bit Sun raster "
+          f"and read back equal to those pixels, matted by GrabCut on {ras_matte['runs'][0]} "
+          f"({ras_matte['cuts']} host min-cuts, {ras_matte['cut_s'] * 1e3:.1f} ms), "
+          f"{SAI_ITERS} stage-1 steps in {runs['ras stage 1']['wall_s']:.1f} s; obj mesh "
+          f"{os.path.relpath(SPHERE_HDR)}: its 128^2 RLE Radiance HDR texture read by the port "
+          f"(times 255, saturated, as cv2 reads it under IMREAD_COLOR), {WEIGHTS_REFINE} stage-2 "
+          f"steps in {runs['hdr stage 2']['wall_s']:.1f} s (loss {hdr_mesh['loss']:.5f}); "
+          f"card '{card}'")
     if (first["step"], resumed["step"], sai["step"], webp["step"], tiff["step"],
-            jp2["step"]) != (WEIGHTS_STOP, WEIGHTS_ITERS, SAI_ITERS, SAI_ITERS, SAI_ITERS,
-                             SAI_ITERS):
+            jp2["step"], ras_run["step"]) != (WEIGHTS_STOP, WEIGHTS_ITERS, SAI_ITERS, SAI_ITERS,
+                                              SAI_ITERS, SAI_ITERS, SAI_ITERS):
         raise RuntimeError(f"stage-1 runs ended at steps {first['step']}, {resumed['step']}, "
-                           f"{sai['step']}, {webp['step']}, {tiff['step']}, {jp2['step']}")
+                           f"{sai['step']}, {webp['step']}, {tiff['step']}, {jp2['step']}, "
+                           f"{ras_run['step']}")
     if len(saved) != 1 or len(restored) != 1 or restored[0]["step"] != WEIGHTS_STOP:
         raise RuntimeError(f"expected one checkpoint at step {WEIGHTS_STOP} saved and restored, "
                            f"got {len(saved)} saved, {len(restored)} restored")
@@ -2121,11 +2193,12 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
         torch.equal(v, restored[0][k]) if isinstance(v, torch.Tensor) else v == restored[0][k])]
     if differ:
         raise RuntimeError(f"the resumed trainer's state differs from the saved one in {differ}")
-    n_steps = WEIGHTS_STOP + (WEIGHTS_ITERS - WEIGHTS_STOP) + 4 * SAI_ITERS
+    n_steps = WEIGHTS_STOP + (WEIGHTS_ITERS - WEIGHTS_STOP) + 5 * SAI_ITERS
     if len(losses) != n_steps or not all(math.isfinite(x) for x in losses + [
-            refined["loss"], glb["loss"], tiff_mesh["loss"], jp2_mesh["loss"]]):
+            refined["loss"], glb["loss"], tiff_mesh["loss"], jp2_mesh["loss"], hdr_mesh["loss"]]):
         raise RuntimeError(f"stage-1 losses {losses}, stage-2 losses {refined['loss']}, "
-                           f"{glb['loss']}, {tiff_mesh['loss']}, {jp2_mesh['loss']}")
+                           f"{glb['loss']}, {tiff_mesh['loss']}, {jp2_mesh['loss']}, "
+                           f"{hdr_mesh['loss']}")
     launches = {k: v["launches"] for k, v in runs.items()}
     k1k2 = ("composite_fwd", "composite_bwd")
     if (any(launches[k][name] < 1 for k in launches if "stage 1" in k for name in k1k2)
@@ -2133,7 +2206,8 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
             or launches["stage 2"]["ztest"] != 3 * WEIGHTS_REFINE
             or launches["glb stage 2"]["ztest"] != 3 * WEIGHTS_REFINE
             or launches["tiff stage 2"]["ztest"] != 3 * WEIGHTS_REFINE
-            or launches["jp2 stage 2"]["ztest"] != 3 * WEIGHTS_REFINE):
+            or launches["jp2 stage 2"]["ztest"] != 3 * WEIGHTS_REFINE
+            or launches["hdr stage 2"]["ztest"] != 3 * WEIGHTS_REFINE):
         raise RuntimeError(f"the weights-day runs did not go through the kernels: {launches}")
     walls = {k: v["wall_s"] for k, v in runs.items()}
     print(f"[weights] checkpoint at step {WEIGHTS_STOP} restored bit for bit "

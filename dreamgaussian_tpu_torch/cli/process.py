@@ -52,8 +52,10 @@ from ..utils.resize import resize_area
 
 def remove_background(img: np.ndarray, u2net_ckpt: str | None = None,
                       device="cuda") -> np.ndarray:
-    """RGB uint8 [H, W, 3] -> RGBA: U2Net's matte when a checkpoint is given
-    (``u2net_ckpt``, else ``DG_U2NET_CKPT``), GrabCut's otherwise."""
+    """RGB [H, W, 3] -> RGBA of its dtype: U2Net's uint8 matte stacked on
+    it when a checkpoint is given (``u2net_ckpt``, else ``DG_U2NET_CKPT``;
+    any dtype, as the JAX function stacks it), GrabCut's otherwise (uint8
+    only, as ``cv2.grabCut``)."""
     u2net_ckpt = u2net_ckpt or os.environ.get("DG_U2NET_CKPT")
     if not u2net_ckpt:
         from ..preprocess.grabcut import grabcut_alpha

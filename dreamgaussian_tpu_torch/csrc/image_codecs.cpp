@@ -21,12 +21,20 @@
 //    14-bit fixed-point YUV->RGB (yuv.h);
 //  - dg_webp_alpha_unfilter: the ALPH chunk's horizontal, vertical and
 //    gradient filters undone (filters.c), in place;
-//  - dg_tiff_decompress: a TIFF strip or tile's LZW, PackBits or CCITT
-//    (Modified Huffman, T.4 1-D and 2-D, T.6) data as libtiff's tif_lzw.c,
-//    tif_packbits.c and tif_fax3.c decode it (utils/tiff.py parses the
-//    container);
+//  - dg_tiff_decompress: a TIFF strip or tile's LZW, PackBits, CCITT
+//    (Modified Huffman, T.4 1-D and 2-D, T.6) or ThunderScan data as
+//    libtiff's tif_lzw.c, tif_packbits.c, tif_fax3.c and tif_thunder.c
+//    decode it (utils/tiff.py parses the container);
 //  - dg_tiff_unpredict: TIFF's horizontal and floating-point predictors
-//    undone (tif_predict.c), in place.
+//    undone (tif_predict.c), in place;
+//  - dg_sgilog_decode: SGILog and SGILog24 strips or tiles (LogL16,
+//    LogLuv32 run-length, LogLuv24) as libtiff's tif_luv.c decodes them, to
+//    float XYZ or its 8-bit RGB and grey; dg_xyz_to_rgb: OpenCV's float
+//    XYZ-to-RGB conversion, which cv2 applies to a LogLuv decode;
+//  - dg_hdr_decode: a Radiance HDR's RLE or flat RGBE pixels as OpenCV's
+//    rgbe.cpp reads them (utils/hdr.py parses the header).
+// Built with -ffp-contract=off: the float arithmetic that must round as
+// OpenCV's and libtiff's does is written out, with no fused multiply-add.
 // The probability and quantiser tables are those of the VP8 specification
 // (RFC 6386), in libwebp's order of the intra 4x4 modes.
 
@@ -35,6 +43,7 @@
 #include <cstring>
 #include <vector>
 #include <algorithm>
+#include <cmath>
 
 namespace {
 
@@ -1788,6 +1797,266 @@ void horizontal_acc(uint8_t* row, int64_t row_bytes, int stride) {
   for (int64_t i = stride; i < n; ++i) p[i] = (T)(p[i] + p[i - stride]);
 }
 
+
+// ---------------------------------------------------------------- Radiance HDR
+// OpenCV's rgbe.cpp (Bruce Walter's RGBE reader): a pixel's mantissas
+// times ldexp(1, e - 136), an exponent of 0 giving 0.
+inline void rgbe_to_float(const uint8_t* p, float* rgb) {
+  if (p[3]) {
+    const float f = (float)std::ldexp(1.0, (int)p[3] - (128 + 8));
+    rgb[0] = p[0] * f;
+    rgb[1] = p[1] * f;
+    rgb[2] = p[2] * f;
+  } else {
+    rgb[0] = rgb[1] = rgb[2] = 0.f;
+  }
+}
+
+// RGBE_ReadPixels: ``n`` flat 4-byte pixels; false where the data ends first.
+bool rgbe_flat(const uint8_t* data, int64_t len, int64_t* pos, float* rgb, int64_t n) {
+  for (int64_t i = 0; i < n; ++i, rgb += 3) {
+    if (len - *pos < 4) return false;
+    rgbe_to_float(data + *pos, rgb);
+    *pos += 4;
+  }
+  return true;
+}
+
+// ---------------------------------------------------------------- SGILog (libtiff tif_luv.c)
+constexpr double kLn2 = 0.69314718055994530942;
+constexpr double kUvScale = 410.;
+constexpr double kUNeu = 0.210526316, kVNeu = 0.473684211;
+constexpr int kUvNdivs = 16289, kUvNvs = 163;
+constexpr float kUvSqsiz = 0.003500f, kUvVstart = 0.016940f;
+
+// uvcode.h (Greg Ward Larson, SGI): per v row of the (u', v') grid, its
+// first u', its cell count and the cells before it.
+struct UvRow {
+  float ustart;
+  int16_t nus, ncum;
+};
+const UvRow kUvRow[kUvNvs] = {
+    {0.247663f, 4, 0}, {0.243779f, 6, 4}, {0.241684f, 7, 10}, {0.237874f, 9, 17},
+    {0.235906f, 10, 26}, {0.232153f, 12, 36}, {0.228352f, 14, 48}, {0.226259f, 15, 62},
+    {0.222371f, 17, 77}, {0.220410f, 18, 94}, {0.214710f, 21, 112}, {0.212714f, 22, 133},
+    {0.210721f, 23, 155}, {0.204976f, 26, 178}, {0.202986f, 27, 204}, {0.199245f, 29, 231},
+    {0.195525f, 31, 260}, {0.193560f, 32, 291}, {0.189878f, 34, 323}, {0.186216f, 36, 357},
+    {0.186216f, 36, 393}, {0.182592f, 38, 429}, {0.179003f, 40, 467}, {0.175466f, 42, 507},
+    {0.172001f, 44, 549}, {0.172001f, 44, 593}, {0.168612f, 46, 637}, {0.168612f, 46, 683},
+    {0.163575f, 49, 729}, {0.158642f, 52, 778}, {0.158642f, 52, 830}, {0.158642f, 52, 882},
+    {0.153815f, 55, 934}, {0.153815f, 55, 989}, {0.149097f, 58, 1044}, {0.149097f, 58, 1102},
+    {0.142746f, 62, 1160}, {0.142746f, 62, 1222}, {0.142746f, 62, 1284}, {0.138270f, 65, 1346},
+    {0.138270f, 65, 1411}, {0.138270f, 65, 1476}, {0.132166f, 69, 1541}, {0.132166f, 69, 1610},
+    {0.126204f, 73, 1679}, {0.126204f, 73, 1752}, {0.126204f, 73, 1825}, {0.120381f, 77, 1898},
+    {0.120381f, 77, 1975}, {0.120381f, 77, 2052}, {0.120381f, 77, 2129}, {0.112962f, 82, 2206},
+    {0.112962f, 82, 2288}, {0.112962f, 82, 2370}, {0.107450f, 86, 2452}, {0.107450f, 86, 2538},
+    {0.107450f, 86, 2624}, {0.107450f, 86, 2710}, {0.100343f, 91, 2796}, {0.100343f, 91, 2887},
+    {0.100343f, 91, 2978}, {0.095126f, 95, 3069}, {0.095126f, 95, 3164}, {0.095126f, 95, 3259},
+    {0.095126f, 95, 3354}, {0.088276f, 100, 3449}, {0.088276f, 100, 3549}, {0.088276f, 100, 3649},
+    {0.088276f, 100, 3749}, {0.081523f, 105, 3849}, {0.081523f, 105, 3954}, {0.081523f, 105, 4059},
+    {0.081523f, 105, 4164}, {0.074861f, 110, 4269}, {0.074861f, 110, 4379}, {0.074861f, 110, 4489},
+    {0.074861f, 110, 4599}, {0.068290f, 115, 4709}, {0.068290f, 115, 4824}, {0.068290f, 115, 4939},
+    {0.068290f, 115, 5054}, {0.063573f, 119, 5169}, {0.063573f, 119, 5288}, {0.063573f, 119, 5407},
+    {0.063573f, 119, 5526}, {0.057219f, 124, 5645}, {0.057219f, 124, 5769}, {0.057219f, 124, 5893},
+    {0.057219f, 124, 6017}, {0.050985f, 129, 6141}, {0.050985f, 129, 6270}, {0.050985f, 129, 6399},
+    {0.050985f, 129, 6528}, {0.050985f, 129, 6657}, {0.044859f, 134, 6786}, {0.044859f, 134, 6920},
+    {0.044859f, 134, 7054}, {0.044859f, 134, 7188}, {0.040571f, 138, 7322}, {0.040571f, 138, 7460},
+    {0.040571f, 138, 7598}, {0.040571f, 138, 7736}, {0.036339f, 142, 7874}, {0.036339f, 142, 8016},
+    {0.036339f, 142, 8158}, {0.036339f, 142, 8300}, {0.032139f, 146, 8442}, {0.032139f, 146, 8588},
+    {0.032139f, 146, 8734}, {0.032139f, 146, 8880}, {0.027947f, 150, 9026}, {0.027947f, 150, 9176},
+    {0.027947f, 150, 9326}, {0.023739f, 154, 9476}, {0.023739f, 154, 9630}, {0.023739f, 154, 9784},
+    {0.023739f, 154, 9938}, {0.019504f, 158, 10092}, {0.019504f, 158, 10250},
+    {0.019504f, 158, 10408}, {0.016976f, 161, 10566}, {0.016976f, 161, 10727},
+    {0.016976f, 161, 10888}, {0.016976f, 161, 11049}, {0.012639f, 165, 11210},
+    {0.012639f, 165, 11375}, {0.012639f, 165, 11540}, {0.009991f, 168, 11705},
+    {0.009991f, 168, 11873}, {0.009991f, 168, 12041}, {0.009016f, 170, 12209},
+    {0.009016f, 170, 12379}, {0.009016f, 170, 12549}, {0.006217f, 173, 12719},
+    {0.006217f, 173, 12892}, {0.005097f, 175, 13065}, {0.005097f, 175, 13240},
+    {0.005097f, 175, 13415}, {0.003909f, 177, 13590}, {0.003909f, 177, 13767},
+    {0.002340f, 177, 13944}, {0.002389f, 170, 14121}, {0.001068f, 164, 14291},
+    {0.001653f, 157, 14455}, {0.000717f, 150, 14612}, {0.001614f, 143, 14762},
+    {0.000270f, 136, 14905}, {0.000484f, 129, 15041}, {0.001103f, 123, 15170},
+    {0.001242f, 115, 15293}, {0.001188f, 109, 15408}, {0.001011f, 103, 15517},
+    {0.000709f, 97, 15620}, {0.000301f, 89, 15717}, {0.002416f, 82, 15806}, {0.003251f, 76, 15888},
+    {0.003246f, 69, 15964}, {0.004141f, 62, 16033}, {0.005963f, 55, 16095}, {0.008839f, 47, 16150},
+    {0.010490f, 40, 16197}, {0.016994f, 31, 16237}, {0.023659f, 21, 16268}
+};
+
+double logl16_to_y(int p16) {
+  const int le = p16 & 0x7fff;
+  if (!le) return 0.;
+  const double y = std::exp(kLn2 / 256. * (le + .5) - kLn2 * 64.);
+  return !(p16 & 0x8000) ? y : -y;
+}
+
+double logl10_to_y(int p10) {
+  if (p10 == 0) return 0.;
+  return std::exp(kLn2 / 64. * (p10 + .5) - kLn2 * 12.);
+}
+
+bool uv_decode(double* up, double* vp, int c) {
+  if (c < 0 || c >= kUvNdivs) return false;
+  int lower = 0, upper = kUvNvs;
+  while (upper - lower > 1) {
+    const int vi = (lower + upper) >> 1;
+    const int ui = c - kUvRow[vi].ncum;
+    if (ui > 0) {
+      lower = vi;
+    } else if (ui < 0) {
+      upper = vi;
+    } else {
+      lower = vi;
+      break;
+    }
+  }
+  const int vi = lower, ui = c - kUvRow[vi].ncum;
+  *up = kUvRow[vi].ustart + (ui + .5) * kUvSqsiz;
+  *vp = kUvVstart + (vi + .5) * kUvSqsiz;
+  return true;
+}
+
+void uv_l_to_xyz(double u, double v, double l, float* xyz) {
+  const double s = 1. / (6. * u - 16. * v + 12.);
+  const double x = 9. * u * s, y = 4. * v * s;
+  xyz[0] = (float)(x / y * l);
+  xyz[1] = (float)l;
+  xyz[2] = (float)((1. - x - y) / y * l);
+}
+
+void logluv32_to_xyz(uint32_t p, float* xyz) {
+  const double l = logl16_to_y((int)p >> 16);
+  if (l <= 0.) {
+    xyz[0] = xyz[1] = xyz[2] = 0.f;
+    return;
+  }
+  uv_l_to_xyz(1. / kUvScale * ((p >> 8 & 0xff) + .5), 1. / kUvScale * ((p & 0xff) + .5), l, xyz);
+}
+
+void logluv24_to_xyz(uint32_t p, float* xyz) {
+  const double l = logl10_to_y(p >> 14 & 0x3ff);
+  if (l <= 0.) {
+    xyz[0] = xyz[1] = xyz[2] = 0.f;
+    return;
+  }
+  double u, v;
+  if (!uv_decode(&u, &v, (int)(p & 0x3fff))) {
+    u = kUNeu;
+    v = kVNeu;
+  }
+  uv_l_to_xyz(u, v, l, xyz);
+}
+
+uint8_t gamma2_byte(double c) {
+  return (uint8_t)((c <= 0.) ? 0 : (c >= 1.) ? 255 : (int)(256. * std::sqrt(c)));
+}
+
+// XYZtoRGB24: CCIR-709 primaries and a 2.0 gamma, in double.
+void xyz_to_rgb24(const float* xyz, uint8_t* rgb) {
+  const double r = 2.690 * xyz[0] + -1.276 * xyz[1] + -0.414 * xyz[2];
+  const double g = -1.022 * xyz[0] + 1.978 * xyz[1] + 0.044 * xyz[2];
+  const double b = 0.061 * xyz[0] + -0.224 * xyz[1] + 1.163 * xyz[2];
+  rgb[0] = gamma2_byte(r);
+  rgb[1] = gamma2_byte(g);
+  rgb[2] = gamma2_byte(b);
+}
+
+// One row's byte planes (most significant first) of SGILog's run-length
+// code, OR-ed into ``tp`` (LogL16Decode, LogLuvDecode32): a byte of 128 or
+// more repeats the next byte (it minus 126) times, a smaller one copies
+// that many bytes. False where the data ends before the row does.
+template <typename T>
+bool sgilog_planes(const uint8_t* data, int64_t len, int64_t* pos, T* tp, int64_t npixels,
+                   int nbytes) {
+  std::fill(tp, tp + npixels, (T)0);
+  const uint8_t* bp = data + *pos;
+  int64_t cc = len - *pos;
+  for (int shft = 8 * (nbytes - 1); shft >= 0; shft -= 8) {
+    int64_t i = 0;
+    while (i < npixels && cc > 0) {
+      if (*bp >= 128) {
+        if (cc < 2) break;
+        int rc = *bp++ + (2 - 128);
+        const T b = (T)((T)*bp++ << shft);
+        cc -= 2;
+        while (rc-- && i < npixels) tp[i++] |= b;
+      } else {
+        int rc = *bp++;
+        while (--cc && rc-- && i < npixels) tp[i++] |= (T)((T)*bp++ << shft);
+      }
+    }
+    if (i != npixels) {
+      *pos = bp - data;
+      return false;
+    }
+  }
+  *pos = bp - data;
+  return true;
+}
+
+// ---------------------------------------------------------------- ThunderScan (tif_thunder.c)
+// One row of 4-bit pixels as ThunderDecode writes it (its ``op`` and
+// nibble order); false where the codes end short of ``maxpixels`` or
+// overrun it, the rest of the row from its last byte written zeroed.
+bool thunder_row(const uint8_t* data, int64_t len, int64_t* pos, uint8_t* row, int64_t maxpixels) {
+  uint8_t* op = row;
+  static const int kTwoBit[4] = {0, 1, 0, -1};
+  static const int kThreeBit[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  const uint8_t* bp = data + *pos;
+  int64_t cc = len - *pos;
+  unsigned lastpixel = 0;
+  int64_t npixels = 0;
+  auto setpixel = [&](unsigned v) {
+    lastpixel = v & 0xf;
+    if (npixels < maxpixels) {
+      if (npixels++ & 1)
+        *op++ |= (uint8_t)lastpixel;
+      else
+        op[0] = (uint8_t)(lastpixel << 4);
+    }
+  };
+  while (cc > 0 && npixels < maxpixels) {
+    int n = *bp++, delta;
+    cc--;
+    switch (n & 0xc0) {
+      case 0x00:                      // a run of the last pixel
+        if (npixels & 1) {
+          op[0] |= (uint8_t)lastpixel;
+          lastpixel = *op++;
+          npixels++;
+          n--;
+        } else {
+          lastpixel |= lastpixel << 4;
+        }
+        npixels += n;
+        if (npixels <= maxpixels) {
+          for (; n > 0; n -= 2) *op++ = (uint8_t)lastpixel;
+        }
+        if (n == -1) *--op &= 0xf0;
+        lastpixel &= 0xf;
+        break;
+      case 0x40:                      // three 2-bit deltas, 2 skips
+        if ((delta = (n >> 4) & 3) != 2) setpixel((unsigned)((int)lastpixel + kTwoBit[delta]));
+        if ((delta = (n >> 2) & 3) != 2) setpixel((unsigned)((int)lastpixel + kTwoBit[delta]));
+        if ((delta = n & 3) != 2) setpixel((unsigned)((int)lastpixel + kTwoBit[delta]));
+        break;
+      case 0x80:                      // two 3-bit deltas, 4 skips
+        if ((delta = (n >> 3) & 7) != 4) setpixel((unsigned)((int)lastpixel + kThreeBit[delta]));
+        if ((delta = n & 7) != 4) setpixel((unsigned)((int)lastpixel + kThreeBit[delta]));
+        break;
+      default:                        // a raw pixel
+        setpixel((unsigned)n);
+        break;
+    }
+  }
+  *pos = bp - data;
+  if (npixels != maxpixels) {
+    uint8_t* const end = row + (maxpixels + 1) / 2;
+    if (op < end) std::memset(op, 0, (size_t)(end - op));
+    return false;
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1940,6 +2209,16 @@ int dg_tiff_decompress(const uint8_t* data, int64_t len, int32_t compression, ui
     *n_done = tiff_packbits(data, len, out, cap);
     return 0;
   }
+  if (compression == 32809) {       // ThunderScan: rows of ``options`` bytes, ``width`` pixels
+    if (options <= 0 || cap % options) return 4;
+    int64_t pos = 0;
+    *n_done = 0;
+    for (int64_t at = 0; at < cap; at += options) {
+      if (!thunder_row(data, len, &pos, out + at, width)) return 4;
+      *n_done = at + options;
+    }
+    return 0;
+  }
   if (compression == 2 || compression == 3 || compression == 4 || compression == 32771) {
     if ((int64_t)(width + 7) / 8 * rows > cap) return 2;
     *n_done = fax_decode(data, len, compression, (options & 1) != 0, (options & 2) == 0,
@@ -1981,6 +2260,127 @@ int dg_tiff_unpredict(uint8_t* buf, int64_t rows, int64_t row_bytes, int32_t pre
     }
   }
   return 0;
+}
+
+// A Radiance HDR's pixels after its header, as OpenCV's RGBE_ReadPixels_RLE
+// reads them into ``rgb`` (h x w x 3 float32, red first): new-style RLE
+// scanlines (2, 2, then the width; each channel's runs of 129 to 255 or
+// literals of 1 to 128), flat pixels for widths outside 8..32767, and flat
+// pixels from the first scanline that does not start with 2, 2 on. Returns
+// 1 where the data ends short, 2 for a scanline of another width, 3 for a
+// run or literal that overruns its channel (cv2 returns None for each).
+int dg_hdr_decode(const uint8_t* data, int64_t len, int32_t w, int32_t h, float* rgb) {
+  int64_t pos = 0;
+  if (w < 8 || w > 0x7fff) return rgbe_flat(data, len, &pos, rgb, (int64_t)w * h) ? 0 : 1;
+  std::vector<uint8_t> line((size_t)4 * w);
+  for (int32_t left = h; left > 0; --left) {
+    if (len - pos < 4) return 1;
+    const uint8_t* p = data + pos;
+    pos += 4;
+    if (p[0] != 2 || p[1] != 2 || (p[2] & 0x80)) {
+      rgbe_to_float(p, rgb);
+      return rgbe_flat(data, len, &pos, rgb + 3, (int64_t)w * left - 1) ? 0 : 1;
+    }
+    if (((int)p[2] << 8 | p[3]) != w) return 2;
+    uint8_t* ptr = line.data();
+    for (int i = 0; i < 4; ++i) {
+      uint8_t* const end = line.data() + (size_t)(i + 1) * w;
+      while (ptr < end) {
+        if (len - pos < 2) return 1;
+        const int head = data[pos], value = data[pos + 1];
+        pos += 2;
+        if (head > 128) {
+          const int count = head - 128;
+          if (count == 0 || count > end - ptr) return 3;
+          std::memset(ptr, value, (size_t)count);
+          ptr += count;
+        } else {
+          int count = head;
+          if (count == 0 || count > end - ptr) return 3;
+          *ptr++ = (uint8_t)value;
+          if (--count > 0) {
+            if (len - pos < count) return 1;
+            std::memcpy(ptr, data + pos, (size_t)count);
+            ptr += count;
+            pos += count;
+          }
+        }
+      }
+    }
+    for (int32_t x = 0; x < w; ++x, rgb += 3) {
+      const uint8_t px[4] = {line[x], line[x + w], line[x + 2 * w], line[x + 3 * w]};
+      rgbe_to_float(px, rgb);
+    }
+  }
+  return 0;
+}
+
+// A TIFF strip or tile of SGILog data decoded row by row as libtiff's
+// LogLuvDecodeStrip / LogLuvDecodeTile do, each row ``width`` pixels:
+// ``mode`` 0 LogL16 (photometric LogL), 1 LogLuv32 (SGILog), 2 LogLuv24
+// (SGILog24). ``fmt`` 0: SGILOGDATAFMT_FLOAT (float32 X, Y, Z per pixel;
+// LogL not taken); 1: SGILOGDATAFMT_8BIT (LogLuv as XYZtoRGB24's uint8
+// R, G, B; LogL as L16toGry's uint8 grey). Decoding stops at the first
+// row whose data ends short, as libtiff's does: ``*rows_done`` receives
+// the rows written (the rest of ``out`` left as it is); returns 1 then.
+int dg_sgilog_decode(const uint8_t* data, int64_t len, int32_t mode, int32_t fmt, int32_t width,
+                     int32_t rows, void* out, int32_t* rows_done) {
+  int64_t pos = 0;
+  std::vector<uint32_t> luv((size_t)width);
+  std::vector<int16_t> l16((size_t)width);
+  *rows_done = 0;
+  if (mode == 0 && fmt != 1) return 2;
+  for (int32_t y = 0; y < rows; ++y) {
+    if (mode == 0) {
+      if (!sgilog_planes<int16_t>(data, len, &pos, l16.data(), width, 2)) return 1;
+      uint8_t* grey = (uint8_t*)out + (size_t)y * width;
+      for (int32_t i = 0; i < width; ++i) grey[i] = gamma2_byte(logl16_to_y(l16[i]));
+    } else {
+      if (mode == 1) {
+        if (!sgilog_planes<uint32_t>(data, len, &pos, luv.data(), width, 4)) return 1;
+      } else {
+        int32_t i = 0;
+        for (; i < width && len - pos >= 3; ++i, pos += 3)
+          luv[i] = (uint32_t)data[pos] << 16 | (uint32_t)data[pos + 1] << 8 | data[pos + 2];
+        if (i != width) return 1;
+      }
+      for (int32_t i = 0; i < width; ++i) {
+        float xyz[3];
+        if (mode == 1)
+          logluv32_to_xyz(luv[i], xyz);
+        else
+          logluv24_to_xyz(luv[i], xyz);
+        const size_t at = ((size_t)y * width + i) * 3;
+        if (fmt == 0)
+          std::memcpy((float*)out + at, xyz, sizeof xyz);
+        else
+          xyz_to_rgb24(xyz, (uint8_t*)out + at);
+      }
+    }
+    *rows_done = y + 1;
+  }
+  return 0;
+}
+
+// OpenCV's cvtColor(COLOR_XYZ2BGR) on float32, in place over h rows of w
+// pixels and written in R, G, B order: per row, the first multiple of four
+// pixels as its 4-lane vector code sums them (X*c0 + (Y*c1 + Z*c2)), the
+// rest as its scalar tail does ((X*c0 + Y*c1) + Z*c2); no fused
+// multiply-add (this file is built with -ffp-contract=off).
+void dg_xyz_to_rgb(float* img, int32_t h, int32_t w) {
+  static const float kC[9] = {3.240479f, -1.53715f, -0.498535f, -0.969256f, 1.875991f,
+                              0.041556f, 0.055648f, -0.204043f, 1.057311f};
+  const int32_t vec = w / 4 * 4;
+  for (int32_t y = 0; y < h; ++y) {
+    for (int32_t x = 0; x < w; ++x) {
+      float* p = img + ((size_t)y * w + x) * 3;
+      const float X = p[0], Y = p[1], Z = p[2];
+      for (int c = 0; c < 3; ++c) {
+        const float* k = kC + 3 * c;
+        p[c] = x < vec ? X * k[0] + (Y * k[1] + Z * k[2]) : (X * k[0] + Y * k[1]) + Z * k[2];
+      }
+    }
+  }
 }
 
 }  // extern "C"

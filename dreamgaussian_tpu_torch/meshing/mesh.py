@@ -11,8 +11,10 @@ shifted right by 8, the EXIF or TIFF orientation applied; a TIFF through
 libtiff's RGBA interface, as cv2 reads it); a GLB image that no decoder
 recognises or that does not decode (a float TIFF or a signed JPEG 2000
 among them) leaves the albedo unset, as cv2's None does in the JAX
-package, an OBJ's such texture raises, and one in a format cv2 reads and
-the port does not (AVIF) raises NotImplementedError.
+package, an OBJ's such texture raises, a GLB's one-channel PFM (which
+cv2.imdecode returns as one channel) is repeated to three, as OpenCV 5's
+``cvtColor(BGR2RGB)`` does in the JAX loader, and a texture in a format
+cv2 reads and the port does not (AVIF) raises NotImplementedError.
 
 Conventions match DreamGaussian's so assets cross-load: ``auto_size``
 normalizes the mesh to max extent 1.2 about its centroid; ``auto_normal``
@@ -255,6 +257,10 @@ class Mesh:
                       f"loading the mesh without a texture, as cv2.imdecode returns None "
                       f"for a malformed file")
                 img = None
+            if img is not None and img.ndim == 2:
+                # cv2.imdecode gives a one-channel PFM one channel under
+                # IMREAD_COLOR; OpenCV 5's cvtColor(BGR2RGB) repeats it.
+                img = np.repeat(img[..., None], 3, axis=-1)
             if img is not None:
                 albedo = img.astype(np.float32) / 255.0
         return cls(

@@ -5,8 +5,9 @@ Five sources under ``csrc/``: ``mesh_tools.cpp`` (the port's own copy of
 JPEG decoder's pixel work and GrabCut's min-cut, wrapped by
 ``utils/jpeg.py`` and ``preprocess/grabcut.py``), ``image_codecs.cpp``
 (PNG's row filters, GIF's LZW, WebP's VP8L, VP8 and alpha planes, TIFF's
-LZW, PackBits, CCITT and predictors, wrapped by ``utils/png.py``,
-``gif.py``, ``webp.py`` and ``tiff.py``), ``jpeg2000.cpp`` (the JPEG
+LZW, PackBits, CCITT, ThunderScan, SGILog and predictors, Radiance HDR's
+RGBE pixels, wrapped by ``utils/png.py``, ``gif.py``, ``webp.py``,
+``tiff.py`` and ``hdr.py``), ``jpeg2000.cpp`` (the JPEG
 2000 codestream decoder, wrapped by ``utils/jpeg2000.py``) and
 ``h264_intra.cpp`` (the H.264 intra encoder, wrapped by ``utils/mp4.py``);
 ``image_tools()``, ``image_codecs()``, ``jpeg2000()`` and ``h264_intra()``
@@ -16,9 +17,10 @@ under a name that carries the hash of its source and the flags, so an
 edited source is rebuilt. The host compiler is ``g++``; where there is
 none, the same file goes through ``nvcc``, which drives its own host
 compiler. The flags name no machine-specific instruction set (no
-``-march=native``); ``jpeg2000.cpp`` adds ``-ffp-contract=off``, since its
-float32 wavelet and colour transform must round as OpenJPEG's do, with no
-fused multiply-add. A failed build raises.
+``-march=native``); ``jpeg2000.cpp`` and ``image_codecs.cpp`` add
+``-ffp-contract=off``, since their float arithmetic (the wavelet and colour
+transforms, SGILog's XYZ and OpenCV's XYZ-to-RGB) must round as OpenJPEG's,
+libtiff's and OpenCV's do, with no fused multiply-add. A failed build raises.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ JPEG2000 = SRC.with_name("jpeg2000.cpp")
 H264_INTRA = SRC.with_name("h264_intra.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
-SOURCE_FLAGS = {"jpeg2000.cpp": ("-ffp-contract=off",)}
+SOURCE_FLAGS = {"jpeg2000.cpp": ("-ffp-contract=off",),
+                "image_codecs.cpp": ("-ffp-contract=off",)}
 _LOCK = threading.Lock()
 _LIBS: dict[Path, ctypes.CDLL] = {}
 
@@ -111,8 +114,13 @@ def _declare_image_codecs(lib: ctypes.CDLL) -> None:
     lib.dg_webp_alpha_unfilter.argtypes = [vp, i32, i32, i32]
     lib.dg_tiff_decompress.argtypes = [vp, i64, i32, vp, i64, i32, i32, i32, vp]
     lib.dg_tiff_unpredict.argtypes = [vp, i64, i64, i32, i32, i32]
+    lib.dg_sgilog_decode.argtypes = [vp, i64, i32, i32, i32, i32, vp, vp]
+    lib.dg_hdr_decode.argtypes = [vp, i64, i32, i32, vp]
+    lib.dg_xyz_to_rgb.argtypes = [vp, i32, i32]
+    lib.dg_xyz_to_rgb.restype = None
     for fn in (lib.dg_png_unfilter, lib.dg_gif_lzw, lib.dg_webp_vp8l, lib.dg_webp_vp8,
-               lib.dg_webp_alpha_unfilter, lib.dg_tiff_decompress, lib.dg_tiff_unpredict):
+               lib.dg_webp_alpha_unfilter, lib.dg_tiff_decompress, lib.dg_tiff_unpredict,
+               lib.dg_sgilog_decode, lib.dg_hdr_decode):
         fn.restype = ctypes.c_int
 
 

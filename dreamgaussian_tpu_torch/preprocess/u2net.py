@@ -167,7 +167,8 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def u2net_alpha(rgb: np.ndarray, ckpt_path: str, size: int = 320, device="cuda") -> np.ndarray:
-    """RGB uint8 [H, W, 3] -> alpha float32 [H, W] in [0, 1] (rembg's protocol)."""
+    """RGB [H, W, 3] (uint8, uint16 or float32, normalised by its max) ->
+    alpha float32 [H, W] in [0, 1] (rembg's protocol)."""
     device = resolve_device(device)
     model = load_u2net(ckpt_path, device)
     h, w = rgb.shape[:2]

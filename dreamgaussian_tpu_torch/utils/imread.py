@@ -10,20 +10,23 @@ and values — with the channels in RGB(A) order:
   (``utils/pnm.py``), GIF's first frame (``utils/gif.py``), TIFF and
   BigTIFF's first page (``utils/tiff.py``, which follows cv2's own TIFF
   rules: its orientation under both flags, its channel counts, libtiff's
-  conversions; SGILog, NeXT and ThunderScan raise NotImplementedError),
-  JPEG 2000 as JP2 files and raw J2K codestreams (``utils/jpeg2000.py``,
-  with cv2's own JPEG 2000 rules for depth, channels and colour spaces;
-  HTJ2K, Part 2 and the Part-1 coding options that it does not decode
-  raise NotImplementedError naming them);
+  conversions, SGILog's float XYZ, ThunderScan and 10-, 12- and 14-bit
+  samples among them), JPEG 2000 as JP2 files and raw J2K codestreams
+  (``utils/jpeg2000.py``, with cv2's own JPEG 2000 rules for depth,
+  channels and colour spaces; HTJ2K and Part 2 raise NotImplementedError
+  naming them), Radiance HDR (``utils/hdr.py``, float32), PFM
+  (``utils/pfm.py``, float32) and Sun raster (``utils/sunras.py``);
 - ``IMREAD_COLOR`` gives 3 channels of uint8 (grey repeated, alpha dropped,
-  16-bit samples shifted right by 8) and applies the EXIF orientation of a
-  JPEG (APP1), a PNG (``eXIf``) or a WebP (``EXIF``), as cv2 does;
-  ``IMREAD_UNCHANGED`` leaves the orientation alone;
-- formats cv2 reads and the port does not (AVIF, Radiance HDR, PFM, Sun
-  raster) raise NotImplementedError naming the format; bytes
-  no decoder of cv2 recognises raise FileNotFoundError, as the JAX package
-  raises when ``cv2.imread`` returns None; a file of a format read here
-  that does not decode raises ValueError naming the format.
+  16-bit samples shifted right by 8, float samples converted as cv2
+  converts each format's: HDR's times 255, PFM's unscaled) and applies the
+  EXIF orientation of a JPEG (APP1), a PNG (``eXIf``) or a WebP
+  (``EXIF``), as cv2 does; ``IMREAD_UNCHANGED`` leaves the orientation
+  alone;
+- AVIF, which cv2 reads and the port does not, raises NotImplementedError
+  naming the format; bytes no decoder of cv2 recognises raise
+  FileNotFoundError, as the JAX package raises when ``cv2.imread`` returns
+  None; a file of a format read here that does not decode (where cv2
+  returns None) raises ValueError naming the format.
 """
 
 from __future__ import annotations
@@ -35,18 +38,19 @@ import numpy as np
 
 from .bmp import decode_bmp
 from .gif import imread_gif
+from .hdr import SIGNATURES as HDR_SIGNATURES
+from .hdr import decode_hdr
 from .jpeg import decode_jpeg
 from .jpeg2000 import J2K_SIGNATURE, JP2_SIGNATURE, decode_jpeg2000
+from .pfm import decode_pfm
 from .png import imread_png
 from .pnm import decode_pnm
+from .sunras import SIGNATURE as SUNRAS_SIGNATURE
+from .sunras import decode_sunras
 from .tiff import decode_tiff, orient
 from .webp import decode_webp
 
 IMREAD_UNCHANGED, IMREAD_COLOR = -1, 1
-
-# Leading bytes of the formats cv2 reads and the port does not.
-_REFUSED = ((b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
-            (b"\x59\xa6\x6a\x95", "Sun raster"))
 
 
 def _exif_orientation(exif: bytes | None) -> int:
@@ -125,43 +129,42 @@ def _format(data: bytes) -> str | None:
         return "PNM"
     if data.startswith(JP2_SIGNATURE) or data.startswith(J2K_SIGNATURE):
         return "JPEG 2000"
-    return None
-
-
-def _refused(data: bytes) -> str | None:
-    """The format cv2 reads and the port does not that the leading bytes name."""
-    for sig, fmt in _REFUSED:
-        if data.startswith(sig):
-            return fmt
-    if _is_avif(data):
-        return "AVIF"
-    if data[:1] == b"P" and data[1:2] in b"Ff" and data[2:3].isspace():
+    if data.startswith(HDR_SIGNATURES):
+        return "Radiance HDR"
+    if data[:1] == b"P" and data[1:2] in (b"f", b"F") and data[2:3].isspace():
         return "PFM"
+    if data.startswith(SUNRAS_SIGNATURE):
+        return "Sun raster"
     return None
 
 
 def decode_image(data: bytes, flags: int = IMREAD_UNCHANGED, name: str = "") -> np.ndarray:
     """Image bytes -> ``cv2.imdecode(data, flags)``'s array in RGB(A) order
     (with a ``name``, ``cv2.imread(name, flags)``'s: they differ for one
-    rare TIFF layout). A file of a format read here that does not decode
-    (where cv2 returns None for a malformed file) raises ValueError naming
-    the format."""
+    rare TIFF layout and a one-channel PFM under IMREAD_COLOR). A file of a
+    format read here that does not decode (where cv2 returns None for a
+    malformed file) raises ValueError naming the format."""
     if flags not in (IMREAD_UNCHANGED, IMREAD_COLOR):
         raise ValueError(f"imread flags {flags}: IMREAD_UNCHANGED (-1) or IMREAD_COLOR (1)")
     fmt = _format(data)
     if fmt is None:
-        refused = _refused(data)
-        if refused is None:
+        if not _is_avif(data):
             raise FileNotFoundError(name or "image bytes no decoder recognises")
-        raise NotImplementedError(f"{name or 'the image'}: {refused} images are not read by "
-                                  f"the port (PNG, JPEG, WebP, BMP, PNM, GIF, TIFF and "
-                                  f"JPEG 2000 are); convert it to PNG")
+        raise NotImplementedError(f"{name or 'the image'}: AVIF images are not read by the "
+                                  f"port (PNG, JPEG, WebP, BMP, PNM, GIF, TIFF, JPEG 2000, "
+                                  f"Radiance HDR, PFM and Sun raster are); convert it to PNG")
     exif = None
     try:
         if fmt == "BMP":
             return decode_bmp(data, flags)
         if fmt == "PNM":
             return decode_pnm(data, flags)
+        if fmt == "Radiance HDR":
+            return decode_hdr(data, flags)
+        if fmt == "PFM":
+            return decode_pfm(data, flags, imread=bool(name))
+        if fmt == "Sun raster":
+            return decode_sunras(data, flags)
         if fmt == "TIFF":
             return decode_tiff(data, flags, imread=bool(name))
         if fmt == "JPEG 2000":

@@ -1,7 +1,9 @@
 """Image resizes of the port, equal to OpenCV's (no cv2 on the card machine).
 
 - ``resize_area``: ``cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)``
-  on uint8 and uint16 images, in both directions, bit for bit:
+  on uint8, uint16 and float32 images, in both directions, bit for bit
+  (float32 by the float paths below, unrounded; its integer-factor
+  shrink sums each block four samples at a time):
   - both factors integers (a shrink): block sums times ``1.f / area`` in
     float32, rounded half to even, except 2x2 blocks, which OpenCV's
     vector path rounds half up (``(sum + 2) >> 2``);
@@ -55,7 +57,7 @@ def _area_table(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
 
 def _shrink_area(img: np.ndarray, h: int, w: int) -> np.ndarray:
     """OpenCV's general area shrink in float32 (adding a 0-weight pad term
-    leaves a sum unchanged)."""
+    leaves a sum unchanged), unrounded."""
     xi, xw = _area_table(img.shape[1], w)
     yi, yw = _area_table(img.shape[0], h)
     src = img.astype(np.float32)
@@ -65,7 +67,7 @@ def _shrink_area(img: np.ndarray, h: int, w: int) -> np.ndarray:
     out = yw[:, 0, None, None] * rows[yi[:, 0]]
     for j in range(1, yi.shape[1]):
         out = out + yw[:, j, None, None] * rows[yi[:, j]]
-    return np.rint(out)
+    return out
 
 
 def _area_linear_coefs(src: int, dst: int):
@@ -111,25 +113,57 @@ def _enlarge_area_float(img: np.ndarray, h: int, w: int) -> np.ndarray:
     y0, y1, b0, b1 = _linear_area_float(img.shape[0], h)
     src = img.astype(np.float32)
     rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
-    return np.rint(rows[y0] * b0[:, None, None] + rows[y1] * b1[:, None, None])
+    return rows[y0] * b0[:, None, None] + rows[y1] * b1[:, None, None]
+
+
+def _fast_area_float(img: np.ndarray, iy: int, ix: int) -> np.ndarray:
+    """OpenCV's ``resizeAreaFast_`` on float32: each block's samples summed
+    in row-major order, four at a time (((a + b) + c) + d) onto the running
+    sum, times ``1.f / area``; 2x2 blocks of 1 or 4 channels by its vector
+    code, ((r00 + r01) + (r10 + r11)) * 0.25 (for 1 channel, all but the
+    last width % 4 outputs of a row)."""
+    h, w, c = img.shape[0] // iy, img.shape[1] // ix, img.shape[2]
+    blocks = img[:h * iy, :w * ix].reshape(h, iy, w, ix, c)
+    terms = [blocks[:, ky, :, kx] for ky in range(iy) for kx in range(ix)]
+    total = np.zeros((h, w, c), np.float32)
+    for k in range(0, len(terms) - len(terms) % 4, 4):
+        total = total + (((terms[k] + terms[k + 1]) + terms[k + 2]) + terms[k + 3])
+    for t in terms[len(terms) - len(terms) % 4:]:
+        total = total + t
+    out = total * np.float32(1.0 / (ix * iy))
+    if (iy, ix) == (2, 2) and c in (1, 4):
+        vec = ((terms[0] + terms[1]) + (terms[2] + terms[3])) * np.float32(0.25)
+        n = w if c == 4 else w // 4 * 4
+        out[:, :n] = vec[:, :n]
+    return out
 
 
 def resize_area(img: np.ndarray, h: int, w: int) -> np.ndarray:
-    """uint8 or uint16 [H, W, C] -> the same dtype [h, w, C], as ``cv2.INTER_AREA``."""
-    if img.dtype not in (np.uint8, np.uint16) or img.ndim != 3:
-        raise ValueError("resize_area takes a uint8 or uint16 [H, W, C] image")
+    """uint8, uint16 or float32 [H, W, C] -> the same dtype [h, w, C], as
+    ``cv2.INTER_AREA`` (float32 by the same float paths, unrounded)."""
+    if img.dtype not in (np.uint8, np.uint16, np.float32) or img.ndim != 3:
+        raise ValueError("resize_area takes a uint8, uint16 or float32 [H, W, C] image")
     sy, sx = 1.0 / (h / img.shape[0]), 1.0 / (w / img.shape[1])
     iy, ix = round(sy), round(sx)
     eps = np.finfo(np.float64).eps
+    if img.dtype == np.float32:
+        if (h, w) == img.shape[:2]:
+            return img.copy()
+        if sx < 1 or sy < 1:
+            return _enlarge_area_float(img, h, w)
+        if abs(sx - ix) < eps and abs(sy - iy) < eps:
+            return _fast_area_float(img, iy, ix)
+        return _shrink_area(img, h, w)
     top = np.iinfo(img.dtype).max
     if sx < 1 or sy < 1:
-        out = _enlarge_area(img, h, w) if img.dtype == np.uint8 else _enlarge_area_float(img, h, w)
+        out = (_enlarge_area(img, h, w) if img.dtype == np.uint8
+               else np.rint(_enlarge_area_float(img, h, w)))
     elif abs(sx - ix) < eps and abs(sy - iy) < eps:
         sums = img.astype(np.int64).reshape(h, iy, w, ix, -1).sum(axis=(1, 3))
         out = ((sums + 2) >> 2 if (ix, iy) == (2, 2)
                else np.rint(sums.astype(np.float32) * np.float32(1.0 / (ix * iy))))
     else:
-        out = _shrink_area(img, h, w)
+        out = np.rint(_shrink_area(img, h, w))
     return np.clip(out, 0, top).astype(img.dtype)
 
 

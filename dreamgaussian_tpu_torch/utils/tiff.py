@@ -5,12 +5,13 @@ its libtiff 4.7) returns for ``IMREAD_UNCHANGED`` (-1) and ``IMREAD_COLOR``
 (1), channels in RGB(A) order. Python reads the container: both byte
 orders, classic TIFF and BigTIFF, the first IFD (cv2 reads page 0), strips
 and tiles (edge tiles cropped), PlanarConfiguration 1 and 2, FillOrder 2,
-BitsPerSample 1, 2, 4, 8, 16, 32 and 64, SampleFormat uint, int and IEEE
-float, ExtraSamples. Decompression: none, PackBits, LZW and CCITT
-(Modified Huffman, its word-aligned variant, T.4 1-D and 2-D, T.6) in
-``csrc/image_codecs.cpp`` with the horizontal and floating-point
-predictors; Deflate through ``zlib``; JPEG through ``utils/jpeg.py`` with
-the JPEGTables spliced in front of each strip or tile.
+BitsPerSample 1, 2, 4, 8, 10, 12, 14, 16, 32 and 64, SampleFormat uint,
+int and IEEE float, ExtraSamples. Decompression: none, PackBits, LZW, CCITT (Modified
+Huffman, its word-aligned variant, T.4 1-D and 2-D, T.6), ThunderScan and
+SGILog / SGILog24 in ``csrc/image_codecs.cpp`` with the horizontal and
+floating-point predictors; Deflate through ``zlib``; JPEG through
+``utils/jpeg.py`` with the JPEGTables spliced in front of each strip or
+tile.
 
 cv2 takes one of two routes, and so does the port:
 
@@ -25,15 +26,32 @@ cv2 takes one of two routes, and so does the port:
   by v >> 8), unassociated alpha premultiplied by libtiff's ``UaToAa``;
   one channel is OpenCV's fixed-point grey of the RGBA result;
 - 16-, 32- and 64-bit data under ``IMREAD_UNCHANGED`` is read as stored
-  (grey from 3 or 4 samples by OpenCV's fixed-point weights).
+  (grey from 3 or 4 samples by OpenCV's fixed-point weights); 10-, 12- and
+  14-bit samples are unpacked (most significant bit first, rows padded to
+  a byte) as OpenCV's ``_unpack10To16`` and its kin do and shifted left
+  to 16 bits after any grey conversion (signed samples saturated to
+  int16), and have no 8-bit decode
+  (libtiff's RGBA interface refuses them: None under ``IMREAD_COLOR``).
+
+LogLuv data (photometric 32845, 3 samples, SGILog or SGILog24) under
+``IMREAD_UNCHANGED`` is decoded by libtiff's ``SGILOGDATAFMT_FLOAT`` to
+float32 CIE XYZ and converted by OpenCV's ``cvtColor(XYZ2BGR)``; under
+``IMREAD_COLOR``, and for LogL (32844), it takes the RGBA route, where
+libtiff's 8-bit LogLuv conversion gives RGB (``XYZtoRGB24``) and grey
+(``L16toGry``). OpenCV's header check reads a LogL file as 8-bit data of
+its SampleFormat, so a LogL file that libtiff wrote from 16-bit signed
+LogL (as cv2 writes a one-channel float image with SGILog) comes out as
+int8, the grey bytes reinterpreted. Rows that an SGILog or ThunderScan
+strip or tile does not hold stay zero on the RGBA route, as libtiff's
+zeroed strip buffer leaves them.
 
 The Orientation tag is applied under both flags (by cv2.imdecode; cv2.imread
 returns None where it transposes a page that is not square). Where cv2
 returns None (libtiff refuses the layout, a codec this build lacks, 32-bit
-data under ``IMREAD_COLOR``) ``decode_tiff`` raises ValueError; a
-compression scheme libtiff does not know at all gives cv2's zeroed image on
-the 8-bit route. SGILog, NeXT and ThunderScan data, which cv2 reads and the
-port does not, raise NotImplementedError naming the compression.
+data under ``IMREAD_COLOR``, every NeXT file: libtiff's NeXT decoder
+takes only 2-bit samples, which OpenCV's header check refuses)
+``decode_tiff`` raises ValueError; a compression scheme libtiff does not
+know at all gives cv2's zeroed image on the 8-bit route.
 """
 
 from __future__ import annotations
@@ -54,8 +72,10 @@ _TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("I", 4), 6: ("
           7: ("B", 1), 8: ("h", 2), 9: ("i", 4), 10: ("i", 4), 11: ("f", 4), 12: ("d", 8),
           13: ("I", 4), 16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
 _PAIRED = (5, 10)                   # rationals: two values each
-_DECODED = (1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32946)
-_REFUSED = {32766: "NeXT", 32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24"}
+_DECODED = (1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32946, 32809, 34676, 34677)
+_SGILOG = (34676, 34677)
+_LOGL, _LOGLUV = 32844, 32845
+_PACKED = (10, 12, 14)              # sample depths OpenCV unpacks to 16 bits
 # Codecs libtiff knows and cv2's build leaves out: old-style JPEG, JBIG,
 # PixarLog, LZMA, ZSTD, WebP, LERC.
 _UNCONFIGURED = (6, 34661, 32909, 34925, 50000, 50001, 34887)
@@ -121,9 +141,9 @@ class _Ifd:
 
 
 def _refuse_codec(compression: int) -> None:
-    if compression in _REFUSED:
-        raise NotImplementedError(f"a TIFF with {_REFUSED[compression]} compression "
-                                  f"({compression}) is not read by the port")
+    if compression == 32766:
+        raise ValueError("cv2 reads no NeXT-coded TIFF: libtiff's NeXT decoder takes only "
+                         "2-bit samples, which OpenCV's TIFF header check refuses")
     if compression in _UNCONFIGURED:
         raise ValueError(f"TIFF compression {compression} is not configured in cv2's libtiff")
 
@@ -134,7 +154,7 @@ def _cv_type(photometric: int, spp: int, bps: int, sample_format: int):
     if not 1 <= spp <= 4:
         raise ValueError(f"a TIFF with {spp} samples per pixel (1 to 4 are read)")
     signed = sample_format == 2
-    if sample_format not in (1, 2) and bps in (1, 4, 8, 16):
+    if sample_format not in (1, 2) and bps in (1, 4, 8, *_PACKED, 16):
         raise ValueError(f"{bps}-bit TIFF samples of SampleFormat {sample_format}")
     if bps == 1:
         return np.int8 if signed else np.uint8, spp if photometric > 1 else 1
@@ -145,9 +165,7 @@ def _cv_type(photometric: int, spp: int, bps: int, sample_format: int):
     if bps == 8:
         return np.int8 if signed else np.uint8, 3 if photometric == 3 else \
             (spp if photometric > 1 else 1)
-    if bps in (10, 12, 14):
-        raise NotImplementedError(f"{bps}-bit TIFF samples are not read by the port")
-    if bps == 16:
+    if bps in (*_PACKED, 16):
         channels = spp if photometric > 1 else 1
         if photometric in (0, 1, 2) and spp != 2:
             return np.int16 if signed else np.uint16, channels
@@ -160,7 +178,7 @@ def _cv_type(photometric: int, spp: int, bps: int, sample_format: int):
                 raise ValueError("64-bit TIFF samples that are not floating point")
             return np.float64, spp
         return {1: np.uint32, 2: np.int32, 3: np.float32}[sample_format], spp
-    raise ValueError(f"{bps}-bit TIFF samples (1, 4, 8, 16, 32 or 64 are read)")
+    raise ValueError(f"{bps}-bit TIFF samples (1, 4, 8, 10, 12, 14, 16, 32 or 64 are read)")
 
 
 class _Layout:
@@ -219,15 +237,18 @@ def _chunk(d: _Ifd, lay: _Layout, data: bytes, k: int, rows: int,
     and whether its data ended short (the rest zeros)."""
     comp, fill = d.get(259, 1), d.get(266, 1)
     size = rows * lay.row_bytes if size is None else size
-    off, count = lay.offsets[k], lay.counts[k]
-    if off >= len(data):
-        raise ValueError(f"a TIFF strip or tile at offset {off}, past the end of the file")
-    raw = np.frombuffer(data, np.uint8, count=min(count, len(data) - off), offset=off)
-    if fill == 2 and comp not in _FAX:
-        raw = _REVERSE[raw]
-    raw = np.ascontiguousarray(raw)
+    raw, off = _raw(d, lay, data, k), lay.offsets[k]
     out = np.zeros(size, np.uint8)
     done = ctypes.c_int64(0)
+    if comp == 32809:
+        if lay.bps != 4:
+            raise ValueError(f"ThunderScan data of {lay.bps}-bit samples (4 are decoded)")
+        if lay.tiled:       # libtiff's ThunderScan codec has no tile decoder: nothing decoded
+            return out, True
+        scanline = -(-lay.w * lay.plane_spp * lay.bps // 8)
+        native.image_codecs().dg_tiff_decompress(_ptr(raw), len(raw), comp, _ptr(out), size,
+                                                 lay.w, 0, scanline, ctypes.byref(done))
+        return out, done.value < size
     if comp == 1:
         got = min(len(raw), size)
         out[:got] = raw[:got]
@@ -274,6 +295,21 @@ def _chunk(d: _Ifd, lay: _Layout, data: bytes, k: int, rows: int,
     return out, got < size
 
 
+def _raw(d: _Ifd, lay: _Layout, data: bytes, k: int) -> np.ndarray:
+    """Chunk ``k``'s stored bytes, with FillOrder 2 undone (but for CCITT,
+    whose decoder reads the bits in either order)."""
+    off, count = lay.offsets[k], lay.counts[k]
+    if off >= len(data):
+        raise ValueError(f"a TIFF strip or tile at offset {off}, past the end of the file")
+    comp = d.get(259, 1)
+    if count == 0 and comp in (32809, *_SGILOG):
+        raise ValueError("a TIFF strip or tile of 0 bytes (libtiff fails to read it)")
+    raw = np.frombuffer(data, np.uint8, count=min(count, len(data) - off), offset=off)
+    if d.get(266, 1) == 2 and comp not in _FAX:
+        raw = _REVERSE[raw]
+    return np.ascontiguousarray(raw)
+
+
 def _unpack(rows: np.ndarray, bps: int, n: int) -> np.ndarray:
     """[rows, row_bytes] of ``bps``-bit samples (MSB first) -> [rows, n]."""
     if bps == 8:
@@ -284,10 +320,21 @@ def _unpack(rows: np.ndarray, bps: int, n: int) -> np.ndarray:
     return vals.reshape(rows.shape[0], -1)[:, :n]
 
 
+def _unpack16(rows: np.ndarray, bps: int, n: int) -> np.ndarray:
+    """[rows, row_bytes] of ``bps``-bit samples (MSB first) -> uint16 [rows,
+    n] (OpenCV's ``_unpack10To16`` and its kin)."""
+    bits = np.unpackbits(rows, axis=1)[:, :n * bps].reshape(rows.shape[0], n, bps)
+    weights = (1 << np.arange(bps - 1, -1, -1)).astype(np.uint32)
+    return (bits.astype(np.uint32) @ weights).astype(np.uint16)
+
+
 def _dtype(lay: _Layout, sample_format: int) -> np.dtype:
-    """The samples' numpy type (native order; bps < 8 widened to uint8)."""
+    """The samples' numpy type (native order; bps < 8 widened to uint8,
+    10 to 14 to uint16)."""
     if lay.bps < 8:
         return np.dtype(np.uint8)
+    if lay.bps in _PACKED:
+        return np.dtype(np.uint16)
     kind = {2: "i", 3: "f"}.get(sample_format, "u")
     if kind == "f" and lay.bps < 32:        # 16-bit floats: refused before they are read
         kind = "u"
@@ -365,7 +412,10 @@ def _samples(d: _Ifd, lay: _Layout, data: bytes, ycbcr_blocks,
                 out[y:y + rows, x:x + cols, p:p + lay.plane_spp] = part[:rows, :cols]
                 continue
             buf = buf.reshape(stored, lay.row_bytes)
-            if lay.bps >= 8:
+            if lay.bps in _PACKED:
+                part = _unpack16(buf, lay.bps, lay.cw * lay.plane_spp).reshape(
+                    stored, lay.cw, lay.plane_spp)
+            elif lay.bps >= 8:
                 part = buf.view(dtype).reshape(stored, lay.cw, lay.plane_spp)
             else:
                 part = _unpack(buf, lay.bps, lay.cw * lay.plane_spp).reshape(
@@ -502,6 +552,8 @@ def _rgba(d: _Ifd, lay: _Layout, data: bytes) -> np.ndarray:
         raise ValueError(f"TIFFRGBAImageOK: can not handle images with {bps}-bit samples")
     if d.get(339, 1) == 3:
         raise ValueError("TIFFRGBAImageOK: can not handle IEEE floating-point samples")
+    if ph in (_LOGL, _LOGLUV):
+        return _orient_rgba(d, lay, _sgilog_rgba(d, lay, data, colour))
     if ph in (0, 1, 3) and lay.planar == 1 and spp != 1 and bps < 8:
         raise ValueError(f"TIFFRGBAImageOK: contiguous {bps}-bit data with {spp} samples")
     if ph == 2 and colour < 3:
@@ -588,6 +640,11 @@ def _rgba(d: _Ifd, lay: _Layout, data: bytes) -> np.ndarray:
         out[..., :3] = _ycbcr_to_rgb(d, S)
     else:
         out[..., :3] = _cielab_to_rgb(d, S, bps)
+    return _orient_rgba(d, lay, out)
+
+
+def _orient_rgba(d: _Ifd, lay: _Layout, out: np.ndarray) -> np.ndarray:
+    """The RGBA route's mirroring of an Orientation of 2, 3, 6 or 7."""
     if d.get(274, 1) in (2, 3, 6, 7):
         # libtiff mirrors each strip or tile it is asked for (FLIP_HORIZONTALLY),
         # in place; OpenCV then orients the whole as if the page had been mirrored.
@@ -595,6 +652,60 @@ def _rgba(d: _Ifd, lay: _Layout, data: bytes) -> np.ndarray:
             if plane == 0:
                 out[y:y + rows, x:x + cols] = out[y:y + rows, x:x + cols][:, ::-1]
         out = out[:, ::-1]
+    return out
+
+
+def _sgilog_chunks(d: _Ifd, lay: _Layout, data: bytes, fmt: int, strict: bool):
+    """Every strip or tile of SGILog data decoded by ``dg_sgilog_decode``
+    (``fmt`` 0: float32 XYZ; 1: uint8 RGB for LogLuv, grey for LogL):
+    yields (y, x, rows, cols, decoded chunk). ``strict``: a chunk whose data
+    ends short raises (cv2's float route fails), else its missing rows
+    stay zero (the RGBA route's zeroed strip buffer)."""
+    comp, ph = d.get(259, 1), d.get(262)
+    mode = 0 if ph == _LOGL else (1 if comp == 34676 else 2)
+    shape = (3,) if ph == _LOGLUV else ()
+    for k, _, y, x, stored, rows, cols in lay.chunks():
+        raw = _raw(d, lay, data, k)
+        out = np.zeros((stored, lay.cw) + shape, np.float32 if fmt == 0 else np.uint8)
+        done = ctypes.c_int32(0)
+        if native.image_codecs().dg_sgilog_decode(_ptr(raw), len(raw), mode, fmt, lay.cw, stored,
+                                                  _ptr(out), ctypes.byref(done)) and strict:
+            raise ValueError(f"SGILog data that ends short at row {y + done.value}")
+        yield y, x, rows, cols, out
+
+
+def _sgilog_float(d: _Ifd, lay: _Layout, data: bytes) -> np.ndarray:
+    """LogLuv under IMREAD_UNCHANGED: libtiff's float XYZ, then OpenCV's
+    ``cvtColor(XYZ2BGR)`` (float32 [H, W, 3], RGB order)."""
+    if d.get(259, 1) not in _SGILOG:
+        raise ValueError("LogLuv data without SGILog compression: libtiff has no "
+                         "SGILOGDATAFMT to set")
+    if lay.planar != 1:
+        raise ValueError("SGILog compression cannot handle non-contiguous data")
+    img = np.zeros((lay.h, lay.w, 3), np.float32)
+    for y, x, rows, cols, part in _sgilog_chunks(d, lay, data, 0, strict=True):
+        img[y:y + rows, x:x + cols] = part[:rows, :cols]
+    img = orient(img, d.get(274, 1))
+    native.image_codecs().dg_xyz_to_rgb(_ptr(img), img.shape[0], img.shape[1])
+    return img
+
+
+def _sgilog_rgba(d: _Ifd, lay: _Layout, data: bytes, colour: int) -> np.ndarray:
+    """LogL or LogLuv through libtiff's RGBA interface: its 8-bit LogLuv
+    conversion (SGILOGDATAFMT_8BIT) read as grey or RGB, alpha 255."""
+    comp, ph = d.get(259, 1), d.get(262)
+    if ph == _LOGL and comp != 34676:
+        raise ValueError("TIFFRGBAImageOK: LogL data must have Compression=34676")
+    if ph == _LOGLUV and (comp not in _SGILOG or lay.planar != 1 or lay.spp != 3
+                          or colour != 3):
+        raise ValueError("TIFFRGBAImageOK: LogLuv data must be SGILog-coded, contiguous, "
+                         "3 samples")
+    if ph == _LOGL and lay.spp != 1:
+        raise ValueError("libtiff can not handle a LogL image of more than 1 sample")
+    out = np.full((lay.h, lay.w, 4), 255, np.uint8)
+    for y, x, rows, cols, part in _sgilog_chunks(d, lay, data, 1, strict=False):
+        part = part[:rows, :cols]
+        out[y:y + rows, x:x + cols, :3] = part if ph == _LOGLUV else part[..., None]
     return out
 
 
@@ -633,6 +744,8 @@ def decode_tiff(data: bytes, flags: int = IMREAD_UNCHANGED, imread: bool = False
     if imread and orientation in (5, 6, 7, 8) and lay.w != lay.h:
         raise ValueError(f"cv2.imread returns None for a TIFF of Orientation {orientation} "
                          f"that is not square")
+    if ph == _LOGLUV and lay.spp == 3 and flags == IMREAD_UNCHANGED:
+        return _sgilog_float(d, lay, data)
     dtype, channels = _cv_type(ph, lay.spp, lay.bps, d.get(339, 1))
     if flags == IMREAD_COLOR:
         dtype, channels = np.uint8, 3
@@ -652,9 +765,12 @@ def decode_tiff(data: bytes, flags: int = IMREAD_UNCHANGED, imread: bool = False
         S, short = _samples(d, lay, data, None)
         if short:
             raise ValueError("a TIFF strip or tile whose data ends short")
-        if lay.bps == 16 and channels == 1 and lay.spp > 1:
+        if lay.bps in (*_PACKED, 16) and channels == 1 and lay.spp > 1:
             img = _grey(S.view(np.uint16), np.uint16).view(dtype)
         else:
             img = S[..., 0] if channels == 1 else S.astype(dtype)
+        if lay.bps in _PACKED:          # scaled to 16 bits last, saturated to int16
+            img = np.minimum(img.view(np.uint16).astype(np.int64) << (16 - lay.bps),
+                             np.iinfo(dtype).max)
         img = img.astype(dtype)
     return orient(img, orientation)

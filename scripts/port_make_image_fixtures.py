@@ -1,7 +1,9 @@
 """Writes the fixtures of the port's image reader into
-``tests/fixtures/port_images/``, with cv2's decodes of them beside.
+``tests/fixtures/port_images/`` (and, with ``--set hdr``, the Radiance
+HDR, PFM and Sun raster set into ``tests/fixtures/port_hdr/``), with
+cv2's decodes of them beside.
 
-    python scripts/port_make_image_fixtures.py [--out tests/fixtures/port_images]
+    python scripts/port_make_image_fixtures.py [--set images|hdr] [--out DIR]
 
 Needs cv2 and Pillow (libwebp), which make the reference and the WebP
 files: it is run where both are installed, and its files are checked in, so
@@ -39,6 +41,23 @@ from the toy photo of ``scripts/port_make_jpeg_fixtures.py``:
   4-channel PAM, whose ``IMREAD_COLOR`` decode cv2 leaves in part
   unwritten: the port refuses it); ``small_decodes.npz``: the
   83x61 files' ``IMREAD_UNCHANGED`` arrays.
+
+The HDR set (float images from the toy photo made linear, with a bright
+sun and a dim shadow so that the RGBE exponents span a wide range), each
+read by ``cv2.imread`` and stored as above, null where cv2 returns None:
+
+- Radiance HDR written by cv2, RLE and flat; the RLE file with the
+  ``#?RGBE`` magic and ``EXPOSURE`` and comment lines; 7 pixels wide (flat,
+  as RLE needs 8 to 32767); ``env_1024x512.hdr``, an RLE studio
+  environment map (sky bands, a sun disc, a checker floor) for the decode
+  time on the card; ``sphere_hdr.obj``, ``.mtl`` and ``sphere_hdr.hdr``, a
+  UV sphere whose ``map_Kd`` is a 128^2 RLE HDR;
+- PFM written by cv2 (colour and grey: little-endian, scale -1) and one
+  big-endian colour file of scale 2;
+- Sun raster written by cv2 (24-bit colour and 8-bit grey with its grey
+  colormap), and from the format's description: 1-bit, 8-bit with a
+  colour map, 32-bit, ``RT_OLD`` grey without a colormap (zeros under
+  ``IMREAD_UNCHANGED``, as cv2 reads it) and a byte-encoded file (None).
 """
 
 from __future__ import annotations
@@ -55,6 +74,7 @@ import numpy as np
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 OUT = os.path.normpath(os.path.join(ROOT, "tests", "fixtures", "port_images"))
+HDR_OUT = os.path.normpath(os.path.join(ROOT, "tests", "fixtures", "port_hdr"))
 SMALL = (61, 83)            # height, width
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -218,12 +238,123 @@ def small_files(cv2) -> dict:
     return files
 
 
+def hdr_photo(h: int, w: int, seed: int) -> np.ndarray:
+    """float32 [h, w, 3] RGB: the toy photo made linear (gamma 2.2), its top
+    right corner a sun 40 times brighter, its bottom left a shadow at 1/50."""
+    img = (photo(h, w, seed) / 255.0) ** 2.2
+    yy, xx = np.mgrid[0:h, 0:w]
+    img[(yy < h // 4) & (xx > 3 * w // 4)] *= 40
+    img[(yy > 3 * h // 4) & (xx < w // 4)] /= 50
+    return img.astype(np.float32)
+
+
+def env_map(h: int, w: int) -> np.ndarray:
+    """float32 [h, w, 3]: a studio environment map, equirectangular: a sky in
+    bands of 1/16, a sun disc of 1000, a checker floor of 32-pixel squares."""
+    y = (np.arange(h) + 0.5) / h
+    sky = np.round(np.stack([0.3 + 0.5 * y, 0.5 + 0.4 * y, 0.9 - 0.2 * y], -1) * 16) / 16
+    img = np.repeat(sky[:, None], w, axis=1)
+    yy, xx = np.mgrid[0:h, 0:w]
+    floor = yy >= h // 2
+    img[floor] = np.where((((yy // 32) + (xx // 32)) % 2 == 0)[floor][:, None], 0.6, 0.2)
+    sun = (yy - h // 4) ** 2 + (xx - 7 * w // 10) ** 2 < (h // 32) ** 2
+    img[sun] = (1000.0, 950.0, 800.0)
+    return img.astype(np.float32)
+
+
+def hdr_files(cv2) -> dict:
+    h, w = SMALL
+    rgb = hdr_photo(h, w, seed=1)
+    bgr = np.ascontiguousarray(rgb[..., ::-1])
+    rle = cv2.imencode(".hdr", bgr)[1].tobytes()
+    flat = cv2.imencode(".hdr", bgr, [cv2.IMWRITE_HDR_COMPRESSION,
+                                      cv2.IMWRITE_HDR_COMPRESSION_NONE])[1].tobytes()
+    head = rle.index(b"\n-Y") + 1
+    rgbe = (b"#?RGBE\n# written from the toy photo\nEXPOSURE=1.0\nFORMAT=32-bit_rle_rgbe\n\n"
+            + rle[head:])
+    toy = photo(h, w, seed=1)
+    grey = toy[..., 1]
+    rng = np.random.default_rng(19)
+    cmap = rng.integers(0, 256, 3 * 256, dtype=np.uint8).tobytes()
+    bits = np.packbits(grey > 128, axis=1)
+    xbgr = np.dstack([np.zeros((h, w), np.uint8), toy[..., ::-1]]).reshape(h, -1)
+    files = {
+        "hdr_rle.hdr": rle,
+        "hdr_flat.hdr": flat,
+        "hdr_rgbe_magic.hdr": rgbe,
+        "hdr_narrow.hdr": cv2.imencode(".hdr", np.ascontiguousarray(bgr[:, :7]))[1].tobytes(),
+        "pfm_rgb.pfm": cv2.imencode(".pfm", bgr)[1].tobytes(),
+        "pfm_grey.pfm": cv2.imencode(".pfm", np.ascontiguousarray(rgb[..., 1]))[1].tobytes(),
+        "pfm_rgb_be.pfm": (f"PF\n{w} {h}\n2\n".encode()
+                           + (rgb[::-1] * 2).astype(">f4").tobytes()),
+        "ras_rgb.ras": cv2.imencode(".ras", np.ascontiguousarray(toy[..., ::-1]))[1].tobytes(),
+        "ras_grey.ras": cv2.imencode(".ras", grey)[1].tobytes(),
+        "ras_1bit.ras": F.sunras(w, h, 1, 1, bits),
+        "ras_colormap.ras": F.sunras(w, h, 8, 1, grey // 4, cmap),
+        "ras_32bit.ras": F.sunras(w, h, 32, 1, xbgr),
+        "ras_old_grey.ras": F.sunras(w, h, 8, 0, grey),
+    }
+    rows = np.pad(grey, ((0, 0), (0, w & 1))).tobytes()
+    files["ras_byte_encoded.ras"] = (struct.pack(">8I", 0x59A66A95, w, h, 8, len(rows), 2, 0, 0)
+                                     + F.sunras_rle(rows))
+    files["env_1024x512.hdr"] = cv2.imencode(".hdr", np.ascontiguousarray(
+        env_map(512, 1024)[..., ::-1]))[1].tobytes()
+    files["sphere_hdr.hdr"] = cv2.imencode(".hdr", np.ascontiguousarray(
+        hdr_photo(128, 128, seed=4)[..., ::-1]))[1].tobytes()
+    from port_make_tiff_fixtures import sphere_obj
+
+    files["sphere_hdr.obj"], files["sphere_hdr.mtl"] = sphere_obj("sphere_hdr", "sphere_hdr.hdr")
+    return files
+
+
+def write_set(cv2, files: dict, out: str, small: set) -> None:
+    """Every file written to ``out``, with ``decodes.json`` (cv2.imread's
+    shape, dtype and SHA-256 under both flags, channels in RGB order; null
+    where it is None) and ``small_decodes.npz`` (the ``small`` files'
+    IMREAD_UNCHANGED arrays)."""
+    digests, arrays = {}, {}
+    for name, data in sorted(files.items()):
+        path = os.path.join(out, name)
+        with open(path, "wb") as fh:
+            fh.write(data)
+        if name.endswith((".obj", ".mtl")):
+            continue
+        entry = {}
+        for key, flags in (("unchanged", cv2.IMREAD_UNCHANGED), ("color", cv2.IMREAD_COLOR)):
+            img = cv2.imread(path, flags)
+            if img is None:
+                entry[key] = None
+                continue
+            if img.ndim == 3 and img.shape[2] in (3, 4):
+                img = img[..., [2, 1, 0, 3][:img.shape[2]]]
+            img = np.ascontiguousarray(img)
+            entry[key] = {"shape": list(img.shape), "dtype": str(img.dtype),
+                          "sha256": hashlib.sha256(img.tobytes()).hexdigest()}
+            if name in small and key == "unchanged":
+                arrays[name] = img
+        digests[name] = entry
+    np.savez_compressed(os.path.join(out, "small_decodes.npz"), **arrays)
+    with open(os.path.join(out, "decodes.json"), "w") as fh:
+        json.dump(digests, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+    total = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+    print(f"[fixtures] {len(files)} files, {total} bytes in {out}")
+
+
 def main(argv=None) -> None:
     import cv2     # the reference; the port itself never imports it
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", default=OUT)
+    ap.add_argument("--set", choices=("images", "hdr"), default="images")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    if args.set == "hdr":
+        out = args.out or HDR_OUT
+        os.makedirs(out, exist_ok=True)
+        files = hdr_files(cv2)
+        write_set(cv2, files, out, {n for n in files if not n.startswith(("env_", "sphere_"))})
+        return
+    args.out = args.out or OUT
     os.makedirs(args.out, exist_ok=True)
     files = small_files(cv2)
     small = set(files)

@@ -1,7 +1,10 @@
 """Writes the TIFF fixtures of the port's reader into
 ``tests/fixtures/port_tiff/``, with cv2's decodes of them beside.
 
-    python scripts/port_make_tiff_fixtures.py [--out tests/fixtures/port_tiff]
+    python scripts/port_make_tiff_fixtures.py [--set tiff|codecs] [--out DIR]
+
+(``--set codecs`` writes the codec set below into
+``tests/fixtures/port_tiff_codecs/``.)
 
 Needs cv2 (OpenCV 5.0 with its libtiff 4.7), which makes the reference, and
 Pillow (libtiff, libjpeg), which writes some of the files: it is run where
@@ -35,6 +38,18 @@ of ``scripts/port_make_jpeg_fixtures.py``:
   ``cv2.imread`` under ``IMREAD_UNCHANGED`` and ``IMREAD_COLOR``, channels
   in RGB order, or null where cv2 returns None; ``small_decodes.npz``: the
   83x61 files' 8-bit ``IMREAD_UNCHANGED`` arrays.
+
+The codec set, at 83x61 from the toy photo (its HDR form from
+``port_make_image_fixtures.hdr_photo``), stored the same way:
+
+- written by cv2 from float32: SGILog and SGILog24 LogLuv (3 channels) and
+  SGILog LogL (1 channel, which cv2 reads back as int8), and
+  ``logluv_256.tif``, a 256^2 SGILog file for the decode time on the card;
+- written by ``tests/torch_image_files.py``: LogLuv in 32x32 tiles, a
+  4-bit palette in ThunderScan's coding, a NeXT-coded 2-bit grey file
+  (None: cv2 reads no NeXT file), and 10-, 12- and 14-bit samples (RGB
+  uncompressed, RGB LZW in strips, grey in tiles, big-endian RGBA, signed
+  grey).
 """
 
 from __future__ import annotations
@@ -50,6 +65,7 @@ import numpy as np
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 OUT = os.path.normpath(os.path.join(ROOT, "tests", "fixtures", "port_tiff"))
+CODECS_OUT = os.path.normpath(os.path.join(ROOT, "tests", "fixtures", "port_tiff_codecs"))
 SMALL = (61, 83)            # height, width
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -187,14 +203,83 @@ def small_files() -> dict:
     return files
 
 
+def codec_files() -> dict:
+    import cv2
+
+    from port_make_image_fixtures import hdr_photo
+
+    h, w = SMALL
+    rgb = photo(h, w, seed=1)
+    grey = rgb[..., 1]
+    hdr = hdr_photo(h, w, seed=1)
+    bgr = np.ascontiguousarray(hdr[..., ::-1])
+
+    def cv2_tiff(img, compression):
+        return cv2.imencode(".tiff", img, [cv2.IMWRITE_TIFF_COMPRESSION, compression])[1].tobytes()
+
+    luv = cv2_tiff(bgr, 34676)
+    codes = np.concatenate([_luv32_codes(s, w) for s in strips_of(luv)[0]]).reshape(h, w)
+    pal = np.asarray([[(i * 37) % 256, (i * 91) % 256, (255 - i * 13) % 256] for i in range(16)])
+    idx = (grey.astype(np.int64) * 15 + 127) // 255
+    deep = (rgb.astype(np.int64) * 4 + np.arange(w)[None, :, None] % 4)
+    files = {
+        "tiff_logluv.tif": luv,
+        "tiff_logluv24.tif": cv2_tiff(bgr, 34677),
+        "tiff_logl.tif": cv2_tiff(np.ascontiguousarray(hdr[..., 1]), 34676),
+        "tiff_logluv_tiled.tif": F.sgilog_tiff(codes, 32845, 34676, tile=(32, 32)),
+        "tiff_thunderscan.tif": F.tiff(idx, 4, 3, compression=32809, colormap=pal * 257,
+                                       chunks=[b"".join(F.thunder_row(r) for r in idx)]),
+        "tiff_next.tif": F.tiff(grey >> 6, 2, 1, compression=32766,
+                                chunks=[b"".join(F.next_row(r) for r in grey >> 6)]),
+        "tiff_rgb10.tif": F.tiff(deep, 10, 2),
+        "tiff_rgb12_lzw.tif": F.tiff(deep * 4, 12, 2, compression=5, rows_per_strip=16),
+        "tiff_grey14_tiled.tif": F.tiff(deep[..., 1] * 16, 14, 1, tile=(32, 32)),
+        "tiff_rgba12_be.tif": F.tiff(np.dstack([deep * 4, deep[..., :1] * 2]), 12, 2,
+                                     extra_samples=[2], big_endian=True, rows_per_strip=8),
+        "tiff_grey12_signed.tif": F.tiff(deep[..., 0] * 4, 12, 1, sample_format=2),
+        "logluv_256.tif": cv2_tiff(np.ascontiguousarray(hdr_photo(256, 256, seed=3)[..., ::-1]),
+                                   34676),
+    }
+    return files
+
+
+def _luv32_codes(strip: bytes, w: int) -> np.ndarray:
+    """The LogLuv32 codes of one SGILog strip of whole rows (the byte planes
+    of tif_luv.c's run-length code read back), to re-code them in tiles."""
+    out, at = [], 0
+    while at < len(strip):
+        row = np.zeros(w, np.uint64)
+        for shift in (24, 16, 8, 0):
+            i = 0
+            while i < w:
+                n = strip[at]
+                if n >= 128:
+                    row[i:i + n - 126] |= np.uint64(strip[at + 1]) << np.uint64(shift)
+                    i, at = i + n - 126, at + 2
+                else:
+                    vals = np.frombuffer(strip, np.uint8, n, at + 1).astype(np.uint64)
+                    row[i:i + n] |= vals << np.uint64(shift)
+                    i, at = i + n, at + 1 + n
+        out.append(row)
+    return np.concatenate(out)
+
+
 def main(argv=None) -> None:
     import cv2     # the reference; the port itself never imports it
 
-    from port_make_image_fixtures import rgb_decode
+    from port_make_image_fixtures import rgb_decode, write_set
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", default=OUT)
+    ap.add_argument("--set", choices=("tiff", "codecs"), default="tiff")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    if args.set == "codecs":
+        out = args.out or CODECS_OUT
+        os.makedirs(out, exist_ok=True)
+        files = codec_files()
+        write_set(cv2, files, out, {n for n in files if not n.startswith("logluv_")})
+        return
+    args.out = args.out or OUT
     os.makedirs(args.out, exist_ok=True)
     files = small_files()
     small = set(files)

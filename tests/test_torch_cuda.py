@@ -29,8 +29,8 @@ from dreamgaussian_tpu_torch.ops.rasterize import build_feature_cols, render_gau
 from dreamgaussian_tpu_torch.utils.camera import Camera, orbit_camera
 from torch_cli_cases import disc_png, image_options
 from torch_composite_cases import CASES, composite_case
-from torch_image_cases import (IMAGE_FIXTURES, JP2_ARCHIVAL_FIXTURES, JP2_FIXTURES, JPEG_FIXTURES,
-                               SCENES, TIFF_FIXTURES,
+from torch_image_cases import (HDR_FIXTURES, IMAGE_FIXTURES, JP2_ARCHIVAL_FIXTURES, JP2_FIXTURES,
+                               JPEG_FIXTURES, SCENES, TIFF_CODEC_FIXTURES, TIFF_FIXTURES,
                                iou, scene)
 from torch_ztest_cases import CARD_CASES as ZTEST_CASES
 from torch_ztest_cases import ztest_case
@@ -1377,6 +1377,38 @@ def test_tiff_fixtures_read_on_the_card_machine_as_cv2_read_them(cuda_device):
             assert hashlib.sha256(got.tobytes()).hexdigest() == entry[key]["sha256"], (name, key)
             if key == "unchanged" and name in small.files:
                 np.testing.assert_array_equal(got, small[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("folder", ["port_hdr", "port_tiff_codecs"])
+def test_hdr_and_tiff_codec_fixtures_read_on_the_card_machine_as_cv2_read_them(cuda_device,
+                                                                               folder):
+    """Every fixture of ``port_make_image_fixtures.py --set hdr`` (Radiance
+    HDR, PFM, Sun raster) and ``port_make_tiff_fixtures.py --set codecs``
+    (SGILog, SGILog24, ThunderScan, NeXT, 10/12/14-bit) under both flags,
+    the codecs built from the repo's sources on this machine: shape, dtype
+    and SHA-256 of cv2's stored decode (float32 bit patterns included), the
+    small ones also against their stored arrays; ValueError where cv2
+    returned None."""
+    import hashlib
+
+    from dreamgaussian_tpu_torch.utils.imread import IMREAD_COLOR, IMREAD_UNCHANGED, read_image
+
+    root = {"port_hdr": HDR_FIXTURES, "port_tiff_codecs": TIFF_CODEC_FIXTURES}[folder]
+    with open(root / "decodes.json") as fh:
+        digests = json.load(fh)
+    small = np.load(root / "small_decodes.npz")
+    for name, entry in sorted(digests.items()):
+        for key, flags in (("unchanged", IMREAD_UNCHANGED), ("color", IMREAD_COLOR)):
+            if entry[key] is None:
+                with pytest.raises(ValueError):
+                    read_image(str(root / name), flags)
+                continue
+            got = read_image(str(root / name), flags)
+            assert [list(got.shape), str(got.dtype)] == [entry[key]["shape"], entry[key]["dtype"]]
+            assert hashlib.sha256(got.tobytes()).hexdigest() == entry[key]["sha256"], (name, key)
+            if key == "unchanged" and name in small.files:
+                np.testing.assert_array_equal(got.view(np.uint8), small[name].view(np.uint8))
 
 
 @pytest.mark.cuda

@@ -29,7 +29,7 @@ from dreamgaussian_tpu_torch.utils.imread import IMREAD_COLOR, IMREAD_UNCHANGED,
 from dreamgaussian_tpu_torch.utils.resize import resize_area
 from test_torch_process import u2net_files  # noqa: F401
 from torch_cpu_cases import one_torch_thread  # noqa: F401
-from torch_image_cases import IMAGE_FIXTURES
+from torch_image_cases import IMAGE_FIXTURES, iou, scene
 
 DIGESTS = json.loads((IMAGE_FIXTURES / "decodes.json").read_text())
 IMAGES = sorted(n for n in DIGESTS if not n.endswith(".glb"))
@@ -209,13 +209,22 @@ def test_16bit_rgb_without_weights_raises_as_jax(monkeypatch, name):
 
 REFUSED = {"SGILog": ".tiff", "JPEG 2000": ".jp2", "JPEG 2000 codestream": ".jp2", "AVIF": ".avif",
            "Radiance HDR": ".hdr", "PFM": ".pfm", "Sun raster": ".ras"}
+READ_NOW = ("SGILog", "Radiance HDR", "PFM", "Sun raster")
 
 
 @pytest.mark.parametrize("kind", list(REFUSED))
-def test_formats_cv2_reads_and_the_port_does_not_are_refused_by_name(tmp_path, kind):
-    img = F.photo(64, 64, 2)
+def test_formats_cv2_reads_and_the_port_does_not_are_refused_by_name(tmp_path, monkeypatch, kind):
+    """AVIF and JPEG 2000 Part 2 stay refused by name. SGILog, Radiance HDR,
+    PFM and Sun raster, once refused here, now read as cv2.imread reads
+    them under both flags, and ``load_rgba`` of them goes as the JAX
+    package's does: a float image refused by GrabCut on both sides (cv2.error,
+    the port's ValueError), a Sun raster matted by GrabCut (IoU as in
+    test_torch_grabcut.py)."""
+    monkeypatch.delenv("DG_U2NET_CKPT", raising=False)
+    # a Sun raster of a scene GrabCut mattes (test_torch_grabcut.py's)
+    img = scene("disc", 64, 64, 2)[..., ::-1].copy() if kind == "Sun raster" else F.photo(64, 64, 2)
     ext = REFUSED[kind]
-    if kind == "SGILog":                            # a TIFF codec cv2 reads and the port does not
+    if kind == "SGILog":                            # a TIFF codec cv2 reads
         data = F.sgilog_tiff(img[..., 0].astype(np.uint16) * 100 + 1000)
     else:
         data = cv2.imencode(ext, img.astype(np.float32) / 255 if ext in (".hdr", ".pfm")
@@ -228,10 +237,32 @@ def test_formats_cv2_reads_and_the_port_does_not_are_refused_by_name(tmp_path, k
     with open(path, "wb") as fh:
         fh.write(data)
     name = kind.replace(" codestream", "")
-    for call in (lambda: tproc.read_image(path), lambda: tproc.read_image(path, IMREAD_COLOR),
-                 lambda: tproc.load_rgba(path, device="cpu")):
-        with pytest.raises(NotImplementedError, match=name):
-            call()
+    if kind not in READ_NOW:
+        for call in (lambda: tproc.read_image(path), lambda: tproc.read_image(path, IMREAD_COLOR),
+                     lambda: tproc.load_rgba(path, device="cpu")):
+            with pytest.raises(NotImplementedError, match=name):
+                call()
+        return
+    for f in (IMREAD_UNCHANGED, IMREAD_COLOR):
+        want = cv2.imread(path, f)
+        want = want[..., ::-1] if want is not None and want.ndim == 3 else want
+        if want is None:
+            with pytest.raises(ValueError, match=name):
+                tproc.read_image(path, f)
+            continue
+        got = tproc.read_image(path, f)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got.view(np.uint8), np.ascontiguousarray(want).view(np.uint8))
+    if kind == "Sun raster":
+        cv2.setRNGSeed(0)
+        ref, got = jproc.load_rgba(path, size=32), tproc.load_rgba(path, size=32, device="cpu")
+        assert got.shape == ref.shape == (32, 32, 4)
+        assert iou((got[..., 3] * 255).astype(np.uint8), (ref[..., 3] * 255).astype(np.uint8)) >= 0.98
+        return
+    with pytest.raises(cv2.error):
+        jproc.load_rgba(path)
+    with pytest.raises(ValueError, match="8-bit"):
+        tproc.load_rgba(path, device="cpu")
 
 
 def test_exr_is_a_missing_file_on_both_sides(tmp_path):

@@ -27,7 +27,7 @@ from dreamgaussian_tpu_torch.utils.jpeg import decode_jpeg
 from dreamgaussian_tpu_torch.utils.png import write_png
 from test_torch_process import _photo, u2net_files  # noqa: F401
 from torch_cpu_cases import one_torch_thread  # noqa: F401
-from torch_image_cases import JPEG_FIXTURES
+from torch_image_cases import JPEG_FIXTURES, iou, scene
 
 Q, PROG, OPT, RST, SF = (cv2.IMWRITE_JPEG_QUALITY, cv2.IMWRITE_JPEG_PROGRESSIVE,
                          cv2.IMWRITE_JPEG_OPTIMIZE, cv2.IMWRITE_JPEG_RST_INTERVAL,
@@ -238,25 +238,49 @@ def test_twelve_bit_samples_are_refused():
 
 @pytest.mark.parametrize("ext,name", [(".hdr", "Radiance HDR"), (".jp2", "JPEG 2000"),
                                       (".ras", "Sun raster")])
-def test_other_formats_cv2_writes_are_refused_by_name(tmp_path, ext, name):
-    """Formats cv2 writes and reads that the port does not read (WebP, BMP,
-    TIFF and JPEG 2000, once here, are read now: test_torch_image_formats.py,
-    test_torch_tiff.py, test_torch_jp2.py; cv2's JPEG 2000, whose Part 1 is
-    read in full, is refused here with SIZ's Rsiz claiming Part 2
-    extensions, which cv2 reads and the port refuses by name)."""
+def test_other_formats_cv2_writes_are_refused_by_name(tmp_path, monkeypatch, ext, name):
+    """Formats cv2 writes and reads (WebP, BMP, TIFF and JPEG 2000, once
+    here, are read now: test_torch_image_formats.py, test_torch_tiff.py,
+    test_torch_jp2.py; cv2's JPEG 2000, whose Part 1 is read in full, is
+    refused here with SIZ's Rsiz claiming Part 2 extensions, which cv2
+    reads and the port refuses by name). Radiance HDR and Sun raster, once
+    refused here too, read as cv2.imread reads them
+    (test_torch_hdr_pfm_ras.py), and ``load_rgba`` of them goes as the JAX
+    package's: the HDR's float colours refused by GrabCut on both sides,
+    the Sun raster matted."""
     import torch_image_files as F
 
+    monkeypatch.delenv("DG_U2NET_CKPT", raising=False)
     path = tmp_path / f"x{ext}"
-    assert cv2.imwrite(str(path), _image(64, 64, seed=2))
+    # the Sun raster a scene GrabCut mattes (test_torch_grabcut.py's), in BGR
+    assert cv2.imwrite(str(path), scene("disc", 64, 64, 2)[..., ::-1].copy() if ext == ".ras"
+                       else _image(64, 64, seed=2))
     if ext == ".jp2":
         data = path.read_bytes()
         cs = F.j2k_set_rsiz(F.jp2_codestream(data), 0x8000)
         path.write_bytes(F.jp2_rebuild(data, codestream=cs))
     path = str(path)
     assert cv2.imread(path, cv2.IMREAD_UNCHANGED) is not None
-    with pytest.raises(NotImplementedError, match=name):
-        tproc.read_image(path)
-    with pytest.raises(NotImplementedError, match=name):
+    if ext == ".jp2":
+        with pytest.raises(NotImplementedError, match=name):
+            tproc.read_image(path)
+        with pytest.raises(NotImplementedError, match=name):
+            tproc.load_rgba(path, device="cpu")
+        return
+    for flags in (cv2.IMREAD_UNCHANGED, cv2.IMREAD_COLOR):
+        want = np.ascontiguousarray(cv2.imread(path, flags)[..., ::-1])
+        got = tproc.read_image(path, flags)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    if ext == ".ras":
+        cv2.setRNGSeed(0)
+        ref, got = jproc.load_rgba(path, size=32), tproc.load_rgba(path, size=32, device="cpu")
+        assert got.shape == ref.shape == (32, 32, 4)
+        assert iou((got[..., 3] * 255).astype(np.uint8), (ref[..., 3] * 255).astype(np.uint8)) >= 0.98
+        return
+    with pytest.raises(cv2.error):
+        jproc.load_rgba(path)
+    with pytest.raises(ValueError, match="8-bit"):
         tproc.load_rgba(path, device="cpu")
 
 

@@ -29,10 +29,11 @@ from dreamgaussian_tpu_torch.utils.imread import IMREAD_COLOR, IMREAD_UNCHANGED,
 from test_torch_image_formats import _glb_with_image, u2net_at_64  # noqa: F401
 from test_torch_process import u2net_files  # noqa: F401
 from torch_cpu_cases import one_torch_thread  # noqa: F401
-from torch_image_cases import TIFF_FIXTURES
+from torch_image_cases import TIFF_CODEC_FIXTURES, TIFF_FIXTURES
 
 DIGESTS = json.loads((TIFF_FIXTURES / "decodes.json").read_text())
 IMAGES = sorted(DIGESTS)
+CODEC_DIGESTS = json.loads((TIFF_CODEC_FIXTURES / "decodes.json").read_text())
 FLAGS = {"unchanged": IMREAD_UNCHANGED, "color": IMREAD_COLOR}
 
 
@@ -129,6 +130,25 @@ def test_transposing_orientation_is_none_in_imread_and_turns_in_imdecode(tmp_pat
                           tags={274: (3, orientation)})
             _same_as_cv2(data, tmp_path / "o.tif")
             assert decode_image(data, flags).shape[:2] == (w, h)
+
+
+@pytest.mark.parametrize("key", list(FLAGS))
+@pytest.mark.parametrize("name", sorted(CODEC_DIGESTS))
+def test_codec_fixture_reads_as_cv2_read_it(name, key):
+    """The codec set of ``port_make_tiff_fixtures.py --set codecs``: SGILog,
+    SGILog24, LogL, tiled LogLuv, ThunderScan, NeXT, 10/12/14-bit."""
+    path = TIFF_CODEC_FIXTURES / name
+    want = CODEC_DIGESTS[name][key]
+    live = _rgb(cv2.imread(str(path), FLAGS[key]))
+    if want is None:
+        assert live is None
+        with pytest.raises(ValueError, match="TIFF"):
+            tproc.read_image(str(path), FLAGS[key])
+        return
+    got = tproc.read_image(str(path), FLAGS[key])
+    assert [list(got.shape), str(got.dtype)] == [want["shape"], want["dtype"]]
+    assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"]
+    np.testing.assert_array_equal(got.view(np.uint8), live.view(np.uint8))
 
 
 # ------------------------------------------------------------------ seeded files
@@ -435,17 +455,262 @@ def test_lzw_and_packbits_round_trip_through_the_native_codecs():
 
 # ------------------------------------------------------------------ refusals and None
 
+def _codec_file(compression: int, seed: int) -> bytes:
+    """A 16x16 file each of these codecs decodes: LogLuv (SGILog), LogLuv24
+    (SGILog24), 2-bit grey (NeXT), a 4-bit palette (ThunderScan)."""
+    rng = np.random.default_rng(seed)
+    if compression in (34676, 34677):
+        return F.sgilog_tiff(_luv_codes(16, 16, seed, compression), 32845, compression,
+                             rows_per_strip=5)
+    if compression == 32766:
+        grey = rng.integers(0, 4, (16, 16))
+        return F.tiff(grey, 2, 1, compression=compression,
+                      chunks=[b"".join(F.next_row(r) for r in grey)])
+    idx = np.clip(np.cumsum(rng.integers(-2, 3, (16, 16)), axis=1) + 8, 0, 15)
+    return F.tiff(idx, 4, 3, compression=compression, colormap=rng.integers(0, 65536, (16, 3)),
+                  chunks=[b"".join(F.thunder_row(r) for r in idx)])
+
+
 @pytest.mark.parametrize("compression,name", [(34676, "SGILog"), (34677, "SGILog24"),
                                               (32766, "NeXT"), (32809, "ThunderScan")])
-def test_codecs_cv2_reads_and_the_port_does_not_are_refused_by_name(tmp_path, compression, name):
-    img = F.photo(16, 16, 1)
-    data = F.tiff(img, 8, 2, chunks=[img.tobytes()], tags={259: (3, compression)})
-    path = tmp_path / "x.tif"
-    path.write_bytes(data)
-    for call in (lambda: decode_image(data), lambda: tproc.read_image(str(path), IMREAD_COLOR),
-                 lambda: tproc.load_rgba(str(path), device="cpu")):
-        with pytest.raises(NotImplementedError, match=name):
-            call()
+def test_codecs_cv2_reads_and_the_port_does_not_are_refused_by_name(tmp_path, monkeypatch,
+                                                                    compression, name):
+    """Once refused by name, these codecs now read as cv2 reads them: SGILog
+    and SGILog24 as float32 RGB (and 8-bit RGB under IMREAD_COLOR),
+    ThunderScan through its palette, NeXT as None (libtiff's NeXT decoder
+    takes only 2-bit samples, which OpenCV's header check refuses); and
+    ``load_rgba`` as the JAX package's: None a missing file on both sides,
+    float32 refused by GrabCut on both sides, the palette image matted."""
+    monkeypatch.delenv("DG_U2NET_CKPT", raising=False)
+    data = _codec_file(compression, compression)
+    _same_as_cv2(data, tmp_path / "x.tif")
+    path = str(tmp_path / "x.tif")
+    if compression == 32766:
+        for load in (jproc.load_rgba, lambda p: tproc.load_rgba(p, device="cpu")):
+            with pytest.raises(FileNotFoundError):
+                load(path)
+    elif compression in (34676, 34677):
+        with pytest.raises(cv2.error):
+            jproc.load_rgba(path)
+        with pytest.raises(ValueError, match="8-bit"):
+            tproc.load_rgba(path, device="cpu")
+    else:
+        assert tproc.load_rgba(path, device="cpu").shape == jproc.load_rgba(path).shape
+
+
+def _luv_codes(h, w, seed, compression=34676):
+    """LogLuv32 codes (compression 34676: 16-bit signed log luminance, 8-bit
+    u and v) or LogLuv24 codes (10-bit luminance, 14-bit uv cell), with
+    zero and negative luminance and flat runs among them."""
+    rng = np.random.default_rng(seed)
+    if compression == 34677:
+        codes = rng.integers(1, 1024, (h, w)) << 14 | rng.integers(0, 16384, (h, w))
+        codes[0, :2] = [0, 1023 << 14 | 16383]
+    else:
+        lum = rng.integers(0x2000, 0x5800, (h, w))
+        lum[0, :3] = [0, 0x8000 | 0x3000, 0x7FFF]
+        codes = lum << 16 | rng.integers(40, 220, (h, w)) << 8 | rng.integers(40, 220, (h, w))
+    codes[-1, w // 3:] = codes[-1, w // 3]
+    return codes
+
+
+def _logl_codes(h, w, seed):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-0x7FFF, 0x7FFF, (h, w))
+    codes[0, :4] = [0, 0x4000, 0x3F00, -0x4000]
+    codes[-1, 1:] = codes[-1, 1]
+    return codes
+
+
+SGILOG_KINDS = {"luv32": (32845, 34676), "luv24": (32845, 34677), "logl": (32844, 34676),
+                "logl_sgilog24": (32844, 34677)}
+LAYOUTS = {"one strip": {}, "strips of 2": {"rows_per_strip": 2}, "tiles": {"tile": (16, 16)}}
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("size", [(4, 5), (7, 21), (3, 130)])
+@pytest.mark.parametrize("kind", list(SGILOG_KINDS))
+def test_sgilog_reads_as_cv2_reads_it(tmp_path, kind, size, layout):
+    """libtiff's tif_luv.c decode: LogLuv under IMREAD_UNCHANGED to float
+    XYZ, then OpenCV's float cvtColor(XYZ2BGR) (its 4-lane and tail sums
+    per row); under IMREAD_COLOR, and LogL always, the 8-bit conversion of
+    the RGBA route (LogL with SampleFormat 2 as int8); LogL coded as
+    SGILog24 None; literal-only and run-length rows."""
+    ph, comp = SGILOG_KINDS[kind]
+    h, w = size
+    seed = h * w + comp
+    codes = _logl_codes(h, w, seed) if ph == 32844 else _luv_codes(h, w, seed, comp)
+    for runs in (True, False):
+        _same_as_cv2(F.sgilog_tiff(codes, ph, comp, runs=runs, **LAYOUTS[layout]),
+                     tmp_path / "x.tif")
+
+
+@pytest.mark.parametrize("bps,sf", [(8, 1), (16, 1), (16, 2), (32, 1), (32, 3)])
+@pytest.mark.parametrize("kind", ["luv32", "logl"])
+def test_sgilog_bits_and_sample_formats(kind, bps, sf):
+    """The file's BitsPerSample and SampleFormat: LogLuv is float32 under
+    IMREAD_UNCHANGED whatever they say, its RGBA route refuses 32-bit and
+    float; LogL's dtype follows OpenCV's 8-bit rule for photometric > 2."""
+    ph, comp = SGILOG_KINDS[kind]
+    codes = _logl_codes(5, 9, bps) if ph == 32844 else _luv_codes(5, 9, bps)
+    _same_as_cv2(F.sgilog_tiff(codes, ph, comp, bps=bps, sample_format=sf, rows_per_strip=2))
+
+
+@pytest.mark.parametrize("cut", [1, 9, 30])
+@pytest.mark.parametrize("strip", [0, 1, 2])
+@pytest.mark.parametrize("kind", ["luv32", "luv24", "logl"])
+def test_cut_sgilog_strips(kind, strip, cut):
+    """A strip that ends short: None from cv2's float route; on the RGBA
+    route the rows libtiff decoded before it stopped, the rest zero (a
+    strip of 0 bytes fails to read: None)."""
+    ph, comp = SGILOG_KINDS[kind]
+    codes = _logl_codes(5, 9, cut) if ph == 32844 else _luv_codes(5, 9, cut, comp)
+    nbytes = 2 if ph == 32844 else 4
+    chunks = []
+    for y in range(0, 5, 2):
+        rows = codes[y:y + 2]
+        chunks.append(F.logluv24(rows) if comp == 34677 else b"".join(
+            F.sgilog_row(r.astype(np.int64) & ((1 << 8 * nbytes) - 1), nbytes) for r in rows))
+    chunks[strip] = chunks[strip][:max(0, len(chunks[strip]) - cut)]
+    _same_as_cv2(F.sgilog_tiff(codes, ph, comp, rows_per_strip=2, chunks=chunks))
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_sgilog_orientations(orientation):
+    """The float route converts XYZ after the page is oriented (its vector
+    and tail pixels counted along the oriented rows)."""
+    codes = _luv_codes(5, 9, orientation)
+    _same_as_cv2(F.sgilog_tiff(codes, 32845, 34676, rows_per_strip=2,
+                               tags={274: (3, orientation)}))
+
+
+@pytest.mark.parametrize("variant", ["planar", "big-endian", "fill order 2", "no SGILog"])
+def test_sgilog_layout_variants(variant):
+    codes = _luv_codes(6, 10, 3)
+    kw = {"planar": {"planar": 2}, "big-endian": {"big_endian": True},
+          "fill order 2": {"fill_order": 2}, "no SGILog": {}}[variant]
+    data = F.sgilog_tiff(codes, 32845, 1 if variant == "no SGILog" else 34676,
+                         rows_per_strip=3, **kw)
+    _same_as_cv2(data)
+
+
+@pytest.mark.parametrize("compression", [34676, 34677])
+@pytest.mark.parametrize("channels", [1, 3])
+def test_sgilog_written_by_cv2(tmp_path, compression, channels):
+    """cv2 writes float32 RGB as LogLuv; one channel as LogL with 16-bit
+    signed samples (SGILog), which it reads back as int8 (OpenCV's header
+    check reads a photometric above 2 as 8-bit data of its SampleFormat),
+    and refuses as SGILog24."""
+    img = (np.random.default_rng(channels).random((6, 11, 3)) * 3).astype(np.float32)
+    img[0, 0], img[1, 1] = 0, 100
+    img = img if channels == 3 else np.ascontiguousarray(img[..., 0])
+    ok, buf = cv2.imencode(".tiff", img, [cv2.IMWRITE_TIFF_COMPRESSION, compression])
+    if not ok:
+        assert channels == 1 and compression == 34677
+        return
+    _same_as_cv2(buf.tobytes(), tmp_path / "x.tif")
+
+
+def _walk4(h, w, seed):
+    """4-bit samples that move by small steps, with runs."""
+    rng = np.random.default_rng(seed)
+    s = np.clip(np.cumsum(rng.integers(-3, 4, (h, w)), axis=1) + 7, 0, 15).astype(np.uint8)
+    s[:, : w // 3] = s[:, :1]
+    s[-1, w // 2:] = 15
+    return s
+
+
+@pytest.mark.parametrize("size", [(6, 23), (5, 8), (4, 3), (9, 64), (2, 1)])
+@pytest.mark.parametrize("case", ["strip", "strips of 2", "cut by 2", "cut by half", "extra codes",
+                                  "empty", "overrun", "tiles", "grey", "8-bit", "fill order 2"])
+def test_thunderscan_reads_as_cv2_reads_it(size, case):
+    """tif_thunder.c's codes (runs, 2- and 3-bit deltas with their skips,
+    raw pixels) into a 4-bit palette; a row that ends short zeroed from the
+    byte it reached, the rows after it left zero; an empty strip None;
+    tiles not decoded at all (libtiff's codec has no tile decoder: every
+    pixel palette entry 0); grey and 8-bit samples None."""
+    h, w = size
+    s = _walk4(h, w, h * w)
+    pal = np.random.default_rng(w).integers(0, 65536, (16, 3))
+    rows = [F.thunder_row(r) for r in s]
+    chunk = b"".join(rows)
+    kw = {"colormap": pal, "compression": 32809}
+    data = {
+        "strip": lambda: F.tiff(s, 4, 3, chunks=[chunk], **kw),
+        "strips of 2": lambda: F.tiff(s, 4, 3, rows_per_strip=2, **kw, chunks=[
+            b"".join(rows[y:y + 2]) for y in range(0, h, 2)]),
+        "cut by 2": lambda: F.tiff(s, 4, 3, chunks=[chunk[:-2]], **kw),
+        "cut by half": lambda: F.tiff(s, 4, 3, chunks=[chunk[:len(chunk) // 2]], **kw),
+        "extra codes": lambda: F.tiff(s, 4, 3, chunks=[chunk + b"\xc1\xc2"], **kw),
+        "empty": lambda: F.tiff(s, 4, 3, chunks=[b""], **kw),
+        "overrun": lambda: F.tiff(s, 4, 3, chunks=[b"".join(r[:-1] + b"\x3f" for r in rows)],
+                                  **kw),
+        "tiles": lambda: F.tiff(s, 4, 3, tile=(16, 16), **kw, chunks=[
+            b"".join(F.thunder_row(r) for r in np.pad(s[y:y + 16, x:x + 16], (
+                (0, 16 - s[y:y + 16, x:x + 16].shape[0]), (0, 16 - s[y:y + 16, x:x + 16].shape[1]))))
+            for y in range(0, h, 16) for x in range(0, w, 16)]),
+        "grey": lambda: F.tiff(s, 4, 1, chunks=[chunk], compression=32809),
+        "8-bit": lambda: F.tiff(s, 8, 3, chunks=[chunk], compression=32809,
+                                colormap=np.random.default_rng(1).integers(0, 65536, (256, 3))),
+        "fill order 2": lambda: F.tiff(s, 4, 3, chunks=[chunk], fill_order=2, **kw),
+    }[case]()
+    _same_as_cv2(data)
+
+
+@pytest.mark.parametrize("photometric", [0, 1, 3])
+@pytest.mark.parametrize("kind", ["runs", "literal", "span"])
+def test_next_is_none_on_both_sides(kind, photometric):
+    """NeXT's 2-bit coding (whole literal rows, literal spans, runs): cv2
+    refuses 2-bit samples, and libtiff's NeXT decoder any other depth."""
+    rng = np.random.default_rng(photometric)
+    s = rng.integers(0, 4, (5, 13)).astype(np.uint8)
+    kw = {"colormap": rng.integers(0, 65536, (4, 3))} if photometric == 3 else {}
+    _same_as_cv2(F.tiff(s, 2, photometric, compression=32766,
+                        chunks=[b"".join(F.next_row(r, kind) for r in s)], **kw))
+    _same_as_cv2(F.tiff(s * 60, 8, 1, compression=32766, chunks=[(s * 60).tobytes()]))
+
+
+PACKED_TYPES = [(spp, ph, sf) for spp, ph in ((3, 2), (1, 1), (4, 2), (2, 1), (1, 0), (1, 3),
+                                              (3, 1), (4, 1)) for sf in (1, 2, 3)]
+
+
+@pytest.mark.parametrize("spp,ph,sf", PACKED_TYPES)
+@pytest.mark.parametrize("bps", [10, 12, 14])
+def test_packed_samples_read_as_cv2_reads_them(bps, spp, ph, sf):
+    """10-, 12- and 14-bit samples: OpenCV's unpacking to uint16, shifted
+    left to 16 bits after its grey conversion (signed: saturated to int16);
+    None under IMREAD_COLOR (libtiff's RGBA interface refuses them), for a
+    palette, 2 samples and floats."""
+    rng = np.random.default_rng(bps * 100 + spp * 10 + ph)
+    s = rng.integers(0, 1 << bps, (5, 7, spp))
+    kw = {"colormap": rng.integers(0, 65536, (1 << bps, 3))} if ph == 3 else {}
+    _same_as_cv2(F.tiff(s, bps, ph, sample_format=sf, **kw))
+
+
+@pytest.mark.parametrize("layout", ["strips", "big-endian", "lzw", "deflate", "packbits",
+                                    "lzw predictor 2", "lzw predictor 3", "fill order 2",
+                                    "cut lzw", "orientation 3", "tiles 16", "tiles 32x16",
+                                    "lzw tiles"])
+@pytest.mark.parametrize("bps", [10, 12, 14])
+def test_packed_sample_layouts(tmp_path, bps, layout):
+    """Strips and tiles, both byte orders (packed samples are not swapped),
+    the codecs, the predictors (libtiff's horizontal predictor refuses these
+    depths: None), FillOrder 2, a cut LZW strip (None) and orientation."""
+    s = np.random.default_rng(bps).integers(0, 1 << bps, (9, 13, 3))
+    kw = {"strips": {"rows_per_strip": 4}, "big-endian": {"big_endian": True},
+          "lzw": {"compression": 5}, "deflate": {"compression": 8},
+          "packbits": {"compression": 32773}, "lzw predictor 2": {"compression": 5},
+          "lzw predictor 3": {"compression": 5}, "fill order 2": {"fill_order": 2},
+          "cut lzw": {"compression": 5}, "orientation 3": {"tags": {274: (3, 3)}},
+          "tiles 16": {"tile": (16, 16)}, "tiles 32x16": {"tile": (32, 16)},
+          "lzw tiles": {"tile": (16, 16), "compression": 5}}[layout]
+    data = F.tiff(s, bps, 2, **kw)
+    if layout.startswith("lzw predictor"):
+        data = F.tiff(s, bps, 2, predictor=int(layout[-1]), **kw)
+    if layout == "cut lzw":
+        chunk = F.tiff_lzw(F.pack_samples(s.reshape(9, -1), bps))
+        data = F.tiff(s, bps, 2, chunks=[chunk[:-5]], **kw)
+    _same_as_cv2(data, tmp_path / "x.tif")
 
 
 @pytest.mark.parametrize("compression", [6, 32909, 34925, 50000, 50001, 34887, 34661])
@@ -493,6 +758,19 @@ def test_load_rgba_of_a_four_channel_tiff_matches_jax(name):
                                   "tiff_grey8.tif"])
 def test_load_rgba_of_an_rgb_or_grey_tiff_matches_jax(name, u2net_files, u2net_at_64):  # noqa: F811
     path = str(TIFF_FIXTURES / name)
+    ref = jproc.load_rgba(path, size=48, u2net_ckpt=u2net_files["small"])
+    got = tproc.load_rgba(path, size=48, u2net_ckpt=u2net_files["small"], device="cpu")
+    assert got.dtype == np.float32 and got.shape == ref.shape == (48, 48, 4)
+    np.testing.assert_array_equal(got[..., :3], ref[..., :3])
+    np.testing.assert_allclose(got[..., 3], ref[..., 3], atol=1 / 255 + 1e-7)
+
+
+@pytest.mark.parametrize("name", ["tiff_logluv.tif", "tiff_logluv24.tif", "tiff_rgb12_lzw.tif"])
+def test_load_rgba_of_a_logluv_or_12bit_tiff_matches_jax(name, u2net_files, u2net_at_64):  # noqa: F811
+    """Float32 (LogLuv) and uint16 (12-bit, shifted to 16 bits) colours
+    matted by U2Net, divided by 255 whatever their range, as the JAX
+    package does."""
+    path = str(TIFF_CODEC_FIXTURES / name)
     ref = jproc.load_rgba(path, size=48, u2net_ckpt=u2net_files["small"])
     got = tproc.load_rgba(path, size=48, u2net_ckpt=u2net_files["small"], device="cpu")
     assert got.dtype == np.float32 and got.shape == ref.shape == (48, 48, 4)

@@ -12,6 +12,8 @@ IMAGE_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_images"
 TIFF_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_tiff"
 JP2_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_jp2"
 JP2_ARCHIVAL_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_jp2_archival"
+HDR_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_hdr"
+TIFF_CODEC_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_tiff_codecs"
 
 # GrabCut's test photos: an object on a background that differs from it.
 SCENES = ("disc", "ellipse", "box", "textured")

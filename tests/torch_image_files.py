@@ -778,8 +778,9 @@ def tiff(samples, bps: int, photometric: int, *, sample_format: int = 1, compres
     in strips of ``rows_per_strip`` rows or in ``tile`` = (height, width)
     tiles (edge tiles padded), planar configuration 1 or 2, either byte
     order, compression 1 (none), 5 (LZW), 8 or 32946 (Deflate) or 32773
-    (PackBits) with ``predictor`` 1, 2 or 3, a colormap, and any further
-    ``tags`` {tag: (type, values)}. ``chunks`` gives the strips or tiles
+    (PackBits) with ``predictor`` 1, 2 or 3 (10-, 12- and 14-bit samples
+    packed most significant bit first, with the Predictor tag only), a
+    colormap, and any further ``tags`` {tag: (type, values)}. ``chunks`` gives the strips or tiles
     already coded (JPEG, CCITT, YCbCr blocks) in place of ``samples``'
     coding; ``pages`` appends further IFDs, each a dict of keyword
     arguments for another call; ``gap`` puts that many bytes before each
@@ -817,9 +818,10 @@ def _tiff_page(out: bytearray, e: str, big: bool, gap: int, samples, bps, photom
         dtype = {8: "u1", 16: "u2", 32: "u4", 64: "u8"}.get(bps, "u1")
         if sample_format == 2:
             dtype = dtype.replace("u", "i")
-        elif sample_format == 3:
+        elif sample_format == 3 and bps not in (10, 12, 14):
             dtype = {16: "f2", 32: "f4", 64: "f8"}[bps]
-        arr = samples.astype(e + dtype) if bps >= 8 else samples.astype(np.uint8)
+        arr = (samples.astype(np.int64) if bps in (10, 12, 14) else
+               samples.astype(e + dtype) if bps >= 8 else samples.astype(np.uint8))
         th, tw = tile if tile else (rows_per_strip or h, w)
         planes = [arr] if planar == 1 else [arr[..., s:s + 1] for s in range(spp)]
         chunks = []
@@ -830,7 +832,9 @@ def _tiff_page(out: bytearray, e: str, big: bool, gap: int, samples, bps, photom
                     if tile:
                         part = np.pad(part, ((0, th - part.shape[0]), (0, tw - part.shape[1]),
                                              (0, 0)))
-                    if predictor > 1:
+                    if bps in (10, 12, 14):
+                        raw = pack_samples(part.reshape(part.shape[0], -1), bps)
+                    elif predictor > 1:
                         raw = _predict(part, predictor, part.shape[2])
                     elif bps < 8:
                         raw = _pack_bits(part, bps)
@@ -934,18 +938,156 @@ def jpeg_tiff_chunks(img: np.ndarray, rows: int | None = None, tile: tuple | Non
     return chunks, tables
 
 
-def sgilog_tiff(lum: np.ndarray) -> bytes:
-    """A LogL TIFF (photometric 32844, SGILog compression 34676) of uint16
-    [H, W] log-luminance codes: each row's high then low bytes, as
-    literal runs of at most 127 (libtiff's tif_luv.c LogL16Decode)."""
-    rows = []
-    for row in lum.astype(np.uint16):
-        for shift in (8, 0):
-            plane = ((row >> shift) & 255).astype(np.uint8).tobytes()
-            for at in range(0, len(plane), 127):
-                part = plane[at:at + 127]
-                rows.append(bytes([len(part)]) + part)
-    return tiff(lum, 16, 32844, chunks=[b"".join(rows)], tags={259: (3, 34676)})
+def sgilog_row(codes: np.ndarray, nbytes: int, runs: bool = True) -> bytes:
+    """One row of SGILog's run-length code (libtiff's tif_luv.c): the
+    ``nbytes`` byte planes of ``codes``, most significant first, each as
+    runs (128 + n - 2 then the byte, for 2 to 129 repeats) where ``runs``
+    and a byte repeats at least 3 times, else literals of at most 127."""
+    out = bytearray()
+    codes = np.asarray(codes, np.uint64)
+    for k in range(nbytes - 1, -1, -1):
+        plane = ((codes >> np.uint64(8 * k)) & np.uint64(255)).astype(np.uint8).tobytes()
+        i, lit = 0, bytearray()
+        while i <= len(plane):
+            j = i
+            while runs and j < len(plane) and plane[j] == plane[i] and j - i < 129:
+                j += 1
+            if i == len(plane) or (runs and j - i >= 3):
+                for at in range(0, len(lit), 127):
+                    out += bytes([len(lit[at:at + 127])]) + lit[at:at + 127]
+                lit = bytearray()
+                if i == len(plane):
+                    break
+                out += bytes([128 + j - i - 2, plane[i]])
+                i = j
+            else:
+                lit.append(plane[i])
+                i += 1
+    return bytes(out)
+
+
+def logluv24(codes: np.ndarray) -> bytes:
+    """Rows of LogLuv24 codes (10-bit log luminance, 14-bit uv index): 3
+    bytes each, most significant first (libtiff's LogLuvDecode24)."""
+    c = np.asarray(codes, np.uint32)
+    return np.stack([c >> 16, c >> 8, c], -1).astype(np.uint8).tobytes()
+
+
+def sgilog_tiff(codes: np.ndarray, photometric: int = 32844, compression: int = 34676,
+                bps: int = 16, sample_format: int = 2, runs: bool = True, **kw) -> bytes:
+    """A LogL (photometric 32844: int16 [H, W] codes) or LogLuv (32845:
+    uint32 LogLuv32 codes, or LogLuv24 codes with compression 34677) TIFF
+    in SGILog's own coding, in strips of ``rows_per_strip`` rows or
+    ``tile`` tiles (padded with code 0), with the BitsPerSample and
+    SampleFormat that libtiff writes for 16-bit signed data (cv2's choice);
+    ``kw`` goes to ``tiff``."""
+    codes = np.asarray(codes)
+    h, w = codes.shape
+    tile = kw.get("tile")
+    th, tw = tile if tile else (kw.get("rows_per_strip") or h, w)
+    chunks = []
+    for y in range(0, h, th):
+        for x in range(0, w, tw):
+            part = codes[y:y + th, x:x + tw]
+            if tile:
+                part = np.pad(part, ((0, th - part.shape[0]), (0, tw - part.shape[1])))
+            if compression == 34677:
+                chunks.append(logluv24(part))
+            else:
+                nbytes = 2 if photometric == 32844 else 4
+                mask = (1 << (8 * nbytes)) - 1
+                chunks.append(b"".join(sgilog_row(r.astype(np.int64) & mask, nbytes, runs)
+                                       for r in part))
+    spp = 1 if photometric == 32844 else 3
+    return tiff(np.zeros((h, w, spp), np.uint8), bps, photometric, compression=compression,
+                sample_format=sample_format, chunks=kw.pop("chunks", chunks), **kw)
+
+
+def thunder_row(row: np.ndarray) -> bytes:
+    """One row of 4-bit samples in ThunderScan's codes (tif_thunder.c):
+    runs of the last pixel, three 2-bit or two 3-bit deltas (with their
+    skip codes where a pair or a single pixel is left), or raw pixels."""
+    out, last, i, n = bytearray(), 0, 0, len(row)
+    two = {0: 0, 1: 1, -1: 3}
+    three = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    row = [int(v) for v in row]
+    while i < n:
+        j = i
+        while j < n and row[j] == last and j - i < 63:
+            j += 1
+        if j - i >= 2:
+            out.append(j - i)
+            i = j
+            continue
+        d = [row[k] - (row[k - 1] if k > i else last) for k in range(i, min(i + 3, n))]
+        if len(d) == 3 and all(v in two for v in d):
+            out.append(0x40 | two[d[0]] << 4 | two[d[1]] << 2 | two[d[2]])
+            last, i = row[i + 2], i + 3
+        elif len(d) >= 2 and all(v in two for v in d[:2]):
+            out.append(0x40 | two[d[0]] << 4 | two[d[1]] << 2 | 2)
+            last, i = row[i + 1], i + 2
+        elif len(d) >= 2 and all(v in three for v in d[:2]):
+            out.append(0x80 | three[d[0]] << 3 | three[d[1]])
+            last, i = row[i + 1], i + 2
+        elif d[0] in three and d[0] != 0:
+            out.append(0x80 | three[d[0]] << 3 | 4)
+            last, i = row[i], i + 1
+        else:
+            out.append(0xC0 | row[i])
+            last, i = row[i], i + 1
+    return bytes(out)
+
+
+def next_row(row: np.ndarray, kind: str = "runs") -> bytes:
+    """One row of 2-bit samples in NeXT's 2-bit coding (tif_next.c): the
+    whole row literal (0x00), a literal span (0x40, offset, count; the rest
+    white), or runs of <colour:2><count:6>."""
+    packed = bytes(np.packbits(((np.asarray(row)[:, None] >> [1, 0]) & 1).astype(np.uint8)))
+    if kind == "literal":
+        return b"\x00" + packed
+    if kind == "span":
+        return b"\x40" + struct.pack(">HH", 0, len(packed)) + packed
+    out, i = bytearray(), 0
+    while i < len(row):
+        j = i
+        while j < len(row) and row[j] == row[i] and j - i < 63:
+            j += 1
+        out.append(int(row[i]) << 6 | (j - i))
+        i = j
+    return bytes(out)
+
+
+def sunras(w: int, h: int, depth: int, kind: int, rows: np.ndarray, cmap: bytes = b"") -> bytes:
+    """A Sun raster: the 32-byte big-endian header, the colormap (red,
+    green and blue thirds), ``rows`` [h, bytes] each padded to 16 bits."""
+    pad = np.pad(rows, ((0, 0), (0, rows.shape[1] & 1))).tobytes()
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(pad), kind, 1 if cmap else 0,
+                       len(cmap)) + cmap + pad
+
+
+def sunras_rle(data: bytes) -> bytes:
+    """RT_BYTE_ENCODED's coding of ``data``: 0x80, count - 1, value for a run
+    of 3 or more (or of any 0x80 bytes), 0x80 0x00 for a single 0x80."""
+    out, i = bytearray(), 0
+    while i < len(data):
+        j = i
+        while j < len(data) and data[j] == data[i] and j - i < 256:
+            j += 1
+        if j - i >= 3 or data[i] == 0x80:
+            out += b"\x80\x00" if j - i == 1 else bytes([0x80, j - i - 1, data[i]])
+            i = j
+        else:
+            out.append(data[i])
+            i += 1
+    return bytes(out)
+
+
+def pack_samples(samples: np.ndarray, bps: int) -> bytes:
+    """Rows of ``bps``-bit samples ([rows, n]) most significant bit first,
+    each row padded to a byte (TIFF's packing of 10-, 12- and 14-bit data)."""
+    rows = np.asarray(samples, np.uint32).reshape(np.shape(samples)[0], -1)
+    bits = ((rows[..., None] >> np.arange(bps - 1, -1, -1, dtype=np.uint32)) & 1).astype(np.uint8)
+    return np.packbits(bits.reshape(rows.shape[0], -1), axis=1).tobytes()
 
 
 # ------------------------------------------------------------------ JPEG 2000
