@@ -8,7 +8,14 @@
 1b. the formats phase (``run_formats``): decodes every checked-in JPEG
    fixture (``tests/fixtures/port_jpeg/``, written by
    ``scripts/port_make_jpeg_fixtures.py``) and holds it bit for bit against
-   cv2's decode stored beside it, with the host's decode ms; reads every
+   cv2's decode stored beside it, with the host's decode ms; decodes every
+   arithmetic-coded and lossless fixture (``tests/fixtures/port_jpeg_variants/``,
+   ``scripts/port_make_jpeg_variant_fixtures.py``: SOF3, SOF9, SOF10, DAC,
+   restart intervals, cut-off files, and the processes cv2 refuses) under
+   both flags against cv2's stored decodes (ValueError where cv2 gives
+   None), with the host's ms for the 512^2 arithmetic progressive photo, the
+   1024x768 arithmetic sequential one and the 256^2 lossless one
+   (``check_jpeg_variants``); reads every
    fixture of ``tests/fixtures/port_images/`` (PNG, WebP, BMP, PNM, GIF;
    ``scripts/port_make_image_fixtures.py``), ``tests/fixtures/port_tiff/``
    (TIFF: every codec, layout and photometric the port reads;
@@ -84,8 +91,10 @@
    the outputs back and holds every K1, K2 and K3 call of these runs
    against the plain version (lines ``[weights]``, ``[cli]`` and
    ``[kernels] ... in the weights-day``); the ``image_sai.yaml`` run takes
-   the 512^2 RGB JPEG fixture and no U2Net weights: decoded by the port,
-   matted by GrabCut on the card (checked), recentred, then stage 1; then
+   the 512^2 RGB photo as an arithmetic-coded progressive JPEG
+   (``photo_512_arith.jpg``, the 512^2 JPEG fixture's coefficients: the
+   same pixels, checked) and no U2Net weights: decoded by the port, matted
+   by GrabCut on the card (checked), recentred, then stage 1; then
    ``cli.main`` on ``configs/image.yaml`` with the 512^2 lossy RGBA WebP
    photo (its alpha kept: no matting, checked) for a few steps, and
    ``cli.main2`` with ``mesh=`` the GLB fixture whose base colour is a 512^2
@@ -1754,6 +1763,13 @@ def check_snapshot_load(snap: str, png: str, card: str, load_alone: subprocess.P
 JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                              "port_jpeg")
 PHOTO_512 = os.path.join(JPEG_FIXTURES, "photo_512.jpg")
+JPEG_VARIANT_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                     "fixtures", "port_jpeg_variants")
+PHOTO_512_ARITH = os.path.join(JPEG_VARIANT_FIXTURES, "photo_512_arith.jpg")
+# The variants the card times: (file, what it is).
+VARIANT_TIMED = (("photo_512_arith.jpg", "512^2 arithmetic-coded progressive"),
+                 ("photo_1024x768_arith.jpg", "1024x768 arithmetic-coded sequential"),
+                 ("photo_256_lossless.jpg", "256^2 lossless (SOF3, predictor 7)"))
 IMAGE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                               "port_images")
 PHOTO_WEBP = os.path.join(IMAGE_FIXTURES, "photo_512_rgba.webp")
@@ -1867,6 +1883,7 @@ def run_formats(card: str) -> dict:
               f"{digest[:16]}), and under IMREAD_COLOR, decoded in a median "
               f"{decode_ms[name]:.2f} ms of {DECODE_REPS} on the host; card '{card}'")
 
+    decode_ms.update(check_jpeg_variants(card))
     decode_ms.update(check_image_fixtures(card))
 
     with open(PHOTO_512, "rb") as fh:
@@ -1900,6 +1917,63 @@ def run_formats(card: str) -> dict:
           f"alpha>=128 IoU against the CPU {iou_cpu:.4f} ({out['differ_cpu']} alpha values "
           f"differ; gate {GRABCUT_IOU_CPU}), against cv2's stored matte {iou_cv2:.4f} (gate "
           f"{GRABCUT_IOU_CV2}); card '{card}'")
+    return out
+
+
+def check_jpeg_variants(card: str) -> dict:
+    """Every fixture of ``scripts/port_make_jpeg_variant_fixtures.py`` read
+    by the port (``read_image``, as cv2.imread reads the cut ones) under
+    IMREAD_UNCHANGED and IMREAD_COLOR and held bit for bit against cv2's
+    stored decode (shape and SHA-256; the small files' arrays too), or
+    refused with ValueError where cv2's is None; the host's median ms of
+    ``DECODE_REPS`` reads of the ``VARIANT_TIMED`` photos."""
+    import hashlib
+
+    import numpy as np
+
+    from dreamgaussian_tpu_torch.utils.imread import IMREAD_COLOR, IMREAD_UNCHANGED, read_image
+
+    with open(os.path.join(JPEG_VARIANT_FIXTURES, "decodes.json")) as fh:
+        digests = json.load(fh)
+    out, refused = {}, []
+    for name, want in sorted(digests.items()):
+        path = os.path.join(JPEG_VARIANT_FIXTURES, name)
+        parts = []
+        for key, flags in (("unchanged", IMREAD_UNCHANGED), ("color", IMREAD_COLOR)):
+            w = want if key == "unchanged" else want["color"]
+            if w is None or w["sha256"] is None:
+                try:
+                    read_image(path, flags)
+                except ValueError:
+                    parts.append(None)
+                    continue
+                raise RuntimeError(f"{name} ({key}): read where cv2's decode is None")
+            times = []
+            for _ in range(DECODE_REPS if name in dict(VARIANT_TIMED) else 1):
+                t = time.perf_counter()
+                got = read_image(path, flags)
+                times.append((time.perf_counter() - t) * 1e3)
+            digest = hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest()
+            npy = path.replace(".jpg", ".npy")
+            err = (int(np.abs(got.astype(np.int32) - np.load(npy)).max())
+                   if key == "unchanged" and os.path.exists(npy)
+                   and got.shape == np.load(npy).shape else 0)
+            if [list(got.shape), digest] != [w["shape"], w["sha256"]] or err:
+                raise RuntimeError(f"{name} ({key}): read {list(got.shape)} (SHA-256 "
+                                   f"{digest[:16]}, max abs err {err}) against cv2's {w}")
+            out[f"{name} {key}"] = statistics.median(times)
+            parts.append(f"{key} {list(got.shape)} SHA-256 {digest[:16]}")
+        if parts == [None, None]:
+            refused.append(name)
+            continue
+        parts = [p or "refused (ValueError) as cv2 returns None" for p in parts]
+        print(f"[formats] {name}: equal to cv2's decode bit for bit ({'; '.join(parts)}); "
+              f"card '{card}'")
+    print(f"[formats] {len(refused)} variant JPEGs refused with ValueError under both flags, "
+          f"as cv2 returns None: {', '.join(refused)}; card '{card}'")
+    timed = {what: out[f"{name} unchanged"] for name, what in VARIANT_TIMED}
+    print(f"[formats] JPEG variants, IMREAD_UNCHANGED median host ms of {DECODE_REPS}: "
+          f"{json.dumps(timed)}; card '{card}'")
     return out
 
 
@@ -2032,6 +2106,7 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
     """The full-width snapshot written, loaded and driven through both CLIs
     (see WEIGHTS_STOP); every kernel call of the CLI runs held against its
     plain version."""
+    import numpy as np
     import torch
 
     from dreamgaussian_tpu_torch.cli import main as cli1
@@ -2041,6 +2116,7 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
     from dreamgaussian_tpu_torch.guidance.vae import VAEConfig
     from dreamgaussian_tpu_torch.meshing.mesh import Mesh
     from dreamgaussian_tpu_torch.preprocess.grabcut import ITERATIONS
+    from dreamgaussian_tpu_torch.utils.imread import read_image
 
     runs: dict = {}
     saved, restored, losses = [], [], []
@@ -2085,7 +2161,7 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
             with grabcut_watch(sai_matte):
                 sai = drive_cli("image_sai stage 1", cli1,
                                 ["--config", os.path.join(CONFIGS, "image_sai.yaml"),
-                                 f"input={PHOTO_512}", "save_path=sai", f"outdir={tmp}",
+                                 f"input={PHOTO_512_ARITH}", "save_path=sai", f"outdir={tmp}",
                                  f"seed={seed}", f"zero123_ckpt={snap}", f"iters={SAI_ITERS}",
                                  "save_mesh=False"], runs)
             # A user's inputs in the formats the port reads since the image
@@ -2136,8 +2212,12 @@ def run_weights_day(seed: int, card: str, load_alone: subprocess.Popen) -> dict:
     if sai_matte["runs"] != ["cuda:0"] or sai_matte["cuts"] != ITERATIONS:
         raise RuntimeError(f"the image_sai run's JPEG was not matted by GrabCut on the card: "
                            f"{sai_matte}")
-    print(f"[weights] image_sai input {os.path.relpath(PHOTO_512)}: a JPEG decoded by the port, "
-          f"matted by GrabCut on {sai_matte['runs'][0]} ({sai_matte['cuts']} host min-cuts, "
+    if not np.array_equal(read_image(PHOTO_512_ARITH), read_image(PHOTO_512)):
+        raise RuntimeError("the arithmetic-coded photo does not decode to photo_512.jpg's pixels")
+    print(f"[weights] image_sai input {os.path.relpath(PHOTO_512_ARITH)}: an arithmetic-coded "
+          f"progressive JPEG decoded by the port (equal to "
+          f"{os.path.relpath(PHOTO_512)}'s pixels, checked), matted by GrabCut on "
+          f"{sai_matte['runs'][0]} ({sai_matte['cuts']} host min-cuts, "
           f"{sai_matte['cut_s'] * 1e3:.1f} ms), recentred; card '{card}'")
     if webp_matte["runs"] or glb_albedo is None or glb_albedo.shape != (512, 512, 3):
         raise RuntimeError(f"the WebP photo was matted ({webp_matte}) or the GLB's JPEG base "

@@ -4,16 +4,16 @@ Port of ``dreamgaussian_tpu/cli/process.py``:
 
 - ``read_image`` (``utils/imread.py``) is the port's ``cv2.imread(path,
   cv2.IMREAD_UNCHANGED)``, channels in RGB(A) order, bit for bit: PNG (every
-  colour type and bit depth, Adam7, ``tRNS``), JPEG, WebP (lossless, lossy,
-  alpha, an animation's first frame), BMP, PNM/PAM, GIF, TIFF (strips
-  and tiles, every codec cv2's libtiff decodes but SGILog, NeXT and
-  ThunderScan; unassociated alpha premultiplied as cv2 gives it) and JPEG
-  2000 (JP2 and J2K, Part 1, with cv2's channel and colour-space rules) by
-  the file's leading bytes; AVIF, Radiance HDR, PFM and Sun raster files,
-  which cv2 reads, raise NotImplementedError naming the format; a
-  file no decoder recognises, or one that does not decode (where
-  ``cv2.imread`` returns None), raises FileNotFoundError in ``load_rgba``,
-  as the JAX function does;
+  colour type and bit depth, Adam7, ``tRNS``), JPEG (Huffman- and
+  arithmetic-coded, sequential, progressive and lossless), WebP (lossless,
+  lossy, alpha, an animation's first frame), BMP, PNM/PAM, GIF, TIFF
+  (strips and tiles, every codec cv2's libtiff decodes; unassociated alpha
+  premultiplied as cv2 gives it), JPEG 2000 (JP2 and J2K, Part 1, with
+  cv2's channel and colour-space rules), Radiance HDR, PFM and Sun raster
+  by the file's leading bytes; AVIF, which cv2 reads, raises
+  NotImplementedError naming the format; a file no decoder recognises, or
+  one that does not decode (where ``cv2.imread`` returns None), raises
+  FileNotFoundError in ``load_rgba``, as the JAX function does;
 - the steps after the decode are the JAX function's: grey becomes RGB,
   4-channel inputs keep their alpha (the reference's own inputs are RGBA),
   and the values are divided by 255 whatever the dtype, so a 16-bit input

@@ -6,6 +6,13 @@
 //  - dg_jpeg_scan: Huffman decoding of one scan into the coefficient
 //    arrays, sequential or progressive (DC/AC first and refinement passes,
 //    EOB runs), with restart markers;
+//  - dg_jpeg_arith_scan: the same for an arithmetic-coded scan (SOF9,
+//    SOF10), libjpeg-turbo's QM decoder (jdarith.c) with the DAC
+//    conditioning;
+//  - dg_jpeg_lossless_scan and dg_jpeg_lossless_finish: a lossless (SOF3)
+//    scan's Huffman-coded differences, predictors and point transform
+//    straight to samples (libjpeg-turbo 3's jdlhuff.c, jddiffct.c,
+//    jdlossls.c), then replicated chroma and the colour conversion;
 //  - dg_jpeg_finish: libjpeg-turbo's interblock smoothing of unrefined
 //    progressive coefficients (jdcoefct.c), dequantisation, libjpeg's
 //    integer "islow" IDCT (jidctint.c, in the lanes of its x86 SIMD
@@ -47,15 +54,16 @@ struct Huff {
 };
 
 // table: 16 code counts then up to 256 symbols; all counts 0 = absent. A
-// DC table's symbols (difference sizes) are at most 15, as jdhuff.c checks.
-bool make_huff(const uint8_t* table, bool dc, Huff* h) {
+// DC table's symbols (difference sizes) are at most `dc_max`, as jdhuff.c
+// checks: 15 in a DCT-based scan, 16 in a lossless one; -1 for AC.
+bool make_huff(const uint8_t* table, int dc_max, Huff* h) {
   int total = 0;
   for (int l = 0; l < 16; l++) total += table[l];
   if (total == 0) return true;
   if (total > 256) return false;
   std::memcpy(h->vals, table + 16, total);
-  for (int i = 0; dc && i < total; i++)
-    if (h->vals[i] > 15) return false;
+  for (int i = 0; dc_max >= 0 && i < total; i++)
+    if (h->vals[i] > dc_max) return false;
   int code = 0, p = 0;
   for (int l = 1; l <= 16; l++) {
     int n = table[l - 1];
@@ -75,21 +83,71 @@ bool make_huff(const uint8_t* table, bool dc, Huff* h) {
   return true;
 }
 
-// Entropy-coded bits, most significant first: 0xFF 0x00 is a data 0xFF,
+// A scan's entropy-coded bytes: the rest of the file from the scan's
+// start, which the decoder reads up to the first marker it meets; the
+// restart markers in them as jdmarker.c reads them. `p` ends where the
+// scan stopped reading: Python reads the markers on from there.
+struct Source {
+  const uint8_t* p;
+  const uint8_t* end;
+  bool at_marker = false;   // p is on the 0xFF before an unread marker's code
+
+  Source(const uint8_t* data, int64_t len) : p(data), end(data + len) {}
+  // The unread marker's code; the end of the file stands for EOI, as
+  // libjpeg's source manager inserts one there.
+  int marker() const { return p + 1 < end ? p[1] : 0xD9; }
+  // jdmarker.c next_marker: skip to the next marker, over stuffed 0xFF 0x00.
+  void next_marker() {
+    for (;;) {
+      while (p < end && *p != 0xFF) p++;
+      const uint8_t* q = p;
+      while (q < end && *q == 0xFF) q++;
+      if (q < end && *q == 0x00) {
+        p = q + 1;
+        continue;
+      }
+      p = q > p ? q - 1 : p;
+      at_marker = true;
+      return;
+    }
+  }
+  // jdmarker.c read_restart_marker: read RSTn (`desired` = n),
+  // resynchronising as jpeg_resync_to_restart does when another marker
+  // stands there.
+  void read_restart(int desired) {
+    if (!at_marker) next_marker();
+    for (;;) {
+      int m = marker();
+      if (m < 0xC0) {                         // not a valid marker: skipped, scan on
+        p += 2;
+        at_marker = false;
+        next_marker();
+        continue;
+      }
+      if (m < 0xD0 || m > 0xD7) break;        // not an RSTn: left unread, an empty interval
+      int ahead = (m - 0xD0 - desired) & 7;
+      if (ahead == 1 || ahead == 2) break;    // one of the next two RSTn: left unread
+      p += 2;                                 // read it: the one expected, or one too far off
+      at_marker = false;
+      if (ahead < 6) break;
+      next_marker();                          // one of the two before: scan on
+    }
+  }
+};
+
+// Huffman-coded bits, most significant first: 0xFF 0x00 is a data 0xFF,
 // 0xFF fill bytes are skipped, and at a marker (or the end) zeros follow,
 // as libjpeg inserts them. A read that takes more bits than the data held
 // sets `insufficient`, as jdhuff.c's jpeg_fill_bit_buffer does when it
 // pads with zeros; the block under way finishes on those zeros and the
 // scan decoders skip every later MCU while the flag is set.
-struct Bits {
-  const uint8_t* p;
-  const uint8_t* end;
+struct Bits : Source {
   uint64_t acc = 0;
   int n = 0;                // bits in acc
   int real = 0;             // of them, the leading ones read from the data
-  bool at_marker = false;   // p is on the 0xFF before an unread marker's code
   bool insufficient = false;
 
+  using Source::Source;
   void fill() {
     while (n <= 56) {
       int c = 0;
@@ -131,44 +189,273 @@ struct Bits {
     }
     return h.vals[(h.valoffset[l] + code) & 0xFF];
   }
-  // The unread marker's code; the end of the scan's bytes stands for the
-  // marker that follows them (not an RSTn: Python splits scans there).
-  int marker() const { return p + 1 < end ? p[1] : 0xD9; }
-  // jdmarker.c next_marker: skip to the next marker, over stuffed 0xFF 0x00.
-  void next_marker() {
-    for (;;) {
-      while (p < end && *p != 0xFF) p++;
-      const uint8_t* q = p;
-      while (q < end && *q == 0xFF) q++;
-      if (q < end && *q == 0x00) {
-        p = q + 1;
-        continue;
-      }
-      p = q > p ? q - 1 : p;
-      at_marker = true;
-      return;
-    }
-  }
   // jdhuff.c/jdphuff.c process_restart: drop the bits left in the interval
-  // and read RSTn (`desired` = n), resynchronising as jdmarker.c
-  // jpeg_resync_to_restart does when another marker stands there; the
-  // out-of-data flag is cleared only when no marker is left unread.
+  // and read RSTn; the out-of-data flag is cleared only when no marker is
+  // left unread.
   void restart(int desired) {
     acc = 0;
     n = 0;
     real = 0;
-    if (!at_marker) next_marker();
-    for (;;) {
-      int m = marker();
-      if (m < 0xD0 || m > 0xD7) break;        // not an RSTn: left unread, an empty interval
-      int ahead = (m - 0xD0 - desired) & 7;
-      if (ahead == 1 || ahead == 2) break;    // one of the next two RSTn: left unread
-      p += 2;                                 // read it: the one expected, or one too far off
-      at_marker = false;
-      if (ahead < 6) break;
-      next_marker();                          // one of the two before: scan on
-    }
+    read_restart(desired);
     if (!at_marker) insufficient = false;
+  }
+};
+
+// ---- Arithmetic decoding (jdarith.c) ----------------------------------------
+
+// T.81 Table D.2 as jaricom.c packs it: Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed estimate of
+// probability 0.5 for sign and refinement bits.
+#define QE(i, qe, lps, mps, sw) ((int32_t(qe) << 16) | ((mps) << 8) | ((sw) << 7) | (lps))
+const int32_t kAritab[114] = {
+    QE(0, 0x5a1d, 1, 1, 1),      QE(1, 0x2586, 14, 2, 0),     QE(2, 0x1114, 16, 3, 0),
+    QE(3, 0x080b, 18, 4, 0),     QE(4, 0x03d8, 20, 5, 0),     QE(5, 0x01da, 23, 6, 0),
+    QE(6, 0x00e5, 25, 7, 0),     QE(7, 0x006f, 28, 8, 0),     QE(8, 0x0036, 30, 9, 0),
+    QE(9, 0x001a, 33, 10, 0),    QE(10, 0x000d, 35, 11, 0),   QE(11, 0x0006, 9, 12, 0),
+    QE(12, 0x0003, 10, 13, 0),   QE(13, 0x0001, 12, 13, 0),   QE(14, 0x5a7f, 15, 15, 1),
+    QE(15, 0x3f25, 36, 16, 0),   QE(16, 0x2cf2, 38, 17, 0),   QE(17, 0x207c, 39, 18, 0),
+    QE(18, 0x17b9, 40, 19, 0),   QE(19, 0x1182, 42, 20, 0),   QE(20, 0x0cef, 43, 21, 0),
+    QE(21, 0x09a1, 45, 22, 0),   QE(22, 0x072f, 46, 23, 0),   QE(23, 0x055c, 48, 24, 0),
+    QE(24, 0x0406, 49, 25, 0),   QE(25, 0x0303, 51, 26, 0),   QE(26, 0x0240, 52, 27, 0),
+    QE(27, 0x01b1, 54, 28, 0),   QE(28, 0x0144, 56, 29, 0),   QE(29, 0x00f5, 57, 30, 0),
+    QE(30, 0x00b7, 59, 31, 0),   QE(31, 0x008a, 60, 32, 0),   QE(32, 0x0068, 62, 33, 0),
+    QE(33, 0x004e, 63, 34, 0),   QE(34, 0x003b, 32, 35, 0),   QE(35, 0x002c, 33, 9, 0),
+    QE(36, 0x5ae1, 37, 37, 1),   QE(37, 0x484c, 64, 38, 0),   QE(38, 0x3a0d, 65, 39, 0),
+    QE(39, 0x2ef1, 67, 40, 0),   QE(40, 0x261f, 68, 41, 0),   QE(41, 0x1f33, 69, 42, 0),
+    QE(42, 0x19a8, 70, 43, 0),   QE(43, 0x1518, 72, 44, 0),   QE(44, 0x1177, 73, 45, 0),
+    QE(45, 0x0e74, 74, 46, 0),   QE(46, 0x0bfb, 75, 47, 0),   QE(47, 0x09f8, 77, 48, 0),
+    QE(48, 0x0861, 78, 49, 0),   QE(49, 0x0706, 79, 50, 0),   QE(50, 0x05cd, 48, 51, 0),
+    QE(51, 0x04de, 50, 52, 0),   QE(52, 0x040f, 50, 53, 0),   QE(53, 0x0363, 51, 54, 0),
+    QE(54, 0x02d4, 52, 55, 0),   QE(55, 0x025c, 53, 56, 0),   QE(56, 0x01f8, 54, 57, 0),
+    QE(57, 0x01a4, 55, 58, 0),   QE(58, 0x0160, 56, 59, 0),   QE(59, 0x0125, 57, 60, 0),
+    QE(60, 0x00f6, 58, 61, 0),   QE(61, 0x00cb, 59, 62, 0),   QE(62, 0x00ab, 61, 63, 0),
+    QE(63, 0x008f, 61, 32, 0),   QE(64, 0x5b12, 65, 65, 1),   QE(65, 0x4d04, 80, 66, 0),
+    QE(66, 0x412c, 81, 67, 0),   QE(67, 0x37d8, 82, 68, 0),   QE(68, 0x2fe8, 83, 69, 0),
+    QE(69, 0x293c, 84, 70, 0),   QE(70, 0x2379, 86, 71, 0),   QE(71, 0x1edf, 87, 72, 0),
+    QE(72, 0x1aa9, 87, 73, 0),   QE(73, 0x174e, 72, 74, 0),   QE(74, 0x1424, 72, 75, 0),
+    QE(75, 0x119c, 74, 76, 0),   QE(76, 0x0f6b, 74, 77, 0),   QE(77, 0x0d51, 75, 78, 0),
+    QE(78, 0x0bb6, 77, 79, 0),   QE(79, 0x0a40, 77, 48, 0),   QE(80, 0x5832, 80, 81, 1),
+    QE(81, 0x4d1c, 88, 82, 0),   QE(82, 0x438e, 89, 83, 0),   QE(83, 0x3bdd, 90, 84, 0),
+    QE(84, 0x34ee, 91, 85, 0),   QE(85, 0x2eae, 92, 86, 0),   QE(86, 0x299a, 93, 87, 0),
+    QE(87, 0x2516, 86, 71, 0),   QE(88, 0x5570, 88, 89, 1),   QE(89, 0x4ca9, 95, 90, 0),
+    QE(90, 0x44d9, 96, 91, 0),   QE(91, 0x3e22, 97, 92, 0),   QE(92, 0x3824, 99, 93, 0),
+    QE(93, 0x32b4, 99, 94, 0),   QE(94, 0x2e17, 93, 86, 0),   QE(95, 0x56a8, 95, 96, 1),
+    QE(96, 0x4f46, 101, 97, 0),  QE(97, 0x47e5, 102, 98, 0),  QE(98, 0x41cf, 103, 99, 0),
+    QE(99, 0x3c3d, 104, 100, 0), QE(100, 0x375e, 99, 93, 0),  QE(101, 0x5231, 105, 102, 0),
+    QE(102, 0x4c0f, 106, 103, 0), QE(103, 0x4639, 107, 104, 0), QE(104, 0x415e, 103, 99, 0),
+    QE(105, 0x5627, 105, 106, 1), QE(106, 0x50e7, 108, 107, 0), QE(107, 0x4b85, 109, 103, 0),
+    QE(108, 0x5597, 110, 109, 0), QE(109, 0x504f, 111, 107, 0), QE(110, 0x5a10, 110, 111, 1),
+    QE(111, 0x5522, 112, 109, 0), QE(112, 0x59eb, 112, 111, 1), QE(113, 0x5a1d, 113, 113, 0)};
+#undef QE
+
+// The QM decoder of jdarith.c: C holds the code register and the input
+// bits with a floating cut-point (ct), A the interval. At a marker (or the
+// end of the bytes) zeros are read on, as libjpeg supplies them; ct == -1
+// is the state after "bad arithmetic code", where the scan decodes nothing
+// more until a restart re-initialises it.
+struct Arith : Source {
+  int64_t c = 0, a = 0;
+  int ct = -16;             // -16: the two initial bytes still to read
+
+  using Source::Source;
+  int byte() {
+    if (at_marker) return 0;
+    if (p >= end) {
+      at_marker = true;
+      return 0;
+    }
+    int v = *p++;
+    if (v != 0xFF) return v;
+    while (p < end && *p == 0xFF) p++;
+    if (p < end && *p == 0x00) {
+      p++;
+      return 0xFF;
+    }
+    at_marker = true;
+    p--;                     // back onto the 0xFF before the marker's code
+    return 0;
+  }
+  void reset() {
+    c = 0;
+    a = 0;
+    ct = -16;
+  }
+  // arith_decode: one binary decision with the statistics bin *st (state
+  // index | MPS << 7), updated.
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {                       // renormalisation and input (D.2.6)
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0) {
+          if (++ct == 0) a = 0x8000;          // the two initial bytes read
+        }
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int32_t qe = kAritab[sv & 0x7F];
+    uint8_t nl = qe & 0xFF;
+    qe >>= 8;
+    uint8_t nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {                           // the less probable interval
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
+// One scan's statistics: DC per table (64 bins, with L and U), AC per table
+// (256 bins, with Kx), the fixed bin; the DC predictions and contexts per
+// scan component.
+struct ArithScan {
+  Arith ar;
+  uint8_t dc_stats[16][64];
+  uint8_t ac_stats[16][256];
+  uint8_t fixed_bin = 113;
+  int ss, se, ah, al;
+  const uint8_t* cond;      // L[16], U[16], K[16]
+  int last_dc[4] = {0, 0, 0, 0};
+  int dc_context[4] = {0, 0, 0, 0};
+
+  ArithScan(const uint8_t* data, int64_t len, int ss_, int se_, int ah_, int al_,
+            const uint8_t* cond_)
+      : ar(data, len), ss(ss_), se(se_), ah(ah_), al(al_), cond(cond_) {}
+
+  // Figures F.21-F.24: a nonzero value's sign was read; its magnitude
+  // category from bin st (then x1 on), then its bits. Returns the value's
+  // magnitude less one and sets *m to the category's top bit; -1 after a
+  // magnitude overflow (ct = -1).
+  int magnitude(uint8_t* st, uint8_t* x1, bool ac, int* m_out) {
+    int m = ar.decode(st);
+    if (m) {
+      if (ac) {
+        if (ar.decode(st)) {
+          m <<= 1;
+          st = x1;
+          while (ar.decode(st)) {
+            if ((m <<= 1) == 0x8000) return -1;
+            st += 1;
+          }
+        }
+      } else {
+        st = x1;
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) return -1;
+          st += 1;
+        }
+      }
+    }
+    *m_out = m;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    return v;
+  }
+
+  // Figure F.19 with the conditioning of F.1.4.4.1.2: the DC difference
+  // into last_dc[ci]. False after a magnitude overflow.
+  bool dc(int ci, int tbl) {
+    uint8_t* st = dc_stats[tbl] + dc_context[ci];
+    if (ar.decode(st) == 0) {
+      dc_context[ci] = 0;
+      return true;
+    }
+    int sign = ar.decode(st + 1);
+    st += 2 + sign;
+    int m;
+    int v = magnitude(st, dc_stats[tbl] + 20, false, &m);
+    if (v < 0) {
+      ar.ct = -1;
+      return false;
+    }
+    if (m < int((1L << cond[tbl]) >> 1))
+      dc_context[ci] = 0;
+    else if (m > int((1L << cond[16 + tbl]) >> 1))
+      dc_context[ci] = 12 + sign * 4;
+    else
+      dc_context[ci] = 4 + sign * 4;
+    v += 1;
+    if (sign) v = -v;
+    last_dc[ci] = (last_dc[ci] + v) & 0xFFFF;
+    return true;
+  }
+
+  // Figure F.20 over zigzag positions k0..kend into blk (shifted by
+  // shift). False after a spectral or magnitude overflow (ct = -1).
+  bool ac(int tbl, int k0, int kend, int shift, int16_t* blk) {
+    uint8_t* stats = ac_stats[tbl];
+    for (int k = k0; k <= kend; k++) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (ar.decode(st)) break;                // end of block
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > kend) {
+          ar.ct = -1;
+          return false;
+        }
+      }
+      int sign = ar.decode(&fixed_bin);
+      int m;
+      int v = magnitude(st + 2, stats + (k <= cond[32 + tbl] ? 189 : 217), true, &m);
+      if (v < 0) {
+        ar.ct = -1;
+        return false;
+      }
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = int16_t(unsigned(v) << shift);
+    }
+    return true;
+  }
+
+  // jdarith.c decode_mcu_AC_refine for one block.
+  void ac_refine(int tbl, int16_t* blk) {
+    uint8_t* stats = ac_stats[tbl];
+    const int p1 = 1 << al;
+    const int m1 = -1 * (1 << al);
+    int kex = se;
+    for (; kex > 0; kex--)
+      if (blk[kNatural[kex]]) break;
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;     // end of block
+      for (;;) {
+        int16_t* c = blk + kNatural[k];
+        if (*c) {                              // nonzero before: its next bit
+          if (ar.decode(st + 2)) *c = int16_t(*c < 0 ? *c + m1 : *c + p1);
+          break;
+        }
+        if (ar.decode(st + 1)) {               // newly nonzero
+          *c = int16_t(ar.decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) {
+          ar.ct = -1;
+          return;
+        }
+      }
+    }
   }
 };
 
@@ -477,17 +764,19 @@ inline uint8_t clamp255(int v) { return uint8_t(v < 0 ? 0 : (v > 255 ? 255 : v))
 
 // One component's samples [dh, dw] upsampled by (hx, vx) to [oh, ow]
 // (oh <= dh * vx, ow <= dw * hx), as jdsample.c does it with fancy
-// upsampling on; rows and columns past the component's edge repeat its
+// upsampling on (off: plain replication, as libjpeg-turbo upsamples a
+// lossless file); rows and columns past the component's edge repeat its
 // last one, as jdmainct.c's context rows do.
-void upsample(const uint8_t* in, int dw, int dh, int hx, int vx, uint8_t* out, int ow, int oh) {
+void upsample(const uint8_t* in, int dw, int dh, int hx, int vx, uint8_t* out, int ow, int oh,
+              bool fancy) {
   auto at = [&](int y, int x) {
     y = std::min(std::max(y, 0), dh - 1);
     x = std::min(std::max(x, 0), dw - 1);
     return int(in[size_t(y) * dw + x]);
   };
-  const bool h2 = hx == 2 && vx == 1 && dw > 2;
-  const bool v2 = hx == 1 && vx == 2;
-  const bool hv2 = hx == 2 && vx == 2 && dw > 2;
+  const bool h2 = fancy && hx == 2 && vx == 1 && dw > 2;
+  const bool v2 = fancy && hx == 1 && vx == 2;
+  const bool hv2 = fancy && hx == 2 && vx == 2 && dw > 2;
   for (int y = 0; y < oh; y++) {
     uint8_t* o = out + size_t(y) * ow;
     if (h2) {                          // h2v1_fancy_upsample
@@ -530,6 +819,55 @@ struct Edge {
   double weight;
 };
 
+// Every component's full-size plane into out [n, 1 or 3]. transform: 0
+// grey, 1 YCbCr->RGB, 2 RGB as stored, 3 CMYK, 4 YCCK (both then OpenCV's
+// CMYK->BGR, written as RGB).
+void convert(const std::vector<std::vector<uint8_t>>& planes, size_t n, int transform,
+             uint8_t* out) {
+  if (transform == 0) {
+    std::memcpy(out, planes[0].data(), n);
+    return;
+  }
+  // jdcolor.c build_ycc_rgb_table
+  const int SCALEBITS = 16;
+  const int64_t ONE_HALF = int64_t(1) << (SCALEBITS - 1);
+  auto fix = [](double x) { return int64_t(x * (1L << 16) + 0.5); };
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  for (int i = 0, x = -128; i < 256; i++, x++) {
+    cr_r[i] = int((fix(1.40200) * x + ONE_HALF) >> SCALEBITS);
+    cb_b[i] = int((fix(1.77200) * x + ONE_HALF) >> SCALEBITS);
+    cr_g[i] = -fix(0.71414) * x;
+    cb_g[i] = -fix(0.34414) * x + ONE_HALF;
+  }
+  for (size_t i = 0; i < n; i++) {
+    int a = planes[0][i], b = planes[1][i], c = planes[2][i];
+    int r = a, g = b, bl = c;                          // RGB and CMYK as stored
+    if (transform == 1 || transform == 4) {            // ycc_rgb_convert
+      r = a + cr_r[c];
+      g = a + int((cb_g[b] + cr_g[c]) >> SCALEBITS);
+      bl = a + cb_b[b];
+      if (transform == 4) {                            // ycck_cmyk_convert
+        r = 255 - r;
+        g = 255 - g;
+        bl = 255 - bl;
+      }
+      r = clamp255(r);
+      g = clamp255(g);
+      bl = clamp255(bl);
+    }
+    if (transform >= 3) {                              // icvCvt_CMYK2BGR_8u_C4C3R
+      int k = planes[3][i];
+      r = k - ((255 - r) * k >> 8);
+      g = k - ((255 - g) * k >> 8);
+      bl = k - ((255 - bl) * k >> 8);
+    }
+    out[i * 3] = uint8_t(r);
+    out[i * 3 + 1] = uint8_t(g);
+    out[i * 3 + 2] = uint8_t(bl);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -540,27 +878,28 @@ extern "C" {
 // and down (1, 1 in a scan of one component) and the array's row width in
 // blocks; dc/ac[c*272 ..] its tables (16 counts, 256 symbols; all counts 0
 // where the scan needs none). mcus_x, mcus_y: the scan's MCU grid. Writes
-// to *last_good the last MCU begun with data left (jdcoefct.c's
-// last_good_iMCU_row is its iMCU row).
+// to out[0] the last MCU begun with data left (jdcoefct.c's
+// last_good_iMCU_row is its iMCU row) and to out[1] the bytes the scan
+// read before the marker it stopped at.
 // Returns 0, or 1 for a table the scan needs that is missing or malformed.
 int dg_jpeg_scan(const uint8_t* data, int64_t len, int ncomp, int16_t** coefs,
                  const int32_t* desc, const uint8_t* dc, const uint8_t* ac, int mcus_x,
                  int mcus_y, int ss, int se, int ah, int al, int progressive,
-                 int restart_interval, int64_t* last_good) {
+                 int restart_interval, int64_t* out) {
   std::vector<Huff> dct(ncomp), act(ncomp);
   for (int c = 0; c < ncomp; c++) {
-    if (!make_huff(dc + c * 272, true, &dct[c]) || !make_huff(ac + c * 272, false, &act[c]))
+    if (!make_huff(dc + c * 272, 15, &dct[c]) || !make_huff(ac + c * 272, -1, &act[c]))
       return 1;
     bool need_dc = !progressive || (ss == 0 && ah == 0);
     bool need_ac = !progressive || ss > 0;
     if ((need_dc && !dct[c].present) || (need_ac && !act[c].present)) return 1;
   }
-  Bits br{data, data + len};
+  Bits br(data, len);
   Scan sc{ss, se, ah, al};
   std::vector<int> last_dc(ncomp, 0);
   int64_t n_mcus = int64_t(mcus_x) * mcus_y;
   int next_rst = 0;
-  *last_good = -1;
+  out[0] = -1;
   for (int64_t m = 0; m < n_mcus; m++) {
     if (restart_interval && m > 0 && m % restart_interval == 0) {
       br.restart(next_rst);
@@ -569,7 +908,7 @@ int dg_jpeg_scan(const uint8_t* data, int64_t len, int ncomp, int16_t** coefs,
       sc.eobrun = 0;
     }
     if (br.insufficient) continue;      // out of data: the MCU is left as it is
-    *last_good = m;
+    out[0] = m;
     int mx = int(m % mcus_x), my = int(m / mcus_x);
     for (int c = 0; c < ncomp; c++) {
       int h = desc[c * 4], v = desc[c * 4 + 1], stride = desc[c * 4 + 2];
@@ -590,6 +929,204 @@ int dg_jpeg_scan(const uint8_t* data, int64_t len, int ncomp, int16_t** coefs,
       }
     }
   }
+  out[1] = br.p - data;
+  return 0;
+}
+
+// Decode one arithmetic-coded scan (jdarith.c), into the same coefficient
+// arrays as dg_jpeg_scan and with the same data, coefs, desc and MCU grid.
+// tables[c*2 ..] = the scan component's DC and AC table numbers (0..15);
+// cond: the DAC conditioning, L[16], U[16] then Kx[16]. The statistics and
+// the coder restart at every restart marker; after a bad arithmetic code
+// the rest of the interval decodes nothing. Writes to *stop the bytes read.
+int dg_jpeg_arith_scan(const uint8_t* data, int64_t len, int ncomp, int16_t** coefs,
+                       const int32_t* desc, const int32_t* tables, const uint8_t* cond,
+                       int mcus_x, int mcus_y, int ss, int se, int ah, int al, int progressive,
+                       int restart_interval, int64_t* stop) {
+  ArithScan sc(data, len, ss, se, ah, al, cond);
+  auto reset_stats = [&]() {
+    for (int c = 0; c < ncomp; c++) {
+      if (!progressive || (ss == 0 && ah == 0)) {
+        std::memset(sc.dc_stats[tables[c * 2]], 0, 64);
+        sc.last_dc[c] = 0;
+        sc.dc_context[c] = 0;
+      }
+      if (!progressive || ss) std::memset(sc.ac_stats[tables[c * 2 + 1]], 0, 256);
+    }
+  };
+  reset_stats();
+  int64_t n_mcus = int64_t(mcus_x) * mcus_y;
+  int next_rst = 0;
+  for (int64_t m = 0; m < n_mcus; m++) {
+    if (restart_interval && m > 0 && m % restart_interval == 0) {
+      sc.ar.read_restart(next_rst);
+      next_rst = (next_rst + 1) & 7;
+      reset_stats();
+      sc.ar.reset();
+    }
+    if (sc.ar.ct == -1) continue;             // after a bad code: nothing decoded
+    int mx = int(m % mcus_x), my = int(m / mcus_x);
+    for (int c = 0; c < ncomp && sc.ar.ct != -1; c++) {
+      int h = desc[c * 4], v = desc[c * 4 + 1], stride = desc[c * 4 + 2];
+      for (int by = 0; by < v && sc.ar.ct != -1; by++) {
+        for (int bx = 0; bx < h && sc.ar.ct != -1; bx++) {
+          int16_t* blk = coefs[c] + (int64_t(my * v + by) * stride + (mx * h + bx)) * 64;
+          if (!progressive) {                  // decode_mcu
+            if (!sc.dc(c, tables[c * 2])) break;
+            blk[0] = int16_t(sc.last_dc[c]);
+            sc.ac(tables[c * 2 + 1], 1, 63, 0, blk);
+          } else if (ss == 0 && ah == 0) {     // decode_mcu_DC_first
+            if (!sc.dc(c, tables[c * 2])) break;
+            blk[0] = int16_t(unsigned(sc.last_dc[c]) << al);
+          } else if (ss == 0) {                // decode_mcu_DC_refine
+            if (sc.ar.decode(&sc.fixed_bin)) blk[0] = int16_t(blk[0] | (1 << al));
+          } else if (ah == 0) {                // decode_mcu_AC_first
+            sc.ac(tables[c * 2 + 1], ss, se, al, blk);
+          } else {                             // decode_mcu_AC_refine
+            sc.ac_refine(tables[c * 2 + 1], blk);
+          }
+        }
+      }
+    }
+  }
+  *stop = sc.ar.p - data;
+  return 0;
+}
+
+// Decode one lossless scan (libjpeg-turbo 3's jdlhuff.c, jddiffct.c and
+// jdlossls.c) into 8-bit sample planes. Per scan component c: planes[c]
+// its uint8 [height, width] plane, desc[c*4 ..] = (h, v, width, height) in
+// samples, dc[c*272 ..] its Huffman table (difference categories 0..16).
+// mcus_x, mcus_y: the scan's MCU grid (one sample per MCU in a scan of one
+// component); imcu_rows: the frame's iMCU rows. psv: the predictor (1..7),
+// pt: the point transform, precision: the sample precision. Writes to
+// *stop the bytes read. Returns 0, or 1 for a missing or malformed table.
+int dg_jpeg_lossless_scan(const uint8_t* data, int64_t len, int ncomp, uint8_t** planes,
+                          const int32_t* desc, const uint8_t* dc, int mcus_x, int mcus_y,
+                          int imcu_rows, int psv, int pt, int precision,
+                          int restart_interval, int64_t* stop) {
+  std::vector<Huff> tbl(ncomp);
+  for (int c = 0; c < ncomp; c++)
+    if (!make_huff(dc + c * 272, 16, &tbl[c]) || !tbl[c].present) return 1;
+  const bool interleaved = ncomp > 1;
+  // Per component: the rows of differences one iMCU row holds, and its
+  // undifferenced rows (the last of them the next row's Rb and Rc).
+  std::vector<int> hs(ncomp), vs(ncomp), width(ncomp), height(ncomp), cols(ncomp);
+  std::vector<std::vector<int32_t>> diff(ncomp), undiff(ncomp);
+  std::vector<bool> first_row(ncomp, true);       // the undifferencer each starts with
+  for (int c = 0; c < ncomp; c++) {
+    hs[c] = interleaved ? desc[c * 4] : 1;
+    vs[c] = desc[c * 4 + 1];
+    width[c] = desc[c * 4 + 2];
+    height[c] = desc[c * 4 + 3];
+    cols[c] = mcus_x * hs[c];
+    diff[c].assign(size_t(vs[c]) * cols[c], 0);
+    undiff[c].assign(size_t(vs[c]) * width[c], 0);
+  }
+  Bits br(data, len);
+  const int restart_rows = restart_interval / mcus_x;
+  int rows_to_go = restart_rows, next_rst = 0, mcu_row = 0;
+  const int initial = 1 << (precision - pt - 1);
+  for (int imcu = 0; imcu < imcu_rows && mcu_row < mcus_y; imcu++) {
+    const bool last = imcu == imcu_rows - 1;
+    // The MCU rows of this iMCU row: one interleaved, else the component's v
+    // (what is left of its rows in the last).
+    int last_rows = height[0] % vs[0] ? height[0] % vs[0] : vs[0];
+    int n_mcu_rows = interleaved ? 1 : (last ? last_rows : vs[0]);
+    for (int yoff = 0; yoff < n_mcu_rows; yoff++, mcu_row++) {
+      if (restart_interval && rows_to_go == 0) {  // jddiffct.c process_restart
+        br.restart(next_rst);
+        next_rst = (next_rst + 1) & 7;
+        std::fill(first_row.begin(), first_row.end(), true);
+        rows_to_go = restart_rows;
+      }
+      if (br.insufficient) {                      // out of data: zero differences,
+        for (int c = 0; c < ncomp; c++) {         // the undifferencers restarted
+          int r0 = interleaved ? 0 : yoff, nr = interleaved ? vs[c] : 1;
+          std::fill(diff[c].begin() + size_t(r0) * cols[c],
+                    diff[c].begin() + size_t(r0 + nr) * cols[c], 0);
+        }
+        std::fill(first_row.begin(), first_row.end(), true);
+      } else {
+        for (int mx = 0; mx < mcus_x; mx++) {
+          for (int c = 0; c < ncomp; c++) {
+            for (int by = 0; by < (interleaved ? vs[c] : 1); by++) {
+              int32_t* row = diff[c].data() + size_t(interleaved ? by : yoff) * cols[c];
+              for (int bx = 0; bx < hs[c]; bx++) {
+                int s = br.decode(tbl[c]);
+                if (s == 16) {
+                  s = 32768;
+                } else if (s) {
+                  s = extend(br.get(s), s);
+                }
+                row[mx * hs[c] + bx] = s;
+              }
+            }
+          }
+        }
+      }
+      if (restart_interval) rows_to_go--;
+    }
+    // Undifference and scale the iMCU row's rows (jdlossls.c).
+    for (int c = 0; c < ncomp; c++) {
+      int v = vs[c];
+      int n_rows = last ? (height[c] % v ? height[c] % v : v) : v;
+      for (int row = 0; row < n_rows; row++) {
+        const int32_t* d = diff[c].data() + size_t(row) * cols[c];
+        const int32_t* prev = undiff[c].data() + size_t(row ? row - 1 : v - 1) * width[c];
+        int32_t* u = undiff[c].data() + size_t(row) * width[c];
+        int w = width[c];
+        if (first_row[c]) {                       // jpeg_undifference_first_row
+          int ra = (d[0] + initial) & 0xFFFF;
+          u[0] = ra;
+          for (int x = 1; x < w; x++) u[x] = ra = (d[x] + ra) & 0xFFFF;
+          first_row[c] = false;
+        } else {
+          // Rb and Rc are read before each sample is written: with v = 1
+          // the row above is this row's own storage.
+          int rb = prev[0], ra = (d[0] + rb) & 0xFFFF, rc;
+          u[0] = ra;
+          for (int x = 1; x < w; x++) {
+            rc = rb;
+            rb = prev[x];
+            int64_t pred;
+            switch (psv) {
+              case 1: pred = ra; break;
+              case 2: pred = rb; break;
+              case 3: pred = rc; break;
+              case 4: pred = int64_t(ra) + rb - rc; break;
+              case 5: pred = ra + ((int64_t(rb) - rc) >> 1); break;
+              case 6: pred = rb + ((int64_t(ra) - rc) >> 1); break;
+              default: pred = (int64_t(ra) + rb) >> 1; break;
+            }
+            u[x] = ra = int((d[x] + pred) & 0xFFFF);
+          }
+        }
+        uint8_t* out = planes[c] + size_t(imcu * v + row) * width[c];
+        for (int x = 0; x < w; x++) out[x] = uint8_t(unsigned(u[x]) << pt);
+      }
+    }
+  }
+  *stop = br.p - data;
+  return 0;
+}
+
+// A lossless image's full-size pixels into out [height, width, 1 or 3]:
+// per component c its plane (planes[c], desc[c*2 ..] = its h and v),
+// upsampled by replication as libjpeg-turbo does without DCT scaling, and
+// converted as dg_jpeg_finish converts (transform 0, 2 or 3).
+int dg_jpeg_lossless_finish(int ncomp, uint8_t** planes, const int32_t* desc, int width,
+                            int height, int max_h, int max_v, int transform, uint8_t* out) {
+  std::vector<std::vector<uint8_t>> full(ncomp);
+  for (int c = 0; c < ncomp; c++) {
+    int h = desc[c * 2], v = desc[c * 2 + 1];
+    if (max_h % h || max_v % v) return 1;             // fractional sampling
+    int dw = int((int64_t(width) * h + max_h - 1) / max_h);
+    int dh = int((int64_t(height) * v + max_v - 1) / max_v);
+    full[c].resize(size_t(width) * height);
+    upsample(planes[c], dw, dh, max_h / h, max_v / v, full[c].data(), width, height, false);
+  }
+  convert(full, size_t(width) * height, transform, out);
   return 0;
 }
 
@@ -632,51 +1169,9 @@ int dg_jpeg_finish(int ncomp, int16_t** coefs, const int32_t* desc, const uint16
     for (int y = 0; y < dh; y++)
       std::memcpy(crop.data() + size_t(y) * dw, samples.data() + size_t(y) * bw * 8, dw);
     planes[c].resize(size_t(width) * height);
-    upsample(crop.data(), dw, dh, max_h / h, max_v / v, planes[c].data(), width, height);
+    upsample(crop.data(), dw, dh, max_h / h, max_v / v, planes[c].data(), width, height, true);
   }
-  const size_t n = size_t(width) * height;
-  if (transform == 0) {
-    std::memcpy(out, planes[0].data(), n);
-    return 0;
-  }
-  // jdcolor.c build_ycc_rgb_table
-  const int SCALEBITS = 16;
-  const int64_t ONE_HALF = int64_t(1) << (SCALEBITS - 1);
-  auto fix = [](double x) { return int64_t(x * (1L << 16) + 0.5); };
-  int cr_r[256], cb_b[256];
-  int64_t cr_g[256], cb_g[256];
-  for (int i = 0, x = -128; i < 256; i++, x++) {
-    cr_r[i] = int((fix(1.40200) * x + ONE_HALF) >> SCALEBITS);
-    cb_b[i] = int((fix(1.77200) * x + ONE_HALF) >> SCALEBITS);
-    cr_g[i] = -fix(0.71414) * x;
-    cb_g[i] = -fix(0.34414) * x + ONE_HALF;
-  }
-  for (size_t i = 0; i < n; i++) {
-    int a = planes[0][i], b = planes[1][i], c = planes[2][i];
-    int r = a, g = b, bl = c;                          // RGB and CMYK as stored
-    if (transform == 1 || transform == 4) {            // ycc_rgb_convert
-      r = a + cr_r[c];
-      g = a + int((cb_g[b] + cr_g[c]) >> SCALEBITS);
-      bl = a + cb_b[b];
-      if (transform == 4) {                            // ycck_cmyk_convert
-        r = 255 - r;
-        g = 255 - g;
-        bl = 255 - bl;
-      }
-      r = clamp255(r);
-      g = clamp255(g);
-      bl = clamp255(bl);
-    }
-    if (transform >= 3) {                              // icvCvt_CMYK2BGR_8u_C4C3R
-      int k = planes[3][i];
-      r = k - ((255 - r) * k >> 8);
-      g = k - ((255 - g) * k >> 8);
-      bl = k - ((255 - bl) * k >> 8);
-    }
-    out[i * 3] = uint8_t(r);
-    out[i * 3 + 1] = uint8_t(g);
-    out[i * 3 + 2] = uint8_t(bl);
-  }
+  convert(planes, size_t(width) * height, transform, out);
   return 0;
 }
 

@@ -2,7 +2,8 @@
 
 Five sources under ``csrc/``: ``mesh_tools.cpp`` (the port's own copy of
 ``dreamgaussian_tpu/native/``'s, wrapped below), ``image_tools.cpp`` (the
-JPEG decoder's pixel work and GrabCut's min-cut, wrapped by
+JPEG decoder's Huffman, arithmetic and lossless scans and its pixel work,
+and GrabCut's min-cut, wrapped by
 ``utils/jpeg.py`` and ``preprocess/grabcut.py``), ``image_codecs.cpp``
 (PNG's row filters, GIF's LZW, WebP's VP8L, VP8 and alpha planes, TIFF's
 LZW, PackBits, CCITT, ThunderScan, SGILog and predictors, Radiance HDR's
@@ -94,9 +95,15 @@ def _declare_image_tools(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     lib.dg_jpeg_scan.argtypes = [vp, i64, i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
                                  i32, i32, vp]
+    lib.dg_jpeg_arith_scan.argtypes = [vp, i64, i32, vp, vp, vp, vp, i32, i32, i32, i32, i32,
+                                       i32, i32, i32, vp]
+    lib.dg_jpeg_lossless_scan.argtypes = [vp, i64, i32, vp, vp, vp, i32, i32, i32, i32, i32,
+                                          i32, i32, vp]
     lib.dg_jpeg_finish.argtypes = [i32, vp, vp, vp, i32, i32, i32, i32, i32, vp, vp]
+    lib.dg_jpeg_lossless_finish.argtypes = [i32, vp, vp, i32, i32, i32, i32, i32, vp]
     lib.dg_maxflow.argtypes = [i32, i64, vp, vp, vp, vp, vp, vp, vp, vp]
-    for fn in (lib.dg_jpeg_scan, lib.dg_jpeg_finish, lib.dg_maxflow):
+    for fn in (lib.dg_jpeg_scan, lib.dg_jpeg_arith_scan, lib.dg_jpeg_lossless_scan,
+               lib.dg_jpeg_finish, lib.dg_jpeg_lossless_finish, lib.dg_maxflow):
         fn.restype = ctypes.c_int
 
 

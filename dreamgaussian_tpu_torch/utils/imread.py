@@ -5,7 +5,8 @@ the result equals what ``cv2.imread(path, flags)`` returns for
 ``IMREAD_UNCHANGED`` (-1) and ``IMREAD_COLOR`` (1) — dtype, channel count
 and values — with the channels in RGB(A) order:
 
-- PNG (``utils/png.py``), JPEG (``utils/jpeg.py``), WebP
+- PNG (``utils/png.py``), JPEG (``utils/jpeg.py``: Huffman and
+  arithmetic coding, sequential, progressive and lossless), WebP
   (``utils/webp.py``), BMP (``utils/bmp.py``), PNM and PAM
   (``utils/pnm.py``), GIF's first frame (``utils/gif.py``), TIFF and
   BigTIFF's first page (``utils/tiff.py``, which follows cv2's own TIFF
@@ -26,7 +27,10 @@ and values — with the channels in RGB(A) order:
   naming the format; bytes no decoder of cv2 recognises raise
   FileNotFoundError, as the JAX package raises when ``cv2.imread`` returns
   None; a file of a format read here that does not decode (where cv2
-  returns None) raises ValueError naming the format.
+  returns None) raises ValueError naming the format (and, for a JPEG, the
+  process or setting libjpeg-turbo refuses: hierarchical and lossless
+  arithmetic-coded files, lossy samples of other than 8 bits, a lossless
+  file that would need a colour conversion).
 """
 
 from __future__ import annotations
@@ -172,7 +176,7 @@ def decode_image(data: bytes, flags: int = IMREAD_UNCHANGED, name: str = "") -> 
         if fmt == "PNG":
             img, exif = imread_png(data)
         elif fmt == "JPEG":
-            img, exif = decode_jpeg(data), _jpeg_exif(data)
+            img, exif = decode_jpeg(data, flags=flags), _jpeg_exif(data)
         elif fmt == "WebP":
             img, exif = decode_webp(data)
         else:

@@ -94,7 +94,7 @@ class _Ifd:
     UNDEFINED)."""
 
     def __init__(self, data: bytes, imread: bool = False):
-        self.imread = imread
+        self.imread, self.size = imread, len(data)
         if data[:4] in (b"II*\0", b"MM\0*"):
             self.e, self.big = "<>"[data[0] == 0x4D], False
             at = struct.unpack_from(self.e + "I", data, 4)[0]
@@ -214,6 +214,21 @@ class _Layout:
             raise ValueError(f"a TIFF with {len(offsets)} of its {n} strips or tiles")
         self.offsets, self.counts = offsets[:n], counts[:n]
         self.row_bytes = -(-self.cw * self.plane_spp * self.bps // 8)
+        scanline = self.row_bytes                         # TIFFScanlineSize64
+        sub = tuple(d.all(530, (2, 2))[:2])
+        if d.get(262) == 6 and self.planar == 1 and self.spp == 3 and set(sub) <= {1, 2, 4}:
+            block = sub[0] * sub[1] + 2                   # YCbCr: a row of sampling blocks
+            scanline = -(-self.w // sub[0]) * block * self.bps // 8 // sub[1]
+        whole = scanline * self.h
+        if (n == 1 and not self.tiled and offsets[0] and d.get(259, 1) == 1
+                and (counts[0] < whole or counts[0] > d.size - offsets[0])):
+            # libtiff's TIFFReadDirectory calls the count of one uncompressed
+            # strip bogus (BYTECOUNTLOOKSBAD) and takes the whole strip's
+            # size in its place, reading on into the file's next bytes.
+            if offsets[0] + whole > d.size:
+                raise ValueError("a TIFF strip whose size, as libtiff re-estimates it, runs "
+                                 "past the end of the file")
+            self.counts = (whole,)
 
     def chunks(self):
         """(index, plane, y, x, rows stored, rows and columns in the image)."""
@@ -579,11 +594,15 @@ def _rgba(d: _Ifd, lay: _Layout, data: bytes) -> np.ndarray:
                      if contig else sub != (1, 1))):
         raise ValueError(f"libtiff has no put routine for YCbCr {bps}-bit {sub} data")
     if comp == 1 and lay.tiled:
+        # libtiff 4.7 refuses an uncompressed tile whose byte count is not the
+        # tile's size: the count itself where cv2.imread maps the file, the
+        # count rounded up to its read buffer's 1 KiB where cv2.imdecode
+        # reads from memory.
         tile = lay.ch * lay.row_bytes
         for count in lay.counts:
-            if -(-count // _TILE_ROUND) * _TILE_ROUND != tile:
-                raise ValueError(f"invalid tile byte count: expected {tile}, got "
-                                 f"{-(-count // _TILE_ROUND) * _TILE_ROUND}")
+            got = count if d.imread else -(-count // _TILE_ROUND) * _TILE_ROUND
+            if got != tile:
+                raise ValueError(f"invalid tile byte count: expected {tile}, got {got}")
     if not contig and ph in (3, 8):
         raise ValueError(f"libtiff has no put routine for separate planes of photometric {ph}")
     if (ph == 2 and bps not in (8, 16)) or (ph == 5 and bps != 8) or (ph == 3 and bps == 16) or \

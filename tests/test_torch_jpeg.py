@@ -22,7 +22,7 @@ from PIL import Image
 
 from dreamgaussian_tpu.cli import process as jproc
 from dreamgaussian_tpu_torch.cli import process as tproc
-from dreamgaussian_tpu_torch.utils.imread import IMREAD_COLOR, read_image
+from dreamgaussian_tpu_torch.utils.imread import IMREAD_COLOR, decode_image, read_image
 from dreamgaussian_tpu_torch.utils.jpeg import decode_jpeg
 from dreamgaussian_tpu_torch.utils.png import write_png
 from test_torch_process import _photo, u2net_files  # noqa: F401
@@ -221,19 +221,38 @@ def test_fixture_directory_stays_small():
 @pytest.mark.parametrize("marker,what", [(0xC3, "lossless"), (0xC9, "arithmetic-coded"),
                                          (0xCA, "arithmetic-coded"), (0xC5, "hierarchical")])
 def test_unsupported_jpeg_processes_are_refused(marker, what):
-    data = bytearray(_cv2_jpeg(_image(16, 16, seed=1)))
-    sof = bytes(data).index(b"\xff\xc0")
-    data[sof + 1] = marker
-    with pytest.raises(NotImplementedError, match=what):
-        decode_jpeg(bytes(data))
+    """Once refused by the port, now answered as cv2 answers, under both
+    flags: a Huffman file's frame header marked SOF9 or SOF10 decodes as
+    cv2 decodes it (its data read by the QM decoder, bad arithmetic codes
+    and all); where cv2 gives None (SOF3 with a baseline scan header, SOF5,
+    SOF10 with a baseline one) the port raises ValueError naming the
+    process. Baseline and progressive files."""
+    for progressive in (False, True):
+        data = bytearray(_cv2_jpeg(_image(16, 16, seed=1), [PROG, 1] if progressive else []))
+        sof = bytes(data).index(b"\xff\xc2" if progressive else b"\xff\xc0")
+        data[sof + 1] = marker
+        for flags in (cv2.IMREAD_UNCHANGED, cv2.IMREAD_COLOR):
+            want = cv2.imdecode(np.frombuffer(bytes(data), np.uint8), flags)
+            if want is None:
+                with pytest.raises(ValueError, match=what):
+                    decode_image(bytes(data), flags)
+                continue
+            np.testing.assert_array_equal(decode_image(bytes(data), flags), want[..., ::-1])
+    if marker in (0xC9, 0xCA):                          # whole files: cv2 reads them
+        assert want is not None
 
 
 def test_twelve_bit_samples_are_refused():
+    """cv2 reads 8-bit lossy samples (libjpeg-turbo's 8-bit interface): a
+    12-bit SOF1 is its None under both flags, the port's ValueError."""
     data = bytearray(_cv2_jpeg(_image(16, 16, seed=1)))
     sof = bytes(data).index(b"\xff\xc0")
+    data[sof + 1] = 0xC1
     data[sof + 4] = 12                                 # the frame's sample precision
-    with pytest.raises(NotImplementedError, match="12-bit"):
-        decode_jpeg(bytes(data))
+    for flags in (cv2.IMREAD_UNCHANGED, cv2.IMREAD_COLOR):
+        assert cv2.imdecode(np.frombuffer(bytes(data), np.uint8), flags) is None
+        with pytest.raises(ValueError, match="12-bit"):
+            decode_image(bytes(data), flags)
 
 
 @pytest.mark.parametrize("ext,name", [(".hdr", "Radiance HDR"), (".jp2", "JPEG 2000"),

@@ -315,6 +315,41 @@ def test_cmyk_pages_gaps_and_uncompressed_tiles():
             _same_as_cv2(F.tiff(img[..., :spp], 8, 1 if spp == 1 else 2, tile=tile))
 
 
+@pytest.mark.parametrize("bps", [8, 12, 16])
+@pytest.mark.parametrize("spp", [1, 3])
+def test_single_uncompressed_strip_with_a_short_byte_count(tmp_path, bps, spp):
+    """libtiff's TIFFReadDirectory calls the StripByteCounts of a single
+    uncompressed strip bogus when it is short of the image
+    (BYTECOUNTLOOKSBAD) and takes the whole strip's size, reading on into
+    the file's next bytes (its IFD here); where that runs past the end of
+    the file, cv2 gives None. Both flags, cv2.imread and cv2.imdecode."""
+    img = F.photo(37, 29, 3)[..., :spp].astype(np.int64) * {8: 1, 12: 16, 16: 257}[bps]
+    if bps == 12:
+        raw = F.pack_samples(img.reshape(37, -1), 12)
+    else:
+        raw = img.astype("<u2" if bps == 16 else np.uint8).tobytes()
+    for cut in (0.5, 0.9, 0.97, 0.999):
+        data = F.tiff(img, bps, 1 if spp == 1 else 2, chunks=[raw[:int(len(raw) * cut)]])
+        _same_as_cv2(data, tmp_path / "short.tif")
+    # The whole strip inside the file: read, not None, under IMREAD_UNCHANGED.
+    assert tproc.read_image(str(tmp_path / "short.tif")).shape[:2] == (37, 29)
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (32, 16), (16, 48)])
+def test_uncompressed_palette_and_grey_tiles_under_imread_and_imdecode(tmp_path, tile):
+    """An uncompressed 4-bit palette TIFF in tiles (and 8-bit grey tiles):
+    libtiff 4.7 reads a tile whose byte count is its size where cv2.imread
+    maps the file, and refuses one whose count, rounded up to its read
+    buffer's 1 KiB, is not, as cv2.imdecode reads from memory (None)."""
+    rng = np.random.default_rng(4)
+    idx = rng.integers(0, 16, (37, 29))
+    cmap = rng.integers(0, 65536, (16, 3))
+    for name, data in (("pal.tif", F.tiff(idx, 4, 3, colormap=cmap, tile=tile)),
+                       ("grey.tif", F.tiff(idx * 16, 8, 1, tile=tile))):
+        _same_as_cv2(data, tmp_path / name)
+        assert tproc.read_image(str(tmp_path / name), IMREAD_COLOR).shape == (37, 29, 3)
+
+
 def _bilevel(h, w, seed):
     """Rows of random runs, 1 to 3000 pixels: every terminating, make-up
     and extended make-up code."""

@@ -8,6 +8,7 @@ import numpy as np
 from chip_smoke import alpha_iou as iou  # noqa: F401  (the card run's measure)
 
 JPEG_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_jpeg"
+JPEG_VARIANT_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_jpeg_variants"
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_images"
 TIFF_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_tiff"
 JP2_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "port_jp2"
