@@ -36,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import trace
+
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
@@ -405,47 +407,50 @@ class UNet(nn.Module):
         return getattr(self, name, None)
 
     def forward(self, sample, timesteps, context, camera=None, ip=None, ip_img=None):
-        cfg = self.config
-        dt = self.conv_in.weight.dtype
-        temb = timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt)
-        temb = self.time_embedding(temb)
-        if camera is not None:
-            temb = temb + self.camera_embedding(camera.to(dt))
-        context = context.to(dt)
-        sample = sample.to(dt)
-        if ip_img is not None:
-            grouped = sample.reshape((-1, cfg.num_views) + tuple(sample.shape[1:]))
-            sample = torch.cat([grouped[:, :-1], ip_img.to(dt)[:, None]], 1).reshape(sample.shape)
-        n_ip = 0
-        if ip is not None:
-            if cfg.ip_dim == 0:
-                raise ValueError("ip tokens given to a UNet without the IP-adapter path (ip_dim 0)")
-            context = torch.cat([context, self.image_embed(ip)], dim=1)
-            n_ip = cfg.ip_dim
-        h = self.conv_in(sample.permute(0, 3, 1, 2))
-        skips = [h]
-        n_levels = len(cfg.block_out_channels)
-        for i in range(n_levels):
-            for j in range(cfg.layers_per_block):
-                h = self._block(f"down_{i}_res_{j}")(h, temb)
-                attn = self._block(f"down_{i}_attn_{j}")
-                if attn is not None:
-                    h = attn(h, context, n_ip)
-                skips.append(h)
-            if i < n_levels - 1:
-                h = self._block(f"down_{i}_downsample")(h)
-                skips.append(h)
-        h = self.mid_res_1(self.mid_attn(self.mid_res_0(h, temb), context, n_ip), temb)
-        for i in range(n_levels):
-            for j in range(cfg.layers_per_block + 1):
-                h = self._block(f"up_{i}_res_{j}")(torch.cat([h, skips.pop()], dim=1), temb)
-                attn = self._block(f"up_{i}_attn_{j}")
-                if attn is not None:
-                    h = attn(h, context, n_ip)
-            if i < n_levels - 1:
-                h = self._block(f"up_{i}_upsample")(h)
-        h = self.conv_out(F.silu(self.conv_norm_out(h)))
-        return h.permute(0, 2, 3, 1).float()
+        with trace.span("unet", count="unet.calls"):
+            cfg = self.config
+            dt = self.conv_in.weight.dtype
+            temb = timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt)
+            temb = self.time_embedding(temb)
+            if camera is not None:
+                temb = temb + self.camera_embedding(camera.to(dt))
+            context = context.to(dt)
+            sample = sample.to(dt)
+            if ip_img is not None:
+                grouped = sample.reshape((-1, cfg.num_views) + tuple(sample.shape[1:]))
+                sample = torch.cat([grouped[:, :-1], ip_img.to(dt)[:, None]],
+                                   1).reshape(sample.shape)
+            n_ip = 0
+            if ip is not None:
+                if cfg.ip_dim == 0:
+                    raise ValueError(
+                        "ip tokens given to a UNet without the IP-adapter path (ip_dim 0)")
+                context = torch.cat([context, self.image_embed(ip)], dim=1)
+                n_ip = cfg.ip_dim
+            h = self.conv_in(sample.permute(0, 3, 1, 2))
+            skips = [h]
+            n_levels = len(cfg.block_out_channels)
+            for i in range(n_levels):
+                for j in range(cfg.layers_per_block):
+                    h = self._block(f"down_{i}_res_{j}")(h, temb)
+                    attn = self._block(f"down_{i}_attn_{j}")
+                    if attn is not None:
+                        h = attn(h, context, n_ip)
+                    skips.append(h)
+                if i < n_levels - 1:
+                    h = self._block(f"down_{i}_downsample")(h)
+                    skips.append(h)
+            h = self.mid_res_1(self.mid_attn(self.mid_res_0(h, temb), context, n_ip), temb)
+            for i in range(n_levels):
+                for j in range(cfg.layers_per_block + 1):
+                    h = self._block(f"up_{i}_res_{j}")(torch.cat([h, skips.pop()], dim=1), temb)
+                    attn = self._block(f"up_{i}_attn_{j}")
+                    if attn is not None:
+                        h = attn(h, context, n_ip)
+                if i < n_levels - 1:
+                    h = self._block(f"up_{i}_upsample")(h)
+            h = self.conv_out(F.silu(self.conv_norm_out(h)))
+            return h.permute(0, 2, 3, 1).float()
 
 
 class TinyUNet(nn.Module):
@@ -467,9 +472,10 @@ class TinyUNet(nn.Module):
         self.Conv_2 = nn.Conv2d(channels, out_channels, 3, padding=1)
 
     def forward(self, sample, timesteps, context, camera=None, ip=None, ip_img=None):
-        temb = self.Dense_0(timestep_embedding(timesteps, self.channels))
-        h = self.Conv_0(sample.permute(0, 3, 1, 2).float()) + temb[:, :, None, None]
-        h = F.silu(self.GroupNorm_0(h)) + self.Dense_1(context.mean(1))[:, :, None, None]
-        h = F.silu(self.Conv_1(h))
-        h = F.interpolate(h, scale_factor=2, mode="nearest")
-        return self.Conv_2(h).permute(0, 2, 3, 1)
+        with trace.span("unet", count="unet.calls"):
+            temb = self.Dense_0(timestep_embedding(timesteps, self.channels))
+            h = self.Conv_0(sample.permute(0, 3, 1, 2).float()) + temb[:, :, None, None]
+            h = F.silu(self.GroupNorm_0(h)) + self.Dense_1(context.mean(1))[:, :, None, None]
+            h = F.silu(self.Conv_1(h))
+            h = F.interpolate(h, scale_factor=2, mode="nearest")
+            return self.Conv_2(h).permute(0, 2, 3, 1)

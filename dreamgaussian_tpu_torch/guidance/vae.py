@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import trace
 from .unet import GroupNorm32, attention
 
 
@@ -144,13 +145,15 @@ class AutoencoderKL(nn.Module):
         self.decoder = Decoder(config)
 
     def encode(self, x):
-        moments = self.encoder(x.permute(0, 3, 1, 2))
-        mean = moments[:, : self.config.latent_channels]
-        return (mean * self.config.scaling_factor).permute(0, 2, 3, 1)
+        with trace.span("vae.encode"):
+            moments = self.encoder(x.permute(0, 3, 1, 2))
+            mean = moments[:, : self.config.latent_channels]
+            return (mean * self.config.scaling_factor).permute(0, 2, 3, 1)
 
     def decode(self, z):
-        x = self.decoder((z / self.config.scaling_factor).permute(0, 3, 1, 2))
-        return x.permute(0, 2, 3, 1)
+        with trace.span("vae.decode"):
+            x = self.decoder((z / self.config.scaling_factor).permute(0, 3, 1, 2))
+            return x.permute(0, 2, 3, 1)
 
     def latent_side(self, image_size: int) -> int:
         """Side of the latents of an image_size^2 image."""

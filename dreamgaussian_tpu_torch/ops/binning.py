@@ -30,6 +30,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import trace
+
 TILE = 16  # default tile size (CUDA-parity); the trainer passes 32
 
 
@@ -154,7 +156,8 @@ def _expand_rects(xmin, ymin, xmax, ymax, valid):
     rect_w = (xmax - xmin).to(torch.int64)
     cells = torch.where(valid, rect_w * (ymax - ymin).to(torch.int64),
                         torch.zeros_like(rect_w))
-    total = int(cells.sum())                      # the one host read
+    with trace.span("host_read", count="host_read"):
+        total = int(cells.sum())                  # the one host read
     gid = torch.repeat_interleave(torch.arange(n, device=dev), cells,
                                   output_size=total)
     first = torch.cumsum(cells, 0) - cells

@@ -59,6 +59,7 @@ from ..scene import (
     save_ply,
 )
 from ..scene.optim import AdamState
+from ..utils import trace
 from ..utils.camera import Camera, orbit_camera, stack_cameras
 from .step import apply_update, gradients, render_one
 
@@ -230,41 +231,46 @@ class Stage1Trainer:
         over the mesh's data ranks)."""
         opt = self.opt
         self.step += 1
-        size = self.novel_size_for(self.step)
-        cams, vers, hors, poses = self._sample_novel_cameras(size)
-        novel = self._cam_tensors(stack_cameras(cams))
-        bg_white = self.rng.random() > opt.get("invert_bg_prob", 0.5)
-        bg = torch.full((3,), 1.0 if bg_white else 0.0, device=self.device)
-        cond = {"vers": self._tensor(vers), "hors": self._tensor(hors),
-                "radii": torch.zeros(len(vers), device=self.device),
-                "poses": self._tensor(poses)}
-        if self.mesh is not None:
-            from ..parallel.dp import shard_cameras
+        with trace.span("stage1.step", step=self.step):
+            with trace.span("stage1.cameras"):
+                size = self.novel_size_for(self.step)
+                cams, vers, hors, poses = self._sample_novel_cameras(size)
+                novel = self._cam_tensors(stack_cameras(cams))
+                bg_white = self.rng.random() > opt.get("invert_bg_prob", 0.5)
+                bg = torch.full((3,), 1.0 if bg_white else 0.0, device=self.device)
+                cond = {"vers": self._tensor(vers), "hors": self._tensor(hors),
+                        "radii": torch.zeros(len(vers), device=self.device),
+                        "poses": self._tensor(poses)}
+                if self.mesh is not None:
+                    from ..parallel.dp import shard_cameras
 
-            # This rank's views, and their per-camera and per-view entries.
-            novel, cond = shard_cameras(self.mesh, novel), shard_cameras(self.mesh, cond)
-        known = self._cam_tensors(self.fixed_cam.arrays()) if self.use_known_view else None
+                    # This rank's views, and their per-camera and per-view entries.
+                    novel, cond = shard_cameras(self.mesh, novel), shard_cameras(self.mesh, cond)
+                known = self._cam_tensors(self.fixed_cam.arrays()) if self.use_known_view else None
 
-        loss, grads, tap_grad, radii, self.overflow = gradients(
-            self.params, self.step, known, novel, bg, self.ref_rgb, self.ref_mask, self.draw,
-            cond, self.aux.alive, mesh=self.mesh, novel_size=size, ref_size=self.ref_size,
-            sh_degree=self.sh_degree, use_known_view=self.use_known_view,
-            warmup_rgb_loss=opt.get("warmup_rgb_loss", True),
-            total_iters=self.lr_schedules["total_iters"], guidance_fns=self.guidance_fns)
-        in_window = (opt.get("density_start_iter", 100) <= self.step
-                     <= opt.get("density_end_iter", 3000))
-        self.params, self.adam, self.aux = apply_update(
-            self.params, self.adam, self.aux, grads, tap_grad, radii, self.step,
-            self.lr_schedules, size, accum=in_window)
-        if in_window:
-            if self.step % opt.get("densification_interval", 100) == 0:
-                split_noise = self.draw("split", (2, self.capacity, 3), "normal").to(self.device)
-                self.params, self.adam, self.aux, dropped = self._densify(
-                    self.params, self.adam, self.aux, split_noise)
-                self.densify_dropped = dropped if self.densify_dropped is None \
-                    else torch.maximum(self.densify_dropped, dropped)
-            if self.step % opt.get("opacity_reset_interval", 700) == 0:
-                self.params, self.adam = reset_opacity(self.params, self.adam)
+            loss, grads, tap_grad, radii, self.overflow = gradients(
+                self.params, self.step, known, novel, bg, self.ref_rgb, self.ref_mask, self.draw,
+                cond, self.aux.alive, mesh=self.mesh, novel_size=size, ref_size=self.ref_size,
+                sh_degree=self.sh_degree, use_known_view=self.use_known_view,
+                warmup_rgb_loss=opt.get("warmup_rgb_loss", True),
+                total_iters=self.lr_schedules["total_iters"], guidance_fns=self.guidance_fns)
+            in_window = (opt.get("density_start_iter", 100) <= self.step
+                         <= opt.get("density_end_iter", 3000))
+            self.params, self.adam, self.aux = apply_update(
+                self.params, self.adam, self.aux, grads, tap_grad, radii, self.step,
+                self.lr_schedules, size, accum=in_window)
+            if in_window:
+                if self.step % opt.get("densification_interval", 100) == 0:
+                    with trace.span("stage1.densify", device=True, count="densify"):
+                        split_noise = self.draw("split", (2, self.capacity, 3),
+                                                "normal").to(self.device)
+                        self.params, self.adam, self.aux, dropped = self._densify(
+                            self.params, self.adam, self.aux, split_noise)
+                    self.densify_dropped = dropped if self.densify_dropped is None \
+                        else torch.maximum(self.densify_dropped, dropped)
+                if self.step % opt.get("opacity_reset_interval", 700) == 0:
+                    with trace.span("stage1.opacity_reset"):
+                        self.params, self.adam = reset_opacity(self.params, self.adam)
         return loss
 
     def _check_overflow(self) -> None:

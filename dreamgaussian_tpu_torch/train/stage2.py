@@ -39,6 +39,7 @@ from .. import resolve_device
 from ..ops.mesh_raster import scale_img
 from ..render.mesh_renderer import MeshRendererState, render_mesh
 from ..scene.optim import AdamState, adam_init, adam_update
+from ..utils import trace
 from ..utils.camera import Camera, orbit_camera
 from .stage1 import TorchDraw
 
@@ -179,34 +180,42 @@ class Stage2Trainer:
     def train_step(self) -> torch.Tensor:
         """One step; returns the loss (a device tensor)."""
         self.step += 1
-        step_ratio = min(1.0, self.step / self.opt.get("iters_refine", 50))
-        ssaa_novel = self._sample_ssaa()
-        cams, poses, vers, hors = self._sample_novel()
-        # float32, as the JAX step's traced strength.
-        strength = np.float32(step_ratio * 0.15 + 0.8)
-        cond = dict(vers=self._tensor(vers), hors=self._tensor(hors),
-                    radii=torch.zeros(len(vers), device=self.device), poses=self._tensor(poses))
+        with trace.span("stage2.step", step=self.step):
+            step_ratio = min(1.0, self.step / self.opt.get("iters_refine", 50))
+            with trace.span("stage2.cameras"):
+                ssaa_novel = self._sample_ssaa()
+                cams, poses, vers, hors = self._sample_novel()
+                # float32, as the JAX step's traced strength.
+                strength = np.float32(step_ratio * 0.15 + 0.8)
+                cond = dict(vers=self._tensor(vers), hors=self._tensor(hors),
+                            radii=torch.zeros(len(vers), device=self.device),
+                            poses=self._tensor(poses))
 
-        timing = self.opt.get("phase_timing", False)
-        if timing:
-            self._sync()
-            t0 = time.perf_counter()
-        targets = self._targets(cams, self._target_ssaa(ssaa_novel), cond, strength)
-        if timing:
-            self._sync()
-            t1 = time.perf_counter()
+            timing = self.opt.get("phase_timing", False)
+            if timing:
+                self._sync()
+                t0 = time.perf_counter()
+            with trace.span("stage2.target"):
+                targets = self._targets(cams, self._target_ssaa(ssaa_novel), cond, strength)
+            if timing:
+                self._sync()
+                t1 = time.perf_counter()
 
-        params = {k: v.detach().requires_grad_(True) for k, v in self.params.items()}
-        loss = self._loss(params, cams, ssaa_novel, targets)
-        if loss.requires_grad:
-            loss.backward()
-        # A parameter no loss term reached has a zero gradient, as in jax.grad.
-        grads = {k: torch.zeros_like(p) if p.grad is None else torch.nan_to_num(p.grad)
-                 for k, p in params.items()}
-        self.params, self.adam = adam_update(self.params, grads, self.adam, self.lrs)
-        if timing:
-            self._sync()
-            self.phase_times.append((t1 - t0, time.perf_counter() - t1))
+            with trace.span("stage2.grad"):
+                params = {k: v.detach().requires_grad_(True) for k, v in self.params.items()}
+                loss = self._loss(params, cams, ssaa_novel, targets)
+                with trace.span("stage2.backward"):
+                    if loss.requires_grad:
+                        loss.backward()
+                    # A parameter no loss term reached has a zero gradient, as
+                    # in jax.grad.
+                    grads = {k: torch.zeros_like(p) if p.grad is None else torch.nan_to_num(p.grad)
+                             for k, p in params.items()}
+                with trace.span("stage2.update"):
+                    self.params, self.adam = adam_update(self.params, grads, self.adam, self.lrs)
+            if timing:
+                self._sync()
+                self.phase_times.append((t1 - t0, time.perf_counter() - t1))
         return loss.detach()
 
     def train(self, iters: int | None = None, log_every: int = 10) -> dict:

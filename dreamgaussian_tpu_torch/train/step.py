@@ -27,6 +27,7 @@ import torch
 
 from ..ops.rasterize import render_gaussians
 from ..scene import accumulate_stats, adam_update
+from ..utils import trace
 
 TILE = 32
 
@@ -64,31 +65,34 @@ def local_loss(params, tap, step: float, known_cams, novel_cams, bg, ref_rgb, re
     w = step_ratio if warmup_rgb_loss else 1.0
     loss = torch.zeros((), device=dev)
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
-    if use_known_view:
-        out = render_one(params, known_cams, torch.ones(3, device=dev), ref_size, ref_size,
-                         sh_degree, alive, mesh=mesh)
-        known = (10000.0 * w * torch.mean((out.image - ref_rgb) ** 2)
-                 + 1000.0 * w * torch.mean((out.alpha - ref_mask) ** 2))
-        loss = loss + known / n_data
-        overflow = overflow + out.overflow
     n_local = novel_cams["view"].shape[0]
     radii = torch.zeros((params["xyz"].shape[0],), dtype=torch.int32, device=dev)
-    images = []
-    for b in range(n_local):
-        last_view = last_rank and b == n_local - 1
-        out = render_one(params, {k: v[b] for k, v in novel_cams.items()}, bg, novel_size,
-                         novel_size, sh_degree, alive, tap=tap if last_view else None, mesh=mesh)
-        images.append(out.image)
-        if last_view:
-            radii = out.radii
-        overflow = overflow + out.overflow
-    images = torch.stack(images)
+    with trace.span("stage1.render"):
+        if use_known_view:
+            out = render_one(params, known_cams, torch.ones(3, device=dev), ref_size, ref_size,
+                             sh_degree, alive, mesh=mesh)
+            known = (10000.0 * w * torch.mean((out.image - ref_rgb) ** 2)
+                     + 1000.0 * w * torch.mean((out.alpha - ref_mask) ** 2))
+            loss = loss + known / n_data
+            overflow = overflow + out.overflow
+        images = []
+        for b in range(n_local):
+            last_view = last_rank and b == n_local - 1
+            out = render_one(params, {k: v[b] for k, v in novel_cams.items()}, bg, novel_size,
+                             novel_size, sh_degree, alive, tap=tap if last_view else None,
+                             mesh=mesh)
+            images.append(out.image)
+            if last_view:
+                radii = out.radii
+            overflow = overflow + out.overflow
+        images = torch.stack(images)
     # Guidance contract: fn returns the MEAN loss over the views given, so
     # the sum over the data ranks of mean / n_data is the global mean (as
     # in JAX; Zero123's fn returns the sum over its views, which this
     # divides by n_data against one process, in both packages).
     for weight, fn in guidance_fns:
-        loss = loss + weight * fn(images, cond, step_ratio, draw) / n_data
+        with trace.span("stage1.guidance"):
+            loss = loss + weight * fn(images, cond, step_ratio, draw) / n_data
     return loss, radii, overflow
 
 
@@ -103,16 +107,21 @@ def gradients(params, step: float, known_cams, novel_cams, bg, ref_rgb, ref_mask
                       requires_grad=True)
     loss, radii, overflow = local_loss(params, tap, step, known_cams, novel_cams, bg, ref_rgb,
                                        ref_mask, draw, cond, alive, mesh=mesh, **loss_kw)
-    loss.backward()
-    # A tensor that no loss term reached has no .grad: its gradient is
-    # zero, as jax.grad returns it.
-    grad = lambda t: torch.zeros_like(t) if t.grad is None else torch.nan_to_num(t.grad)  # noqa: E731
-    grads, tap_grad, loss = {k: grad(p) for k, p in params.items()}, grad(tap), loss.detach()
+    with trace.span("stage1.backward"):
+        loss.backward()
+
+        # A tensor that no loss term reached has no .grad: its gradient is
+        # zero, as jax.grad returns it.
+        def grad(t):
+            return torch.zeros_like(t) if t.grad is None else torch.nan_to_num(t.grad)
+
+        grads, tap_grad, loss = {k: grad(p) for k, p in params.items()}, grad(tap), loss.detach()
     if mesh is not None and mesh.data.size > 1:
         from ..parallel.dp import reduce_over_data
 
-        grads, tap_grad, loss, overflow, radii = reduce_over_data(
-            mesh, grads, tap_grad, loss, overflow, radii)
+        with trace.span("stage1.allreduce"):
+            grads, tap_grad, loss, overflow, radii = reduce_over_data(
+                mesh, grads, tap_grad, loss, overflow, radii)
     return loss, grads, tap_grad, radii, overflow
 
 
@@ -120,9 +129,10 @@ def apply_update(params, adam, aux, grads, tap_grad, radii, step: float, lr_sche
                  novel_size: int, accum: bool):
     """The replicated Adam update and, when ``accum``, the densify stats
     (the tap's gradient in the half-image units the reference thresholds)."""
-    lrs = {k: lr_schedules[k] for k in ("f_dc", "f_rest", "opacity", "scaling", "rotation")}
-    lrs["xyz"] = lr_schedules["xyz"](step)
-    params, adam = adam_update(params, grads, adam, lrs)
-    if accum:
-        aux = accumulate_stats(aux, tap_grad * (novel_size / 2.0), radii)
+    with trace.span("stage1.update"):
+        lrs = {k: lr_schedules[k] for k in ("f_dc", "f_rest", "opacity", "scaling", "rotation")}
+        lrs["xyz"] = lr_schedules["xyz"](step)
+        params, adam = adam_update(params, grads, adam, lrs)
+        if accum:
+            aux = accumulate_stats(aux, tap_grad * (novel_size / 2.0), radii)
     return params, adam, aux
