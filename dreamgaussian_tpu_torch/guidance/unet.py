@@ -24,6 +24,22 @@ MVDream's 4 x 32^2 joint tokens, 0.67 GB of scores per first-level call;
 ImageDream's 5 x 32^2, 1.05 GB).
 ``TinyUNet`` is the small denoiser of the runs without weights
 (``guidance/fake.py``).
+
+On a card, ``UNet.forward`` replays a CUDA graph of its body: one launch
+in place of about 1,800 at Zero123-XL's widths. A call is graphed when
+every tensor argument is on a CUDA device, autograd is off and no capture
+is under way on the current stream; any other call (the CPU, a call that
+takes gradients, a call inside another capture) runs the body eagerly. The graphs are kept
+per input signature: the (shape, dtype) of each argument, ``None`` kept
+as ``None``, and the card's index. A new signature is warmed up eagerly
+on a side stream, captured on static input buffers into a memory pool of
+its own (counter ``unet.graph_captures``) and replayed from then on: the
+arguments are copied into the buffers, the graph replays on the current
+stream and the call returns a copy of the graph's output (counter
+``unet.graph_replays``). Weights copied in place keep their addresses and
+are seen by the replays; ``.to()``, ``.cuda()``, dtype casts and
+``load_state_dict`` drop the graphs, since they may give the weights new
+storage.
 """
 
 from __future__ import annotations
@@ -344,6 +360,59 @@ class TimeEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(emb)))
 
 
+def graphable(args) -> bool:
+    """Whether a UNet call with these arguments replays a CUDA graph: every
+    tensor on a CUDA device, autograd off, and no capture under way on the
+    current stream (a call inside another capture runs eagerly)."""
+    return (not torch.is_grad_enabled()
+            and all(a is None or a.is_cuda for a in args)
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def signature(args) -> tuple:
+    """The graph cache's key: each argument's (shape, dtype), ``None`` kept
+    as ``None``, and the card's index."""
+    return (tuple(None if a is None else (tuple(a.shape), a.dtype) for a in args),
+            args[0].device.index)
+
+
+class CapturedForward:
+    """``fn`` captured as a CUDA graph on static copies of ``args``.
+
+    The capture runs on a side stream of its own after one eager warm-up
+    there, so that cuDNN and cuBLAS make that stream's handles and
+    workspaces outside the capture. It takes a memory pool of its own.
+    Other threads may make CUDA calls meanwhile (autograd's, NCCL's
+    watchdog): the capture checks the capturing thread alone."""
+
+    def __init__(self, fn, args):
+        with torch.cuda.device(args[0].device):
+            self.inputs = [None if a is None else a.clone(memory_format=torch.contiguous_format)
+                           for a in args]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn(*self.inputs)
+                self.graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+                    self.output = fn(*self.inputs)
+            torch.cuda.current_stream().wait_stream(side)
+
+    def __call__(self, args):
+        """Copy ``args`` into the buffers, replay on the current stream, and
+        return a copy of the output that the next replay leaves alone."""
+        for buf, a in zip(self.inputs, args):
+            if a is not None:
+                buf.copy_(a)
+        self.graph.replay()
+        return self.output.clone()
+
+
+def _drop_graphs_after_load(module, incompatible_keys) -> None:
+    # load_state_dict(assign=True) puts new tensors at new addresses.
+    module._drop_graphs()
+
+
 class UNet(nn.Module):
     """Denoising UNet: NHWC latents, [B] timesteps, [B,L,D] context and,
     for MVDream and ImageDream, the raw [B, 16] camera -> NHWC float32 noise
@@ -357,6 +426,8 @@ class UNet(nn.Module):
 
     def __init__(self, config: UNetConfig):
         super().__init__()
+        self._graphs: dict = {}       # signature(args) -> CapturedForward
+        self.register_load_state_dict_post_hook(_drop_graphs_after_load)
         cfg = self.config = config
         ch0 = cfg.block_out_channels[0]
         temb_dim = ch0 * 4
@@ -406,51 +477,74 @@ class UNet(nn.Module):
     def _block(self, name):
         return getattr(self, name, None)
 
+    def _apply(self, fn, recurse=True):
+        # .to(), .cuda() and dtype casts come through here.
+        self._drop_graphs()
+        return super()._apply(fn, recurse)
+
+    def _drop_graphs(self) -> None:
+        """Forget the captured graphs, once their replays have finished."""
+        for index in {key[1] for key in self._graphs}:
+            torch.cuda.synchronize(index)
+        self._graphs.clear()
+
     def forward(self, sample, timesteps, context, camera=None, ip=None, ip_img=None):
         with trace.span("unet", count="unet.calls"):
-            cfg = self.config
-            dt = self.conv_in.weight.dtype
-            temb = timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt)
-            temb = self.time_embedding(temb)
-            if camera is not None:
-                temb = temb + self.camera_embedding(camera.to(dt))
-            context = context.to(dt)
-            sample = sample.to(dt)
-            if ip_img is not None:
-                grouped = sample.reshape((-1, cfg.num_views) + tuple(sample.shape[1:]))
-                sample = torch.cat([grouped[:, :-1], ip_img.to(dt)[:, None]],
-                                   1).reshape(sample.shape)
-            n_ip = 0
-            if ip is not None:
-                if cfg.ip_dim == 0:
-                    raise ValueError(
-                        "ip tokens given to a UNet without the IP-adapter path (ip_dim 0)")
-                context = torch.cat([context, self.image_embed(ip)], dim=1)
-                n_ip = cfg.ip_dim
-            h = self.conv_in(sample.permute(0, 3, 1, 2))
-            skips = [h]
-            n_levels = len(cfg.block_out_channels)
-            for i in range(n_levels):
-                for j in range(cfg.layers_per_block):
-                    h = self._block(f"down_{i}_res_{j}")(h, temb)
-                    attn = self._block(f"down_{i}_attn_{j}")
-                    if attn is not None:
-                        h = attn(h, context, n_ip)
-                    skips.append(h)
-                if i < n_levels - 1:
-                    h = self._block(f"down_{i}_downsample")(h)
-                    skips.append(h)
-            h = self.mid_res_1(self.mid_attn(self.mid_res_0(h, temb), context, n_ip), temb)
-            for i in range(n_levels):
-                for j in range(cfg.layers_per_block + 1):
-                    h = self._block(f"up_{i}_res_{j}")(torch.cat([h, skips.pop()], dim=1), temb)
-                    attn = self._block(f"up_{i}_attn_{j}")
-                    if attn is not None:
-                        h = attn(h, context, n_ip)
-                if i < n_levels - 1:
-                    h = self._block(f"up_{i}_upsample")(h)
-            h = self.conv_out(F.silu(self.conv_norm_out(h)))
-            return h.permute(0, 2, 3, 1).float()
+            args = (sample, timesteps, context, camera, ip, ip_img)
+            if not graphable(args):
+                return self._forward(*args)
+            key = signature(args)
+            graph = self._graphs.get(key)
+            if graph is None:
+                graph = self._graphs[key] = CapturedForward(self._forward, args)
+                trace.count("unet.graph_captures")
+            trace.count("unet.graph_replays")
+            return graph(args)
+
+    def _forward(self, sample, timesteps, context, camera=None, ip=None, ip_img=None):
+        cfg = self.config
+        dt = self.conv_in.weight.dtype
+        temb = timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt)
+        temb = self.time_embedding(temb)
+        if camera is not None:
+            temb = temb + self.camera_embedding(camera.to(dt))
+        context = context.to(dt)
+        sample = sample.to(dt)
+        if ip_img is not None:
+            grouped = sample.reshape((-1, cfg.num_views) + tuple(sample.shape[1:]))
+            sample = torch.cat([grouped[:, :-1], ip_img.to(dt)[:, None]],
+                               1).reshape(sample.shape)
+        n_ip = 0
+        if ip is not None:
+            if cfg.ip_dim == 0:
+                raise ValueError(
+                    "ip tokens given to a UNet without the IP-adapter path (ip_dim 0)")
+            context = torch.cat([context, self.image_embed(ip)], dim=1)
+            n_ip = cfg.ip_dim
+        h = self.conv_in(sample.permute(0, 3, 1, 2))
+        skips = [h]
+        n_levels = len(cfg.block_out_channels)
+        for i in range(n_levels):
+            for j in range(cfg.layers_per_block):
+                h = self._block(f"down_{i}_res_{j}")(h, temb)
+                attn = self._block(f"down_{i}_attn_{j}")
+                if attn is not None:
+                    h = attn(h, context, n_ip)
+                skips.append(h)
+            if i < n_levels - 1:
+                h = self._block(f"down_{i}_downsample")(h)
+                skips.append(h)
+        h = self.mid_res_1(self.mid_attn(self.mid_res_0(h, temb), context, n_ip), temb)
+        for i in range(n_levels):
+            for j in range(cfg.layers_per_block + 1):
+                h = self._block(f"up_{i}_res_{j}")(torch.cat([h, skips.pop()], dim=1), temb)
+                attn = self._block(f"up_{i}_attn_{j}")
+                if attn is not None:
+                    h = attn(h, context, n_ip)
+            if i < n_levels - 1:
+                h = self._block(f"up_{i}_upsample")(h)
+        h = self.conv_out(F.silu(self.conv_norm_out(h)))
+        return h.permute(0, 2, 3, 1).float()
 
 
 class TinyUNet(nn.Module):
