@@ -243,23 +243,27 @@ def _ldm_levels(sd: Mapping, blocks: str) -> list[list[tuple[int, bool]]]:
     return levels
 
 
-# The IP-adapter Resampler's heads are 64 wide (20 at ImageDream's 1280).
+# The IP-adapter Resampler's heads are 64 wide (ImageDream's 12 make 768).
 IP_HEAD_WIDTH = 64
 
 
 def _ldm_ip_config(sd: Mapping[str, torch.Tensor]) -> dict:
     """ImageDream's IP-adapter fields read from an LDM UNet's ``image_embed``
     (``ip_dim`` 0 without one): the query count and width of ``latents``
-    [1, Q, D], its heads of width ``IP_HEAD_WIDTH``, the token width
-    ``proj_in`` takes, the layers."""
+    [1, Q, D], the attention width ``to_q`` gives in heads of width
+    ``IP_HEAD_WIDTH`` (no head width of its own where it is D's), the token
+    width ``proj_in`` takes, the layers."""
     if "image_embed.latents" not in sd:
         return {"ip_dim": 0}
     depth = 0
     while f"image_embed.layers.{depth}.0.to_q.weight" in sd:
         depth += 1
     _, queries, dim = sd["image_embed.latents"].shape
+    inner = sd["image_embed.layers.0.0.to_q.weight"].shape[0]
+    heads = max(1, inner // IP_HEAD_WIDTH)
     return {"ip_dim": queries, "ip_resampler_dim": dim, "ip_resampler_depth": depth,
-            "ip_resampler_heads": max(1, dim // IP_HEAD_WIDTH),
+            "ip_resampler_heads": heads,
+            "ip_resampler_dim_head": None if inner == dim else inner // heads,
             "ip_embed_dim": sd["image_embed.proj_in.weight"].shape[1]}
 
 

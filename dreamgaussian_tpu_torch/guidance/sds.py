@@ -53,6 +53,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
 from .scheduler import DDIMScheduler
 
 
@@ -475,7 +476,8 @@ class ImageDreamGuidance(_TextGuidance):
         """``denoise(latents [rB*4, h, w, C], t) -> eps_hat`` for the groups
         of ``poses``: one UNet call on [uncond, cond] halves of rB*5 views
         (zero ip tokens and identity latent in the uncond half), t repeated
-        into the identity view, the prediction stripped back to 4 views."""
+        into the identity view, the prediction stripped back to 4 views.
+        The padding and the strip each run in a span ``imagedream.views``."""
         dev = poses.device
         rb = poses.shape[0] // self.num_views
         n5 = rb * (self.num_views + 1)
@@ -489,11 +491,13 @@ class ImageDreamGuidance(_TextGuidance):
         ip_img = torch.cat([torch.zeros_like(ip_img_pos), ip_img_pos])
 
         def denoise(lat, t):
-            t_in = torch.as_tensor(t, device=dev).float().expand(lat.shape[0])
-            t_in = torch.cat([self._pad_views(t_in, repeat=True)] * 2)
-            eps = self.unet(torch.cat([self._pad_views(lat)] * 2), t_in, ctx, camera=cam, ip=ip,
-                            ip_img=ip_img)
-            eps_uncond, eps_cond = (self._strip_views(e) for e in eps.chunk(2))
+            with trace.span("imagedream.views"):
+                t_in = torch.as_tensor(t, device=dev).float().expand(lat.shape[0])
+                t_in = torch.cat([self._pad_views(t_in, repeat=True)] * 2)
+                lat_in = torch.cat([self._pad_views(lat)] * 2)
+            eps = self.unet(lat_in, t_in, ctx, camera=cam, ip=ip, ip_img=ip_img)
+            with trace.span("imagedream.views"):
+                eps_uncond, eps_cond = [self._strip_views(e) for e in eps.chunk(2)]
             return eps_uncond + guidance_scale * (eps_cond - eps_uncond)
 
         return denoise

@@ -259,6 +259,7 @@ def _ldm_resampler(spec: Spec, p: str, cfg: UNetConfig) -> None:
     D]; per layer a PerceiverAttention of no-bias Linears and a feed-forward
     Sequential [LayerNorm, Linear, GELU, Linear])."""
     d = cfg.ip_resampler_dim
+    inner = cfg.ip_resampler_heads * cfg.ip_resampler_dim_head if cfg.ip_resampler_dim_head else d
     spec.append((p + ".latents", (1, cfg.ip_dim, d)))
     _linear(spec, p + ".proj_in", d, cfg.ip_embed_dim)
     _linear(spec, p + ".proj_out", cfg.cross_attention_dim, d)
@@ -267,9 +268,9 @@ def _ldm_resampler(spec: Spec, p: str, cfg: UNetConfig) -> None:
         lp = f"{p}.layers.{i}"
         _norm(spec, lp + ".0.norm1", d)
         _norm(spec, lp + ".0.norm2", d)
-        _linear(spec, lp + ".0.to_q", d, d, bias=False)
-        _linear(spec, lp + ".0.to_kv", 2 * d, d, bias=False)
-        _linear(spec, lp + ".0.to_out", d, d, bias=False)
+        _linear(spec, lp + ".0.to_q", inner, d, bias=False)
+        _linear(spec, lp + ".0.to_kv", 2 * inner, d, bias=False)
+        _linear(spec, lp + ".0.to_out", d, inner, bias=False)
         _norm(spec, lp + ".1.0", d)
         _linear(spec, lp + ".1.1", 4 * d, d, bias=False)
         _linear(spec, lp + ".1.3", d, 4 * d, bias=False)

@@ -81,7 +81,10 @@ class UNetConfig:
     ip_embed_dim: int = 1280       # CLIP ViT-H/14 token width
     ip_resampler_dim: int = 1280
     ip_resampler_depth: int = 4
-    ip_resampler_heads: int = 20   # heads of width 64
+    ip_resampler_heads: int = 20
+    # The width of a Resampler head; None: ip_resampler_dim // heads (the
+    # JAX package's layout, whose attention width is the Resampler's own).
+    ip_resampler_dim_head: int | None = None
     down_block_types: Sequence[str] = (
         "CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
         "CrossAttnDownBlock2D", "DownBlock2D",
@@ -104,8 +107,12 @@ ZERO123_CONFIG = UNetConfig()
 SD21_CONFIG = UNetConfig(in_channels=4, cross_attention_dim=1024, num_attention_heads=None,
                          attention_head_dim=64, use_linear_projection=True)
 MVDREAM_CONFIG = dataclasses.replace(SD21_CONFIG, num_views=4)
-# sd-v2.1-base-4view-ipmv: 4 views and the identity view, 16 resampled image tokens.
-IMAGEDREAM_CONFIG = dataclasses.replace(SD21_CONFIG, num_views=5, ip_dim=16)
+# sd-v2.1-base-4view-ipmv: 4 views and the identity view, 16 image tokens from
+# the IP-Adapter-Plus Resampler ImageDream builds: width the context's, 12
+# heads of width 64, tokens of CLIP ViT-H/14's width 1280.
+IMAGEDREAM_CONFIG = dataclasses.replace(SD21_CONFIG, num_views=5, ip_dim=16,
+                                        ip_resampler_dim=1024, ip_resampler_heads=12,
+                                        ip_resampler_dim_head=64)
 CAMERA_DIM = 16                   # MVDream's flattened 4x4 camera
 
 
@@ -217,16 +224,17 @@ class CrossAttention(nn.Module):
 
 class PerceiverAttention(nn.Module):
     """The Resampler's attention: the latents attend to [tokens ++ latents]
-    through no-bias projections."""
+    through no-bias projections, ``heads`` heads of width ``dim_head``."""
 
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, dim_head: int):
         super().__init__()
         self.heads = heads
+        inner = heads * dim_head
         self.norm1 = LayerNorm32(dim)
         self.norm2 = LayerNorm32(dim)
-        self.to_q = nn.Linear(dim, dim, bias=False)
-        self.to_kv = nn.Linear(dim, 2 * dim, bias=False)
-        self.to_out = nn.Linear(dim, dim, bias=False)
+        self.to_q = nn.Linear(dim, inner, bias=False)
+        self.to_kv = nn.Linear(dim, 2 * inner, bias=False)
+        self.to_out = nn.Linear(inner, dim, bias=False)
 
     def forward(self, x, latents):
         x, latents = self.norm1(x), self.norm2(latents)
@@ -242,13 +250,14 @@ class Resampler(nn.Module):
     with residuals."""
 
     def __init__(self, dim: int, depth: int, heads: int, num_queries: int, embed_dim: int,
-                 output_dim: int):
+                 output_dim: int, dim_head: int | None = None):
         super().__init__()
         self.depth = depth
         self.latents = nn.Parameter(torch.empty(num_queries, dim))
         self.proj_in = nn.Linear(embed_dim, dim)
         for i in range(depth):
-            self.add_module(f"layers_{i}_attn", PerceiverAttention(dim, heads))
+            self.add_module(f"layers_{i}_attn",
+                            PerceiverAttention(dim, heads, dim_head or dim // heads))
             self.add_module(f"layers_{i}_ff_norm", LayerNorm32(dim))
             self.add_module(f"layers_{i}_ff_in", nn.Linear(dim, 4 * dim, bias=False))
             self.add_module(f"layers_{i}_ff_out", nn.Linear(4 * dim, dim, bias=False))
@@ -444,7 +453,7 @@ class UNet(nn.Module):
         if cfg.ip_dim > 0:
             self.image_embed = Resampler(cfg.ip_resampler_dim, cfg.ip_resampler_depth,
                                          cfg.ip_resampler_heads, cfg.ip_dim, cfg.ip_embed_dim,
-                                         ctx)
+                                         ctx, cfg.ip_resampler_dim_head)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
         h_ch, skips = ch0, [ch0]
         for i, (btype, ch) in enumerate(zip(cfg.down_block_types, cfg.block_out_channels)):

@@ -1,8 +1,8 @@
 """The port's spans and counters (``utils/trace.py``) on the CPU: nothing
 recorded while off, the step's spans nested under ``stage1.step`` and
 ``stage2.step`` with their step numbers, one ``host_read`` per render, the
-UNet calls of the DDIM schedule, and a span's times on the clock of the
-profiler's trace."""
+UNet calls of the DDIM schedule, ImageDream's identity-view spans, and a
+span's times on the clock of the profiler's trace."""
 
 import json
 import time
@@ -12,7 +12,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from dreamgaussian_tpu_torch.guidance.sds import Zero123Guidance, refine_init_step
+from dreamgaussian_tpu_torch.guidance.sds import (ImageDreamGuidance, Zero123Guidance,
+                                                  refine_init_step)
 from dreamgaussian_tpu_torch.guidance.unet import TinyUNet, UNet, UNetConfig
 from dreamgaussian_tpu_torch.guidance.vae import AutoencoderKL, VAEConfig
 from dreamgaussian_tpu_torch.meshing.mesh import Mesh
@@ -179,6 +180,67 @@ def test_stage2_counts_the_ddim_schedules_unet_calls():
                 assert parent(s) == "stage2.target"
             if s["name"] in ("stage2.backward", "stage2.update"):
                 assert parent(s) == "stage2.grad"
+
+
+def imagedream_guidance():
+    """ImageDream guidance on a one-level 4+1-view UNet with a one-layer
+    Resampler (2 image tokens, 2 heads of width 6), the port's own classes."""
+    torch.manual_seed(0)
+    unet = UNet(UNetConfig(in_channels=4, block_out_channels=(8,), layers_per_block=1,
+                           cross_attention_dim=16, num_attention_heads=2,
+                           use_linear_projection=True, num_views=5, ip_dim=2, ip_embed_dim=8,
+                           ip_resampler_dim=8, ip_resampler_depth=1, ip_resampler_heads=2,
+                           ip_resampler_dim_head=6, down_block_types=("CrossAttnDownBlock2D",),
+                           up_block_types=("CrossAttnUpBlock2D",))).eval()
+    unet.image_embed.latents.data.normal_()
+    vae = AutoencoderKL(VAEConfig(block_out_channels=(4, 4, 4, 8), layers_per_block=1)).eval()
+    side = vae.latent_side(SIZE)
+    return ImageDreamGuidance(unet.requires_grad_(False), vae.requires_grad_(False),
+                              {"pos": torch.randn(3, 16), "neg": torch.zeros(3, 16)},
+                              {"pos": torch.randn(5, 8), "ip_img": torch.randn(side, side, 4)},
+                              image_size=SIZE)
+
+
+def imagedream_sds_call(g, groups=2):
+    """One SDS call on ``groups`` groups of 4 views."""
+    poses = torch.eye(4).repeat(4 * groups, 1, 1)
+    poses[:, :3, 3] = torch.tensor([0.0, 0.0, 2.5])
+    images = torch.rand(4 * groups, SIZE, SIZE, 3, generator=torch.Generator().manual_seed(1))
+    noise = lambda name, shape, dist: torch.zeros(shape)  # noqa: E731
+    return g.guidance_fn()(images, {"poses": poses}, 0.5, noise)
+
+
+def test_imagedream_spans_off_record_nothing():
+    imagedream_sds_call(imagedream_guidance())
+    assert trace.records() == {"spans": [], "counters": {}}
+
+
+def test_imagedream_views_spans_around_the_unet_call():
+    g = imagedream_guidance()
+    trace.enable()
+    imagedream_sds_call(g, groups=2)
+    rec = trace.records()
+    spans = rec["spans"]
+    # Two groups, one CFG call on 2 x 2 x 5 views.
+    assert rec["counters"] == {"unet.calls": 1}
+    assert [s["name"] for s in spans] == ["vae.encode", "imagedream.views", "unet",
+                                          "imagedream.views"]
+    pad, unet, strip = spans[1:]
+    # The padding closes before the UNet call opens, the strip opens after
+    # it closes.
+    assert pad["end_ns"] <= unet["start_ns"] and unet["end_ns"] <= strip["start_ns"]
+    assert pad["parent"] is strip["parent"] is unet["parent"] is None
+    # The refine's DDIM loop pads and strips around each of its calls.
+    rgb = torch.rand(4, SIZE, SIZE, 3)
+    poses = torch.eye(4).repeat(4, 1, 1)
+    poses[:, :3, 3] = torch.tensor([0.0, 0.0, 2.5])
+    draw = lambda name, shape, dist: torch.zeros(shape)  # noqa: E731
+    g.refine_fn(REFINE_STEPS)(rgb, {"poses": poses}, 0.8, draw)
+    rec = trace.records()
+    calls = REFINE_STEPS - refine_init_step(REFINE_STEPS, 0.8)
+    assert rec["counters"] == {"unet.calls": calls}
+    names = [s["name"] for s in rec["spans"]]
+    assert names.count("imagedream.views") == 2 * calls
 
 
 def test_tiny_unet_calls_are_spans_too():
